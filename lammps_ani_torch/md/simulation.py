@@ -1,0 +1,418 @@
+"""The MD engine driver: one chunk = bin rebuild + up to N velocity-Verlet
+steps.
+
+Port of lammps_ani_tpu/md/simulation.py with one engine, the JAX
+package's `pallas_full`: both AEV channels come from the roll-grid
+kernels (ops/aev_roll.py) over one fine bin grid, rebuilt every
+`rebuild_every` steps; no neighbor matrix, no mirror tables. Step
+(LAMMPS fix nve + optional fix langevin):
+
+  v += dt/2 * ftm2v * f/m ;  x += dt * v ;  f = forces(x) (+ Langevin)
+  v += dt/2 * ftm2v * f/m
+
+Neighbor contract (LAMMPS `neigh_modify check yes`): if any atom moved
+more than skin/2 since the rebuild, the chunk stops before the next step
+and `run` resumes from a fresh rebuild at exactly that state. Capacity
+overflow (a roll bin over `cap`, an angular cap truncating neighbors) is
+reported per chunk; `run` grows exactly that capacity and re-runs the
+chunk from its input state.
+
+Not ported yet (they raise NotImplementedError): NoseHoover, NPT and the
+barostats, RATTLE constraints, `extra_force`, and the mirror engine the
+JAX package falls back to when the box is too small for a 3x3x3 grid.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .. import units
+from .._device import resolve_device
+from ..models import potential as potmod
+from ..ops import cell_list as clmod
+from ..ops import cell_roll as crmod
+from ..ops import neighbors as nbops
+from . import integrate
+from .state import MDState
+
+# Extra roll-bin slots above the measured occupancy (+2 base): the t=0
+# occupancy sits one thermal fluctuation below the run's high-water mark.
+ROLL_CAP_MARGIN = 4
+# Multiplicative margin of the measured per-species angular degrees.
+ANG_CAP_MARGIN = 1.1
+
+
+def _ceil_to(x, m) -> int:
+    return int(-(-int(x) // m) * m)
+
+
+@dataclasses.dataclass(frozen=True)
+class NeighborConfig:
+    cutoff: float  # interaction cutoff (Angstrom)
+    skin: float = 2.0
+    k_max: int = 64  # degree-measure neighbor matrix width (auto-grown)
+    ghost_capacity: int = 4096
+    n_shell: int = 1
+    rebuild_every: int = 10
+    use_cell_list: bool = False
+    cell_capacity: int = 16
+
+    @property
+    def rlist(self) -> float:
+        return self.cutoff + self.skin
+
+
+class Simulation:
+    """Host-side orchestration of the roll engine on one device.
+
+    Runs on the card unless `device` says otherwise."""
+
+    def __init__(self, potential: potmod.ANIPotential, species: np.ndarray,
+                 masses: np.ndarray, nbr: NeighborConfig, dt: float = 0.5,
+                 integrator=None, dtype=torch.float32,
+                 barostat=None, constraints=None,
+                 extra_force: Optional[Callable] = None, device=None):
+        if integrator is not None and not isinstance(integrator,
+                                                     integrate.Langevin):
+            raise NotImplementedError(
+                f"integrator {type(integrator).__name__} is not ported yet "
+                "(NVE and Langevin are)")
+        if barostat is not None:
+            raise NotImplementedError("barostats are not ported yet")
+        if constraints is not None:
+            raise NotImplementedError("RATTLE constraints are not ported yet")
+        if extra_force is not None:
+            raise NotImplementedError("extra_force is not ported yet")
+        self.device = resolve_device(device)
+        n = len(species)
+        self.nbr = nbr
+        self.dt = float(dt)
+        self.integrator = integrator
+        self.dtype = dtype
+        self._species_in = np.asarray(species)
+        self._masses_in = np.asarray(masses, np.float64)
+        self.order = np.argsort(species, kind="stable")
+        self._apply_order()
+        # weights on the run's device and in its dtype (f32 weights cast to
+        # f64 exactly, as JAX's type promotion computes them), in a module
+        # of the engine's own: Module.to would move the caller's in place
+        self.potential = potmod.ANIPotential(
+            potential.spec, potential.params).to(device=self.device,
+                                                 dtype=dtype)
+        num_species = potential.spec.net.num_species
+        self.species_counts = tuple(int((self.species_np == s).sum())
+                                    for s in range(num_species))
+        self.dof = 3 * n - 3
+        self.n_atoms = n
+        self._shifts = nbops.image_shifts(nbr.n_shell)
+        self._grid = None  # CellGrid of the degree measure
+        self._k_max = nbr.k_max
+        self._roll_grid = None
+        self._roll_shell = 2
+        self._rlist_query = nbr.rlist
+        # cumulative capacity regrows (callers warm up until it stops)
+        self.regrow_events = 0
+
+    def _apply_order(self):
+        self.inv_order = np.argsort(self.order)
+        self.species_np = self._species_in[self.order]
+        self.species = torch.as_tensor(self.species_np, dtype=torch.int64,
+                                       device=self.device)
+        self.masses = torch.as_tensor(self._masses_in[self.order],
+                                      dtype=self.dtype, device=self.device)
+
+    # ---------- setup ----------
+
+    def init_state(self, pos: np.ndarray, box, vel: np.ndarray | None = None,
+                   temp: float | None = None, seed: int = 12345) -> MDState:
+        """`box`: an ops.neighbors.Box. Velocities: given (caller order),
+        drawn at `temp` from `seed`, or zero."""
+        pos = np.asarray(pos, np.float64)
+        box = box.to(device=self.device, dtype=self.dtype)
+        self._spatial_sort(pos, box)
+        pos_t = torch.as_tensor(pos[self.order], dtype=self.dtype,
+                                device=self.device)
+        self._setup_grids(pos_t, box)
+        if vel is not None:
+            vel_t = torch.as_tensor(np.asarray(vel)[self.order],
+                                    dtype=self.dtype, device=self.device)
+        elif temp is not None:
+            g = torch.Generator(device="cpu").manual_seed(seed)
+            vel_t = integrate.create_velocities(
+                g, self.masses.cpu(), temp, self.dof).to(self.device)
+        else:
+            vel_t = torch.zeros_like(pos_t)
+        self._derive_angular_caps(pos_t, box)
+        pos_w = nbops.wrap_positions(pos_t, box)
+        bins = self._bins(pos_w, box)
+        pe, force, virial, _ = self._forces(pos_w, box, bins)
+        return MDState(pos=pos_w, vel=vel_t, force=force, box=box, step=0,
+                       pe=pe, virial=virial, pos_at_rebuild=pos_w, bins=bins)
+
+    def _spatial_sort(self, pos: np.ndarray, box: nbops.Box):
+        """Species-major / cell-minor atom order (the JAX package's
+        lexsort, so both packages hold atoms in the same order)."""
+        h = box.h.detach().cpu().numpy().astype(np.float64)
+        origin = box.origin.detach().cpu().numpy().astype(np.float64)
+        r = pos - origin
+        f2 = r[:, 2] / h[2, 2]
+        f1 = (r[:, 1] - f2 * h[2, 1]) / h[1, 1]
+        f0 = (r[:, 0] - f1 * h[1, 0] - f2 * h[2, 0]) / h[0, 0]
+        frac = np.stack([f0, f1, f2], 1) % 1.0
+        side = max(self.nbr.rlist, 1e-6)
+        ncell = np.maximum((np.abs(np.diag(h)) / side).astype(np.int64), 1)
+        cc = np.minimum((frac * ncell).astype(np.int64), ncell - 1)
+        cell_id = (cc[:, 0] * ncell[1] + cc[:, 1]) * ncell[2] + cc[:, 2]
+        self.order = np.lexsort((cell_id, self._species_in))
+        self._apply_order()
+
+    @staticmethod
+    def _perp_lengths(box_h) -> np.ndarray:
+        h = np.asarray(box_h, np.float64)
+        v = abs(np.dot(h[0], np.cross(h[1], h[2])))
+        return np.array([v / np.linalg.norm(np.cross(h[1], h[2])),
+                         v / np.linalg.norm(np.cross(h[2], h[0])),
+                         v / np.linalg.norm(np.cross(h[0], h[1]))])
+
+    @property
+    def _roll_side(self) -> float:
+        """One fine grid serves both channels: the angular kernels read
+        the 27-bin window (side >= Rca + skin), the radial a shell-2
+        window (2 side >= Rcr + skin)."""
+        spec = self.potential.spec
+        return max(spec.aev.angular_cutoff + self.nbr.skin,
+                   (spec.cutoff + self.nbr.skin) / 2.0)
+
+    def _setup_grids(self, pos, box):
+        box_h = box.h.detach().cpu().numpy().astype(np.float64)
+        probe = crmod.RollGrid.for_box(box_h, self._roll_side, 64)
+        if probe is None:
+            raise NotImplementedError(
+                f"box too small for a 3x3x3 roll grid of side "
+                f"{self._roll_side:.2f} A; the mirror engine that serves "
+                "such boxes is not ported yet")
+        cnt = int(crmod.build_bins(probe, nbops.wrap_positions(pos, box),
+                                   self.species, box).count_max)
+        cap = _ceil_to(cnt + 2 + ROLL_CAP_MARGIN, 4)
+        self._roll_grid = crmod.RollGrid(ncells=probe.ncells, cap=cap)
+        perp = self._perp_lengths(box_h)
+        side_now = float((perp / np.asarray(probe.ncells)).min())
+        spec = self.potential.spec
+        # radial window: shell 1 if one bin reaches Rcr + skin, else 2
+        self._roll_shell = (1 if side_now >= spec.cutoff + self.nbr.skin
+                            else 2)
+        self._rlist_query = spec.aev.angular_cutoff + self.nbr.skin
+        if self.nbr.use_cell_list:
+            self._grid = clmod.CellGrid.for_box(box_h, self._rlist_query,
+                                                self.nbr.cell_capacity)
+            self._probe_cell_capacity(pos, box)
+
+    def _probe_cell_capacity(self, pos, box) -> bool:
+        """Grow the degree measure's cell capacity to the measured
+        occupancy (a clipped cell table would truncate the measure)."""
+        if self._grid is None or not self.nbr.use_cell_list:
+            return False
+        grid = self._grid
+        pw = nbops.wrap_positions(pos, box)
+        ghosts = nbops.build_ghosts(pw, box, self._rlist_query,
+                                    self.nbr.ghost_capacity, self._shifts)
+        pos_ext = nbops.extended_positions(pw, box, ghosts)
+        valid = torch.cat([torch.ones((pos.shape[0],), dtype=torch.bool,
+                                      device=pos.device), ghosts.mask])
+        ids = clmod._flat_cell(grid, clmod._cell_coords(
+            grid, box.to_fractional(pos_ext)))
+        _, max_cell = clmod.build_cell_table(grid, ids, valid)
+        cap = _ceil_to(int(max_cell) * 1.15 + 2, 4)
+        if cap > grid.cell_capacity:
+            self._grid = dataclasses.replace(grid, cell_capacity=cap)
+            return True
+        return False
+
+    def _build_nlist(self, pos, box):
+        rq = self._rlist_query
+        ghosts = nbops.build_ghosts(pos, box, rq, self.nbr.ghost_capacity,
+                                    self._shifts)
+        if self.nbr.use_cell_list and self._grid is not None:
+            return clmod.build_neighbor_matrix_cells(
+                pos, box, rq, self._k_max, ghosts, grid=self._grid)
+        return nbops.build_neighbor_matrix_brute(pos, box, rq, self._k_max,
+                                                 ghosts)
+
+    def _derive_angular_caps(self, pos, box, regrow=False):
+        """Per-species angular caps from the measured per-species degrees
+        within Rca (+10% and +2, +4 more for small degrees, rounded to 4;
+        0 for species absent as neighbors). `regrow` never shrinks a cap
+        and grows each by at least 4."""
+        spec = self.potential.spec
+
+        def measure():
+            pos_w = nbops.wrap_positions(pos, box)
+            nlist = self._build_nlist(pos_w, box)
+            species_ext = nbops.extended_species(self.species, nlist.ghosts)
+            _, dist = nbops.neighbor_displacements(pos_w, box, nlist)
+            species_j = species_ext[nlist.idx]
+            in_ang = (nlist.mask & (species_j >= 0)
+                      & (dist < spec.aev.angular_cutoff))
+            degrees = [int(torch.sum(in_ang & (species_j == s), dim=1).max())
+                       for s in range(spec.aev.num_species)]
+            return degrees, int(nlist.max_count)
+
+        degrees, max_deg = measure()
+        for _ in range(16):
+            if max_deg <= self._k_max:
+                break
+            # the measuring matrix truncated (k_max too small, or a clipped
+            # cell table reporting k_max + 1): regrow and re-measure
+            self._probe_cell_capacity(pos, box)
+            self._k_max = _ceil_to(max_deg * 1.1 + 4, 8)
+            degrees, max_deg = measure()
+        else:
+            raise RuntimeError(f"degree measure kept truncating (max_count "
+                               f"{max_deg} > k_max {self._k_max})")
+        old_k_max = self._k_max
+        self._k_max = _ceil_to(max_deg * 1.1 + 4, 8)
+        if regrow:
+            self._k_max = max(self._k_max, old_k_max)
+        m = ANG_CAP_MARGIN
+        caps = tuple(0 if d == 0 else _ceil_to(
+            int(d * m + 2 + (4 if d * m <= 10 else 0)), 4) for d in degrees)
+        old = spec.angular_caps
+        if regrow and old is not None:
+            caps = tuple(0 if c == 0 else max(c, o + 4)
+                         for c, o in zip(caps, old))
+        self.potential = self.potential.with_spec(
+            dataclasses.replace(spec, angular_caps=caps))
+
+    def _bins(self, pos, box):
+        return crmod.build_bins(self._roll_grid, pos, self.species, box)
+
+    # ---------- per step ----------
+
+    def _forces(self, pos, box, bins):
+        """(pe, force, virial, angular deficit) in kcal/mol units."""
+        pe, f, w, deficit = potmod.energy_forces_virial_roll(
+            self.potential, self.species, pos, box, self._roll_grid, bins,
+            self.species_counts, radial_shell=self._roll_shell)
+        c = units.HARTREE2KCALMOL
+        return pe * c, f * c, w * c, deficit
+
+    def _step(self, st: MDState):
+        vel = integrate.nve_halfkick(st.vel, st.force, self.masses, self.dt)
+        pos = integrate.nve_drift(st.pos, vel, self.dt)
+        pe, force, virial, deficit = self._forces(pos, st.box, st.bins)
+        if self.integrator is not None:
+            force = force + self.integrator.force(vel, self.masses, self.dt)
+        vel = integrate.nve_halfkick(vel, force, self.masses, self.dt)
+        return st.replace(pos=pos, vel=vel, force=force, pe=pe,
+                          virial=virial, step=st.step + 1), deficit
+
+    def _thermo(self, st: MDState) -> torch.Tensor:
+        """[6] pe, ke, temp, press, vol, density (device scalars)."""
+        ke = integrate.kinetic_energy(st.vel, self.masses)
+        vol = st.box.volume
+        press = torch.trace(integrate.pressure_tensor(
+            st.vel, self.masses, st.virial, vol)) / 3.0
+        return torch.stack([
+            st.pe, ke, 2.0 * ke / (self.dof * units.BOLTZ), press, vol,
+            torch.sum(self.masses) / units.AVOGADRO_VOL / vol])
+
+    _THERMO_KEYS = ("pe", "ke", "temp", "press", "vol", "density")
+
+    def _chunk(self, state: MDState, n_take: int):
+        """One rebuild + up to n_take steps; stops early (before stepping)
+        once any atom moved more than skin/2 since the rebuild.
+
+        Returns (state, thermo [k, 6], max displacement, overflow codes,
+        roll occupancy, steps done)."""
+        box = state.box
+        pos_w = nbops.wrap_positions(state.pos, box)
+        bins = self._bins(pos_w, box)
+        roll_count = int(bins.count_max)
+        overflow = {"ghost": False, "k_max": False, "angular": False,
+                    "roll": roll_count > self._roll_grid.cap}
+        st = state.replace(pos=pos_w, bins=bins, pos_at_rebuild=pos_w)
+        if overflow["roll"]:
+            # atoms fell out of the grid: no step would be right
+            return st, None, 0.0, overflow, roll_count, 0
+        half_skin = self.nbr.skin / 2.0
+        rows, deficits = [], []
+        n_done = 0
+        disp = 0.0
+        for _ in range(n_take):
+            disp = float(torch.linalg.norm(st.pos - pos_w, dim=-1).max())
+            if disp > half_skin:
+                break
+            st, deficit = self._step(st)
+            deficits.append(deficit)
+            rows.append(self._thermo(st))
+            n_done += 1
+        if deficits:
+            overflow["angular"] = bool(torch.stack(deficits).max() > 0)
+        disp = float(torch.linalg.norm(st.pos - pos_w, dim=-1).max())
+        thermo = torch.stack(rows) if rows else None
+        return st, thermo, disp, overflow, roll_count, n_done
+
+    # ---------- host API ----------
+
+    def run(self, state: MDState, n_steps: int,
+            thermo_every: int | None = None,
+            thermo_callback: Optional[Callable] = None):
+        """Advance n_steps. Returns (state, thermo_rows); rows carry
+        step pe ke etotal temp press vol density."""
+        rows = []
+        chunk = self.nbr.rebuild_every
+        done = 0
+        recap_attempts = 0
+        while done < n_steps:
+            take = min(chunk, n_steps - done)
+            new_state, thermo, disp, ovf, roll_count, n_done = self._chunk(
+                state, take)
+            if any(ovf.values()):
+                # grow exactly what overflowed; re-run the chunk from its
+                # (untouched) input state
+                recap_attempts += 1
+                self.regrow_events += 1
+                if recap_attempts > 8:
+                    raise RuntimeError(
+                        f"capacities keep overflowing after 8 regrows: {ovf}")
+                if ovf["roll"]:
+                    old = self._roll_grid.cap
+                    new_cap = max(_ceil_to(roll_count + 2, 4), old + 4)
+                    self._roll_grid = crmod.RollGrid(
+                        ncells=self._roll_grid.ncells, cap=new_cap)
+                if ovf["angular"]:
+                    self._derive_angular_caps(state.pos, state.box,
+                                              regrow=True)
+                continue
+            recap_attempts = 0
+            if n_done == 0:
+                raise RuntimeError(
+                    f"atoms moved {disp:.3f} A > skin/2 "
+                    f"({self.nbr.skin / 2:.2f}) in ONE step: raise skin or "
+                    "lower dt")
+            state = new_state
+            if thermo_every:
+                th = thermo.detach().cpu().numpy()
+                for k in range(n_done):
+                    step = done + k + 1
+                    if step % thermo_every == 0 or step == n_steps:
+                        row = {f: float(th[k, i])
+                               for i, f in enumerate(self._THERMO_KEYS)}
+                        row["step"] = step
+                        row["etotal"] = row["pe"] + row["ke"]
+                        rows.append(row)
+                        if thermo_callback:
+                            thermo_callback(row)
+            done += n_done
+        return state, rows
+
+    def positions_input_order(self, state: MDState) -> np.ndarray:
+        """Positions permuted back to the caller's atom order."""
+        return state.pos.detach().cpu().numpy()[self.inv_order]
+
+    def velocities_input_order(self, state: MDState) -> np.ndarray:
+        return state.vel.detach().cpu().numpy()[self.inv_order]

@@ -1,0 +1,197 @@
+"""Periodic boundary conditions, ghost images and neighbor matrices.
+
+Port of lammps_ani_tpu/ops/neighbors.py. The engine's main path needs no
+neighbor matrix (the bin grid of ops/cell_roll.py is its neighbor
+structure); these builders serve the degree measure that sizes the
+per-species angular caps (md/simulation.Simulation._derive_angular_caps).
+
+Box convention: LAMMPS triclinic. `h` is the 3x3 row-vector cell matrix
+[[lx,0,0],[xy,ly,0],[xz,yz,lz]]; cartesian = origin + frac @ h.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Box:
+    """Triclinic simulation cell. `h`: [3,3] row-vector cell matrix."""
+
+    h: torch.Tensor
+    origin: torch.Tensor
+
+    def to(self, device=None, dtype=None) -> "Box":
+        return Box(h=self.h.to(device=device, dtype=dtype),
+                   origin=self.origin.to(device=device, dtype=dtype))
+
+    @property
+    def volume(self) -> torch.Tensor:
+        return self.h[0, 0] * self.h[1, 1] * self.h[2, 2]
+
+    def perp_lengths(self) -> torch.Tensor:
+        """[3] distances between opposite cell faces."""
+        a, b, c = self.h[0], self.h[1], self.h[2]
+        v = torch.abs(torch.dot(a, torch.linalg.cross(b, c)))
+        return torch.stack([
+            v / torch.linalg.norm(torch.linalg.cross(b, c)),
+            v / torch.linalg.norm(torch.linalg.cross(c, a)),
+            v / torch.linalg.norm(torch.linalg.cross(a, b)),
+        ])
+
+    def to_fractional(self, pos: torch.Tensor) -> torch.Tensor:
+        """Cartesian [n,3] -> fractional [n,3] by back-substitution."""
+        r = pos - self.origin
+        f2 = r[..., 2] / self.h[2, 2]
+        f1 = (r[..., 1] - f2 * self.h[2, 1]) / self.h[1, 1]
+        f0 = (r[..., 0] - f1 * self.h[1, 0] - f2 * self.h[2, 0]) / self.h[0, 0]
+        return torch.stack([f0, f1, f2], dim=-1)
+
+    def from_fractional(self, frac: torch.Tensor) -> torch.Tensor:
+        return self.origin + frac @ self.h
+
+
+def wrap_positions(pos: torch.Tensor, box: Box) -> torch.Tensor:
+    """Remap atoms into the primary cell (LAMMPS PBC remap at reneighbor)."""
+    frac = box.to_fractional(pos)
+    return box.from_fractional(frac - torch.floor(frac))
+
+
+def image_shifts(n_shell: int | Sequence[int],
+                 periodic=(True, True, True)) -> np.ndarray:
+    """Static integer image shifts (excluding (0,0,0)), shape [n_shifts, 3]."""
+    if isinstance(n_shell, int):
+        n_shell = (n_shell, n_shell, n_shell)
+    ranges = [range(-n, n + 1) if p else range(0, 1)
+              for n, p in zip(n_shell, periodic)]
+    shifts = [(i, j, k) for i in ranges[0] for j in ranges[1]
+              for k in ranges[2] if (i, j, k) != (0, 0, 0)]
+    return (np.asarray(shifts, np.int32) if shifts
+            else np.zeros((0, 3), np.int32))
+
+
+@dataclasses.dataclass(frozen=True)
+class Ghosts:
+    """Derived periodic-image atoms (fixed capacity)."""
+
+    src: torch.Tensor  # [g] int64 owner index (0 for padding slots)
+    shift: torch.Tensor  # [g, 3] int64 integer image shift
+    mask: torch.Tensor  # [g] bool
+    count: torch.Tensor  # [] int64 true number of ghosts (overflow if > g)
+
+
+def build_ghosts(pos: torch.Tensor, box: Box, cutoff: float, capacity: int,
+                 shifts: np.ndarray) -> Ghosts:
+    """Enumerate periodic images within `cutoff` of the primary cell, in
+    (atom, shift) row-major order."""
+    n = pos.shape[0]
+    dev = pos.device
+    m = shifts.shape[0]
+    if m == 0:
+        z = torch.zeros((capacity,), dtype=torch.int64, device=dev)
+        return Ghosts(src=z, shift=torch.zeros((capacity, 3), dtype=torch.int64,
+                                               device=dev),
+                      mask=torch.zeros((capacity,), dtype=torch.bool,
+                                       device=dev),
+                      count=torch.zeros((), dtype=torch.int64, device=dev))
+    frac = box.to_fractional(pos)
+    margin = cutoff / box.perp_lengths()
+    s = torch.as_tensor(shifts, dtype=frac.dtype, device=dev)
+    cand = frac[:, None, :] + s[None, :, :]
+    keep = torch.all((cand > -margin) & (cand < 1.0 + margin), dim=-1)
+    flat = keep.reshape(-1)
+    count = flat.sum()
+    idx = torch.nonzero(flat).reshape(-1)[:capacity]
+    fill = torch.full((capacity - idx.shape[0],), n * m, dtype=idx.dtype,
+                      device=dev)
+    idx = torch.cat([idx, fill])
+    valid = idx < n * m
+    src = torch.where(valid, idx // m, 0)
+    shift = torch.where(valid[:, None],
+                        torch.as_tensor(shifts, dtype=torch.int64,
+                                        device=dev)[idx % m], 0)
+    return Ghosts(src=src, shift=shift, mask=valid, count=count)
+
+
+def ghost_positions(pos: torch.Tensor, box: Box, ghosts: Ghosts) -> torch.Tensor:
+    """[g, 3] ghost cartesian positions, differentiable w.r.t. `pos`."""
+    g = pos[ghosts.src] + ghosts.shift.to(pos.dtype) @ box.h
+    far = box.origin + 1e6
+    return torch.where(ghosts.mask[:, None], g, far)
+
+
+def extended_positions(pos: torch.Tensor, box: Box, ghosts: Ghosts):
+    """[n + g, 3]: local atoms followed by ghost images."""
+    return torch.cat([pos, ghost_positions(pos, box, ghosts)], dim=0)
+
+
+def extended_species(species: torch.Tensor, ghosts: Ghosts) -> torch.Tensor:
+    """[n + g] species; padding ghost slots = -1."""
+    gs = torch.where(ghosts.mask, species[ghosts.src], -1)
+    return torch.cat([species, gs.to(species.dtype)], dim=0)
+
+
+@dataclasses.dataclass(frozen=True)
+class NeighborList:
+    """Padded full neighbor matrix over local+ghost atoms."""
+
+    idx: torch.Tensor  # [n, k_max] int64 into [pos; ghost positions]
+    mask: torch.Tensor  # [n, k_max] bool
+    ghosts: Ghosts
+    max_count: torch.Tensor  # [] true max row degree
+
+    @property
+    def overflowed(self):
+        return ((self.max_count > self.idx.shape[1])
+                | (self.ghosts.count > self.ghosts.src.shape[0]))
+
+
+def _closest_k(key: torch.Tensor, k_max: int):
+    """Closest-first top-k over rows of `key` (+inf = masked), padded to
+    k_max: (neg_key [r, k_max], sel [r, k_max])."""
+    k_eff = min(k_max, key.shape[1])
+    neg_key, sel = torch.topk(-key, k_eff, dim=1)
+    if k_eff < k_max:
+        pad = k_max - k_eff
+        neg_key = torch.nn.functional.pad(neg_key, (0, pad),
+                                          value=-float("inf"))
+        sel = torch.nn.functional.pad(sel, (0, pad))
+    return neg_key, sel
+
+
+def build_neighbor_matrix_brute(pos: torch.Tensor, box: Box, cutoff: float,
+                                k_max: int, ghosts: Ghosts) -> NeighborList:
+    """O(n * (n+g)) dense build — simple and exact; for small systems."""
+    n = pos.shape[0]
+    pos_ext = extended_positions(pos, box, ghosts)
+    m = pos_ext.shape[0]
+    d = pos[:, None, :] - pos_ext[None, :, :]
+    dist2 = torch.sum(d * d, dim=-1)
+    within = dist2 < cutoff ** 2
+    ar_n = torch.arange(n, device=pos.device)
+    not_self = ar_n[:, None] != torch.arange(m, device=pos.device)[None, :]
+    ext_valid = torch.cat([torch.ones((n,), dtype=torch.bool,
+                                      device=pos.device), ghosts.mask])
+    mask = within & not_self & ext_valid[None, :]
+    counts = mask.sum(dim=1)
+    key = torch.where(mask, dist2, float("inf"))
+    neg_key, idx = _closest_k(key, k_max)
+    nbr_mask = torch.isfinite(neg_key)
+    idx = torch.where(nbr_mask, idx, 0)
+    return NeighborList(idx=idx, mask=nbr_mask, ghosts=ghosts,
+                        max_count=counts.max())
+
+
+def neighbor_displacements(pos: torch.Tensor, box: Box, nlist: NeighborList):
+    """(diff [n,k,3], dist [n,k]); diff[i,k] = r_i - r_j. Masked slots get
+    distance 1e6."""
+    pos_ext = extended_positions(pos, box, nlist.ghosts)
+    diff = pos[:, None, :] - pos_ext[nlist.idx]
+    safe = torch.where(nlist.mask[..., None], diff, 1.0)
+    dist = torch.linalg.norm(safe, dim=-1)
+    dist = torch.where(nlist.mask, dist, 1e6)
+    return diff, dist
