@@ -9,7 +9,8 @@ It imports neither JAX nor lammps_ani_tpu. Phases, each printing one JSON
 object per line; any failure raises and the script exits non-zero:
 
   device   the card as torch and nvidia-smi report it.
-  build    nvcc builds lammps_ani_torch/csrc/aev_roll.cu for sm_90a.
+  build    nvcc builds lammps_ani_torch/csrc/aev_roll.cu and aev_asn.cu
+           for sm_90a, both at once; ptxas's registers per kernel.
   kernels  each of the four AEV kernels against its plain PyTorch version
            on the card, WATER30 x 6^3 (6,480 atoms), in f64 and f32; the
            kernels' backwards against autograd through the plain forwards
@@ -30,13 +31,33 @@ object per line; any failure raises and the script exits non-zero:
            events), one chunk on the host clock, and one chunk under
            torch.profiler: device ms by group (the AEV kernels, matrix
            products, wing folds, the rest) and the device's idle share.
+  asn_kernels  the four asn kernels (csrc/aev_asn.cu: assignment build
+           inv and idx, fused step forward, packed angular pairs) against
+           their plain versions on the card, WATER30 x 6^3 (6,480 atoms)
+           with ANI-2x + XTB repulsion, in f64 and f32: integer outputs
+           (tables, overflow, rank2, deficits) exactly, floats within the
+           limits below; and atomic_energies_asn on the card against the
+           plain path on the CPU (f64).
+  asn      the asn path (build_assignment, then atomic_energies_asn) at
+           the main path's final state (positions wrapped into the box),
+           101,250 atoms, f32, ANI-2x + XTB repulsion, one model, with the
+           launch counts zeroed just before and read just after: its grid,
+           sections, kpad, caps and tiers; overflow and deficits (both
+           must be <= 0); peak memory of that call; rebuild, forward and
+           energy ms (CUDA events, three rounds of 10 calls); one rebuild
+           + energy call under torch.profiler (device ms by group, idle
+           share); the energy against the plain versions on the card;
+           with repulsion off, the energies against the roll engine's at
+           the same state and weights (held in f64, reported in f32);
+           each asn kernel's error, ms, plain ms and bound.
 
-Then one line {"kernels": [...]}, nvidia-smi's name and power-limit line,
-and last {"ok": true, "device": {...}}.
+Then one line {"kernels": [...]} (all eight kernels), nvidia-smi's name
+and power-limit line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -49,14 +70,20 @@ import torch
 from lammps_ani_torch import Box, NeighborConfig, Simulation
 from lammps_ani_torch.io.lammps_data import LammpsData, replicate
 from lammps_ani_torch.md import integrate
+from lammps_ani_torch.models import potential as potmod
 from lammps_ani_torch.models import zoo
 from lammps_ani_torch.ops import _build
+from lammps_ani_torch.ops import aev_asn as asn
 from lammps_ani_torch.ops import aev_roll as ar
+from lammps_ani_torch.ops import cell_roll as crmod
+from lammps_ani_torch.ops import neighbors as nbops
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TILE = os.path.join(ROOT, "examples", "benchmark", "data", "equil_water30.npz")
 SOURCE = "lammps_ani_torch/csrc/aev_roll.cu"
+ASN_SOURCE = "lammps_ani_torch/csrc/aev_asn.cu"
 KERNELS = ("radial_fwd", "radial_bwd", "angular_fwd", "angular_bwd")
+ASN_KERNELS = ("build_inv", "build_idx", "step_fused", "packed_fwd")
 
 # The 30-atom water tile (species H=0, O=3) and the masses of the 7 ANI-2x
 # species (H, C, N, O, S, F, Cl), g/mol.
@@ -322,9 +349,12 @@ def phase_build():
             regs[fn] = line.split(":", 1)[1].strip()
     names = {}
     for fn, used in regs.items():
-        for kname in (*KERNELS, "dh_reduce"):
-            if f"{kname}_kernelI" in fn:
-                names[f"{kname}_{'f64' if 'kernelId' in fn else 'f32'}"] = used
+        for kname in (*KERNELS, "dh_reduce",
+                      *(f"asn_{k}" for k in ASN_KERNELS)):
+            if f"{kname}_kernel" in fn:
+                suf = ("f64" if f"{kname}_kernelId" in fn else
+                       "f32" if f"{kname}_kernelIf" in fn else "any")
+                names[f"{kname}_{suf}"] = used
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": names})
 
@@ -605,6 +635,20 @@ def phase_profile(sim, state):
         regrows += sim.regrow_events - before
     else:
         raise AssertionError("profile: every chunk regrew a capacity")
+    busy, groups, top = device_time(prof, chunk, PROFILE_GROUPS)
+    emit({"phase": "profile", "steps": chunk, "force_eval_ms": f_ms,
+          "regrows_skipped": regrows,
+          "angular_caps": list(sim.potential.spec.angular_caps),
+          "unprofiled_ms_per_step": chunk_ms / chunk,
+          "device_busy_ms_per_step": busy,
+          "device_idle_share": 1.0 - busy * chunk / chunk_ms,
+          "device_ms_per_step_by_group": groups,
+          "top_kernels_ms_per_step": top})
+
+
+def device_time(prof, calls, group_keys):
+    """(device busy ms, device ms by group, the 25 largest kernels' ms),
+    each per call, from a torch.profiler run over `calls` calls."""
     by_name, intervals = {}, []
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -614,20 +658,504 @@ def phase_profile(sim, state):
         intervals.append((ev.time_range.start, ev.time_range.end))
     groups = {}
     for name, ms in by_name.items():
-        g = next((g for g, keys in PROFILE_GROUPS
+        g = next((g for g, keys in group_keys
                   if any(key in name for key in keys)), "other")
-        groups[g] = groups.get(g, 0.0) + ms / chunk
-    busy = _busy_ms(intervals)
+        groups[g] = groups.get(g, 0.0) + ms / calls
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
-    emit({"phase": "profile", "steps": chunk, "force_eval_ms": f_ms,
-          "regrows_skipped": regrows,
-          "angular_caps": list(sim.potential.spec.angular_caps),
-          "unprofiled_ms_per_step": chunk_ms / chunk,
-          "device_busy_ms_per_step": busy / chunk,
-          "device_idle_share": 1.0 - busy / chunk_ms,
-          "device_ms_per_step_by_group": groups,
-          "top_kernels_ms_per_step": [[n[:120], ms / chunk]
-                                      for n, ms in top]})
+    return (_busy_ms(intervals) / calls, groups,
+            [[n[:120], ms / calls] for n, ms in top])
+
+
+# ---------------------------------------------------------------------------
+# The asn path (ops/aev_asn.py): state, kernel inputs, bounds
+# ---------------------------------------------------------------------------
+
+# Keep radius and minimum bin side of the asn grid: Rcr + skin.
+KEEP_R = 5.1 + 2.0
+# Margins of the JAX package's asn engine (md/simulation.py): bin cap
+# +2 +4 slots, sections x1.1, angular caps x1.1 + 2 (+4 if <= 10), tier
+# rows x1.06 + 64 and, for the last tier, x1.3 + 4096.
+SEC_MARGIN, CAP_MARGIN, ROLL_CAP_MARGIN = 1.1, 1.1, 4
+
+# Operations per unit of work, counted as in OPS above:
+#   build_inv, per real candidate of a real center's 27-bin window:
+#     distance 8, keep test 1, species test 1;
+#   build_idx, per table lane: load and compare 2;
+#   step_fused, per assigned lane: gather and distance 10; per lane within
+#     Rcr: cutoff 5, 16 shifts x 6, section sum; per lane within the
+#     repulsion cutoff: 30; per kept lane within Rca: slot fields 20;
+#   packed_fwd, per slot pair of filled slots: as angular_fwd's pair, 165.
+ASN_OPS = {"build_inv": {"lane": 10}, "build_idx": {"lane": 2},
+           "step_fused": {"lane": 10, "rcr": 110, "rep": 30, "kept": 20},
+           "packed_fwd": {"pair": 165}}
+
+
+def _ceil4(x) -> int:
+    return int(-(-int(x) // 4) * 4)
+
+
+def sorted_water(rep: int):
+    """WATER30 x rep^3 with atoms sorted by species (the sorted MLP's
+    order): (species, positions, data)."""
+    data = water_box(rep)
+    order = np.argsort(data.species, kind="stable")
+    return data.species[order], data.positions[order], data
+
+
+def asn_degrees(grid, bins, pos, box, spec):
+    """Neighbor counts of every real atom by species: within Rca ([n, S],
+    the tier search's matrix), the per-species maximum within the keep
+    radius (the sections), and the real (center, candidate) lanes of the
+    27-bin windows, within the keep radius and within Rcr."""
+    pos_g, sp_g = ar._grid_inputs(bins.inv, pos, bins.species_grid)
+    cp, cs = ar._candidates(grid.ncells, pos_g, sp_g, box.h, 1)
+    nc, cap = sp_g.shape
+    n_sp = spec.num_species
+    cnt = torch.zeros((nc, cap, n_sp), dtype=torch.int64, device=pos.device)
+    keep_max = torch.zeros(n_sp, dtype=torch.int64, device=pos.device)
+    lanes = {"window": 0, "keep": 0, "rcr": 0}
+    for rs in ar._row_chunks(nc, cap, cp.shape[1]):
+        _, dist, in_keep = ar._window_geometry(pos_g[rs], cp[rs], cap, 13,
+                                               KEEP_R)
+        real = (sp_g[rs] >= 0)[:, :, None] & (cs[rs] >= 0)[:, None, :]
+        lanes["window"] += int(real.sum())
+        in_keep = in_keep & real
+        lanes["keep"] += int(in_keep.sum())
+        lanes["rcr"] += int((in_keep & (dist <= spec.radial_cutoff)).sum())
+        in_ang = in_keep & (dist <= spec.angular_cutoff)
+        for s in range(n_sp):
+            m = (cs[rs] == s)[:, None, :]
+            cnt[rs, :, s] = (in_ang & m).sum(-1)
+            keep_max[s] = torch.maximum(keep_max[s],
+                                        (in_keep & m).sum(-1).max())
+        del dist, in_keep, in_ang, real
+    return cnt[bins.cell, bins.slot], keep_max.cpu().numpy(), lanes
+
+
+def derive_tiers(cnt, caps, n):
+    """Occupancy tiers as the JAX package's asn engine derives them (three
+    tiers, packed layout, from 4,096 atoms)."""
+    if n < 4096:
+        return None
+    ladder = asn.search_tier_ladder(cnt, caps, max_pre=2)
+    if ladder is not None:
+        tiers, used = [], 0
+        for caps_t, n_t in ladder:
+            tiers.append((tuple(caps_t), min(int(n_t * 1.06) + 64, n)))
+            used += n_t
+        tiers.append((tuple(caps), min(int((n - used) * 1.3) + 4096, n)))
+        return tuple(tiers)
+    res = asn.search_tiers(cnt, caps)
+    if res is None:
+        return None
+    caps0, n0 = res
+    return ((tuple(caps0), min(int(n0 * 1.06) + 64, n)),
+            (tuple(caps), min(int((n - n0) * 1.3) + 256, n)))
+
+
+def asn_setup(species, pos, box, spec):
+    """The asn engine's static state for these positions: the coarse grid
+    (bin side >= Rcr + skin) and its bins, sections, kpad, angular caps and
+    tiers, sized with the JAX package's margins."""
+    h = box.h.detach().cpu().numpy().astype(np.float64)
+    probe = crmod.RollGrid.for_box(h, KEEP_R, 64)
+    occ = int(crmod.build_bins(probe, pos, species, box).count_max)
+    grid = crmod.RollGrid(ncells=probe.ncells,
+                          cap=_ceil4(occ + 2 + ROLL_CAP_MARGIN))
+    bins = crmod.build_bins(grid, pos, species, box)
+    cnt, keep_max, lanes = asn_degrees(grid, bins, pos, box, spec)
+    sections = asn.sections_from_degrees(keep_max, SEC_MARGIN)
+    kpad = asn._round_lane(sum(k for _, k in sections) + 1)
+    deg = cnt.max(0).values.cpu().numpy()
+    caps = tuple(0 if d == 0 else _ceil4(
+        int(d * CAP_MARGIN + 2 + (4 if d * CAP_MARGIN <= 10 else 0)))
+        for d in deg)
+    cnt_np = cnt.cpu().numpy()
+    return dict(grid=grid, bins=bins, sections=sections, kpad=kpad,
+                caps=caps, tiers=derive_tiers(cnt_np, caps, len(cnt_np)),
+                cnt=cnt_np, lanes=lanes)
+
+
+def asn_inputs(st, pos, box, spec):
+    """The four asn kernels' inputs as the path hands them over: grid
+    inputs; inv and idx (plain, the common inputs of build_idx and
+    step_fused); and every packed_fwd call of one forward (one per tier),
+    recorded from the pair stage."""
+    grid, bins = st["grid"], st["bins"]
+    pos_g, sp_g = ar._grid_inputs(bins.inv, pos, bins.species_grid)
+    h = box.h.contiguous()
+    inv, _ = asn.build_inv_plain(pos_g, sp_g, h, grid.ncells, st["sections"],
+                                 st["kpad"], KEEP_R)
+    idx = asn.build_idx_plain(inv, st["kpad"])
+    _, cmp, _, deficit = asn.step_fused_plain(
+        pos_g, sp_g, h, idx, grid.ncells, spec.aev, st["sections"],
+        st["caps"], spec.repulsion)
+    calls = []
+
+    def record(cat, aev_spec, caps_t, a_offs):
+        calls.append((cat, caps_t, a_offs))
+        return cat.new_zeros((cat.shape[0], 0))
+
+    n = bins.cell.shape[0]
+    asn._angular_pair_stage(spec.aev, st["sections"], st["caps"],
+                            st["tiers"], n, cmp, deficit.to(pos.dtype),
+                            bins.cell, bins.slot, {"packed": record})
+    return dict(pos_g=pos_g, sp_g=sp_g, h=h, inv=inv, idx=idx, calls=calls,
+                ncells=grid.ncells, spec=spec, st=st)
+
+
+def asn_calls(k):
+    """{name: (kernel call, plain call)} on the same inputs."""
+    st, spec = k["st"], k["spec"]
+    g = (k["pos_g"], k["sp_g"], k["h"], k["ncells"])
+    build = (st["sections"], st["kpad"], KEEP_R)
+    step = (k["idx"], k["ncells"], spec.aev, st["sections"], st["caps"],
+            spec.repulsion)
+    g3 = g[:3]
+    return {
+        "build_inv": (lambda: asn.build_inv(*g, *build),
+                      lambda: asn.build_inv_plain(*g, *build)),
+        "build_idx": (lambda: asn.build_idx(k["inv"], st["kpad"]),
+                      lambda: asn.build_idx_plain(k["inv"], st["kpad"])),
+        "step_fused": (lambda: asn.step_fused(*g3, *step),
+                       lambda: asn.step_fused_plain(*g3, *step)),
+        "packed_fwd": (
+            lambda: [asn.packed_fwd(c, spec.aev, ct, ao)
+                     for c, ct, ao in k["calls"]],
+            lambda: [asn.packed_fwd_plain(c, spec.aev, ct, ao)
+                     for c, ct, ao in k["calls"]]),
+    }
+
+
+# which outputs of each asn kernel are integers (compared exactly)
+ASN_OUTPUTS = {"build_inv": (("inv", True), ("ovf", True)),
+               "build_idx": (("idx", True),),
+               "step_fused": (("rad", False), ("cmp", False),
+                              ("rank2", True), ("deficit", True))}
+
+
+def asn_compare(name, got, ref, dtype):
+    """Integer outputs must be equal; floats within TOL of the output's
+    largest magnitude. Raises on a mismatch."""
+    atol, rtol = TOL[dtype]
+    if name == "packed_fwd":
+        labels = tuple((f"tier{i}", False) for i in range(len(got)))
+    elif name == "build_idx":
+        got, ref, labels = (got,), (ref,), ASN_OUTPUTS[name]
+    else:
+        labels = ASN_OUTPUTS[name]
+    out, worst, max_err = {}, 0.0, 0.0
+    for (lab, exact), x, y in zip(labels, got, ref):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"{name}.{lab}: {tuple(x.shape)} {x.dtype} "
+                                 f"!= plain {tuple(y.shape)} {y.dtype}")
+        if exact:
+            n_diff = int((x != y).sum())
+            out[lab] = {"mismatches": n_diff}
+            if n_diff:
+                raise AssertionError(f"{name}.{lab}: {n_diff} entries differ "
+                                     "from the plain version")
+            continue
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{name}.{lab}: non-finite output")
+        err = float((x - y).abs().max()) if x.numel() else 0.0
+        limit = atol + rtol * (float(y.abs().max()) if y.numel() else 0.0)
+        out[lab] = {"err": err, "limit": limit}
+        worst = max(worst, err / limit)
+        max_err = max(max_err, err)
+    if worst > 1.0:
+        raise AssertionError(f"{name} {dtype}: {out}")
+    return {"max_abs_err": max_err, "worst_ratio": worst, "outputs": out}
+
+
+def asn_bound(name, k, n):
+    """(bound_ms, bound_by) of one asn kernel call (build_inv, build_idx,
+    step_fused) or of the packed_fwd calls of one forward, from this run's
+    data. Bytes: the real atoms' rows, each read or written once
+    (positions, species and the box in; inv rows out and in, idx rows out
+    and in; rad, the packed slots and rank2 out; each packed row's 5 slot
+    fields in and its columns out). Operations: ASN_OPS per real window
+    lane, table lane, assigned, in-cutoff or kept lane, or slot pair."""
+    st = k["st"]
+    f = k["pos_g"].element_size()
+    cap = k["sp_g"].shape[1]
+    wpad, kpad = asn._round_lane(27 * cap), st["kpad"]
+    lanes, ops = st["lanes"], ASN_OPS[name]
+    a_offs, atot = asn._a_offsets(st["sections"], st["caps"])
+    base_in = n * (3 * f + 4) + 9 * f
+    if name == "build_inv":
+        nbytes = base_in + n * wpad * 2
+        n_ops = ops["lane"] * lanes["window"]
+    elif name == "build_idx":
+        nbytes = n * (wpad + kpad) * 2
+        n_ops = ops["lane"] * n * (wpad + kpad)
+    elif name == "step_fused":
+        srl = len(st["sections"]) * 16
+        nbytes = (base_in + n * kpad * 2 + n * (srl + 1) * f
+                  + n * 6 * atot * f + n * kpad * 4)
+        kept = np.minimum(st["cnt"], np.asarray(st["caps"])[None]).sum()
+        n_ops = (ops["lane"] * lanes["keep"]
+                 + (ops["rcr"] + ops["rep"]) * lanes["rcr"]
+                 + ops["kept"] * int(kept))
+    else:
+        ncols = len(asn.present_channels(k["spec"].aev, st["caps"],
+                                         st["sections"])) * 32
+        nbytes = n * (5 * atot + ncols) * f
+        kk = np.minimum(st["cnt"], np.asarray(st["caps"])[None]).astype(
+            np.float64)
+        pairs = 0.0
+        present = [s for s in range(kk.shape[1]) if st["caps"][s]]
+        for i, s in enumerate(present):
+            pairs += float((kk[:, s] * (kk[:, s] - 1) / 2).sum())
+            for t in present[i + 1:]:
+                pairs += float((kk[:, s] * kk[:, t]).sum())
+        n_ops = ops["pair"] * pairs
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+
+
+def _to_cpu_state(st, a):
+    bins_c = crmod.RollBins(**{f.name: getattr(st["bins"], f.name).cpu()
+                               for f in dataclasses.fields(crmod.RollBins)})
+    asn_c = asn.Assignment(idx=a.idx.cpu(), inv=a.inv.cpu(), ovf=a.ovf.cpu(),
+                           ovf_sec=a.ovf_sec.cpu())
+    return (st["grid"], bins_c, asn_c, st["sections"], st["tiers"])
+
+
+def phase_asn_kernels(device, rep=6):
+    """The four asn kernels against their plain versions at WATER30 x
+    rep^3 (f64 and f32), and atomic_energies_asn on the card against the
+    plain path on the CPU (f64)."""
+    species, pos_np, data = sorted_water(rep)
+    counts = tuple(int((species == s).sum()) for s in range(7))
+    result = {}
+    for dtype in (torch.float64, torch.float32):
+        pot = zoo.ani2x(num_models=1, seed=1, dtype=dtype, device=device,
+                        repulsion=True)
+        box = make_box(data, dtype, device)
+        sp_t = torch.as_tensor(species, device=device)
+        pos = nbops.wrap_positions(torch.as_tensor(pos_np, dtype=dtype,
+                                                   device=device), box)
+        st = asn_setup(sp_t, pos, box, pot.spec.aev)
+        pot = pot.with_spec(dataclasses.replace(pot.spec,
+                                                angular_caps=st["caps"]))
+        k = asn_inputs(st, pos, box, pot.spec)
+        errs = {}
+        for name, (kern, plain) in asn_calls(k).items():
+            got = kern()
+            ref = plain()
+            _sync(device)
+            errs[name] = asn_compare(name, got, ref, dtype)
+            del got, ref
+        result[str(dtype).replace("torch.", "")] = errs
+        if dtype == torch.float64:
+            result["energies_card_vs_cpu_f64"] = asn_energy_vs_cpu(
+                pot, sp_t, pos, box, st, counts)
+        del k
+        torch.cuda.empty_cache()
+    emit({"phase": "asn_kernels", "atoms": data.n_atoms,
+          "ncells": list(st["grid"].ncells), "cap": st["grid"].cap,
+          "sections": [list(x) for x in st["sections"]], "kpad": st["kpad"],
+          "angular_caps": list(st["caps"]),
+          "tiers": st["tiers"] and [[list(c), r] for c, r in st["tiers"]],
+          **result})
+
+
+def asn_energy_vs_cpu(pot, species, pos, box, st, counts):
+    """atomic_energies_asn (kernels, on the card) against the same function
+    on the CPU (plain versions), f64, with the same assignment."""
+    a = asn.build_assignment(st["grid"], st["bins"], pos, box,
+                             st["sections"], st["kpad"], KEEP_R)
+    state = (st["grid"], st["bins"], a, st["sections"], st["tiers"])
+    e_k, d_k = potmod.atomic_energies_asn(pot, species, pos, box, state,
+                                          counts)
+    pot_c = potmod.ANIPotential(pot.spec, pot.params).to("cpu")
+    e_p, d_p = potmod.atomic_energies_asn(
+        pot_c, species.cpu(), pos.cpu(), box.to(device="cpu"),
+        _to_cpu_state(st, a), counts)
+    err = float((e_k.cpu() - e_p).abs().max())
+    line = {"atoms": int(e_p.shape[0]), "energy": float(e_p.sum()),
+            "max_atom_err": err, "limit": 1e-10,
+            "deficit_card": d_k.cpu().tolist(), "deficit_cpu": d_p.tolist()}
+    if not (err <= 1e-10 and torch.equal(d_k.cpu(), d_p)):
+        raise AssertionError(f"asn energies card vs CPU: {line}")
+    return line
+
+
+def phase_asn(device, sim, state, reps=10):
+    """The asn path at the main path's final state (f32, ANI-2x + XTB
+    repulsion, the main path's weights); returns the kernels' rows."""
+    torch.cuda.empty_cache()
+    dtype = torch.float32
+    species, box = sim.species, state.box
+    # the main path wraps positions only at its rebuilds; the asn bins and
+    # assignment are built anew here, from positions wrapped into the box
+    pos = nbops.wrap_positions(state.pos, box)
+    counts = sim.species_counts
+    n = int(species.shape[0])
+    t0 = time.perf_counter()
+    pot = zoo.ani2x(num_models=1, seed=1, dtype=dtype, device=device,
+                    repulsion=True)
+    st = asn_setup(species, pos, box, pot.spec.aev)
+    pot = pot.with_spec(dataclasses.replace(pot.spec,
+                                            angular_caps=st["caps"]))
+    _sync(device)
+    t_setup = time.perf_counter() - t0
+    grid, bins, sections, kpad = (st["grid"], st["bins"], st["sections"],
+                                  st["kpad"])
+
+    # the path as a user calls it, with the counts zeroed just before
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    asn.reset_counts()
+    a = asn.build_assignment(grid, bins, pos, box, sections, kpad, KEEP_R)
+    a_state = (grid, bins, a, sections, st["tiers"])
+    e, deficit = potmod.atomic_energies_asn(pot, species, pos, box, a_state,
+                                            counts)
+    _sync(device)
+    launches, plain = dict(asn.LAUNCHES), dict(asn.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if any(v == 0 for v in launches.values()) or any(plain.values()):
+        raise AssertionError(f"asn path: launches {launches}, plain calls "
+                             f"{plain}")
+    ovf, dmax = float(a.ovf), float(deficit.max())
+    if not (ovf <= 0 and dmax <= 0):
+        raise AssertionError(f"asn path: overflow {ovf}, deficit {dmax}")
+
+    # three rounds of `reps` calls each, to show the spread
+    rebuild_ms = [time_ms(lambda: asn.build_assignment(
+        grid, bins, pos, box, sections, kpad, KEEP_R), reps=reps)
+        for _ in range(3)]
+    forward_ms = [time_ms(lambda: asn.aev_asn_fused(
+        pot.spec.aev, grid, bins, a, pos, box, sections, st["caps"],
+        tiers=st["tiers"], repulsion=pot.spec.repulsion), reps=reps)
+        for _ in range(3)]
+    energy_ms = [time_ms(lambda: potmod.atomic_energies_asn(
+        pot, species, pos, box, a_state, counts), reps=reps)
+        for _ in range(3)]
+    profile = asn_profile(lambda: potmod.atomic_energies_asn(
+        pot, species, pos, box, (grid, bins, asn.build_assignment(
+            grid, bins, pos, box, sections, kpad, KEEP_R), sections,
+            st["tiers"]), counts))
+
+    # the same function through the plain versions on the card
+    e_p, _ = potmod.atomic_energies_asn(pot, species, pos, box, a_state,
+                                        counts, plain=True)
+    atol, rtol = TOL[dtype]
+    e_lim = atol + rtol * float(e_p.abs().max())
+    e_err = float((e - e_p).abs().max())
+    del e_p
+    vs_roll = norep_vs_roll(sim, state, st, a, device)
+
+    rows, timing = [], {}
+    k = asn_inputs(st, pos, box, pot.spec)
+    for name, (kern, plain_fn) in asn_calls(k).items():
+        err = asn_compare(name, kern(), plain_fn(), dtype)
+        _sync(device)
+        b_ms, b_by = asn_bound(name, k, n)
+        ms = time_ms(kern, reps=reps, warm=1)
+        plain_ms = time_ms(plain_fn, reps=2, warm=1)
+        torch.cuda.empty_cache()
+        timing[name] = {**err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by}
+        rows.append({
+            "name": name, "route": "cuda", "source": ASN_SOURCE,
+            "replaces": asn.REPLACES[name].split()[0],
+            "launches": launches[name], "max_abs_err": err["max_abs_err"],
+            "err_over_limit": err["worst_ratio"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
+    line = {"phase": "asn", "atoms": n, "dtype": "float32", "models": 1,
+            "repulsion": True, "ncells": list(grid.ncells), "cap": grid.cap,
+            "sections": [list(x) for x in sections], "kpad": kpad,
+            "angular_caps": list(st["caps"]),
+            "tiers": st["tiers"] and [[list(c), r] for c, r in st["tiers"]],
+            "packed_calls": [[list(ct), int(c.shape[0])]
+                             for c, ct, _ in k["calls"]],
+            "window_lanes": st["lanes"], "setup_s": t_setup,
+            "ovf": ovf, "ovf_sec": a.ovf_sec.tolist(),
+            "deficit": deficit.tolist(), "launches": launches,
+            "rebuild_ms": rebuild_ms, "forward_ms": forward_ms,
+            "energy_ms": energy_ms, "energy": float(e.double().sum()),
+            "energy_vs_plain": {"max_atom_err": e_err, "limit": e_lim},
+            "norep_vs_roll": vs_roll, "resident_gb": resident,
+            "peak_mem_gb": peak, "profile": profile, "kernels": timing}
+    emit(line)
+    if not e_err <= e_lim:
+        raise AssertionError(f"asn energies vs plain: {e_err} > {e_lim}")
+    return rows
+
+
+ASN_PROFILE_GROUPS = (
+    ("asn_kernels", ("asn_",)),
+    ("matmul", PROFILE_GROUPS[1][1]))
+
+
+def asn_profile(fn, calls=5):
+    """Where one rebuild + energy call of the asn path spends its time:
+    host ms per call (synchronized), and under torch.profiler the device
+    busy ms by group and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy, groups, top = device_time(prof, calls, ASN_PROFILE_GROUPS)
+    return {"calls": calls, "host_ms": host_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / host_ms,
+            "device_ms_by_group": groups, "top_kernels_ms": top[:12]}
+
+
+def norep_vs_roll(sim, state, st, a, device):
+    """Per-atom energies of the asn path without the repulsion term
+    against the roll engine's, at the same state, weights, bins and
+    assignment: in f64, held to TOL (both sum the same terms in another
+    order), and in f32, reported (its difference is that of two f32
+    summation orders through the MLP, not of the algorithms)."""
+    species, counts = sim.species, sim.species_counts
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        box = Box(h=state.box.h.to(dtype), origin=state.box.origin.to(dtype))
+        # the roll engine's bins are those of its last rebuild, which
+        # hold the positions as they are now (not wrapped since); the
+        # asn bins were built from wrapped positions
+        pos = {"roll": state.pos.to(dtype)}
+        pos["asn"] = nbops.wrap_positions(pos["roll"], box)
+        e = {}
+        for name, caps in (("asn", st["caps"]),
+                           ("roll", sim.potential.spec.angular_caps)):
+            pot = zoo.ani2x(num_models=1, seed=1, dtype=dtype, device=device)
+            pot = pot.with_spec(dataclasses.replace(pot.spec,
+                                                    angular_caps=caps))
+            if name == "asn":
+                e[name], d = potmod.atomic_energies_asn(
+                    pot, species, pos[name], box,
+                    (st["grid"], st["bins"], a, st["sections"], st["tiers"]),
+                    counts)
+            else:
+                e[name], d = potmod.atomic_energies_roll(
+                    pot, species, pos[name], box, sim._roll_grid, state.bins,
+                    counts, radial_shell=sim._roll_shell)
+            if float(d.max()) > 0:
+                raise AssertionError(f"{name} path {dtype}: deficit {d}")
+        atol, rtol = TOL[dtype]
+        out[str(dtype).replace("torch.", "")] = {
+            "max_atom_err": float((e["asn"] - e["roll"]).abs().max()),
+            "limit": atol + rtol * float(e["roll"].abs().max())}
+        del e
+    res = out["float64"]
+    if not res["max_atom_err"] <= res["limit"]:
+        raise AssertionError(f"asn vs roll energies (f64): {res}")
+    return out
 
 
 def main() -> int:
@@ -644,9 +1172,11 @@ def main() -> int:
     phase_build()
     phase_kernels_small(device)
     phase_potential(device)
+    phase_asn_kernels(device)
     sim, state, launches, work_start = phase_main(device)
     rows = phase_timing(sim, state, launches, work_start)
     phase_profile(sim, state)
+    rows += phase_asn(device, sim, state)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

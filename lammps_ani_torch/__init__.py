@@ -22,7 +22,9 @@ from .models.networks import EnergyShifter, NetworkSpec  # noqa: E402
 from .models.potential import (  # noqa: E402
     ANIPotential,
     ANISpec,
+    atomic_energies_asn,
     atomic_energies_roll,
+    energy_forces_virial_asn,
     energy_forces_virial_roll,
 )
 from .md.simulation import NeighborConfig, Simulation  # noqa: E402

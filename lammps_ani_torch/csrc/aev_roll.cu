@@ -30,78 +30,12 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
 //        -shared -Xcompiler -fPIC -o libaev_roll.so aev_roll.cu
 
-#include <cuda_runtime.h>
+#include "aev_common.cuh"
 
 namespace {
 
 constexpr int kMaxNR = 16;  // radial shifts per species (ANI: 16)
-constexpr int kNA = 4;      // angular radial shifts (ANI: 4)
-constexpr int kNZ = 8;      // angular angle sections (ANI: 8)
-constexpr int kNAZ = kNA * kNZ;
-constexpr int kMaxS = 8;    // species
 constexpr int kRedThreads = 256;
-constexpr double kPi = 3.14159265358979323846;
-
-__device__ __forceinline__ float m_exp(float x) { return expf(x); }
-__device__ __forceinline__ double m_exp(double x) { return exp(x); }
-__device__ __forceinline__ float m_log(float x) { return logf(x); }
-__device__ __forceinline__ double m_log(double x) { return log(x); }
-__device__ __forceinline__ float m_cos(float x) { return cosf(x); }
-__device__ __forceinline__ double m_cos(double x) { return cos(x); }
-__device__ __forceinline__ float m_sin(float x) { return sinf(x); }
-__device__ __forceinline__ double m_sin(double x) { return sin(x); }
-__device__ __forceinline__ float m_sqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double m_sqrt(double x) { return sqrt(x); }
-
-struct Grid {
-  int nx, ny, nz, cap;
-};
-
-// Neighbor bin of bin `cell` at offset (ox, oy, oz), and its wrap shift.
-__device__ __forceinline__ int neighbor_bin(const Grid& g, int cell, int ox,
-                                            int oy, int oz, int& sx, int& sy,
-                                            int& sz) {
-  const int iz = cell % g.nz;
-  const int iy = (cell / g.nz) % g.ny;
-  const int ix = cell / (g.ny * g.nz);
-  int jx = ix + ox, jy = iy + oy, jz = iz + oz;
-  sx = jx < 0 ? -1 : (jx >= g.nx ? 1 : 0);
-  sy = jy < 0 ? -1 : (jy >= g.ny ? 1 : 0);
-  sz = jz < 0 ? -1 : (jz >= g.nz ? 1 : 0);
-  jx -= sx * g.nx;
-  jy -= sy * g.ny;
-  jz -= sz * g.nz;
-  return (jx * g.ny + jy) * g.nz + jz;
-}
-
-// Window offset o of a shell-`shell` window, x outermost.
-__device__ __forceinline__ void offset_of(int o, int shell, int& ox, int& oy,
-                                          int& oz) {
-  const int ns = 2 * shell + 1;
-  ox = o / (ns * ns) - shell;
-  oy = (o / ns) % ns - shell;
-  oz = o % ns - shell;
-}
-
-// Candidate position: owner + sx h0 + sy h1 + sz h2, added in that order
-// (the order of the TPU halo copies, so f64 results agree bit for bit).
-template <typename T>
-__device__ __forceinline__ void candidate_pos(const T* pos, int slot,
-                                              const T* h, int sx, int sy,
-                                              int sz, T& px, T& py, T& pz) {
-  px = pos[slot * 3 + 0];
-  py = pos[slot * 3 + 1];
-  pz = pos[slot * 3 + 2];
-  if (sx) { px += sx * h[0]; py += sx * h[1]; pz += sx * h[2]; }
-  if (sy) { px += sy * h[3]; py += sy * h[4]; pz += sy * h[5]; }
-  if (sz) { px += sz * h[6]; py += sz * h[7]; pz += sz * h[8]; }
-}
-
-template <typename T>
-__device__ __forceinline__ T pair_dist(T dx, T dy, T dz) {
-  const T d2 = dx * dx + dy * dy + dz * dz;
-  return m_sqrt(d2 > T(1e-12) ? d2 : T(1e-12));
-}
 
 // Fixed-order tree sum of vals[blockDim][9] into out[9] (thread 0 writes).
 template <typename T>
@@ -358,27 +292,11 @@ __global__ void dh_reduce_kernel(const T* __restrict__ dh_part, int n,
 // ---------------------------------------------------------------------------
 
 template <typename T>
-struct AngParams {
-  T rca, eta, zeta, mu0, delta, tiny, pi_rca, big;
-  T cos_m[kNZ], sin_m[kNZ];
-  int zeta_int, S, atot;
+struct AngParams : AngConsts<T> {
+  T pi_rca, big;
+  int S, atot;
   int caps[kMaxS], slot0[kMaxS];
 };
-
-template <typename T>
-__device__ __forceinline__ T zeta_pow(T base, const AngParams<T>& p) {
-  if (p.zeta_int <= 0) return m_exp(p.zeta * m_log(base));
-  T acc = T(1), sq = base;
-  bool first = true;
-  for (int n = p.zeta_int; n; n >>= 1) {
-    if (n & 1) {
-      acc = first ? sq : acc * sq;
-      first = false;
-    }
-    if (n > 1) sq = sq * sq;
-  }
-  return acc;
-}
 
 // Shared memory of the angular kernels:
 //   window  wpos [W][3] (shifted), wsp [W]           (W = 27 cap)
@@ -470,39 +388,15 @@ __device__ int compact_center(const AngParams<T>& p, AngSmem<T>& sm, int a,
   return deficit;
 }
 
-// Geometry of one slot pair: (c95, sv, fc12, x2, e_j, base_m, f1_m).
-template <typename T>
-struct PairTerms {
-  T c95, sv, fc12, x2, dsum;
-  T e[kNA], base[kNZ], f1[kNZ];
-};
-
+// Pair terms of slots q1, q2 of center a (aev_common.cuh pair_terms_core).
 template <typename T>
 __device__ __forceinline__ void pair_terms(const AngParams<T>& p,
                                            AngSmem<T>& sm, int q1, int q2,
                                            int a, PairTerms<T>& t) {
-  T cq = sm.f(0, q1, a) * sm.f(0, q2, a) + sm.f(1, q1, a) * sm.f(1, q2, a) +
-         sm.f(2, q1, a) * sm.f(2, q2, a);
-  cq = cq < T(-1) ? T(-1) : (cq > T(1) ? T(1) : cq);
-  t.c95 = T(0.95) * cq;
-  t.sv = m_sqrt(T(1) - t.c95 * t.c95);
-  t.fc12 = sm.f(4, q1, a) * sm.f(4, q2, a);
-  const T d1 = sm.f(3, q1, a), d2 = sm.f(3, q2, a);
-  t.dsum = d1 + d2;
-  T rmean = T(0.5) * (d1 + d2);
-  const T rmax = p.rca + T(1);
-  t.x2 = (rmean < rmax ? rmean : rmax) - p.mu0;
-#pragma unroll
-  for (int j = 0; j < kNA; ++j) {
-    const T xj = t.x2 - T(j) * p.delta;
-    const T arg = -p.eta * (xj * xj);
-    t.e[j] = arg > p.tiny ? m_exp(arg) : T(0);
-  }
-#pragma unroll
-  for (int m = 0; m < kNZ; ++m) {
-    t.base[m] = T(0.5) * (T(1) + t.c95 * p.cos_m[m] + t.sv * p.sin_m[m]);
-    t.f1[m] = zeta_pow(t.base[m], p);
-  }
+  pair_terms_core<T>(p, sm.f(0, q1, a), sm.f(1, q1, a), sm.f(2, q1, a),
+                     sm.f(0, q2, a), sm.f(1, q2, a), sm.f(2, q2, a),
+                     sm.f(3, q1, a), sm.f(3, q2, a), sm.f(4, q1, a),
+                     sm.f(4, q2, a), t);
 }
 
 __device__ __forceinline__ int triu_index(int s1, int s2, int S) {
@@ -746,14 +640,6 @@ int radial_groups(int cap) {
   return g < 1 ? 1 : g;
 }
 
-template <typename T, typename K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 template <typename T>
 int radial_fwd(const int* ip, const double* fp, const void* pos,
                const void* sp, const void* h, void* out, void* stream) {
@@ -839,7 +725,7 @@ int angular_fwd(const int* ip, const double* fp, const void* pos,
   if (!ang_params(ip, fp, p) || g.cap < 1 || g.cap > 1024)
     return cudaErrorInvalidValue;
   const size_t smem = ang_smem_bytes<T>(g.cap, p.atot, 6);
-  cudaError_t err = set_smem<T>(angular_fwd_kernel<T>, smem);
+  cudaError_t err = set_smem(angular_fwd_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
   angular_fwd_kernel<T><<<g.nx * g.ny * g.nz, g.cap, smem,
                           (cudaStream_t)stream>>>(
@@ -857,7 +743,7 @@ int angular_bwd(const int* ip, const double* fp, const void* pos,
   if (!ang_params(ip, fp, p) || g.cap < 1 || g.cap > 1024)
     return cudaErrorInvalidValue;
   const size_t smem = ang_smem_bytes<T>(g.cap, p.atot, 11);
-  cudaError_t err = set_smem<T>(angular_bwd_kernel<T>, smem);
+  cudaError_t err = set_smem(angular_bwd_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
   const int nc = g.nx * g.ny * g.nz;
   cudaStream_t st = (cudaStream_t)stream;

@@ -87,6 +87,11 @@ class Simulation:
             raise NotImplementedError("RATTLE constraints are not ported yet")
         if extra_force is not None:
             raise NotImplementedError("extra_force is not ported yet")
+        if potential.spec.repulsion is not None:
+            raise NotImplementedError(
+                "the roll engine has no repulsion term; the asn engine that "
+                "carries it is not ported to the driver yet (use "
+                "potential.atomic_energies_asn)")
         self.device = resolve_device(device)
         n = len(species)
         self.nbr = nbr

@@ -62,11 +62,19 @@ class _CELU(torch.autograd.Function):
         return g * torch.exp(torch.clamp(x, max=0.0) / ctx.alpha), None
 
 
-def _mlp_stack(layers, x: torch.Tensor, celu_alpha: float) -> torch.Tensor:
-    """x: [m, n, aev] -> [m, n] atomic energies (one species net)."""
+def _mlp_stack(layers, x: torch.Tensor, celu_alpha: float,
+               col_idx=None) -> torch.Tensor:
+    """x: [m, n, aev] -> [m, n] atomic energies (one species net).
+
+    `col_idx` (tuple): compact-AEV mode. x carries only these columns of
+    the full AEV layout, so the first layer gathers the matching weight
+    rows instead: absent species' columns never exist as data."""
     h = x
     for li, layer in enumerate(layers):
-        h = torch.baddbmm(layer["b"][:, None, :], h, layer["w"])
+        w = layer["w"]
+        if li == 0 and col_idx is not None:
+            w = w[:, torch.as_tensor(col_idx, device=w.device), :]
+        h = torch.baddbmm(layer["b"][:, None, :], h, w)
         if li < len(layers) - 1:
             h = _CELU.apply(h, celu_alpha)
     return h[..., 0]
@@ -87,9 +95,11 @@ def atomic_energies_masked(spec: NetworkSpec, params, species: torch.Tensor,
 
 def atomic_energies_sorted(spec: NetworkSpec, params,
                            species_counts: Sequence[int],
-                           aev_sorted: torch.Tensor) -> torch.Tensor:
+                           aev_sorted: torch.Tensor,
+                           col_idx=None) -> torch.Tensor:
     """[m, n] for species-sorted rows with static per-species counts
-    (species 0 block, species 1 block, ..., then zero-energy padding)."""
+    (species 0 block, species 1 block, ..., then zero-energy padding);
+    `col_idx` as in `_mlp_stack`."""
     m = params[0][0]["w"].shape[0]
     n = aev_sorted.shape[0]
     pieces = []
@@ -99,7 +109,7 @@ def atomic_energies_sorted(spec: NetworkSpec, params,
             continue
         x = aev_sorted[offset:offset + count]
         x = x[None].expand(m, count, x.shape[1])
-        pieces.append(_mlp_stack(params[s], x, spec.celu_alpha))
+        pieces.append(_mlp_stack(params[s], x, spec.celu_alpha, col_idx))
         offset += count
     out = (torch.cat(pieces, dim=1) if pieces
            else aev_sorted.new_zeros((m, 0)))

@@ -18,6 +18,7 @@ from .._device import resolve_device
 from . import aev as aevmod
 from . import networks as netmod
 from . import potential as potmod
+from . import repulsion as repmod
 
 ANI2X_SYMBOLS = ("H", "C", "N", "O", "S", "F", "Cl")
 
@@ -54,24 +55,30 @@ def params_from_numpy(params, dtype=torch.float64, device="cpu"):
              for layer in layers] for layers in params]
 
 
-def _ani2x_spec(angular_caps=None) -> potmod.ANISpec:
+def _ani2x_spec(repulsion: bool = False) -> potmod.ANISpec:
     aev_spec = aevmod.ani2x_aev_spec()
     net_spec = netmod.NetworkSpec(aev_length=aev_spec.aev_length,
                                   hidden=netmod.ANI2X_HIDDEN)
+    rep = (repmod.RepulsionSpec.for_symbols(ANI2X_SYMBOLS, cutoff=5.1,
+                                            cutoff_fn="smooth")
+           if repulsion else None)
     return potmod.ANISpec(
         aev=aev_spec, net=net_spec,
         shifter=netmod.EnergyShifter(netmod.ANI2X_SELF_ENERGIES),
-        symbols=ANI2X_SYMBOLS, angular_caps=angular_caps)
+        repulsion=rep, symbols=ANI2X_SYMBOLS)
 
 
 def ani2x(num_models: int = 8, seed: int = 0, dtype=torch.float32,
-          device=None, params=None) -> potmod.ANIPotential:
-    """ANI-2x at its published widths (7 species, AEV 1008), without the
-    XTB repulsion term (as the reference's ANI-2x). `params=None` draws
-    synthetic weights from `seed`. Runs on the card unless `device`
-    says otherwise."""
+          device=None, params=None,
+          repulsion: bool = False) -> potmod.ANIPotential:
+    """ANI-2x at its published widths (7 species, AEV 1008).
+    `repulsion=True` adds the XTB core-repulsion term (cutoff 5.1,
+    smooth envelope), which the reference's ANI-2x leaves out but which
+    keeps MD under synthetic weights in a liquid-like regime; only the
+    asn path evaluates it. `params=None` draws synthetic weights from
+    `seed`. Runs on the card unless `device` says otherwise."""
     dev = resolve_device(device)
-    spec = _ani2x_spec()
+    spec = _ani2x_spec(repulsion)
     if params is None:
         g = torch.Generator(device="cpu").manual_seed(seed)
         params = init_network_params(spec.net, num_models, g, dtype, dev)
@@ -94,7 +101,10 @@ def save_potential(path, pot: potmod.ANIPotential):
                 "celu_alpha": spec.net.celu_alpha},
         "self_energies": spec.shifter.self_energies,
         "symbols": spec.symbols,
-        "repulsion": None,
+        "repulsion": None if spec.repulsion is None else {
+            "alpha": spec.repulsion.alpha, "zeff": spec.repulsion.zeff,
+            "cutoff": spec.repulsion.cutoff, "k_f": spec.repulsion.k_f,
+            "cutoff_fn": spec.repulsion.cutoff_fn},
     }
     arrays = {"__meta__": np.frombuffer(json.dumps(meta).encode(),
                                         dtype=np.uint8)}
@@ -110,9 +120,12 @@ def load_potential(path, dtype=torch.float32,
     dev = resolve_device(device)
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
+        rep = None
         if meta.get("repulsion") is not None:
-            raise NotImplementedError(
-                "the XTB repulsion term is not ported yet")
+            r = meta["repulsion"]
+            rep = repmod.RepulsionSpec(
+                alpha=tuple(r["alpha"]), zeff=tuple(r["zeff"]),
+                cutoff=r["cutoff"], k_f=r["k_f"], cutoff_fn=r["cutoff_fn"])
         aev_spec = aevmod.AEVSpec(**{
             k: tuple(v) if isinstance(v, list) else v
             for k, v in meta["aev"].items()})
@@ -133,5 +146,5 @@ def load_potential(path, dtype=torch.float32,
     spec = potmod.ANISpec(
         aev=aev_spec, net=net_spec,
         shifter=netmod.EnergyShifter(tuple(meta["self_energies"])),
-        symbols=tuple(meta["symbols"]))
+        repulsion=rep, symbols=tuple(meta["symbols"]))
     return potmod.ANIPotential(spec, params)

@@ -2,8 +2,9 @@
 
 Each source in csrc/ is compiled at first use, from the package's own
 files only, into `lammps_ani_torch/_build/` (listed in .gitignore), under
-a name that carries a hash of the source, so an edited source rebuilds
-and an unchanged one is loaded as built. Target: sm_90a (Hopper). The
+a name that carries a hash of the source and of the shared headers
+(csrc/*.cuh), so an edited source rebuilds and an unchanged one is
+loaded as built. Target: sm_90a (Hopper). The
 library exposes a plain C interface; every entry point takes device
 pointers and the stream as `void*` and returns a cudaError_t.
 
@@ -24,7 +25,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("aev_roll.cu",)
+SOURCES = ("aev_roll.cu", "aev_asn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -41,8 +42,10 @@ def nvcc_path() -> str:
 
 
 def _target(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    data = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    for header in sorted(CSRC.glob("*.cuh")):
+        data += header.read_bytes()
+    digest = hashlib.sha256(data).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
 
 
@@ -103,8 +106,8 @@ def entry(name: str, nargs: int, source: str = "aev_roll.cu"):
     return fn
 
 
-def error_string(err: int) -> str:
-    fn = library().aev_roll_error_string
+def error_string(err: int, source: str = "aev_roll.cu") -> str:
+    fn = getattr(library(source), f"{Path(source).stem}_error_string")
     fn.restype = ctypes.c_char_p
     fn.argtypes = [ctypes.c_int]
     return fn(err).decode()

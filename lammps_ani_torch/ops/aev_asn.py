@@ -1,0 +1,974 @@
+"""Assignment-compacted AEV channels: the rebuild and the forward of the
+`pallas_asn` engine, four hand-written Hopper kernels and their plain
+PyTorch versions.
+
+Port of lammps_ani_tpu/ops/aev_asn.py, rebuild and forward (the backward
+kernels come in the next slice). One coarse roll grid (bin side >= Rcr +
+skin) serves both AEV channels:
+
+  * At rebuild, each center's 27-bin window lanes within the keep radius
+    (Rcr + skin) are ranked into per-species compact sections:
+      inv [NC, cap, wpad]  window lane -> compact lane (dead: kpad - 1)
+      idx [NC, cap, kpad]  compact lane -> window lane (dead: wpad)
+    (`build_inv`, `build_idx`; wpad = 27 cap rounded up to 128).
+  * Every step, one geometry pass through `idx` gives the radial columns of
+    the present sections (16 shifts each, compact order) with the XTB
+    repulsion energy in the last column, and the angular stage-2
+    compaction: the first caps[s] in-Rca lanes of each section go to
+    packed per-species slots (ux, uy, uz, d, fc, dfc), with `rank2` and
+    the per-species cap deficit (`step_fused`).
+  * The angular AEV sums every unordered pair of packed slots of every
+    present species-pair block, from a static pair-lane table, per flat
+    atom row (`packed_fwd`), optionally in occupancy tiers of narrower
+    caps.
+
+The host-side sizing and the flat-row glue keep their JAX names. The
+JAX `_prep_asn` candidate planes have no counterpart: the plain versions
+build candidates with `aev_roll._candidates` and the kernels compute
+them from the [NC, cap] grid rows of `aev_roll._grid_inputs`.
+
+Each wrapper launches its CUDA kernel (csrc/aev_asn.cu, built at first use
+by ops/_build.py) for tensors on the card, and runs the plain PyTorch
+version beside it for tensors on the CPU. The plain versions are built
+from differentiable torch ops: on the CPU, autograd through them gives
+forces and the box cotangent. On the card the forward's backward (four
+more kernels) is the next slice: `aev_asn_fused` raises there.
+
+Conventions (as the TPU kernels): empty slots are parked at 1e6 with
+species -1; self is excluded by lane index (13 cap + slot); the keep test
+is d2 <= keep_r^2; dist = sqrt(max(d2, 1e-12)) with d2 = (dx dx + dy dy)
++ dz dz; dead compact lanes sit at dist 1e6; dead packed slots hold
+u = 0, d = 2 Rca + 10, fc = dfc = 0; rank2 of a lane without a slot is
+127; overflow and deficits are per species, max(count - cap) from a
+-2^20 floor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import itertools
+import math
+
+import numpy as np
+import torch
+
+from . import aev_roll
+
+_LANE = 128
+DEAD_SLOT = _LANE - 1
+DEFICIT_FLOOR = aev_roll.DEFICIT_FLOOR
+PLAIN_CHUNK_ELEMS = 1 << 27
+SOURCE = "aev_asn.cu"
+ANGSTROM2BOHR = 1.8897261258369282
+_MAX_S = 8
+_MAX_BLOCKS = 28
+
+# Plain-integer launch counts of the four CUDA kernels (one per wrapper
+# call that launches its kernel) and call counts of their plain versions
+# made by the wrappers (CPU tensors). `reset_counts()` zeroes both.
+LAUNCHES = {"build_inv": 0, "build_idx": 0, "step_fused": 0,
+            "packed_fwd": 0}
+PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
+
+# The TPU kernels of ops/aev_asn.py that the four kernels replace.
+REPLACES = {
+    "build_inv": "lammps_ani_tpu/ops/aev_asn.py:243 _build_inv_kernel",
+    "build_idx": "lammps_ani_tpu/ops/aev_asn.py:309 _build_idx_kernel",
+    "step_fused": "lammps_ani_tpu/ops/aev_asn.py:1178 _step_fused_kernel",
+    "packed_fwd": "lammps_ani_tpu/ops/aev_asn.py:1794 _packed_fwd_kernel",
+}
+
+BACKWARD_MISSING = (
+    "the asn forward has no backward on the card yet: its four kernels "
+    "(aev_asn.py _radial_gamma_only_kernel, _packed_bwd_kernel, "
+    "_chain_sum_kernel, _wing_kernel) are the next slice of the port; "
+    "forces on the asn path run on the CPU only")
+
+
+def reset_counts():
+    for d in (LAUNCHES, PLAIN_CALLS):
+        for k in d:
+            d[k] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Assignment:
+    """Frozen per-rebuild window-lane assignment."""
+
+    idx: torch.Tensor  # [NC, cap, kpad] int16; dead = wpad
+    inv: torch.Tensor  # [NC, cap, wpad] int16; dead = kpad - 1
+    ovf: torch.Tensor  # [] max of ovf_sec; > 0: a section overflowed
+    ovf_sec: torch.Tensor  # [num_species] per-species (count - k_s)
+
+
+# ---------------------------------------------------------------------------
+# Static layout (host side)
+# ---------------------------------------------------------------------------
+
+
+def _sec_offsets(sections):
+    """sections ((species, k_s), ...) -> lane offsets + total."""
+    offs, off = [], 0
+    for _, k in sections:
+        offs.append(off)
+        off += k
+    return tuple(offs), off
+
+
+def _round_lane(n: int) -> int:
+    return -(-n // _LANE) * _LANE
+
+
+def _a_offsets(sections, caps):
+    """Packed per-species offsets along the stage-2 slot axis:
+    {species: (offset, cap)} for sections with caps > 0, and the total."""
+    offs, off = {}, 0
+    for s, _ in sections:
+        if caps[s] == 0:
+            continue
+        offs[s] = (off, caps[s])
+        off += caps[s]
+    return offs, off
+
+
+def sections_from_degrees(degs, margin):
+    """Static per-species compact sections from measured keep-radius
+    degrees: `margin` headroom, rounded to 4, then margin lanes trimmed so
+    the section total stays at the 128-lane boundary of the measured
+    demand."""
+    degs = np.asarray(degs)
+    out = [(s, int(-(-int(d * margin + 2) // 4) * 4))
+           for s, d in enumerate(degs) if d > 0]
+    floor = [(s, int(-(-(int(d) + 1) // 4) * 4))
+             for s, d in enumerate(degs) if d > 0]
+    total = sum(k for _, k in out)
+    bound = -(-sum(k for _, k in floor) // _LANE) * _LANE
+    while total > bound:
+        # shave the section with the most margin headroom
+        i = max(range(len(out)), key=lambda j: out[j][1] - floor[j][1])
+        if out[i][1] - floor[i][1] <= 0:
+            break
+        out[i] = (out[i][0], out[i][1] - 4)
+        total -= 4
+    return tuple(out)
+
+
+def _pair_count(caps, present):
+    """Unordered slot pairs of all present species-pair blocks."""
+    return sum(caps[s1] * (caps[s1] - 1) // 2 if s1 == s2
+               else caps[s1] * caps[s2]
+               for i, s1 in enumerate(present) for s2 in present[i:])
+
+
+def search_tiers(cnt, caps):
+    """Tier-0 caps over the measured per-row degree matrix `cnt` [n, S]
+    that minimize the padded pair-lane work (fit rows run tier-0 caps,
+    the rest the full `caps`). Returns (caps0, fit_count) or None when
+    one tier is as good."""
+    caps = tuple(int(c) for c in caps)
+    present = [s for s in range(len(caps)) if caps[s] > 0]
+    if not present:
+        return None
+    cnt = np.asarray(cnt)
+    n = cnt.shape[0]
+
+    def work(cp):
+        return -(-_pair_count(cp, present) // _LANE) * _LANE
+
+    w_full = work(caps)
+    if len(present) > 4:
+        # joint search blows up combinatorially; one robust quantile cut
+        combos = [tuple(
+            min(caps[s], max(4, -(-int(np.percentile(cnt[:, s], 97))
+                                  // 4) * 4)) if caps[s] else 0
+            for s in range(len(caps)))]
+    else:
+        cands = {s: list(range(4, caps[s] + 1, 4)) for s in present}
+        combos = [tuple(dict(zip(present, combo)).get(s, 0)
+                        for s in range(len(caps)))
+                  for combo in itertools.product(*(cands[s]
+                                                   for s in present))]
+    best = None
+    for cp in combos:
+        fit = np.ones(n, bool)
+        for s in present:
+            fit &= cnt[:, s] <= cp[s]
+        n0 = int(fit.sum())
+        cost = 1.05 * n0 * work(cp) + 1.1 * (n - n0) * w_full
+        if best is None or cost < best[0]:
+            best = (cost, cp, n0)
+    cost, cp, n0 = best
+    if cp == caps or cost / (n * w_full) > 0.92:
+        return None
+    return cp, n0
+
+
+def search_tier_ladder(cnt, caps, max_pre=2):
+    """Multi-tier ladder under the packed pair-lane cost: per chunk budget
+    below the full layout's, the caps with the most fitting rows; then the
+    subset of up to `max_pre` such tiers (before the full-caps tier) with
+    the least padded-lane work. Returns ((caps_t, n_fit_exclusive), ...)
+    in ascending chunk count, or None when one tier is already best."""
+    caps = tuple(int(c) for c in caps)
+    present = [s for s in range(len(caps)) if caps[s] > 0]
+    if not present:
+        return None
+    cnt = np.asarray(cnt)
+    n = cnt.shape[0]
+
+    chunks_full = -(-_pair_count(caps, present) // _LANE)
+    if chunks_full <= 1:
+        return None
+    if len(present) > 4:
+        combos = None  # the grid blows up; quantile candidates instead
+    else:
+        cands = {s: list(range(2, caps[s] + 1, 2)) for s in present}
+        combos = [tuple(dict(zip(present, combo)).get(s, 0)
+                        for s in range(len(caps)))
+                  for combo in itertools.product(*(cands[s]
+                                                   for s in present))]
+
+    def fit_mask(cp):
+        f = np.ones(n, bool)
+        for s in present:
+            f &= cnt[:, s] <= cp[s]
+        return f
+
+    best_at = {}
+    if combos is None:
+        for pc in (70, 85, 93, 97):
+            cp = tuple(
+                min(caps[s], max(2, -(-int(np.percentile(cnt[:, s], pc))
+                                      // 2) * 2)) if caps[s] else 0
+                for s in range(len(caps)))
+            c = -(-_pair_count(cp, present) // _LANE)
+            if c < chunks_full:
+                nf = int(fit_mask(cp).sum())
+                if c not in best_at or nf > best_at[c][0]:
+                    best_at[c] = (nf, cp)
+    else:
+        for cp in combos:
+            c = -(-_pair_count(cp, present) // _LANE)
+            if c >= chunks_full:
+                continue
+            nf = int(fit_mask(cp).sum())
+            if c not in best_at or nf > best_at[c][0]:
+                best_at[c] = (nf, cp)
+    cand = sorted((c, nf, cp) for c, (nf, cp) in best_at.items())
+    if not cand:
+        return None
+
+    masks = {cp: fit_mask(cp) for _, _, cp in cand}
+    best = (1.0 * n * chunks_full, ())  # untiered baseline
+    subsets = [s for k in range(1, max_pre + 1)
+               for s in itertools.combinations(cand, k)]
+    for sub in subsets:
+        assigned = np.zeros(n, bool)
+        cost = 0.0
+        rows = []
+        for c, _, cp in sub:  # chunk-count ascending
+            m = masks[cp] & ~assigned
+            n_t = int(m.sum())
+            cost += 1.06 * n_t * c
+            rows.append((cp, n_t))
+            assigned |= m
+        cost += 1.1 * (n - int(assigned.sum())) * chunks_full
+        # per-tier dispatch overhead, in chunk-equivalents per row
+        cost += 0.12 * n * len(sub)
+        if cost < best[0]:
+            best = (cost, tuple(rows))
+    if not best[1] or best[0] / (n * chunks_full) > 0.95:
+        return None
+    return best[1]
+
+
+def present_channels(aev_spec, caps, sections):
+    """Ascending torchani channel offsets (ch0) of the species-pair blocks
+    present under `caps`/`sections`: the column map of the compact angular
+    output."""
+    a_offs, _ = _a_offsets(sections, tuple(caps))
+    return tuple(sorted(pb[4] for pb in aev_roll._pair_blocks(aev_spec,
+                                                               tuple(caps))
+                        if pb[0] in a_offs and pb[1] in a_offs))
+
+
+def _packed_layout(spec, caps, a_offs):
+    """Static pair-lane layout: every present species-pair block's true
+    pairs (strict upper triangle for same species, the rectangle for
+    cross species; each unordered pair once, at scale 2), packed block
+    after block in _pair_blocks order. Returns (blocks, q_total, n_chunks)
+    with blocks = ((s1, s2, ch0, off1, off2, a1, a2, same, base), ...),
+    base = the block's first pair lane; None without pairs."""
+    blocks = []
+    base = 0
+    for s1, s2, a1, a2, ch0, same in aev_roll._pair_blocks(spec, caps):
+        if s1 not in a_offs or s2 not in a_offs:
+            continue
+        q_b = a1 * (a1 - 1) // 2 if same else a1 * a2
+        if q_b == 0:
+            continue
+        blocks.append((s1, s2, ch0, a_offs[s1][0], a_offs[s2][0], a1, a2,
+                       same, base))
+        base += q_b
+    if not blocks:
+        return None
+    return tuple(blocks), base, -(-base // _LANE)
+
+
+@functools.lru_cache(maxsize=None)
+def _lane_table_np(spec, caps, a_offs_items):
+    """[q_total, 3] int32 (slot 1, slot 2, block) of every pair lane."""
+    blocks, q_total, _ = _packed_layout(spec, caps, dict(a_offs_items))
+    rows = []
+    for bi, (_, _, _, off1, off2, a1, a2, same, _) in enumerate(blocks):
+        if same:
+            rows += [(off1 + j, off1 + k, bi) for j in range(a1)
+                     for k in range(j + 1, a1)]
+        else:
+            rows += [(off1 + j, off2 + k, bi) for j in range(a1)
+                     for k in range(a2)]
+    table = np.asarray(rows, np.int32).reshape(-1, 3)
+    assert table.shape[0] == q_total
+    return table
+
+
+def _lane_table(spec, caps, a_offs, device):
+    """The pair-lane table as an int32 tensor on `device` (cached)."""
+    return _lane_table_on(spec, tuple(caps), tuple(a_offs.items()),
+                          str(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _lane_table_on(spec, caps, a_offs_items, device):
+    return torch.as_tensor(_lane_table_np(spec, caps, a_offs_items),
+                           device=device)
+
+
+def _r_flat(n):
+    """Flat-row block of the pair stage (the JAX row padding unit)."""
+    r = 256
+    while r > 8 and r >= 2 * n:
+        r //= 2
+    return r
+
+
+def _norm_tiers(tiers, caps, r, n_pad2):
+    """Static tier layout ((caps_t, rows_t), ...): tier caps clamped into
+    [4, caps], row capacities rounded to the flat row block, the last tier
+    at the full caps."""
+    if not tiers or len(tiers) < 2:
+        return None
+
+    def rows(x):
+        return max(r, min(-(-int(x) // r) * r, n_pad2))
+
+    out = []
+    for caps_t, rows_t in tiers[:-1]:
+        eff = tuple(min(max(int(ct), 4), int(c)) if c else 0
+                    for ct, c in zip(caps_t, caps))
+        out.append((eff, rows(rows_t)))
+    out.append((tuple(int(c) for c in caps), rows(tiers[-1][1])))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions of the four kernels
+# ---------------------------------------------------------------------------
+
+
+def _chunks(n, per_row):
+    """Row slices holding at most PLAIN_CHUNK_ELEMS elements each."""
+    step = max(1, PLAIN_CHUNK_ELEMS // max(1, per_row))
+    return [slice(i, min(i + step, n)) for i in range(0, n, step)]
+
+
+def _d2(dx, dy, dz):
+    """(dx dx + dy dy) + dz dz, each operation rounded on its own (the
+    kernels' order)."""
+    return dx * dx + dy * dy + dz * dz
+
+
+def build_inv_plain(pos_g, sp_g, h, ncells, sections, kpad, keep_radius):
+    """(inv [NC, cap, wpad] int16, ovf [8] int32): each window lane's
+    compact lane (off_s + its rank among the row's lanes of species s
+    within the keep radius, self excluded, ascending lane), kpad - 1 for
+    lanes no section keeps; ovf[s] = max over rows of count_s - k_s."""
+    nc, cap = sp_g.shape
+    w = 27 * cap
+    wpad = _round_lane(w)
+    dev = pos_g.device
+    cp, cs = aev_roll._candidates(ncells, pos_g, sp_g, h, 1)
+    offs, _ = _sec_offsets(sections)
+    inv = torch.full((nc, cap, wpad), kpad - 1, dtype=torch.int16,
+                     device=dev)
+    ovf = torch.full((_MAX_S,), DEFICIT_FLOOR, dtype=torch.int32,
+                     device=dev)
+    r2 = keep_radius * keep_radius
+    not_self = (torch.arange(w, device=dev)[None, :]
+                != 13 * cap + torch.arange(cap, device=dev)[:, None])
+    for rs in _chunks(nc, cap * w * 4):
+        d = pos_g[rs][:, :, None, :] - cp[rs][:, None, :, :]
+        keep = (_d2(d[..., 0], d[..., 1], d[..., 2]) <= r2) & not_self
+        del d
+        inv_c = inv[rs, :, :w]
+        for (s, k_s), off in zip(sections, offs):
+            m = keep & (cs[rs][:, None, :] == s)
+            cum = torch.cumsum(m.to(torch.int32), dim=-1)
+            inv_c = torch.where(m, (cum - 1 + off).to(torch.int16), inv_c)
+            ovf[s] = torch.maximum(ovf[s], (cum[..., -1].max() - k_s)
+                                   .to(torch.int32))
+        inv[rs, :, :w] = inv_c
+    return inv, ovf
+
+
+def build_idx_plain(inv, kpad):
+    """idx [NC, cap, kpad] int16: the window lane w with inv[.., w] == k,
+    or wpad where none maps to k (the inverse of `inv` as a scatter)."""
+    nc, cap, wpad = inv.shape
+    flat = inv.reshape(nc * cap, wpad)
+    out = []
+    lanes = torch.arange(wpad, device=inv.device)
+    for rs in _chunks(nc * cap, wpad * 2):
+        v = flat[rs].to(torch.int64)
+        v = torch.where((v >= 0) & (v < kpad - 1), v, kpad)  # kpad: trash
+        idx = torch.full((v.shape[0], kpad + 1), wpad, dtype=torch.int64,
+                         device=inv.device)
+        idx.scatter_(1, v, lanes.expand_as(v))
+        out.append(idx[:, :kpad].to(torch.int16))
+    return torch.cat(out).reshape(nc, cap, kpad)
+
+
+def _step_consts(spec, dtype):
+    """The step's constants; in f32, basis values (tiny) and radial and
+    repulsion terms (pmin) below 1e-30 flush to 0 (aev_asn.py :701,
+    :749, :755)."""
+    rc, eta, mu0, delta, nr = aev_roll.radial_consts(spec)
+    rca = float(spec.angular_cutoff)
+    tiny = 1e-30 if dtype == torch.float32 else 0.0
+    return dict(rc=rc, eta=eta, mu0=mu0, delta=delta, nr=nr, rca=rca,
+                big=2.0 * rca + 10.0, tiny=tiny, pmin=tiny)
+
+
+def _rep_half_plain(rep, dist, a_ij, z_ij, rin, pmin):
+    """Repulsion half pair energies (aev_asn.py `_rep_pair`) in Hartree;
+    0 outside `rin`."""
+    rc = rep.cutoff
+    safe = torch.where(rin, dist * ANGSTROM2BOHR, 1.0)
+    r_kf = (safe * torch.sqrt(safe) if rep.k_f == 1.5
+            else torch.exp(rep.k_f * torch.log(safe)))
+    core = z_ij / safe * torch.exp(-a_ij * r_kf)
+    x = dist / rc
+    if rep.cutoff_fn == "cosine":
+        env = 0.5 * torch.cos(math.pi * x) + 0.5
+    elif rep.cutoff_fn == "none":
+        env = torch.ones_like(x)
+    else:  # smooth
+        x2 = torch.clamp(x * x, 0.0, 1.0 - 1e-6)
+        env = torch.exp(1.0 - 1.0 / (1.0 - x2))
+    e = 0.5 * torch.where(rin, core * env, 0.0)
+    return torch.where((e > pmin) | (e < -pmin), e, 0.0)
+
+
+def step_fused_plain(pos_g, sp_g, h, idx, ncells, spec, sections, caps,
+                     rep):
+    """(rad [NC, cap, srl+1], cmp [NC, cap, 6, atot], rank2 [NC, cap,
+    kpad] int32, deficit [8] int32): one geometry pass through `idx`.
+
+    rad: radial columns si*NR + k of the present sections, the repulsion
+    energy last; cmp: the stage-2 packed slots, fields (ux, uy, uz, d,
+    fc, dfc); rank2: each compact lane's packed slot (127: none); deficit:
+    per species max over rows of (count within Rca - caps[s])."""
+    nc, cap = sp_g.shape
+    kpad = idx.shape[-1]
+    wpad = _round_lane(27 * cap)
+    dev, dtype = pos_g.device, pos_g.dtype
+    k = _step_consts(spec, dtype)
+    rc, rca, nr, pmin = k["rc"], k["rca"], k["nr"], k["pmin"]
+    offs, _ = _sec_offsets(sections)
+    a_offs, atot = _a_offsets(sections, caps)
+    cp, _ = aev_roll._candidates(ncells, pos_g, sp_g, h, 1)
+    # lane wpad (a dead idx) reads zeros, as the TPU gather does
+    cp = torch.nn.functional.pad(cp, (0, 0, 0, wpad + 1 - cp.shape[1]))
+    deficit = torch.full((_MAX_S,), DEFICIT_FLOOR, dtype=torch.int32,
+                         device=dev)
+    if rep is not None:
+        a_j = torch.zeros(kpad, dtype=dtype, device=dev)
+        z_j = torch.zeros(kpad, dtype=dtype, device=dev)
+        a_c = torch.zeros(_MAX_S + 1, dtype=dtype, device=dev)
+        z_c = torch.zeros(_MAX_S + 1, dtype=dtype, device=dev)
+        for (s, k_s), off in zip(sections, offs):
+            a_j[off:off + k_s] = rep.alpha[s]
+            z_j[off:off + k_s] = rep.zeff[s]
+            a_c[s] = rep.alpha[s]
+            z_c[s] = rep.zeff[s]
+    lane_ids = torch.arange(kpad, device=dev)
+    rads, cmps, rank2s = [], [], []
+    for rs in _chunks(nc, cap * kpad * 24):
+        iv = idx[rs].to(torch.int64)
+        r = iv.shape[0]
+        cand = torch.gather(cp[rs], 1, iv.reshape(r, cap * kpad, 1)
+                            .expand(-1, -1, 3)).reshape(r, cap, kpad, 3)
+        ctr = pos_g[rs]
+        ax = ctr[:, :, None, 0] - cand[..., 0]
+        ay = ctr[:, :, None, 1] - cand[..., 1]
+        az = ctr[:, :, None, 2] - cand[..., 2]
+        valid = iv < wpad
+        dist = torch.where(valid, torch.sqrt(torch.clamp(
+            _d2(ax, ay, az), min=1e-12)), 1e6)
+
+        # radial columns, compact section order, and the repulsion column
+        in_cut = valid & (dist <= rc)
+        pref = 0.25 * torch.where(
+            in_cut, 0.5 * torch.cos(dist * (math.pi / rc)) + 0.5, 0.0)
+        x = torch.clamp(dist, max=rc + 1.0) - k["mu0"]
+        cols = [[None] * nr for _ in sections]
+        for kk in range(nr):
+            e = torch.exp(-k["eta"] * (x - kk * k["delta"]) ** 2)
+            e = torch.where(e > k["tiny"], e, 0.0)
+            t = pref * e
+            t = torch.where(t > pmin, t, 0.0)
+            for si, ((_, k_s), off) in enumerate(zip(sections, offs)):
+                cols[si][kk] = t[..., off:off + k_s].sum(-1)
+        cols = [c for per_sec in cols for c in per_sec]
+        if rep is not None:
+            csp = torch.where(sp_g[rs] >= 0, sp_g[rs].to(torch.int64), _MAX_S)
+            a_ij = torch.sqrt(torch.clamp(a_j * a_c[csp][..., None],
+                                          min=1e-12))
+            z_ij = z_j * z_c[csp][..., None]
+            rin = valid & (z_ij > 0) & (dist < rep.cutoff)
+            cols.append(_rep_half_plain(rep, dist, a_ij, z_ij, rin,
+                                        pmin).sum(-1))
+        else:
+            cols.append(torch.zeros_like(dist[..., 0]))
+        rads.append(torch.stack(cols, dim=-1))
+
+        # stage 2: first caps[s] in-Rca lanes of each section -> slots
+        in_ang = valid & (dist <= rca)
+        rank2 = torch.full((r, cap, kpad), DEAD_SLOT, dtype=torch.int32,
+                           device=dev)
+        src = torch.full((r, cap, atot + 1), kpad, dtype=torch.int64,
+                         device=dev)  # lane of each slot; kpad: empty
+        for (s, k_s), off in zip(sections, offs):
+            if s not in a_offs:
+                continue
+            a_off, a_s = a_offs[s]
+            m = in_ang[..., off:off + k_s]
+            cum = torch.cumsum(m.to(torch.int32), dim=-1)
+            deficit[s] = torch.maximum(
+                deficit[s], (cum[..., -1].max() - a_s).to(torch.int32))
+            rank = cum - 1
+            keep = m & (rank < a_s)
+            rank2[..., off:off + k_s] = torch.where(
+                keep, rank + a_off, DEAD_SLOT).to(torch.int32)
+            tgt = torch.where(keep, rank + a_off, atot).to(torch.int64)
+            src.scatter_(2, tgt, lane_ids[off:off + k_s].expand_as(tgt))
+        src = src[..., :atot]
+        live = src < kpad
+        cax, cay, caz = (torch.gather(torch.nn.functional.pad(a, (0, 1)), 2,
+                                      src) for a in (ax, ay, az))
+        cax, cay, caz = (torch.where(live, a, 0.0) for a in (cax, cay, caz))
+        cd = torch.sqrt(torch.clamp(_d2(cax, cay, caz), min=1e-12))
+        mask = cd > 1e-6
+        d_safe = torch.where(mask, cd, k["big"])
+        inv_d = 1.0 / d_safe
+        inside = mask & (cd <= rca)
+        fc = torch.where(inside, 0.5 * torch.cos(cd * (math.pi / rca)) + 0.5,
+                         0.0)
+        dfc = torch.where(inside, (-0.5 * math.pi / rca)
+                          * torch.sin(cd * (math.pi / rca)), 0.0)
+        cmps.append(torch.stack([cax * inv_d, cay * inv_d, caz * inv_d,
+                                 d_safe, fc, dfc], dim=2))
+        rank2s.append(rank2)
+    return torch.cat(rads), torch.cat(cmps), torch.cat(rank2s), deficit
+
+
+def packed_fwd_plain(cat, spec, caps_t, a_offs):
+    """[rows, n_blocks * 32] angular columns of every row of `cat` [rows,
+    5 atot] (fields ux, uy, uz, d, fc of the packed slots): block b's pair
+    lanes summed into columns b*32 + j*8 + m, times 2."""
+    rows = cat.shape[0]
+    atot = cat.shape[1] // 5
+    blocks, q_total, _ = _packed_layout(spec, caps_t, a_offs)
+    cst = aev_roll.angular_consts(spec, cat.dtype)
+    pmin = 1e-30 if cat.dtype == torch.float32 else 0.0
+    tab = _lane_table(spec, caps_t, a_offs, cat.device).to(torch.int64)
+    i1, i2 = tab[:, 0], tab[:, 1]
+    outs = []
+    for rs in _chunks(rows, q_total * 64):
+        c = cat[rs].reshape(-1, 5, atot)
+        u = c[:, 0:3]
+        pt = aev_roll._pair_terms_core(
+            cst, u[:, :, i1].transpose(1, 2), u[:, :, i2].transpose(1, 2),
+            c[:, 3, i1], c[:, 3, i2], c[:, 4, i1], c[:, 4, i2])
+        cols = []
+        for blk in blocks:
+            lo = blk[8]
+            hi = lo + (blk[5] * (blk[5] - 1) // 2 if blk[7]
+                       else blk[5] * blk[6])
+            for e in pt["e_j"]:
+                f2 = pt["fc12"][:, lo:hi] * e[:, lo:hi]
+                for f1 in pt["f1_m"]:
+                    v = f2 * f1[:, lo:hi]
+                    cols.append(torch.where(v > pmin, v, 0.0).sum(-1))
+        outs.append(2.0 * torch.stack(cols, dim=-1))
+    return torch.cat(outs)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers: the CUDA kernel for tensors on the card, the plain
+# version for tensors on the CPU, an error for anything else
+# ---------------------------------------------------------------------------
+
+
+def _route(name, *tensors) -> bool:
+    """True: launch the kernel. False: run the plain version (CPU)."""
+    devs = {t.device.type for t in tensors}
+    if devs == {"cuda"}:
+        return True
+    if devs == {"cpu"}:
+        PLAIN_CALLS[name] += 1
+        return False
+    raise ValueError(f"{name}: tensors on devices {sorted(devs)}; expected "
+                     "all on cuda or all on cpu")
+
+
+def _suffix(name, dtype):
+    if dtype == torch.float32:
+        return "f32"
+    if dtype == torch.float64:
+        return "f64"
+    raise TypeError(f"{name}: dtype {dtype} not supported")
+
+
+def _launch(name, entry, iparams, fparams, *tensors):
+    """Call the C entry point `entry` of aev_asn.cu on the current stream."""
+    from . import _build
+
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: non-contiguous tensor {tuple(t.shape)}")
+    fn = _build.entry(entry, len(tensors) + 3, SOURCE)
+    ip = np.ascontiguousarray(iparams, np.int32)
+    fp = np.ascontiguousarray(fparams, np.float64)
+    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
+    err = fn(ip.ctypes.data, fp.ctypes.data,
+             *[t.data_ptr() for t in tensors], stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed: "
+                           f"{_build.error_string(err, SOURCE)} ({err})")
+    LAUNCHES[name] += 1
+
+
+def _pad8(xs, fill=0):
+    xs = list(xs)
+    if len(xs) > _MAX_S:
+        raise ValueError(f"at most {_MAX_S} species sections, got {len(xs)}")
+    return xs + [fill] * (_MAX_S - len(xs))
+
+
+def _sec_ints(sections):
+    offs, _ = _sec_offsets(sections)
+    return ([len(sections)] + _pad8(s for s, _ in sections) + _pad8(offs)
+            + _pad8(k for _, k in sections))
+
+
+def _check_grid(name, ncells, pos_g, sp_g, h):
+    nc = ncells[0] * ncells[1] * ncells[2]
+    cap = sp_g.shape[-1]
+    if not (sp_g.shape == (nc, cap) and sp_g.dtype == torch.int32
+            and pos_g.shape == (nc, cap, 3) and h.shape == (3, 3)
+            and h.dtype == pos_g.dtype):
+        raise ValueError(
+            f"{name}: grid inputs do not fit ncells {tuple(ncells)}: pos_g "
+            f"{tuple(pos_g.shape)} {pos_g.dtype}, sp_g {tuple(sp_g.shape)} "
+            f"{sp_g.dtype}, h {tuple(h.shape)} {h.dtype}")
+
+
+def build_inv(pos_g, sp_g, h, ncells, sections, kpad, keep_radius):
+    """(inv, ovf) (replaces aev_asn._build_inv_kernel)."""
+    if not _route("build_inv", pos_g, sp_g, h):
+        return build_inv_plain(pos_g, sp_g, h, ncells, sections, kpad,
+                               keep_radius)
+    _check_grid("build_inv", ncells, pos_g, sp_g, h)
+    nc, cap = sp_g.shape
+    wpad = _round_lane(27 * cap)
+    inv = torch.empty((nc, cap, wpad), dtype=torch.int16,
+                      device=pos_g.device)
+    ovf = torch.full((_MAX_S,), DEFICIT_FLOOR, dtype=torch.int32,
+                     device=pos_g.device)
+    _launch("build_inv", f"asn_build_inv_{_suffix('build_inv', pos_g.dtype)}",
+            [*ncells, cap, wpad, kpad] + _sec_ints(sections),
+            [keep_radius * keep_radius], pos_g, sp_g, h, inv, ovf)
+    return inv, ovf
+
+
+def build_idx(inv, kpad):
+    """idx (replaces aev_asn._build_idx_kernel)."""
+    if not _route("build_idx", inv):
+        return build_idx_plain(inv, kpad)
+    if inv.dtype != torch.int16 or inv.dim() != 3:
+        raise ValueError(f"build_idx: inv {tuple(inv.shape)} {inv.dtype}")
+    nc, cap, wpad = inv.shape
+    idx = torch.empty((nc, cap, kpad), dtype=torch.int16, device=inv.device)
+    _launch("build_idx", "asn_build_idx_any", [nc * cap, wpad, kpad], [0.0],
+            inv, idx)
+    return idx
+
+
+def _rep_fields(rep, sections):
+    if rep is None:
+        return [0, 0, 1], [0.0, 1.5], [0.0] * _MAX_S, [0.0] * _MAX_S
+    env = {"smooth": 0, "cosine": 1, "none": 2}[rep.cutoff_fn]
+    return ([1, env, int(rep.k_f == 1.5)], [rep.cutoff, rep.k_f],
+            _pad8(rep.alpha[s] for s, _ in sections),
+            _pad8(rep.zeff[s] for s, _ in sections))
+
+
+def step_fused(pos_g, sp_g, h, idx, ncells, spec, sections, caps, rep):
+    """(rad, cmp, rank2, deficit) (replaces aev_asn._step_fused_kernel)."""
+    if not _route("step_fused", pos_g, sp_g, h, idx):
+        return step_fused_plain(pos_g, sp_g, h, idx, ncells, spec, sections,
+                                caps, rep)
+    _check_grid("step_fused", ncells, pos_g, sp_g, h)
+    nc, cap = sp_g.shape
+    kpad = idx.shape[-1]
+    if idx.shape != (nc, cap, kpad) or idx.dtype != torch.int16:
+        raise ValueError(f"step_fused: idx {tuple(idx.shape)} {idx.dtype}")
+    dev, dtype = pos_g.device, pos_g.dtype
+    k = _step_consts(spec, dtype)
+    a_offs, atot = _a_offsets(sections, caps)
+    srl = len(sections) * k["nr"]
+    rad = torch.empty((nc, cap, srl + 1), dtype=dtype, device=dev)
+    cmp = torch.empty((nc, cap, 6, atot), dtype=dtype, device=dev)
+    rank2 = torch.empty((nc, cap, kpad), dtype=torch.int32, device=dev)
+    deficit = torch.full((_MAX_S,), DEFICIT_FLOOR, dtype=torch.int32,
+                         device=dev)
+    rep_i, rep_f, alpha, zeff = _rep_fields(rep, sections)
+    a_s = _pad8(a_offs[s][1] if s in a_offs else 0 for s, _ in sections)
+    a_off = _pad8(a_offs[s][0] if s in a_offs else 0 for s, _ in sections)
+    ip = ([*ncells, cap, _round_lane(27 * cap), kpad, k["nr"], atot, srl]
+          + rep_i + _sec_ints(sections) + a_s + a_off)
+    fp = ([k["rc"], k["eta"], k["mu0"], k["delta"], k["tiny"], k["pmin"],
+           k["rca"], k["big"]] + rep_f + alpha + zeff)
+    _launch("step_fused",
+            f"asn_step_fused_{_suffix('step_fused', dtype)}", ip, fp, pos_g,
+            sp_g, h, idx, rad, cmp, rank2, deficit)
+    return rad, cmp, rank2, deficit
+
+
+def packed_fwd(cat, spec, caps_t, a_offs):
+    """[rows, n_blocks * 32] (replaces aev_asn._packed_fwd_kernel; one
+    call per occupancy tier)."""
+    if not _route("packed_fwd", cat):
+        return packed_fwd_plain(cat, spec, caps_t, a_offs)
+    rows, w5 = cat.shape
+    atot = w5 // 5
+    blocks, q_total, _ = _packed_layout(spec, caps_t, a_offs)
+    if len(blocks) > _MAX_BLOCKS or atot * 5 != w5:
+        raise ValueError(f"packed_fwd: {len(blocks)} blocks, cat {w5} wide")
+    ip, fp = aev_roll._angular_params(spec, (), cat.dtype)
+    table = _lane_table(spec, caps_t, a_offs, cat.device)
+    out = torch.empty((rows, len(blocks) * 32), dtype=cat.dtype,
+                      device=cat.device)
+    bases = [b[8] for b in blocks]
+    counts = [b[5] * (b[5] - 1) // 2 if b[7] else b[5] * b[6]
+              for b in blocks]
+    pad = [0] * (_MAX_BLOCKS - len(blocks))
+    pmin = 1e-30 if cat.dtype == torch.float32 else 0.0
+    _launch("packed_fwd", f"asn_packed_fwd_{_suffix('packed_fwd', cat.dtype)}",
+            [rows, atot, len(blocks), ip[1]] + bases + pad + counts + pad,
+            fp + [pmin], cat, table, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Flat-row glue and the fused forward
+# ---------------------------------------------------------------------------
+
+
+_KERNELS = {"step": step_fused, "packed": packed_fwd}
+_PLAIN = {"step": step_fused_plain, "packed": packed_fwd_plain}
+
+
+def _tier_pad_row(atot, rca, dtype, device):
+    """Dead-row value of the 5 concatenated slot fields [5 atot]."""
+    vals = torch.zeros(5 * atot, dtype=dtype, device=device)
+    vals[3 * atot:4 * atot] = 2.0 * rca + 10.0
+    return vals
+
+
+def _compact_to_flat(cmp, cell, slot, n, n_pad2, pad_row):
+    """[n_pad2, 5 atot]: the packed slot fields (ux, uy, uz, d, fc) of
+    the first n atoms' grid rows, in atom order, concatenated field after
+    field; pad rows hold the dead-slot values."""
+    atot = pad_row.shape[0] // 5
+    cat = cmp[cell[:n], slot[:n]][:, :5].reshape(n, 5 * atot)
+    return torch.cat([cat, pad_row.expand(n_pad2 - n, -1)])
+
+
+def _gather_tier_cat(cat, row_at, valid, pad_row):
+    """A tier's rows of the flat slot fields; invalid rows get the
+    dead-slot values."""
+    return torch.where(valid[:, None], cat[row_at], pad_row).contiguous()
+
+
+def _row_counts(cat, a_offs, rca):
+    """([rows, n_present] within-cutoff counts per section, species order)
+    from the packed distances (live slots are <= Rca, dead ones parked at
+    2 Rca + 10)."""
+    atot = cat.shape[1] // 5
+    d = cat[:, 3 * atot:4 * atot]
+    cols = [torch.sum(d[:, off:off + a_s] < rca + 1.0, dim=1)
+            for off, a_s in a_offs.values()]
+    return torch.stack(cols, dim=1), tuple(a_offs)
+
+
+def _tier_partition(cnts, sp_order, tiers, n):
+    """Partition flat atom rows into tier regions: (pos_of [n_pad2] row in
+    the concatenated tier regions, per-tier gather rows row_at [rows_t],
+    per-tier valid masks, spill = rows the last tier's capacity could not
+    hold). Rows that outgrow a tier's caps, or its row capacity, fall
+    through to the next tier. Ranks are cumulative sums; the q-th taken
+    row is found by searchsorted on the taken rows' running count."""
+    n_pad2 = cnts.shape[0]
+    dev = cnts.device
+    real = torch.arange(n_pad2, device=dev) < n
+    assigned = torch.zeros(n_pad2, dtype=torch.bool, device=dev)
+    pos_of = torch.zeros(n_pad2, dtype=torch.int64, device=dev)
+    row_ats, valids = [], []
+    spill = torch.zeros((), dtype=torch.int64, device=dev)
+    base = 0
+    last = len(tiers) - 1
+    for t, (caps_t, rows_t) in enumerate(tiers):
+        fits = real & ~assigned
+        if t != last:
+            for j, s in enumerate(sp_order):
+                fits = fits & (cnts[:, j] <= caps_t[s])
+        f_i = fits.to(torch.int64)
+        rank = torch.cumsum(f_i, 0) - f_i  # exclusive
+        take = fits & (rank < rows_t)
+        pos_of = torch.where(take, base + rank, pos_of)
+        g_t = torch.cumsum(take.to(torch.int64), 0)
+        q = torch.arange(1, rows_t + 1, device=dev)
+        valid = q <= g_t[-1]
+        src = torch.searchsorted(g_t, q)
+        row_ats.append(torch.where(valid, src, 0))
+        valids.append(valid)
+        assigned = assigned | take
+        if t == last:
+            spill = f_i.sum() - g_t[-1]
+        base += rows_t
+    return pos_of, row_ats, valids, spill
+
+
+def _angular_pair_stage(spec, sections, caps, tiers, n, cmp, deficit, cell,
+                        slot, ops):
+    """([n, n_blocks * 32] compact angular AEV, deficit) from the packed
+    slots: flat atom rows (padded to the flat row block), optionally split
+    into occupancy tiers of narrower caps; tiered, the deficit gains one
+    trailing entry, the rows the last tier could not hold."""
+    rca = spec.angular_cutoff
+    a_offs, atot = _a_offsets(sections, caps)
+    dtype, dev = cmp.dtype, cmp.device
+    if _packed_layout(spec, caps, a_offs) is None:
+        return cmp.new_zeros((n, 0)), deficit
+    r = _r_flat(n)
+    n_pad2 = -(-n // r) * r
+    pad_row = _tier_pad_row(atot, rca, dtype, dev)
+    cat = _compact_to_flat(cmp, cell, slot, n, n_pad2, pad_row)
+    tiers_n = _norm_tiers(tiers, caps, r, n_pad2)
+    if tiers_n is None:
+        return ops["packed"](cat, spec, caps, a_offs)[:n], deficit
+    cnts, sp_order = _row_counts(cat, a_offs, rca)
+    pos_of, row_ats, valids, spill = _tier_partition(cnts, sp_order,
+                                                     tiers_n, n)
+    outs = []
+    for (caps_t, _), row_at, valid in zip(tiers_n, row_ats, valids):
+        outs.append(ops["packed"](_gather_tier_cat(cat, row_at, valid,
+                                                   pad_row),
+                                  spec, caps_t, a_offs))
+    out = torch.cat(outs)[pos_of[:n]]
+    return out, torch.cat([deficit, spill.to(dtype)[None]])
+
+
+def _forward(static, pos, h, inv_bins, csp_grid, cell, slot, idx, ops):
+    spec, ncells, sections, caps, tiers, rep = static
+    pos_g, sp_g = aev_roll._grid_inputs(inv_bins, pos, csp_grid)
+    rad, cmp, _, deficit = ops["step"](pos_g, sp_g, h, idx, ncells, spec,
+                                       sections, caps, rep)
+    n = cell.shape[0]
+    srl = rad.shape[-1] - 1
+    rows = rad[cell, slot]
+    deficit = deficit[:spec.num_species].to(pos.dtype)
+    angular, deficit = _angular_pair_stage(spec, sections, caps, tiers, n,
+                                           cmp, deficit, cell, slot, ops)
+    return rows[:, :srl], rows[:, srl], angular, deficit
+
+
+class _AsnFused(torch.autograd.Function):
+    """The fused forward on the card; its backward is the next slice."""
+
+    @staticmethod
+    def forward(ctx, pos, h, inv_bins, csp_grid, cell, slot, idx, static):
+        out = _forward(static, pos, h, inv_bins, csp_grid, cell, slot, idx,
+                       _KERNELS)
+        ctx.mark_non_differentiable(out[3])
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(BACKWARD_MISSING)
+
+
+def build_assignment(grid, bins, pos, box, sections, kpad, keep_radius):
+    """Assignment over the grid's 27-bin window for lanes within
+    `keep_radius`. `sections`: ((species, k_s), ...) of the present
+    species; compact lanes [off_s, off_s + k_s) hold species s, ranked by
+    window lane. `kpad`: a multiple of 128 with sum(k_s) <= kpad - 1 (the
+    last lane is the inverse map's dead lane). Tables are int16."""
+    _, k_total = _sec_offsets(sections)
+    if kpad % _LANE or k_total > kpad - 1:
+        raise ValueError(f"kpad {kpad} must be a multiple of {_LANE} above "
+                         f"the section total {k_total}")
+    wpad = _round_lane(27 * grid.cap)
+    if wpad >= 2 ** 15:
+        raise ValueError(f"window of {wpad} lanes does not fit int16")
+    with torch.no_grad():
+        pos_g, sp_g = aev_roll._grid_inputs(bins.inv, pos, bins.species_grid)
+        inv, ovf = build_inv(pos_g, sp_g, box.h.contiguous(), grid.ncells,
+                             sections, kpad, keep_radius)
+        idx = build_idx(inv, kpad)
+    n_sp = 1 + max(s for s, _ in sections)
+    ovf_sec = ovf[:n_sp].to(pos.dtype)
+    return Assignment(idx=idx, inv=inv, ovf=ovf_sec.max(), ovf_sec=ovf_sec)
+
+
+def aev_asn_fused(aev_spec, grid, bins, asn, pos, box, sections, caps,
+                  tiers=None, repulsion=None, plain=False):
+    """(radial [n, S_present*16], erep [n] Hartree, angular [n, blocks*32],
+    deficit): both AEV channels in compact columns (present sections;
+    present species-pair blocks, see present_channels) through one fused
+    forward over the frozen assignment `asn`.
+
+    `caps`: per-step per-species angular capacities; deficit[s] > 0 means
+    a cap truncated real neighbors this step. `tiers` ((caps_t, rows_t),
+    ..., last at the full caps): occupancy tiers of the pair stage; the
+    deficit then gains a trailing entry, the rows the last tier could not
+    hold.
+
+    Differentiable with respect to `pos` and `box.h` on the CPU (autograd
+    through the plain versions). On the card it launches the kernels and
+    has no backward yet. `plain=True` runs the plain versions whatever
+    the device (the reference the kernels are held against)."""
+    tiers_t = (tuple((tuple(int(c) for c in caps_t), int(rw))
+                     for caps_t, rw in tiers) if tiers else None)
+    static = (aev_spec, tuple(grid.ncells), tuple(sections), tuple(caps),
+              tiers_t, repulsion)
+    args = (pos, box.h.contiguous(), bins.inv, bins.species_grid, bins.cell,
+            bins.slot, asn.idx)
+    if plain:
+        return _forward(static, *args, _PLAIN)
+    if pos.device.type == "cuda":
+        return _AsnFused.apply(*args, static)
+    return _forward(static, *args, _KERNELS)

@@ -344,17 +344,25 @@ def _angular_slots(caps, present, pos_g, cp, cs, cst):
 
 def _pair_terms(cst, sl1, sl2, same):
     """Pair tensors [NC, cap, a1, a2] of one species-pair block."""
-    u1, u2 = sl1["u"][:, :, :, None, :], sl2["u"][:, :, None, :, :]
-    d1, d2 = sl1["d"][:, :, :, None], sl2["d"][:, :, None, :]
-    fc1, fc2 = sl1["fc"][:, :, :, None], sl2["fc"][:, :, None, :]
+    pt = _pair_terms_core(
+        cst, sl1["u"][:, :, :, None, :], sl2["u"][:, :, None, :, :],
+        sl1["d"][:, :, :, None], sl2["d"][:, :, None, :],
+        sl1["fc"][:, :, :, None], sl2["fc"][:, :, None, :])
+    if same:
+        a = pt["fc12"].shape[-1]
+        eye = torch.eye(a, dtype=torch.bool, device=pt["fc12"].device)
+        pt["fc12"] = torch.where(eye, 0.0, pt["fc12"])
+    return pt
+
+
+def _pair_terms_core(cst, u1, u2, d1, d2, fc1, fc2):
+    """The pair-term body (aev_pallas.py `_pair_terms_core`) on broadcast
+    arms: unit vectors u1, u2 (trailing axis 3), distances d1, d2 and
+    cutoff values fc1, fc2."""
     cosq = torch.clamp(torch.sum(u1 * u2, dim=-1), -1.0, 1.0)
     c95 = 0.95 * cosq
     sv = torch.sqrt(1.0 - c95 * c95)
     fc12 = fc1 * fc2
-    if same:
-        a = fc12.shape[-1]
-        eye = torch.eye(a, dtype=torch.bool, device=fc12.device)
-        fc12 = torch.where(eye, 0.0, fc12)
     x2 = torch.clamp(0.5 * (d1 + d2), max=cst["rca"] + 1.0) - cst["mu0"]
     e_j = []
     for j in range(cst["n_a"]):

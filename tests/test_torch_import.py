@@ -56,7 +56,9 @@ def blocked_import():
 def test_every_module_imports_with_jax_blocked(blocked_import):
     mods = set(blocked_import["modules"])
     for name in ("lammps_ani_torch.ops.aev_roll", "lammps_ani_torch.ops._build",
+                 "lammps_ani_torch.ops.aev_asn",
                  "lammps_ani_torch.md.simulation",
+                 "lammps_ani_torch.models.repulsion",
                  "lammps_ani_torch.models.zoo"):
         assert name in mods
     assert blocked_import["loaded_forbidden"] == []
