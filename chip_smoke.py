@@ -11,47 +11,52 @@ object per line; any failure raises and the script exits non-zero:
   device   the card as torch and nvidia-smi report it.
   build    nvcc builds lammps_ani_torch/csrc/aev_roll.cu and aev_asn.cu
            for sm_90a, both at once; ptxas's registers per kernel.
-  kernels  each of the four AEV kernels against its plain PyTorch version
+  kernels  each of the four roll kernels against its plain PyTorch version
            on the card, WATER30 x 6^3 (6,480 atoms), in f64 and f32; the
            kernels' backwards against autograd through the plain forwards
-           (f64); the whole potential (E, F, W) on the card against the
-           plain path on the CPU, WATER30 x 4^3 (1,920 atoms), f64.
-  main     the MD main path through the user's entry points (zoo.ani2x,
-           Simulation.init_state, Simulation.run): ANI-2x at full width,
-           one model, weights drawn from a seed, f32; WATER30 x 15^3 =
-           101,250 atoms; dt 0.5 fs, 12-step chunks. The tile was not
-           equilibrated under these weights, so 12 chunks of Langevin
-           300 K at damp 10 fs bring the temperature to 300 K first; then
-           2 warm and 4 timed chunks at damp 100 fs. The launch counts are
-           zeroed just before and read just after; the line gives the
-           timed window's temperature drift and its change of work.
-  timing   each kernel at the main path's shapes (its final state, f32)
-           against its plain version: error, ms, plain ms and the bound.
-  profile  from the main path's final state: one force evaluation (CUDA
-           events), one chunk on the host clock, and one chunk under
-           torch.profiler: device ms by group (the AEV kernels, matrix
-           products, wing folds, the rest) and the device's idle share.
-  asn_kernels  the four asn kernels (csrc/aev_asn.cu: assignment build
-           inv and idx, fused step forward, packed angular pairs) against
-           their plain versions on the card, WATER30 x 6^3 (6,480 atoms)
-           with ANI-2x + XTB repulsion, in f64 and f32: integer outputs
-           (tables, overflow, rank2, deficits) exactly, floats within the
-           limits below; and atomic_energies_asn on the card against the
-           plain path on the CPU (f64).
-  asn      the asn path (build_assignment, then atomic_energies_asn) at
-           the main path's final state (positions wrapped into the box),
-           101,250 atoms, f32, ANI-2x + XTB repulsion, one model, with the
-           launch counts zeroed just before and read just after: its grid,
-           sections, kpad, caps and tiers; overflow and deficits (both
-           must be <= 0); peak memory of that call; rebuild, forward and
-           energy ms (CUDA events, three rounds of 10 calls); one rebuild
-           + energy call under torch.profiler (device ms by group, idle
-           share); the energy against the plain versions on the card;
-           with repulsion off, the energies against the roll engine's at
-           the same state and weights (held in f64, reported in f32);
-           each asn kernel's error, ms, plain ms and bound.
+           (f64).
+  potential  E, F, W of the roll engine on the card against the plain path
+           on the CPU, WATER30 x 4^3 (1,920 atoms), f64.
+  asn_kernels  the eight asn kernels (csrc/aev_asn.cu: assignment build
+           inv and idx, fused step forward, packed angular pairs, and the
+           backward's radial_gamma, packed_bwd, chain_sum and wing) against
+           their plain versions on the card at WATER30 x 6^3 with ANI-2x +
+           XTB repulsion, sized by `Simulation`, in f64 and f32: integer
+           outputs exactly, floats within the limits below; the whole
+           backward (dpos, dh) of `aev_asn_fused` against autograd through
+           the plain forwards (f64); two calls bit for bit (f32); E, F, W of
+           `energy_forces_virial_asn` on the card against the CPU (f64);
+           with repulsion off, F and W against the roll engine's (f64).
+  main     the MD main path through the user's entry points (zoo.ani2x
+           with repulsion, Simulation with its default engine pallas_asn,
+           init_state, run): ANI-2x + XTB repulsion at full width, one
+           model, weights drawn from a seed, f32; WATER30 x 15^3 = 101,250
+           atoms; dt 0.5 fs, 12-step chunks. The tile was not equilibrated
+           under these weights, so 12 chunks of Langevin 300 K at damp
+           10 fs come first; then 2 warm and 4 timed chunks at damp 100 fs
+           (the timed window is taken again if a capacity regrew in it).
+           The launch counts are zeroed just before and read just after;
+           the line gives ms/step, ns/day, the timed window's temperature
+           drift, the sizing `Simulation` derived and the regrows by kind.
+  profile  one asn MD chunk on the host clock and one under
+           torch.profiler: device ms per step by group (the eight asn
+           kernels by name, matrix products, wing folds, the rest) and
+           the device's idle share.
+  roll_md  the roll engine (pallas_full, no repulsion) from the main
+           path's final positions and velocities: 1 warm and 3 timed
+           chunks, its launch counts zeroed just before: its ms/step
+           beside the asn engine's, and the roll kernels' inputs.
+  timing   each roll kernel at the roll run's final state (f32) against
+           its plain version: error, ms, plain ms and the bound.
+  asn_timing  at the main path's final state, after a fresh rebuild: each
+           of the eight asn kernels' error, ms, plain ms, bound and launches
+           per MD step; rebuild, forward and force-evaluation ms (CUDA
+           events, three rounds); the energies against the plain versions
+           on the card; with repulsion off, the energies against the roll
+           engine's at the same positions (held in f64, reported in f32);
+           the MLP's forward and backward ms on the compact columns.
 
-Then one line {"kernels": [...]} (all eight kernels), nvidia-smi's name
+Then one line {"kernels": [...]} (all twelve kernels), nvidia-smi's name
 and power-limit line, and last {"ok": true, "device": {...}}.
 """
 
@@ -70,6 +75,7 @@ import torch
 from lammps_ani_torch import Box, NeighborConfig, Simulation
 from lammps_ani_torch.io.lammps_data import LammpsData, replicate
 from lammps_ani_torch.md import integrate
+from lammps_ani_torch.models import networks as netmod
 from lammps_ani_torch.models import potential as potmod
 from lammps_ani_torch.models import zoo
 from lammps_ani_torch.ops import _build
@@ -83,7 +89,9 @@ TILE = os.path.join(ROOT, "examples", "benchmark", "data", "equil_water30.npz")
 SOURCE = "lammps_ani_torch/csrc/aev_roll.cu"
 ASN_SOURCE = "lammps_ani_torch/csrc/aev_asn.cu"
 KERNELS = ("radial_fwd", "radial_bwd", "angular_fwd", "angular_bwd")
-ASN_KERNELS = ("build_inv", "build_idx", "step_fused", "packed_fwd")
+ASN_KERNELS = ("build_inv", "build_idx", "step_fused", "packed_fwd",
+               "radial_gamma", "packed_bwd", "chain_sum", "wing")
+CHUNK = 12
 
 # The 30-atom water tile (species H=0, O=3) and the masses of the 7 ANI-2x
 # species (H, C, N, O, S, F, Cl), g/mol.
@@ -152,18 +160,24 @@ def water_box(rep: int) -> LammpsData:
     return replicate(tile, rep, rep, rep)
 
 
-def make_sim(data, dtype, device, integrator=None, rebuild_every=12,
-             seed=1):
+def make_sim(data, dtype, device, integrator=None, rebuild_every=CHUNK,
+             seed=1, engine=None, repulsion=None):
+    """A `Simulation` of ANI-2x, one model, weights drawn from `seed`;
+    the default engine (pallas_asn) carries the XTB repulsion term, the
+    roll engine (pallas_full) cannot."""
     n = data.n_atoms
+    if repulsion is None:
+        repulsion = engine != "pallas_full"
     nbr = NeighborConfig(cutoff=5.1, skin=2.0, k_max=128,
                          ghost_capacity=max(4096, n // 2),
                          use_cell_list=n > 4096, cell_capacity=32,
                          rebuild_every=rebuild_every)
-    pot = zoo.ani2x(num_models=1, seed=seed, dtype=dtype, device=device)
+    pot = zoo.ani2x(num_models=1, seed=seed, dtype=dtype, device=device,
+                    repulsion=repulsion)
     return Simulation(potential=pot, species=data.species,
                       masses=data.masses_by_type[data.species], nbr=nbr,
                       dt=0.5, integrator=integrator, dtype=dtype,
-                      device=device)
+                      device=device, engine=engine)
 
 
 def make_box(data, dtype, device):
@@ -365,7 +379,7 @@ def phase_kernels_small(device, rep=6):
     data = water_box(rep)
     result = {}
     for dtype in (torch.float64, torch.float32):
-        sim = make_sim(data, dtype, device)
+        sim = make_sim(data, dtype, device, engine="pallas_full")
         state = sim.init_state(data.positions, make_box(data, dtype, device))
         k = kernel_inputs(sim, state)
         errs = {}
@@ -447,7 +461,7 @@ def phase_potential(device, rep=4):
     data = water_box(rep)
     res = {}
     for dev in (device, "cpu"):
-        sim = make_sim(data, torch.float64, dev)
+        sim = make_sim(data, torch.float64, dev, engine="pallas_full")
         st = sim.init_state(data.positions,
                             make_box(data, torch.float64, dev))
         res[dev] = (sim, st)
@@ -468,83 +482,146 @@ def phase_potential(device, rep=4):
         raise AssertionError(f"potential: card vs CPU plain: {line}")
 
 
-def phase_main(device, rep=15, equil_chunks=12, warm_chunks=2,
-               timed_chunks=4, seed=1):
-    """The MD main path at 101,250 atoms; returns (sim, state, launches,
-    work at the start of the timed window)."""
-    data = water_box(rep)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    chunk = 12
-    if torch.device(device).type == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    ar.reset_counts()
-    sim = make_sim(data, torch.float32, device,
-                   integrator=integrate.Langevin(temp=300.0, damp=10.0,
-                                                 generator=gen),
-                   rebuild_every=chunk, seed=seed)
-    box = make_box(data, torch.float32, device)
-    t0 = time.perf_counter()
-    state = sim.init_state(data.positions, box, temp=300.0, seed=seed)
-    state, equil_rows = sim.run(state, equil_chunks * chunk, thermo_every=1)
-    sim.integrator = integrate.Langevin(temp=300.0, damp=100.0,
-                                        generator=gen)
-    state, warm_rows = sim.run(state, warm_chunks * chunk, thermo_every=1)
-    _sync(device)
-    t_setup = time.perf_counter() - t0
-    regrow_warm = sim.regrow_events
-    work_start = work_counts(kernel_inputs(sim, state))
-    torch.cuda.empty_cache()
-    n_steps = timed_chunks * chunk
+def _run_timed(sim, state, chunks, device):
+    """`chunks` chunks, each on the host clock up to a synchronize:
+    (state, thermo rows, ms/step by chunk)."""
     rows, chunk_ms = [], []
-    for _ in range(timed_chunks):
+    for _ in range(chunks):
         t0 = time.perf_counter()
-        state, r = sim.run(state, chunk, thermo_every=1)
+        state, r = sim.run(state, CHUNK, thermo_every=1)
         _sync(device)
-        chunk_ms.append((time.perf_counter() - t0) * 1e3 / chunk)
+        chunk_ms.append((time.perf_counter() - t0) * 1e3 / CHUNK)
         rows += r
-    elapsed = sum(chunk_ms) * chunk / 1e3
-    launches = dict(ar.LAUNCHES)
-    plain = dict(ar.PLAIN_CALLS)
-    ms_step = elapsed / n_steps * 1e3
+    return state, rows, chunk_ms
+
+
+def _md_numbers(sim, rows, chunk_ms):
+    ms_step = float(np.mean(chunk_ms))
     temps = [r["temp"] for r in rows]
-    line = {"phase": "main", "atoms": data.n_atoms, "dtype": "float32",
-            "models": 1, "dt_fs": sim.dt, "steps_timed": n_steps,
-            "ms_per_step": ms_step, "ms_per_step_by_chunk": chunk_ms,
+    return {"steps_timed": len(rows), "ms_per_step": ms_step,
+            "ms_per_step_by_chunk": chunk_ms,
             "ns_per_day": sim.dt * 1e-6 * 86400.0 / (ms_step * 1e-3),
-            "setup_equil_and_warm_s": t_setup,
-            "equil": {"chunks": equil_chunks, "damp_fs": 10.0,
-                      "temp_first": equil_rows[0]["temp"],
-                      "temp_max": max(r["temp"] for r in equil_rows),
-                      "temp_last": equil_rows[-1]["temp"]},
             "timed_temp": {"first": temps[0], "last": temps[-1],
                            "min": min(temps), "max": max(temps),
                            "mean": float(np.mean(temps))},
             "timed_pe_first_last": [rows[0]["pe"], rows[-1]["pe"]],
-            "work_timed_start": work_start,
-            "regrow_events_warm": regrow_warm,
-            "regrow_events_timed": sim.regrow_events - regrow_warm,
-            "ncells": list(sim._roll_grid.ncells),
-            "roll_cap": sim._roll_grid.cap, "radial_shell": sim._roll_shell,
-            "angular_caps": list(sim.potential.spec.angular_caps),
-            "k_max": sim._k_max, "first_row": equil_rows[0],
-            "last_row": rows[-1], "launches": launches,
-            "plain_calls": plain,
-            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
-                            if torch.device(device).type == "cuda"
-                            else None)}
-    emit(line)
+            "last_row": rows[-1]}
+
+
+def _check_md(name, rows, state, launches, plain):
     if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel was not launched on the main path: "
-                             f"{launches}")
+        raise AssertionError(f"{name}: a kernel was not launched: {launches}")
     if any(plain.values()):
-        raise AssertionError(f"a plain version ran on the main path: {plain}")
-    finite = all(np.isfinite(r[key]) for r in equil_rows + warm_rows + rows
+        raise AssertionError(f"{name}: a plain version ran: {plain}")
+    finite = all(np.isfinite(r[key]) for r in rows
                  for key in ("pe", "ke", "temp", "press"))
     if not (finite and bool(torch.isfinite(state.force).all())
             and bool(torch.isfinite(state.pos).all())):
-        raise AssertionError("main path: non-finite pe, forces, positions "
-                             "or temperature")
+        raise AssertionError(f"{name}: non-finite pe, forces, positions or "
+                             "temperature")
+
+
+def asn_sizing(sim):
+    """What `Simulation` derived for the asn engine."""
+    return {"ncells": list(sim._roll_grid.ncells), "cap": sim._roll_grid.cap,
+            "sections": [list(x) for x in sim._sections], "kpad": sim.kpad,
+            "angular_caps": list(sim.potential.spec.angular_caps),
+            "tiers": sim._tiers and [[list(c), r] for c, r in sim._tiers],
+            "k_max": sim._k_max}
+
+
+def phase_main(device, rep=15, equil_chunks=12, warm_chunks=2,
+               timed_chunks=4, seed=1):
+    """The MD main path at 101,250 atoms on the default engine (pallas_asn,
+    ANI-2x + XTB repulsion); returns (sim, state, launches)."""
+    data = water_box(rep)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    asn.reset_counts()
+    ar.reset_counts()
+    sim = make_sim(data, torch.float32, device,
+                   integrator=integrate.Langevin(temp=300.0, damp=10.0,
+                                                 generator=gen),
+                   rebuild_every=CHUNK, seed=seed)
+    box = make_box(data, torch.float32, device)
+    t0 = time.perf_counter()
+    state = sim.init_state(data.positions, box, temp=300.0, seed=seed)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    sizing_init = asn_sizing(sim)
+    state, equil_rows = sim.run(state, equil_chunks * CHUNK, thermo_every=1)
+    sim.integrator = integrate.Langevin(temp=300.0, damp=100.0,
+                                        generator=gen)
+    state, warm_rows = sim.run(state, warm_chunks * CHUNK, thermo_every=1)
+    _sync(device)
+    t_setup = time.perf_counter() - t0
+    regrow_equil = dict(sim.regrow_kinds)
+    # a chunk that regrew a capacity ran twice: take the window again
+    for attempt in range(3):
+        before = sim.regrow_events
+        state, rows, chunk_ms = _run_timed(sim, state, timed_chunks, device)
+        if sim.regrow_events == before:
+            break
+    else:
+        raise AssertionError("main: every timed window regrew a capacity: "
+                             f"{sim.regrow_kinds}")
+    launches, plain = dict(asn.LAUNCHES), dict(asn.PLAIN_CALLS)
+    line = {"phase": "main", "engine": sim.engine, "atoms": data.n_atoms,
+            "dtype": "float32", "models": 1, "repulsion": True,
+            "dt_fs": sim.dt, **_md_numbers(sim, rows, chunk_ms),
+            "init_state_s": t_init, "setup_equil_and_warm_s": t_setup,
+            "equil": {"chunks": equil_chunks, "damp_fs": 10.0,
+                      "temp_first": equil_rows[0]["temp"],
+                      "temp_max": max(r["temp"] for r in equil_rows),
+                      "temp_last": equil_rows[-1]["temp"]},
+            "sizing_at_init": sizing_init, "sizing": asn_sizing(sim),
+            "regrow_kinds_equil_and_warm": regrow_equil,
+            "regrow_kinds_timed": {k: v - regrow_equil[k]
+                                   for k, v in sim.regrow_kinds.items()},
+            "timed_windows_taken": attempt + 1,
+            "first_row": equil_rows[0], "launches": launches,
+            "plain_calls": plain, "roll_launches": dict(ar.LAUNCHES),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(line)
+    _check_md("main", equil_rows + warm_rows + rows, state, launches, plain)
+    if any(ar.LAUNCHES.values()) or any(ar.PLAIN_CALLS.values()):
+        raise AssertionError("main: the asn engine ran a roll kernel")
+    return sim, state, launches
+
+
+def phase_roll_md(device, sim_asn, state_asn, warm_chunks=1, timed_chunks=3,
+                  seed=1):
+    """The roll engine (pallas_full, no repulsion) from the main path's
+    final positions and velocities; returns (sim, state, launches, work at
+    the start of the timed window)."""
+    data = water_box(15)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    ar.reset_counts()
+    sim = make_sim(data, torch.float32, device,
+                   integrator=integrate.Langevin(temp=300.0, damp=100.0,
+                                                 generator=gen),
+                   rebuild_every=CHUNK, seed=seed, engine="pallas_full")
+    state = sim.init_state(sim_asn.positions_input_order(state_asn),
+                           make_box(data, torch.float32, device),
+                           vel=sim_asn.velocities_input_order(state_asn))
+    state, warm_rows = sim.run(state, warm_chunks * CHUNK, thermo_every=1)
+    work_start = work_counts(kernel_inputs(sim, state))
+    torch.cuda.empty_cache()
+    before = sim.regrow_events
+    state, rows, chunk_ms = _run_timed(sim, state, timed_chunks, device)
+    launches, plain = dict(ar.LAUNCHES), dict(ar.PLAIN_CALLS)
+    emit({"phase": "roll_md", "engine": sim.engine, "atoms": data.n_atoms,
+          "dtype": "float32", "models": 1, "repulsion": False,
+          **_md_numbers(sim, rows, chunk_ms),
+          "work_timed_start": work_start,
+          "regrow_events_warm": before,
+          "regrow_events_timed": sim.regrow_events - before,
+          "ncells": list(sim._roll_grid.ncells),
+          "roll_cap": sim._roll_grid.cap, "radial_shell": sim._roll_shell,
+          "angular_caps": list(sim.potential.spec.angular_caps),
+          "launches": launches, "plain_calls": plain})
+    _check_md("roll_md", warm_rows + rows, state, launches, plain)
     return sim, state, launches, work_start
 
 
@@ -581,15 +658,6 @@ def phase_timing(sim, state, launches, work_start):
     return rows
 
 
-PROFILE_GROUPS = (
-    ("aev_kernels", ("radial_fwd_kernel", "radial_bwd_kernel",
-                     "angular_fwd_kernel", "angular_bwd_kernel",
-                     "dh_reduce_kernel")),
-    ("matmul", ("gemm", "Gemm", "cutlass", "sm90_xmma", "ampere_",
-                "Kernel2")),
-    ("roll_fold", ("roll",)))
-
-
 def _busy_ms(intervals):
     """Length of the union of [start, end) intervals (microseconds)."""
     total, cur_s, cur_e = 0.0, None, None
@@ -603,47 +671,6 @@ def _busy_ms(intervals):
     if cur_e is not None:
         total += cur_e - cur_s
     return total / 1e3
-
-
-def phase_profile(sim, state):
-    """Where one MD step spends its time, from the main path's final
-    state: one force evaluation (CUDA events), one chunk on the host
-    clock, and one chunk under torch.profiler. The idle share is 1 -
-    (device busy time of the profiled chunk) / (host time of the
-    unprofiled chunk): the profiler's own host overhead stretches the
-    profiled chunk's wall time. A chunk that overflowed a capacity runs
-    twice (regrow, then again), so both chunks are taken again until one
-    runs without a regrow."""
-    from torch.profiler import ProfilerActivity, profile
-
-    chunk = sim.nbr.rebuild_every
-    f_ms = time_ms(lambda: sim._forces(state.pos, state.box, state.bins),
-                   reps=5, warm=1)
-    regrows = 0
-    for _ in range(4):
-        before = sim.regrow_events
-        t0 = time.perf_counter()
-        state, _ = sim.run(state, chunk)
-        torch.cuda.synchronize()
-        chunk_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            state, _ = sim.run(state, chunk)
-            torch.cuda.synchronize()
-        if sim.regrow_events == before:
-            break
-        regrows += sim.regrow_events - before
-    else:
-        raise AssertionError("profile: every chunk regrew a capacity")
-    busy, groups, top = device_time(prof, chunk, PROFILE_GROUPS)
-    emit({"phase": "profile", "steps": chunk, "force_eval_ms": f_ms,
-          "regrows_skipped": regrows,
-          "angular_caps": list(sim.potential.spec.angular_caps),
-          "unprofiled_ms_per_step": chunk_ms / chunk,
-          "device_busy_ms_per_step": busy,
-          "device_idle_share": 1.0 - busy * chunk / chunk_ms,
-          "device_ms_per_step_by_group": groups,
-          "top_kernels_ms_per_step": top})
 
 
 def device_time(prof, calls, group_keys):
@@ -667,15 +694,8 @@ def device_time(prof, calls, group_keys):
 
 
 # ---------------------------------------------------------------------------
-# The asn path (ops/aev_asn.py): state, kernel inputs, bounds
+# The asn path (ops/aev_asn.py): kernel inputs, calls, bounds
 # ---------------------------------------------------------------------------
-
-# Keep radius and minimum bin side of the asn grid: Rcr + skin.
-KEEP_R = 5.1 + 2.0
-# Margins of the JAX package's asn engine (md/simulation.py): bin cap
-# +2 +4 slots, sections x1.1, angular caps x1.1 + 2 (+4 if <= 10), tier
-# rows x1.06 + 64 and, for the last tier, x1.3 + 4096.
-SEC_MARGIN, CAP_MARGIN, ROLL_CAP_MARGIN = 1.1, 1.1, 4
 
 # Operations per unit of work, counted as in OPS above:
 #   build_inv, per real candidate of a real center's 27-bin window:
@@ -684,166 +704,140 @@ SEC_MARGIN, CAP_MARGIN, ROLL_CAP_MARGIN = 1.1, 1.1, 4
 #   step_fused, per assigned lane: gather and distance 10; per lane within
 #     Rcr: cutoff 5, 16 shifts x 6, section sum; per lane within the
 #     repulsion cutoff: 30; per kept lane within Rca: slot fields 20;
-#   packed_fwd, per slot pair of filled slots: as angular_fwd's pair, 165.
+#   packed_fwd, per slot pair of filled slots: as angular_fwd's pair, 165;
+#   radial_gamma, per assigned lane: 10 + 6 for gamma a / d; per lane within
+#     Rcr: cutoff and slope 7, 16 shifts x 10; per repulsion lane: 45;
+#   packed_bwd, per filled slot pair: as angular_bwd's pair, 340, and 10
+#     for the two owner-pass visits;
+#   chain_sum, per filled slot: 25; per assigned lane: gather, sum and the
+#     nine dh terms 24;
+#   wing, per assigned lane: 3 adds.
 ASN_OPS = {"build_inv": {"lane": 10}, "build_idx": {"lane": 2},
            "step_fused": {"lane": 10, "rcr": 110, "rep": 30, "kept": 20},
-           "packed_fwd": {"pair": 165}}
+           "packed_fwd": {"pair": 165},
+           "radial_gamma": {"lane": 16, "rcr": 167, "rep": 45},
+           "packed_bwd": {"pair": 350},
+           "chain_sum": {"kept": 25, "lane": 24}, "wing": {"lane": 3}}
 
 
-def _ceil4(x) -> int:
-    return int(-(-int(x) // 4) * 4)
-
-
-def sorted_water(rep: int):
-    """WATER30 x rep^3 with atoms sorted by species (the sorted MLP's
-    order): (species, positions, data)."""
-    data = water_box(rep)
-    order = np.argsort(data.species, kind="stable")
-    return data.species[order], data.positions[order], data
-
-
-def asn_degrees(grid, bins, pos, box, spec):
-    """Neighbor counts of every real atom by species: within Rca ([n, S],
-    the tier search's matrix), the per-species maximum within the keep
-    radius (the sections), and the real (center, candidate) lanes of the
-    27-bin windows, within the keep radius and within Rcr."""
-    pos_g, sp_g = ar._grid_inputs(bins.inv, pos, bins.species_grid)
-    cp, cs = ar._candidates(grid.ncells, pos_g, sp_g, box.h, 1)
-    nc, cap = sp_g.shape
-    n_sp = spec.num_species
-    cnt = torch.zeros((nc, cap, n_sp), dtype=torch.int64, device=pos.device)
-    keep_max = torch.zeros(n_sp, dtype=torch.int64, device=pos.device)
-    lanes = {"window": 0, "keep": 0, "rcr": 0}
-    for rs in ar._row_chunks(nc, cap, cp.shape[1]):
-        _, dist, in_keep = ar._window_geometry(pos_g[rs], cp[rs], cap, 13,
-                                               KEEP_R)
-        real = (sp_g[rs] >= 0)[:, :, None] & (cs[rs] >= 0)[:, None, :]
-        lanes["window"] += int(real.sum())
-        in_keep = in_keep & real
-        lanes["keep"] += int(in_keep.sum())
-        lanes["rcr"] += int((in_keep & (dist <= spec.radial_cutoff)).sum())
-        in_ang = in_keep & (dist <= spec.angular_cutoff)
-        for s in range(n_sp):
-            m = (cs[rs] == s)[:, None, :]
-            cnt[rs, :, s] = (in_ang & m).sum(-1)
-            keep_max[s] = torch.maximum(keep_max[s],
-                                        (in_keep & m).sum(-1).max())
-        del dist, in_keep, in_ang, real
-    return cnt[bins.cell, bins.slot], keep_max.cpu().numpy(), lanes
-
-
-def derive_tiers(cnt, caps, n):
-    """Occupancy tiers as the JAX package's asn engine derives them (three
-    tiers, packed layout, from 4,096 atoms)."""
-    if n < 4096:
-        return None
-    ladder = asn.search_tier_ladder(cnt, caps, max_pre=2)
-    if ladder is not None:
-        tiers, used = [], 0
-        for caps_t, n_t in ladder:
-            tiers.append((tuple(caps_t), min(int(n_t * 1.06) + 64, n)))
-            used += n_t
-        tiers.append((tuple(caps), min(int((n - used) * 1.3) + 4096, n)))
-        return tuple(tiers)
-    res = asn.search_tiers(cnt, caps)
-    if res is None:
-        return None
-    caps0, n0 = res
-    return ((tuple(caps0), min(int(n0 * 1.06) + 64, n)),
-            (tuple(caps), min(int((n - n0) * 1.3) + 256, n)))
-
-
-def asn_setup(species, pos, box, spec):
-    """The asn engine's static state for these positions: the coarse grid
-    (bin side >= Rcr + skin) and its bins, sections, kpad, angular caps and
-    tiers, sized with the JAX package's margins."""
-    h = box.h.detach().cpu().numpy().astype(np.float64)
-    probe = crmod.RollGrid.for_box(h, KEEP_R, 64)
-    occ = int(crmod.build_bins(probe, pos, species, box).count_max)
-    grid = crmod.RollGrid(ncells=probe.ncells,
-                          cap=_ceil4(occ + 2 + ROLL_CAP_MARGIN))
-    bins = crmod.build_bins(grid, pos, species, box)
-    cnt, keep_max, lanes = asn_degrees(grid, bins, pos, box, spec)
-    sections = asn.sections_from_degrees(keep_max, SEC_MARGIN)
-    kpad = asn._round_lane(sum(k for _, k in sections) + 1)
-    deg = cnt.max(0).values.cpu().numpy()
-    caps = tuple(0 if d == 0 else _ceil4(
-        int(d * CAP_MARGIN + 2 + (4 if d * CAP_MARGIN <= 10 else 0)))
-        for d in deg)
-    cnt_np = cnt.cpu().numpy()
-    return dict(grid=grid, bins=bins, sections=sections, kpad=kpad,
-                caps=caps, tiers=derive_tiers(cnt_np, caps, len(cnt_np)),
-                cnt=cnt_np, lanes=lanes)
-
-
-def asn_inputs(st, pos, box, spec):
-    """The four asn kernels' inputs as the path hands them over: grid
-    inputs; inv and idx (plain, the common inputs of build_idx and
-    step_fused); and every packed_fwd call of one forward (one per tier),
-    recorded from the pair stage."""
-    grid, bins = st["grid"], st["bins"]
+def asn_inputs(sim, pos, box, seed=0):
+    """The eight asn kernels' inputs as the path hands them over, at the
+    wrapped positions `pos`, after a fresh rebuild: grid inputs; inv and
+    idx; the forward's residuals (slots, rank2, the rows of each packed
+    call); seeded cotangents of (radial, erep, angular) and what the
+    backward makes of them on the way (ga, gr, the tier cotangents, gsum,
+    gt)."""
+    spec = sim.potential.spec
+    grid, sections, caps = sim._roll_grid, sim._sections, spec.angular_caps
+    bins, a = sim._bins(pos, box)
     pos_g, sp_g = ar._grid_inputs(bins.inv, pos, bins.species_grid)
     h = box.h.contiguous()
-    inv, _ = asn.build_inv_plain(pos_g, sp_g, h, grid.ncells, st["sections"],
-                                 st["kpad"], KEEP_R)
-    idx = asn.build_idx_plain(inv, st["kpad"])
-    _, cmp, _, deficit = asn.step_fused_plain(
-        pos_g, sp_g, h, idx, grid.ncells, spec.aev, st["sections"],
-        st["caps"], spec.repulsion)
-    calls = []
-
-    def record(cat, aev_spec, caps_t, a_offs):
-        calls.append((cat, caps_t, a_offs))
-        return cat.new_zeros((cat.shape[0], 0))
-
+    static = (spec.aev, tuple(grid.ncells), sections, caps, sim._tiers,
+              spec.repulsion)
+    out, (cmp, rank2, part) = asn._forward(
+        static, pos, h, bins.inv, bins.species_grid, bins.cell, bins.slot,
+        a.idx, asn._KERNELS)
+    g = torch.Generator(device=pos.device).manual_seed(seed)
+    g_rad, g_rep, g_ang = (torch.randn(o.shape, generator=g, dtype=pos.dtype,
+                                       device=pos.device) for o in out[:3])
+    ga = ar._to_grid_rows(bins.inv, torch.cat([g_rad, g_rep[:, None]], 1),
+                          0.0).contiguous()
+    a_offs, atot = asn._a_offsets(sections, caps)
     n = bins.cell.shape[0]
-    asn._angular_pair_stage(spec.aev, st["sections"], st["caps"],
-                            st["tiers"], n, cmp, deficit.to(pos.dtype),
-                            bins.cell, bins.slot, {"packed": record})
-    return dict(pos_g=pos_g, sp_g=sp_g, h=h, inv=inv, idx=idx, calls=calls,
-                ncells=grid.ncells, spec=spec, st=st)
+    if part["tiers"] is None:
+        cat = part["cats"][0]
+        packed = [(cat, caps, torch.nn.functional.pad(
+            g_ang, (0, 0, 0, cat.shape[0] - n)))]
+    else:
+        ga_pad = torch.nn.functional.pad(
+            g_ang, (0, 0, 0, part["pos_of"].shape[0] - n))
+        packed = [(cat_t, caps_t,
+                   torch.where(valid[:, None], ga_pad[row_at], 0.0))
+                  for (caps_t, _), cat_t, row_at, valid in zip(
+                      part["tiers"], part["cats"], part["row_at"],
+                      part["valid"])]
+    gr = asn.radial_gamma(pos_g, sp_g, h, a.idx, ga, grid.ncells, spec.aev,
+                          sections, spec.repulsion)
+    gsum = asn._angular_gsum_grid(spec.aev, sections, caps, n, bins.inv,
+                                  g_ang, part, asn._KERNELS)
+    gt, _, _ = asn.chain_sum(rank2, a.idx, cmp, gsum, gr, grid.ncells,
+                             spec.aev)
+    return dict(pos_g=pos_g, sp_g=sp_g, h=h, bins=bins, a=a, cmp=cmp,
+                rank2=rank2, packed=packed, ga=ga, gr=gr, gsum=gsum, gt=gt,
+                ncells=grid.ncells, spec=spec, sections=sections, caps=caps,
+                kpad=sim.kpad, a_offs=a_offs, atot=atot,
+                keep_r=spec.cutoff + sim.nbr.skin, n=n)
 
 
 def asn_calls(k):
     """{name: (kernel call, plain call)} on the same inputs."""
-    st, spec = k["st"], k["spec"]
-    g = (k["pos_g"], k["sp_g"], k["h"], k["ncells"])
-    build = (st["sections"], st["kpad"], KEEP_R)
-    step = (k["idx"], k["ncells"], spec.aev, st["sections"], st["caps"],
-            spec.repulsion)
-    g3 = g[:3]
+    spec, aev = k["spec"], k["spec"].aev
+    g = (k["pos_g"], k["sp_g"], k["h"])
+    idx, inv = k["a"].idx, k["a"].inv
+    build = (k["ncells"], k["sections"], k["kpad"], k["keep_r"])
+    step = (idx, k["ncells"], aev, k["sections"], k["caps"], spec.repulsion)
+    gam = (idx, k["ga"], k["ncells"], aev, k["sections"], spec.repulsion)
+    chain = (k["rank2"], idx, k["cmp"], k["gsum"], k["gr"], k["ncells"], aev)
+    ao = k["a_offs"]
     return {
         "build_inv": (lambda: asn.build_inv(*g, *build),
                       lambda: asn.build_inv_plain(*g, *build)),
-        "build_idx": (lambda: asn.build_idx(k["inv"], st["kpad"]),
-                      lambda: asn.build_idx_plain(k["inv"], st["kpad"])),
-        "step_fused": (lambda: asn.step_fused(*g3, *step),
-                       lambda: asn.step_fused_plain(*g3, *step)),
+        "build_idx": (lambda: (asn.build_idx(inv, k["kpad"]),),
+                      lambda: (asn.build_idx_plain(inv, k["kpad"]),)),
+        "step_fused": (lambda: asn.step_fused(*g, *step),
+                       lambda: asn.step_fused_plain(*g, *step)),
         "packed_fwd": (
-            lambda: [asn.packed_fwd(c, spec.aev, ct, ao)
-                     for c, ct, ao in k["calls"]],
-            lambda: [asn.packed_fwd_plain(c, spec.aev, ct, ao)
-                     for c, ct, ao in k["calls"]]),
+            lambda: [asn.packed_fwd(c, aev, ct, ao) for c, ct, _ in
+                     k["packed"]],
+            lambda: [asn.packed_fwd_plain(c, aev, ct, ao) for c, ct, _ in
+                     k["packed"]]),
+        "radial_gamma": (lambda: (asn.radial_gamma(*g, *gam),),
+                         lambda: (asn.radial_gamma_plain(*g, *gam),)),
+        "packed_bwd": (
+            lambda: [asn.packed_bwd(c, gc, aev, ct, ao) for c, ct, gc in
+                     k["packed"]],
+            lambda: [asn.packed_bwd_plain(c, gc, aev, ct, ao) for c, ct, gc
+                     in k["packed"]]),
+        "chain_sum": (lambda: asn.chain_sum(*chain),
+                      lambda: asn.chain_sum_plain(*chain)),
+        "wing": (lambda: (asn.wing(k["gt"], inv),),
+                 lambda: (asn.wing_plain(k["gt"], inv),)),
     }
 
 
-# which outputs of each asn kernel are integers (compared exactly)
+# each asn kernel's outputs, and which are integers (compared exactly)
 ASN_OUTPUTS = {"build_inv": (("inv", True), ("ovf", True)),
                "build_idx": (("idx", True),),
                "step_fused": (("rad", False), ("cmp", False),
-                              ("rank2", True), ("deficit", True))}
+                              ("rank2", True), ("deficit", True)),
+               "radial_gamma": (("gr", False),),
+               "chain_sum": (("gt", False), ("fcen", False), ("dh", False)),
+               "wing": (("wing", False),)}
 
 
-def asn_compare(name, got, ref, dtype):
+def _chain_dh_scale(k, gt):
+    """Sum of |S| |gt| over the lanes: the size of the terms of
+    chain_sum's dh."""
+    cap = k["sp_g"].shape[1]
+    sh = ar._wrap_shift_tables(k["ncells"], 1, gt.dtype, gt.device).abs()
+    sh = torch.nn.functional.pad(sh, (0, 0, 0, 1))
+    total = gt.new_zeros((3, 3))
+    idx = k["a"].idx
+    for rs in asn._chunks(idx.shape[0], cap * idx.shape[2] * 16):
+        o_k = torch.clamp(idx[rs].to(torch.int64) // cap, max=27)
+        s_k = torch.gather(sh[rs], 1, o_k.reshape(o_k.shape[0], -1, 1)
+                           .expand(-1, -1, 3)).reshape(*o_k.shape, 3)
+        total += torch.einsum("nakm,nack->mc", s_k, gt[rs].abs())
+    return float(total.max())
+
+
+def asn_compare(name, k, got, ref):
     """Integer outputs must be equal; floats within TOL of the output's
-    largest magnitude. Raises on a mismatch."""
-    atol, rtol = TOL[dtype]
-    if name == "packed_fwd":
-        labels = tuple((f"tier{i}", False) for i in range(len(got)))
-    elif name == "build_idx":
-        got, ref, labels = (got,), (ref,), ASN_OUTPUTS[name]
-    else:
-        labels = ASN_OUTPUTS[name]
+    largest magnitude (dh: of the sum of its terms' magnitudes). Raises on
+    a mismatch."""
+    atol, rtol = TOL[k["pos_g"].dtype]
+    labels = (ASN_OUTPUTS[name] if name in ASN_OUTPUTS else
+              tuple((f"tier{i}", False) for i in range(len(got))))
     out, worst, max_err = {}, 0.0, 0.0
     for (lab, exact), x, y in zip(labels, got, ref):
         if x.shape != y.shape or x.dtype != y.dtype:
@@ -859,205 +853,278 @@ def asn_compare(name, got, ref, dtype):
         if not bool(torch.isfinite(x).all()):
             raise AssertionError(f"{name}.{lab}: non-finite output")
         err = float((x - y).abs().max()) if x.numel() else 0.0
-        limit = atol + rtol * (float(y.abs().max()) if y.numel() else 0.0)
+        scale = (_chain_dh_scale(k, ref[0]) if lab == "dh"
+                 else float(y.abs().max()) if y.numel() else 0.0)
+        limit = atol + rtol * scale
         out[lab] = {"err": err, "limit": limit}
         worst = max(worst, err / limit)
         max_err = max(max_err, err)
     if worst > 1.0:
-        raise AssertionError(f"{name} {dtype}: {out}")
+        raise AssertionError(f"{name} {k['pos_g'].dtype}: {out}")
     return {"max_abs_err": max_err, "worst_ratio": worst, "outputs": out}
 
 
-def asn_bound(name, k, n):
-    """(bound_ms, bound_by) of one asn kernel call (build_inv, build_idx,
-    step_fused) or of the packed_fwd calls of one forward, from this run's
-    data. Bytes: the real atoms' rows, each read or written once
-    (positions, species and the box in; inv rows out and in, idx rows out
-    and in; rad, the packed slots and rank2 out; each packed row's 5 slot
-    fields in and its columns out). Operations: ASN_OPS per real window
-    lane, table lane, assigned, in-cutoff or kept lane, or slot pair."""
-    st = k["st"]
-    f = k["pos_g"].element_size()
+def asn_work(k):
+    """This input's data-dependent work: real (center, candidate) lanes of
+    the 27-bin windows; assigned compact lanes, and those within Rcr;
+    filled packed slots and filled slot pairs."""
+    sp_g, idx = k["sp_g"], k["a"].idx
+    nc, cap = sp_g.shape
+    kpad = idx.shape[-1]
+    wpad = asn._round_lane(27 * cap)
+    occ = (sp_g >= 0).sum(1).reshape(k["ncells"]).to(torch.float64)
+    window = torch.zeros_like(occ)
+    for off in ar._shell_offsets(1):
+        window += torch.roll(occ, shifts=tuple(int(o) for o in off),
+                             dims=(0, 1, 2))
+    cp = asn._padded_candidates(k["ncells"], k["pos_g"], sp_g, k["h"], wpad)
+    keep = rcr = 0
+    for rs in asn._chunks(nc, cap * kpad * 24):
+        _, _, _, valid, dist = asn._lane_geometry(
+            cp[rs], k["pos_g"][rs], idx[rs].to(torch.int64), wpad)
+        keep += int(valid.sum())
+        rcr += int((valid & (dist <= k["spec"].aev.radial_cutoff)).sum())
+    real = (sp_g >= 0)[:, :, None]
+    filled = (k["cmp"][:, :, 3] < k["spec"].aev.angular_cutoff + 1.0) & real
+    counts = [filled[:, :, off:off + a_s].sum(-1).to(torch.float64)
+              for off, a_s in k["a_offs"].values()]
+    pairs = 0.0
+    for i, c in enumerate(counts):
+        pairs += float((c * (c - 1) / 2).sum())
+        for d in counts[i + 1:]:
+            pairs += float((c * d).sum())
+    return {"window": int((occ * window).sum()) - k["n"], "keep": keep,
+            "rcr": rcr, "kept": int(filled.sum()), "pairs": int(pairs)}
+
+
+def asn_bound(name, k, work):
+    """(bound_ms, bound_by) of one call of an asn kernel (of its calls of
+    one step, one per tier, for the packed ones), from this run's data.
+    Bytes: the real atoms' rows, each input read once and each output
+    written once (n atoms; f the float size; the tables int16): positions,
+    species and the box; inv rows (wpad), idx and rank2 rows (kpad); rad
+    and its cotangent (srl + 1); the packed slots (6 atot) and their
+    cotangents (5 atot); each packed row's 5 atot fields and its columns;
+    the lane cotangents gr and gt (3 kpad each); fcen (3) and dh (9); the
+    wing (27 x 3 per grid slot). Operations: ASN_OPS on `work`."""
+    n, f = k["n"], k["pos_g"].element_size()
     cap = k["sp_g"].shape[1]
-    wpad, kpad = asn._round_lane(27 * cap), st["kpad"]
-    lanes, ops = st["lanes"], ASN_OPS[name]
-    a_offs, atot = asn._a_offsets(st["sections"], st["caps"])
+    wpad, kpad, atot = asn._round_lane(27 * cap), k["kpad"], k["atot"]
+    srl1 = k["ga"].shape[-1]
+    ncols = k["packed"][0][2].shape[1]
+    ops = ASN_OPS[name]
     base_in = n * (3 * f + 4) + 9 * f
     if name == "build_inv":
         nbytes = base_in + n * wpad * 2
-        n_ops = ops["lane"] * lanes["window"]
+        n_ops = ops["lane"] * work["window"]
     elif name == "build_idx":
         nbytes = n * (wpad + kpad) * 2
         n_ops = ops["lane"] * n * (wpad + kpad)
     elif name == "step_fused":
-        srl = len(st["sections"]) * 16
-        nbytes = (base_in + n * kpad * 2 + n * (srl + 1) * f
-                  + n * 6 * atot * f + n * kpad * 4)
-        kept = np.minimum(st["cnt"], np.asarray(st["caps"])[None]).sum()
-        n_ops = (ops["lane"] * lanes["keep"]
-                 + (ops["rcr"] + ops["rep"]) * lanes["rcr"]
-                 + ops["kept"] * int(kept))
-    else:
-        ncols = len(asn.present_channels(k["spec"].aev, st["caps"],
-                                         st["sections"])) * 32
+        nbytes = (base_in + n * kpad * 2 + n * srl1 * f + n * 6 * atot * f
+                  + n * kpad * 2)
+        n_ops = (ops["lane"] * work["keep"] + ops["kept"] * work["kept"]
+                 + (ops["rcr"] + ops["rep"]) * work["rcr"])
+    elif name == "packed_fwd":
         nbytes = n * (5 * atot + ncols) * f
-        kk = np.minimum(st["cnt"], np.asarray(st["caps"])[None]).astype(
-            np.float64)
-        pairs = 0.0
-        present = [s for s in range(kk.shape[1]) if st["caps"][s]]
-        for i, s in enumerate(present):
-            pairs += float((kk[:, s] * (kk[:, s] - 1) / 2).sum())
-            for t in present[i + 1:]:
-                pairs += float((kk[:, s] * kk[:, t]).sum())
-        n_ops = ops["pair"] * pairs
+        n_ops = ops["pair"] * work["pairs"]
+    elif name == "radial_gamma":
+        nbytes = base_in + n * kpad * 2 + n * srl1 * f + n * 3 * kpad * f
+        n_ops = (ops["lane"] * work["keep"]
+                 + (ops["rcr"] + ops["rep"]) * work["rcr"])
+    elif name == "packed_bwd":
+        nbytes = n * (10 * atot + ncols) * f
+        n_ops = ops["pair"] * work["pairs"]
+    elif name == "chain_sum":
+        nbytes = (n * kpad * 4 + n * 11 * atot * f + n * 6 * kpad * f
+                  + n * 3 * f + 9 * f)
+        n_ops = ops["kept"] * work["kept"] + ops["lane"] * work["keep"]
+    else:  # wing
+        nbytes = n * 3 * kpad * f + n * wpad * 2 + n * 27 * 3 * f
+        n_ops = ops["lane"] * work["keep"]
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
 
-def _to_cpu_state(st, a):
-    bins_c = crmod.RollBins(**{f.name: getattr(st["bins"], f.name).cpu()
+def _to_cpu(bins, a):
+    """The rebuild's tables on the CPU."""
+    bins_c = crmod.RollBins(**{f.name: getattr(bins, f.name).cpu()
                                for f in dataclasses.fields(crmod.RollBins)})
-    asn_c = asn.Assignment(idx=a.idx.cpu(), inv=a.inv.cpu(), ovf=a.ovf.cpu(),
-                           ovf_sec=a.ovf_sec.cpu())
-    return (st["grid"], bins_c, asn_c, st["sections"], st["tiers"])
+    return bins_c, asn.Assignment(idx=a.idx.cpu(), inv=a.inv.cpu(),
+                                  ovf=a.ovf.cpu(), ovf_sec=a.ovf_sec.cpu())
 
 
 def phase_asn_kernels(device, rep=6):
-    """The four asn kernels against their plain versions at WATER30 x
-    rep^3 (f64 and f32), and atomic_energies_asn on the card against the
-    plain path on the CPU (f64)."""
-    species, pos_np, data = sorted_water(rep)
-    counts = tuple(int((species == s).sum()) for s in range(7))
+    """The eight asn kernels against their plain versions at WATER30 x
+    rep^3 (f64 and f32); the whole backward against autograd through the
+    plain forwards (f64); two calls bit for bit (f32); E, F, W on the card
+    against the CPU, and with repulsion off against the roll engine
+    (f64)."""
+    data = water_box(rep)
     result = {}
     for dtype in (torch.float64, torch.float32):
-        pot = zoo.ani2x(num_models=1, seed=1, dtype=dtype, device=device,
-                        repulsion=True)
+        sim = make_sim(data, dtype, device)
         box = make_box(data, dtype, device)
-        sp_t = torch.as_tensor(species, device=device)
-        pos = nbops.wrap_positions(torch.as_tensor(pos_np, dtype=dtype,
-                                                   device=device), box)
-        st = asn_setup(sp_t, pos, box, pot.spec.aev)
-        pot = pot.with_spec(dataclasses.replace(pot.spec,
-                                                angular_caps=st["caps"]))
-        k = asn_inputs(st, pos, box, pot.spec)
+        state = sim.init_state(data.positions, box)
+        k = asn_inputs(sim, state.pos, box)
         errs = {}
         for name, (kern, plain) in asn_calls(k).items():
             got = kern()
             ref = plain()
             _sync(device)
-            errs[name] = asn_compare(name, got, ref, dtype)
+            errs[name] = asn_compare(name, k, got, ref)
             del got, ref
         result[str(dtype).replace("torch.", "")] = errs
         if dtype == torch.float64:
-            result["energies_card_vs_cpu_f64"] = asn_energy_vs_cpu(
-                pot, sp_t, pos, box, st, counts)
+            result["backward_vs_autograd_f64"] = asn_backward_check(
+                sim, state, k, 1e-9, 1e-8)
+            result["efw_card_vs_cpu_f64"] = asn_efw_vs_cpu(sim, state, k,
+                                                           data)
+            result["norep_fw_vs_roll_f64"] = asn_fw_vs_roll(sim, state, data,
+                                                            device)
+        else:
+            result["repeat_f32"] = asn_backward_check(sim, state, k, None,
+                                                      None)
         del k
         torch.cuda.empty_cache()
-    emit({"phase": "asn_kernels", "atoms": data.n_atoms,
-          "ncells": list(st["grid"].ncells), "cap": st["grid"].cap,
-          "sections": [list(x) for x in st["sections"]], "kpad": st["kpad"],
-          "angular_caps": list(st["caps"]),
-          "tiers": st["tiers"] and [[list(c), r] for c, r in st["tiers"]],
+    emit({"phase": "asn_kernels", "atoms": data.n_atoms, **asn_sizing(sim),
           **result})
 
 
-def asn_energy_vs_cpu(pot, species, pos, box, st, counts):
-    """atomic_energies_asn (kernels, on the card) against the same function
-    on the CPU (plain versions), f64, with the same assignment."""
-    a = asn.build_assignment(st["grid"], st["bins"], pos, box,
-                             st["sections"], st["kpad"], KEEP_R)
-    state = (st["grid"], st["bins"], a, st["sections"], st["tiers"])
-    e_k, d_k = potmod.atomic_energies_asn(pot, species, pos, box, state,
-                                          counts)
-    pot_c = potmod.ANIPotential(pot.spec, pot.params).to("cpu")
-    e_p, d_p = potmod.atomic_energies_asn(
-        pot_c, species.cpu(), pos.cpu(), box.to(device="cpu"),
-        _to_cpu_state(st, a), counts)
-    err = float((e_k.cpu() - e_p).abs().max())
-    line = {"atoms": int(e_p.shape[0]), "energy": float(e_p.sum()),
-            "max_atom_err": err, "limit": 1e-10,
-            "deficit_card": d_k.cpu().tolist(), "deficit_cpu": d_p.tolist()}
-    if not (err <= 1e-10 and torch.equal(d_k.cpu(), d_p)):
-        raise AssertionError(f"asn energies card vs CPU: {line}")
+def asn_backward_check(sim, state, k, dpos_limit, dh_limit):
+    """dpos and dh of sum(outputs x seeded cotangents) through
+    `aev_asn_fused`: two calls of the explicit backward (the kernels) must
+    agree bit for bit; with limits given, they are held against autograd
+    through the plain forwards."""
+    spec = sim.potential.spec
+    g = torch.Generator(device=state.pos.device).manual_seed(4)
+    cots = None
+
+    def grads(plain):
+        nonlocal cots
+        pos = state.pos.clone().requires_grad_(True)
+        h = state.box.h.clone().requires_grad_(True)
+        out = asn.aev_asn_fused(
+            spec.aev, sim._roll_grid, k["bins"], k["a"], pos,
+            Box(h=h, origin=state.box.origin), sim._sections,
+            spec.angular_caps, tiers=sim._tiers, repulsion=spec.repulsion,
+            plain=plain)
+        if cots is None:
+            cots = [torch.randn(o.shape, generator=g, dtype=o.dtype,
+                                device=o.device) for o in out[:3]]
+        e = sum((o * c).sum() for o, c in zip(out[:3], cots))
+        return torch.autograd.grad(e, (pos, h))
+
+    first, second = grads(False), grads(False)
+    _sync(state.pos.device)
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
+    line = {"two_calls_bit_for_bit": same}
+    if not same:
+        raise AssertionError("asn backward: two calls differ")
+    if dpos_limit is not None:
+        ref = grads(True)
+        line.update(dpos_err=float((first[0] - ref[0]).abs().max()),
+                    dpos_limit=dpos_limit,
+                    dh_err=float((first[1] - ref[1]).abs().max()),
+                    dh_limit=dh_limit)
+        if not (line["dpos_err"] <= dpos_limit
+                and line["dh_err"] <= dh_limit):
+            raise AssertionError(f"asn backward vs autograd: {line}")
     return line
 
 
-def phase_asn(device, sim, state, reps=10):
-    """The asn path at the main path's final state (f32, ANI-2x + XTB
-    repulsion, the main path's weights); returns the kernels' rows."""
+def _efw_line(got, ref, same):
+    line = {"same_capacities": same, "pe": float(ref[0]),
+            "pe_rel_err": abs(float(got[0]) - float(ref[0]))
+            / abs(float(ref[0])), "pe_limit": 1e-11,
+            "force_err": float((got[1].cpu() - ref[1].cpu()).abs().max()),
+            "force_limit": 1e-9,
+            "virial_err": float((got[2].cpu() - ref[2].cpu()).abs().max()),
+            "virial_limit": 1e-8}
+    return line
+
+
+def asn_efw_vs_cpu(sim, state, k, data):
+    """E, F, W of the asn engine's force evaluation on the card (kernels)
+    against the same evaluation on the CPU (plain versions, explicit
+    backward), f64, on the same rebuild."""
+    got = sim._forces(state.pos, state.box, (k["bins"], k["a"]))
+    sim_c = make_sim(data, torch.float64, "cpu")
+    box_c = make_box(data, torch.float64, "cpu")
+    sim_c.init_state(data.positions, box_c)
+    same = (asn_sizing(sim_c) == asn_sizing(sim)
+            and bool(np.array_equal(sim_c.order, sim.order)))
+    ref = sim_c._forces(state.pos.cpu(), box_c, _to_cpu(k["bins"], k["a"]))
+    line = _efw_line(got, ref, same)
+    if not (same and line["pe_rel_err"] <= 1e-11
+            and line["force_err"] <= 1e-9 and line["virial_err"] <= 1e-8):
+        raise AssertionError(f"asn E/F/W card vs CPU: {line}")
+    return line
+
+
+def asn_fw_vs_roll(sim, state, data, device):
+    """With the repulsion term off: pe, F and W of the asn engine against
+    the roll engine's at the same positions and weights, f64."""
+    res = {}
+    for engine in ("pallas_asn", "pallas_full"):
+        s = make_sim(data, torch.float64, device, engine=engine,
+                     repulsion=False)
+        st = s.init_state(data.positions, make_box(data, torch.float64,
+                                                   device))
+        res[engine] = (st.pe, st.force, st.virial)
+    line = _efw_line(res["pallas_asn"], res["pallas_full"], True)
+    if not (line["pe_rel_err"] <= 1e-11 and line["force_err"] <= 1e-9
+            and line["virial_err"] <= 1e-8):
+        raise AssertionError(f"asn vs roll engine without repulsion: {line}")
+    return line
+
+
+def mlp_ms(sim, reps=10):
+    """(forward ms, forward + backward ms) of the MLP ensemble on the asn
+    path's compact AEV columns at this system's atom counts."""
+    spec = sim.potential.spec
+    col_idx = potmod.asn_col_idx(spec, sim._sections)
+    aev = torch.rand((sim.n_atoms, len(col_idx)), dtype=sim.dtype,
+                     device=sim.device, requires_grad=True)
+
+    def fwd():
+        return netmod.atomic_energies_sorted(
+            spec.net, sim.potential.params, sim.species_counts, aev,
+            col_idx=col_idx)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd().sum(), aev)
+
+    with torch.no_grad():
+        f_ms = time_ms(fwd, reps=reps)
+    return f_ms, time_ms(fwd_bwd, reps=reps)
+
+
+def phase_asn_timing(device, sim, state, launches, roll_sim, reps=10):
+    """The asn path at the main path's final state (f32); returns the
+    eight kernels' rows. Launches per MD step: a step is one force
+    evaluation, which launches step_fused once."""
     torch.cuda.empty_cache()
     dtype = torch.float32
-    species, box = sim.species, state.box
-    # the main path wraps positions only at its rebuilds; the asn bins and
-    # assignment are built anew here, from positions wrapped into the box
+    box = state.box
+    # `Simulation` wraps positions at every rebuild; so does this phase
     pos = nbops.wrap_positions(state.pos, box)
-    counts = sim.species_counts
-    n = int(species.shape[0])
-    t0 = time.perf_counter()
-    pot = zoo.ani2x(num_models=1, seed=1, dtype=dtype, device=device,
-                    repulsion=True)
-    st = asn_setup(species, pos, box, pot.spec.aev)
-    pot = pot.with_spec(dataclasses.replace(pot.spec,
-                                            angular_caps=st["caps"]))
-    _sync(device)
-    t_setup = time.perf_counter() - t0
-    grid, bins, sections, kpad = (st["grid"], st["bins"], st["sections"],
-                                  st["kpad"])
-
-    # the path as a user calls it, with the counts zeroed just before
-    resident = torch.cuda.memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    asn.reset_counts()
-    a = asn.build_assignment(grid, bins, pos, box, sections, kpad, KEEP_R)
-    a_state = (grid, bins, a, sections, st["tiers"])
-    e, deficit = potmod.atomic_energies_asn(pot, species, pos, box, a_state,
-                                            counts)
-    _sync(device)
-    launches, plain = dict(asn.LAUNCHES), dict(asn.PLAIN_CALLS)
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    if any(v == 0 for v in launches.values()) or any(plain.values()):
-        raise AssertionError(f"asn path: launches {launches}, plain calls "
-                             f"{plain}")
-    ovf, dmax = float(a.ovf), float(deficit.max())
-    if not (ovf <= 0 and dmax <= 0):
-        raise AssertionError(f"asn path: overflow {ovf}, deficit {dmax}")
-
-    # three rounds of `reps` calls each, to show the spread
-    rebuild_ms = [time_ms(lambda: asn.build_assignment(
-        grid, bins, pos, box, sections, kpad, KEEP_R), reps=reps)
-        for _ in range(3)]
-    forward_ms = [time_ms(lambda: asn.aev_asn_fused(
-        pot.spec.aev, grid, bins, a, pos, box, sections, st["caps"],
-        tiers=st["tiers"], repulsion=pot.spec.repulsion), reps=reps)
-        for _ in range(3)]
-    energy_ms = [time_ms(lambda: potmod.atomic_energies_asn(
-        pot, species, pos, box, a_state, counts), reps=reps)
-        for _ in range(3)]
-    profile = asn_profile(lambda: potmod.atomic_energies_asn(
-        pot, species, pos, box, (grid, bins, asn.build_assignment(
-            grid, bins, pos, box, sections, kpad, KEEP_R), sections,
-            st["tiers"]), counts))
-
-    # the same function through the plain versions on the card
-    e_p, _ = potmod.atomic_energies_asn(pot, species, pos, box, a_state,
-                                        counts, plain=True)
-    atol, rtol = TOL[dtype]
-    e_lim = atol + rtol * float(e_p.abs().max())
-    e_err = float((e - e_p).abs().max())
-    del e_p
-    vs_roll = norep_vs_roll(sim, state, st, a, device)
-
+    n = sim.n_atoms
+    k = asn_inputs(sim, pos, box)
+    ovf = float(k["a"].ovf)
+    work = asn_work(k)
     rows, timing = [], {}
-    k = asn_inputs(st, pos, box, pot.spec)
     for name, (kern, plain_fn) in asn_calls(k).items():
-        err = asn_compare(name, kern(), plain_fn(), dtype)
+        err = asn_compare(name, k, kern(), plain_fn())
         _sync(device)
-        b_ms, b_by = asn_bound(name, k, n)
+        b_ms, b_by = asn_bound(name, k, work)
         ms = time_ms(kern, reps=reps, warm=1)
         plain_ms = time_ms(plain_fn, reps=2, warm=1)
         torch.cuda.empty_cache()
         timing[name] = {**err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by}
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "launches_per_step": (launches[name]
+                                              / launches["step_fused"])}
         rows.append({
             "name": name, "route": "cuda", "source": ASN_SOURCE,
             "replaces": asn.REPLACES[name].split()[0],
@@ -1065,86 +1132,78 @@ def phase_asn(device, sim, state, reps=10):
             "err_over_limit": err["worst_ratio"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})
-    line = {"phase": "asn", "atoms": n, "dtype": "float32", "models": 1,
-            "repulsion": True, "ncells": list(grid.ncells), "cap": grid.cap,
-            "sections": [list(x) for x in sections], "kpad": kpad,
-            "angular_caps": list(st["caps"]),
-            "tiers": st["tiers"] and [[list(c), r] for c, r in st["tiers"]],
-            "packed_calls": [[list(ct), int(c.shape[0])]
-                             for c, ct, _ in k["calls"]],
-            "window_lanes": st["lanes"], "setup_s": t_setup,
-            "ovf": ovf, "ovf_sec": a.ovf_sec.tolist(),
-            "deficit": deficit.tolist(), "launches": launches,
-            "rebuild_ms": rebuild_ms, "forward_ms": forward_ms,
-            "energy_ms": energy_ms, "energy": float(e.double().sum()),
-            "energy_vs_plain": {"max_atom_err": e_err, "limit": e_lim},
-            "norep_vs_roll": vs_roll, "resident_gb": resident,
-            "peak_mem_gb": peak, "profile": profile, "kernels": timing}
-    emit(line)
+    bins, a = k["bins"], k["a"]
+    spec = sim.potential.spec
+    a_state = (sim._roll_grid, bins, a, sim._sections, sim._tiers)
+    del k
+    torch.cuda.empty_cache()
+
+    # three rounds of `reps` calls each, to show the spread
+    rebuild_ms = [time_ms(lambda: sim._bins(pos, box), reps=reps)
+                  for _ in range(3)]
+    forward_ms = [time_ms(lambda: asn.aev_asn_fused(
+        spec.aev, sim._roll_grid, bins, a, pos, box, sim._sections,
+        spec.angular_caps, tiers=sim._tiers, repulsion=spec.repulsion),
+        reps=reps) for _ in range(3)]
+    force_ms = [time_ms(lambda: sim._forces(pos, box, (bins, a)), reps=reps)
+                for _ in range(3)]
+    mlp_f, mlp_fb = mlp_ms(sim, reps=reps)
+
+    # the energies through the plain versions on the card
+    e, deficit = potmod.atomic_energies_asn(sim.potential, sim.species, pos,
+                                            box, a_state, sim.species_counts)
+    e_p, _ = potmod.atomic_energies_asn(sim.potential, sim.species, pos, box,
+                                        a_state, sim.species_counts,
+                                        plain=True)
+    atol, rtol = TOL[dtype]
+    e_lim = atol + rtol * float(e_p.abs().max())
+    e_err = float((e - e_p).abs().max())
+    dmax = float(deficit.max())
+    del e_p
+    vs_roll = norep_vs_roll(sim, pos, box, a_state, roll_sim, device)
+    emit({"phase": "asn_timing", "atoms": n, "dtype": "float32", "models": 1,
+          "repulsion": True, **asn_sizing(sim), "work": work, "ovf": ovf,
+          "ovf_sec": a.ovf_sec.tolist(), "deficit": deficit.tolist(),
+          "rebuild_ms": rebuild_ms, "forward_ms": forward_ms,
+          "force_eval_ms": force_ms, "mlp_forward_ms": mlp_f,
+          "mlp_forward_backward_ms": mlp_fb,
+          "energy": float(e.double().sum()),
+          "energy_vs_plain": {"max_atom_err": e_err, "limit": e_lim},
+          "norep_vs_roll": vs_roll, "kernels": timing})
+    if not (ovf <= 0 and dmax <= 0):
+        raise AssertionError(f"asn path: overflow {ovf}, deficit {dmax}")
     if not e_err <= e_lim:
         raise AssertionError(f"asn energies vs plain: {e_err} > {e_lim}")
     return rows
 
 
-ASN_PROFILE_GROUPS = (
-    ("asn_kernels", ("asn_",)),
-    ("matmul", PROFILE_GROUPS[1][1]))
-
-
-def asn_profile(fn, calls=5):
-    """Where one rebuild + energy call of the asn path spends its time:
-    host ms per call (synchronized), and under torch.profiler the device
-    busy ms by group and the device's idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / calls
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    busy, groups, top = device_time(prof, calls, ASN_PROFILE_GROUPS)
-    return {"calls": calls, "host_ms": host_ms, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / host_ms,
-            "device_ms_by_group": groups, "top_kernels_ms": top[:12]}
-
-
-def norep_vs_roll(sim, state, st, a, device):
+def norep_vs_roll(sim, pos, box, a_state, roll_sim, device):
     """Per-atom energies of the asn path without the repulsion term
-    against the roll engine's, at the same state, weights, bins and
-    assignment: in f64, held to TOL (both sum the same terms in another
-    order), and in f32, reported (its difference is that of two f32
-    summation orders through the MLP, not of the algorithms)."""
+    against the roll engine's, at the same positions and weights: in f64,
+    held to TOL (both sum the same terms in another order), and in f32,
+    reported (its difference is that of two f32 summation orders through
+    the MLP, not of the algorithms). The roll engine's bins are those of
+    a rebuild at these positions."""
     species, counts = sim.species, sim.species_counts
+    roll_bins = roll_sim._bins(pos, box)
+    if int(roll_bins.count_max) > roll_sim._roll_grid.cap:
+        raise AssertionError("roll bins overflow at the asn path's state")
     out = {}
     for dtype in (torch.float64, torch.float32):
-        box = Box(h=state.box.h.to(dtype), origin=state.box.origin.to(dtype))
-        # the roll engine's bins are those of its last rebuild, which
-        # hold the positions as they are now (not wrapped since); the
-        # asn bins were built from wrapped positions
-        pos = {"roll": state.pos.to(dtype)}
-        pos["asn"] = nbops.wrap_positions(pos["roll"], box)
+        b = Box(h=box.h.to(dtype), origin=box.origin.to(dtype))
         e = {}
-        for name, caps in (("asn", st["caps"]),
-                           ("roll", sim.potential.spec.angular_caps)):
+        for name, caps in (("asn", sim.potential.spec.angular_caps),
+                           ("roll", roll_sim.potential.spec.angular_caps)):
             pot = zoo.ani2x(num_models=1, seed=1, dtype=dtype, device=device)
             pot = pot.with_spec(dataclasses.replace(pot.spec,
                                                     angular_caps=caps))
             if name == "asn":
                 e[name], d = potmod.atomic_energies_asn(
-                    pot, species, pos[name], box,
-                    (st["grid"], st["bins"], a, st["sections"], st["tiers"]),
-                    counts)
+                    pot, species, pos.to(dtype), b, a_state, counts)
             else:
                 e[name], d = potmod.atomic_energies_roll(
-                    pot, species, pos[name], box, sim._roll_grid, state.bins,
-                    counts, radial_shell=sim._roll_shell)
+                    pot, species, pos.to(dtype), b, roll_sim._roll_grid,
+                    roll_bins, counts, radial_shell=roll_sim._roll_shell)
             if float(d.max()) > 0:
                 raise AssertionError(f"{name} path {dtype}: deficit {d}")
         atol, rtol = TOL[dtype]
@@ -1156,6 +1215,50 @@ def norep_vs_roll(sim, state, st, a, device):
     if not res["max_atom_err"] <= res["limit"]:
         raise AssertionError(f"asn vs roll energies (f64): {res}")
     return out
+
+
+PROFILE_GROUPS = tuple(
+    [(name, (f"asn_{name}_kernel",)) for name in ASN_KERNELS]
+    + [("dh_reduce", ("dh_reduce_kernel",)),
+       ("matmul", ("gemm", "Gemm", "cutlass", "sm90_xmma", "ampere_",
+                   "Kernel2")),
+       ("roll_fold", ("roll",))])
+
+
+def phase_profile(sim, state):
+    """Where one asn MD step spends its time, from the main path's final
+    state: one chunk on the host clock and one under torch.profiler. The
+    idle share is 1 - (device busy time of the profiled chunk) / (host
+    time of the unprofiled chunk): the profiler's own host overhead
+    stretches the profiled chunk's wall time. A chunk that overflowed a
+    capacity runs twice (regrow, then again), so both chunks are taken
+    again until one runs without a regrow."""
+    from torch.profiler import ProfilerActivity, profile
+
+    regrows = 0
+    for _ in range(4):
+        before = sim.regrow_events
+        t0 = time.perf_counter()
+        state, _ = sim.run(state, CHUNK)
+        torch.cuda.synchronize()
+        chunk_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = sim.run(state, CHUNK)
+            torch.cuda.synchronize()
+        if sim.regrow_events == before:
+            break
+        regrows += sim.regrow_events - before
+    else:
+        raise AssertionError("profile: every chunk regrew a capacity")
+    busy, groups, top = device_time(prof, CHUNK, PROFILE_GROUPS)
+    emit({"phase": "profile", "engine": sim.engine, "steps": CHUNK,
+          "regrows_skipped": regrows,
+          "unprofiled_ms_per_step": chunk_ms / CHUNK,
+          "device_busy_ms_per_step": busy,
+          "device_idle_share": 1.0 - busy * CHUNK / chunk_ms,
+          "device_ms_per_step_by_group": groups,
+          "top_kernels_ms_per_step": top})
 
 
 def main() -> int:
@@ -1173,10 +1276,12 @@ def main() -> int:
     phase_kernels_small(device)
     phase_potential(device)
     phase_asn_kernels(device)
-    sim, state, launches, work_start = phase_main(device)
-    rows = phase_timing(sim, state, launches, work_start)
+    sim, state, launches = phase_main(device)
     phase_profile(sim, state)
-    rows += phase_asn(device, sim, state)
+    roll_sim, roll_state, roll_launches, work_start = phase_roll_md(
+        device, sim, state)
+    rows = phase_timing(roll_sim, roll_state, roll_launches, work_start)
+    rows += phase_asn_timing(device, sim, state, launches, roll_sim)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

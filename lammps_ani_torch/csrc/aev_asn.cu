@@ -1,10 +1,10 @@
 // Assignment-compacted AEV kernels for Hopper (sm_90a), written by hand.
 //
-// Four kernels replace the four Pallas kernels of the rebuild and the
-// forward of lammps_ani_tpu/ops/aev_asn.py (the `pallas_asn` engine). Each
-// computes what its TPU kernel computes (see lammps_ani_torch/ops/aev_asn.py
-// for the contract and the plain PyTorch version of each); none copies its
-// block structure:
+// Eight kernels replace the eight Pallas kernels of the rebuild, the fused
+// forward and the fused backward of lammps_ani_tpu/ops/aev_asn.py (the
+// `pallas_asn` engine). Each computes what its TPU kernel computes (see
+// lammps_ani_torch/ops/aev_asn.py for the contract and the plain PyTorch
+// version of each); none copies its block structure:
 //
 //   * The TPU kernels read materialized, lane-padded candidate planes
 //     ([NC, wpad] per coordinate, built by halo copies) and gather from
@@ -20,6 +20,12 @@
 //   * The TPU grid runs in order and carries the overflow and deficit
 //     planes as running maxima; here they are integer atomicMax per block
 //     into a per-species int array set to -2^20 by the wrapper.
+//   * The backward's gathers (slot -> compact lane through rank2, compact
+//     lane -> window lane through inv) were 128-lane select-accumulate
+//     loops; here a gather is a load. Every floating-point sum is taken in
+//     a fixed order (no floating-point atomics), so two calls on the same
+//     inputs agree bit for bit; the box cotangent leaves as per-block
+//     partials and is summed by dh_reduce_kernel (aev_common.cuh).
 //
 // Distances: d2 = (dx dx + dy dy) + dz dz with each operation rounded on
 // its own (no fused multiply-add), dist = sqrt(max(d2, 1e-12)), as the
@@ -81,6 +87,39 @@ __device__ __forceinline__ int window_slot(const Grid& g, int cell, int w,
   int ox, oy, oz;
   offset_of(o, 1, ox, oy, oz);
   return neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz) * g.cap + b;
+}
+
+// Geometry of one compact lane of a center at (cx, cy, cz) in bin `cell`:
+// a = center - candidate for the window lane w the lane reads (through
+// idx); a dead lane (w == wpad) sits at dist 1e6 with a = 0. The forward
+// and the radial backward share it, so both see the same distances.
+template <typename T>
+struct LaneGeom {
+  bool valid;
+  T dx, dy, dz, dist;
+};
+
+template <typename T>
+__device__ __forceinline__ LaneGeom<T> lane_geometry(const Grid& g,
+                                                     const T* pos, const T* h,
+                                                     int cell, T cx, T cy,
+                                                     T cz, int w, int wpad) {
+  LaneGeom<T> r;
+  r.valid = w >= 0 && w < wpad;
+  r.dx = r.dy = r.dz = T(0);
+  r.dist = T(1e6);
+  if (r.valid) {
+    int sx, sy, sz;
+    const int q = window_slot(g, cell, w, sx, sy, sz);
+    T px, py, pz;
+    candidate_pos(pos, q, h, sx, sy, sz, px, py, pz);
+    r.dx = cx - px;
+    r.dy = cy - py;
+    r.dz = cz - pz;
+    const T d2 = d2_rn(r.dx, r.dy, r.dz);
+    r.dist = m_sqrt(d2 > T(1e-12) ? d2 : T(1e-12));
+  }
+  return r;
 }
 
 // Compact sections: species s holds lanes [off, off + k) of every row.
@@ -202,7 +241,7 @@ __global__ void __launch_bounds__(kThreads) asn_build_idx_kernel(
 //   rad[row, srl] = sum of the XTB repulsion half pair energies;
 //   stage 2: the first a_s lanes of section si within Rca (ascending lane)
 //     go to packed slots a_off + rank of cmp[row, field, slot] (fields ux,
-//     uy, uz, d, fc, dfc), rank2[row, k] = that slot (127: none), and
+//     uy, uz, d, fc, dfc), rank2[row, k] = that slot (int16; 127: none), and
 //     deficit[s] = max over rows of (count within Rca - a_s).
 // Bound: writing rad, cmp and rank2 and reading idx (bytes) against 16
 // exps per in-cutoff lane (operations); see chip_smoke.py for the count.
@@ -217,7 +256,7 @@ struct StepParams {
   int has_rep, env, kf15;  // env: 0 smooth, 1 cosine, 2 none
   Sections sec;
   int a_s[kMaxS], a_off[kMaxS];  // stage-2 cap and packed offset (0: none)
-  T rc, eta, mu0, delta, pi_rc, tiny_e, pmin;
+  T rc, eta, mu0, delta, pi_rc, dfc_rk, tiny_e, pmin;
   T rca, pi_rca, dfc_k, big;
   T rep_rc, kf, a2b, one_m, pi;
   T alpha[kMaxS], zeff[kMaxS];  // per section
@@ -244,11 +283,34 @@ __device__ __forceinline__ T rep_half(const StepParams<T>& p, T dist, T a_ij,
   return (e > p.pmin || e < -p.pmin) ? e : T(0);
 }
 
+// d rep_half / d dist (aev_asn.py `_rep_pair`, the second value).
+template <typename T>
+__device__ __forceinline__ T rep_half_grad(const StepParams<T>& p, T dist,
+                                           T a_ij, T z_ij) {
+  const T r_b = dist * p.a2b;
+  const T r_kf = p.kf15 ? r_b * m_sqrt(r_b) : m_exp(p.kf * m_log(r_b));
+  const T core = z_ij / r_b * m_exp(-a_ij * r_kf);
+  const T dcore = core * (T(-1) / r_b - a_ij * p.kf * r_kf / r_b);
+  const T x = dist / p.rep_rc;
+  T env = T(1), denv = T(0);
+  if (p.env == 0) {
+    T x2 = x * x;
+    x2 = x2 < T(0) ? T(0) : (x2 > p.one_m ? p.one_m : x2);
+    const T u = T(1) - x2;
+    env = m_exp(T(1) - T(1) / u);
+    denv = env * (T(-2) * x / (p.rep_rc * u * u));
+  } else if (p.env == 1) {
+    env = T(0.5) * m_cos(p.pi * x) + T(0.5);
+    denv = (T(-0.5) * p.pi / p.rep_rc) * m_sin(p.pi * x);
+  }
+  return T(0.5) * (dcore * p.a2b * env + core * denv);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) asn_step_fused_kernel(
     const T* __restrict__ pos, const int* __restrict__ sp,
     const T* __restrict__ hmat, const int16_t* __restrict__ idx,
-    T* __restrict__ rad, T* __restrict__ cmp, int* __restrict__ rank2,
+    T* __restrict__ rad, T* __restrict__ cmp, int16_t* __restrict__ rank2,
     int* __restrict__ deficit, StepParams<T> p) {
   __shared__ int red[kMaxS];
   if (threadIdx.x < kMaxS) red[threadIdx.x] = kFloor;
@@ -273,7 +335,7 @@ __global__ void __launch_bounds__(kThreads) asn_step_fused_kernel(
       }
     }
     const int16_t* irow = idx + (size_t)row * p.kpad;
-    int* r2row = rank2 + (size_t)row * p.kpad;
+    int16_t* r2row = rank2 + (size_t)row * p.kpad;
     T* crow = cmp + (size_t)row * 6 * A;
     T* rrow = rad + (size_t)row * (p.srl + 1);
     T rep = T(0);
@@ -293,19 +355,10 @@ __global__ void __launch_bounds__(kThreads) asn_step_fused_kernel(
         const int k = base + lane;
         const bool in_sec = k < end;
         const int w = in_sec ? (int)irow[k] : p.wpad;
-        const bool valid = w >= 0 && w < p.wpad;
-        T dx = T(0), dy = T(0), dz = T(0), dist = T(1e6);
-        if (valid) {
-          int sx, sy, sz;
-          const int q = window_slot(g, cell, w, sx, sy, sz);
-          T px, py, pz;
-          candidate_pos(pos, q, h, sx, sy, sz, px, py, pz);
-          dx = cx - px;
-          dy = cy - py;
-          dz = cz - pz;
-          const T d2 = d2_rn(dx, dy, dz);
-          dist = m_sqrt(d2 > T(1e-12) ? d2 : T(1e-12));
-        }
+        const LaneGeom<T> lg =
+            lane_geometry(g, pos, h, cell, cx, cy, cz, w, p.wpad);
+        const bool valid = lg.valid;
+        const T dx = lg.dx, dy = lg.dy, dz = lg.dz, dist = lg.dist;
         if (valid && dist <= p.rc) {
           const T pref = T(0.25) * (T(0.5) * m_cos(dist * p.pi_rc) + T(0.5));
           const T x = dist - p.mu0;
@@ -343,7 +396,7 @@ __global__ void __launch_bounds__(kThreads) asn_step_fused_kernel(
           }
           carry += __popc(bal);
         }
-        if (in_sec) r2row[k] = r2;
+        if (in_sec) r2row[k] = (int16_t)r2;
       }
       for (int kk = 0; kk < p.NR; ++kk) {
         const T s = warp_sum(acc[kk]);
@@ -362,11 +415,101 @@ __global__ void __launch_bounds__(kThreads) asn_step_fused_kernel(
         if (lane == 0) atomicMax(&red[p.sec.species[si]], carry - a_s);
       }
     }
-    for (int k = k_total + lane; k < p.kpad; k += 32) r2row[k] = kDeadSlot;
+    for (int k = k_total + lane; k < p.kpad; k += 32)
+      r2row[k] = (int16_t)kDeadSlot;
     rep = warp_sum(rep);
     if (lane == 0) rrow[p.srl] = rep;
   }
   flush_species_max(red, deficit);
+}
+
+// ---------------------------------------------------------------------------
+// Radial and repulsion backward on the compact lanes — replaces
+// aev_asn.py:850 _radial_gamma_only_kernel (body _radial_gamma_core :776).
+//
+// gr[row, c, k] = gamma (a_c / d) of compact lane k, with
+//   gamma = sum_kk ga[row, si*NR + kk] 0.25 e_kk (dfc - 2 eta x_kk fc)
+//           + ga[row, srl] d(rep_half)/dd
+// for lane k of section si: the derivative of the forward's rad with
+// respect to a = center - candidate. The geometry is recomputed through
+// idx with the forward's own device functions (lane_geometry, the cutoff
+// and basis expressions, rep_half_grad beside rep_half). Dead lanes and
+// the lanes above the sections give exactly 0. Bound: writing the three
+// [NC, cap, kpad] planes (bytes); 16 exps per in-cutoff lane. Design: one
+// warp per row, section by section, 32 lanes at a time, as the forward;
+// the row's srl + 1 cotangents sit in shared memory; no reduction at all
+// (each lane owns its output).
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads) asn_radial_gamma_kernel(
+    const T* __restrict__ pos, const int* __restrict__ sp,
+    const T* __restrict__ hmat, const int16_t* __restrict__ idx,
+    const T* __restrict__ ga, T* __restrict__ gr, StepParams<T> p) {
+  __shared__ T gas[kWarpsPerBlock][kMaxS * kMaxNR + 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * kWarpsPerBlock + warp;
+  const Grid& g = p.g;
+  const int nrows = g.nx * g.ny * g.nz * g.cap;
+  if (row >= nrows) return;
+  T h[9];
+  for (int i = 0; i < 9; ++i) h[i] = hmat[i];
+  const int cell = row / g.cap;
+  const int csp = sp[row];
+  const T cx = pos[row * 3], cy = pos[row * 3 + 1], cz = pos[row * 3 + 2];
+  const T* garow = ga + (size_t)row * (p.srl + 1);
+  for (int i = lane; i <= p.srl; i += 32) gas[warp][i] = garow[i];
+  __syncwarp();
+  const T g_rep = gas[warp][p.srl];
+  T a_i = T(0), z_i = T(0);
+  for (int si = 0; si < p.sec.n; ++si) {
+    if (csp == p.sec.species[si]) {
+      a_i = p.alpha[si];
+      z_i = p.zeff[si];
+    }
+  }
+  const int16_t* irow = idx + (size_t)row * p.kpad;
+  T* out = gr + (size_t)row * 3 * p.kpad;
+  const T two_eta = T(2) * p.eta;
+  int k_total = 0;
+  for (int si = 0; si < p.sec.n; ++si) {
+    const int off = p.sec.off[si], end = off + p.sec.k[si];
+    k_total = end;
+    const T z_ij = p.zeff[si] * z_i;
+    T a_ij = p.alpha[si] * a_i;
+    a_ij = m_sqrt(a_ij > T(1e-12) ? a_ij : T(1e-12));
+    const T* gsec = gas[warp] + si * p.NR;
+    for (int k = off + lane; k < end; k += 32) {
+      const LaneGeom<T> lg =
+          lane_geometry(g, pos, h, cell, cx, cy, cz, (int)irow[k], p.wpad);
+      const T dist = lg.dist;
+      T gamma = T(0);
+      if (lg.valid && dist <= p.rc) {
+        const T fc = T(0.5) * m_cos(dist * p.pi_rc) + T(0.5);
+        const T dfc = p.dfc_rk * m_sin(dist * p.pi_rc);
+        const T x = dist - p.mu0;
+#pragma unroll
+        for (int kk = 0; kk < kMaxNR; ++kk) {
+          if (kk < p.NR) {
+            const T xk = x - T(kk) * p.delta;
+            T e = m_exp(-p.eta * xk * xk);
+            e = e > p.tiny_e ? e : T(0);
+            gamma += gsec[kk] * (T(0.25) * e * (dfc - two_eta * xk * fc));
+          }
+        }
+      }
+      if (p.has_rep && lg.valid && z_ij > T(0) && dist < p.rep_rc)
+        gamma += g_rep * rep_half_grad(p, dist, a_ij, z_ij);
+      const T gd = gamma / dist;
+      out[k] = gd * lg.dx;
+      out[p.kpad + k] = gd * lg.dy;
+      out[2 * p.kpad + k] = gd * lg.dz;
+    }
+  }
+  for (int k = k_total + lane; k < p.kpad; k += 32) {
+    out[k] = T(0);
+    out[p.kpad + k] = T(0);
+    out[2 * p.kpad + k] = T(0);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -390,6 +533,10 @@ template <typename T>
 struct PackedParams : AngConsts<T> {
   int rows, atot, n_blocks;
   int base[kMaxBlocks], q[kMaxBlocks];
+  // the blocks' arms: packed slot offsets and widths, same-species flag
+  int off1[kMaxBlocks], off2[kMaxBlocks], a1[kMaxBlocks], a2[kMaxBlocks];
+  int same[kMaxBlocks];
+  int max_q;  // the largest block's pair count
   T pmin;
 };
 
@@ -441,6 +588,289 @@ __global__ void __launch_bounds__(kThreads) asn_packed_fwd_kernel(
       }
     }
     orow[b * kNAZ + lane] = T(2) * acc[0];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Packed angular pairs, backward — replaces aev_asn.py:1833
+// _packed_bwd_kernel.
+//
+// For each row and the cotangent ga [rows, n_blocks * 32] of the forward's
+// columns: the per-slot cotangent sums of (ux, uy, uz, d, fc) over both
+// arms of every pair lane (each unordered pair once, at scale 2; the
+// radial-mean term only where d1 + d2 <= 2 (Rca + 1)), out [rows, 5 atot]
+// field after field. Dead slots (u = 0, d = 2 Rca + 10, fc = 0) get no u
+// or d cotangent (fc12 = 0 and base_m >= 0.025, so nothing divides by 0).
+// Bound: operations (the forward's pair terms plus the chain rule, about
+// 2x the forward) against reading the 5 slot fields and 32 columns per
+// block and writing 5 fields (bytes). Trouble: each pair adds to two
+// slots, and the lanes of a warp hit the same slot. Design: one warp per
+// row; per block, pass 1 gives every pair lane to a lane (every 32nd, as
+// the forward), which leaves the pair's three scalars (dcos, drmean / 2,
+// dfc12) in shared memory; pass 2 gives every slot to one lane, which
+// walks its partners in index order and adds their terms (5 multiply-adds
+// per partner). Each pair's expensive part is computed once, each slot is
+// written by one lane, and every sum has a fixed order: no atomics.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads) asn_packed_bwd_kernel(
+    const T* __restrict__ cat, const int* __restrict__ table,
+    const T* __restrict__ ga, T* __restrict__ out, PackedParams<T> p,
+    int warps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int A = p.atot, Q = p.max_q;
+  T* s = reinterpret_cast<T*>(smem_raw) + (size_t)warp * (10 * A + 3 * Q);
+  T* o = s + 5 * A;   // the slots' sums, [5][A]
+  T* pb = o + 5 * A;  // the block's pair scalars, [3][Q]
+  const int row = blockIdx.x * warps + warp;
+  if (row >= p.rows) return;
+  const T* in = cat + (size_t)row * 5 * A;
+  for (int i = lane; i < 5 * A; i += 32) {
+    s[i] = in[i];
+    o[i] = T(0);
+  }
+  __syncwarp();
+  const T two_eta = T(2) * p.eta;
+  const T rlim = T(2) * (p.rca + T(1));
+  const T* g_row = ga + (size_t)row * p.n_blocks * kNAZ;
+  for (int b = 0; b < p.n_blocks; ++b) {
+    T gb[kNAZ];
+#pragma unroll
+    for (int i = 0; i < kNAZ; ++i) gb[i] = T(2) * g_row[b * kNAZ + i];
+    const int* tb = table + 3 * p.base[b];
+    for (int t = lane; t < p.q[b]; t += 32) {
+      const int i1 = tb[3 * t], i2 = tb[3 * t + 1];
+      PairTerms<T> pt;
+      pair_terms_core<T>(p, s[i1], s[A + i1], s[2 * A + i1], s[i2],
+                         s[A + i2], s[2 * A + i2], s[3 * A + i1],
+                         s[3 * A + i2], s[4 * A + i1], s[4 * A + i2], pt);
+      T df2[kNA];
+#pragma unroll
+      for (int j = 0; j < kNA; ++j) df2[j] = T(0);
+      T dcos = T(0);
+#pragma unroll
+      for (int m = 0; m < kNZ; ++m) {
+        T df1 = T(0);
+#pragma unroll
+        for (int j = 0; j < kNA; ++j) {
+          const T gjm = gb[j * kNZ + m];
+          df1 += gjm * (pt.fc12 * pt.e[j]);
+          df2[j] += gjm * pt.f1[m];
+        }
+        const T dbase = df1 * (p.zeta / pt.base[m]) * pt.f1[m];
+        dcos += dbase * T(0.5) *
+                (p.cos_m[m] - pt.c95 / pt.sv * p.sin_m[m]) * T(0.95);
+      }
+      T drmean = T(0), dfc12 = T(0);
+#pragma unroll
+      for (int j = 0; j < kNA; ++j) {
+        drmean += df2[j] * pt.fc12 * pt.e[j] * (-two_eta) *
+                  (pt.x2 - T(j) * p.delta);
+        dfc12 += df2[j] * pt.e[j];
+      }
+      if (!(pt.dsum <= rlim)) drmean = T(0);
+      pb[t] = dcos;
+      pb[Q + t] = T(0.5) * drmean;
+      pb[2 * Q + t] = dfc12;
+    }
+    __syncwarp();
+    const int off1 = p.off1[b], off2 = p.off2[b], a1 = p.a1[b], a2 = p.a2[b];
+    const bool same = p.same[b] != 0;
+    for (int sl = lane; sl < A; sl += 32) {
+      T gx = T(0), gy = T(0), gz = T(0), gd = T(0), gf = T(0);
+      // pair lane t with the partner slot `other`
+#define ASN_ADD_PARTNER(t, other)                                            \
+  {                                                                          \
+    const T dc = pb[(t)];                                                    \
+    gx += dc * s[(other)];                                                   \
+    gy += dc * s[A + (other)];                                               \
+    gz += dc * s[2 * A + (other)];                                           \
+    gd += pb[Q + (t)];                                                       \
+    gf += pb[2 * Q + (t)] * s[4 * A + (other)];                              \
+  }
+      if (sl >= off1 && sl < off1 + a1) {
+        const int j = sl - off1;
+        if (same) {
+          // strict upper triangle, row-major: (j, k), j < k, sits at
+          // j (2 a1 - j - 1) / 2 + k - j - 1
+          for (int k = 0; k < j; ++k)
+            ASN_ADD_PARTNER(k * (2 * a1 - k - 1) / 2 + j - k - 1, off1 + k)
+          for (int k = j + 1; k < a1; ++k)
+            ASN_ADD_PARTNER(j * (2 * a1 - j - 1) / 2 + k - j - 1, off1 + k)
+        } else {
+          for (int k = 0; k < a2; ++k) ASN_ADD_PARTNER(j * a2 + k, off2 + k)
+        }
+      }
+      if (!same && sl >= off2 && sl < off2 + a2) {
+        const int k = sl - off2;
+        for (int j = 0; j < a1; ++j) ASN_ADD_PARTNER(j * a2 + k, off1 + j)
+      }
+#undef ASN_ADD_PARTNER
+      o[sl] += gx;
+      o[A + sl] += gy;
+      o[2 * A + sl] += gz;
+      o[3 * A + sl] += gd;
+      o[4 * A + sl] += gf;
+    }
+    __syncwarp();
+  }
+  T* orow = out + (size_t)row * 5 * A;
+  for (int i = lane; i < 5 * A; i += 32) orow[i] = o[i];
+}
+
+// ---------------------------------------------------------------------------
+// Slot cotangents -> compact lanes, summed with the radial part — replaces
+// aev_asn.py:2047 _chain_sum_kernel (_chain_to_stage1 :1975,
+// _dh_from_compact :595).
+//
+// Per row: the packed slots' cotangents gsum [5][atot] (of ux, uy, uz, d,
+// fc) become vector cotangents (slots with d < Rca + 5 only:
+// g_cd = gd + gfc dfc - (gu . u) / d, g = gu / d + g_cd u); compact lane k
+// takes the vector of its slot rank2[k] (no slot: 0) plus the radial part
+// gr[., k]: gt [row][3][kpad]. fcen[row] = the sum over lanes;
+// dh[m][c] = -sum over lanes of S_m g_c with S the wrap shift of the
+// lane's window offset idx / cap (dead lanes, offset >= 27: none). Bound:
+// reading gr and writing gt, three [NC, cap, kpad] planes each (bytes).
+// Design: one warp per row; the slot vectors sit in shared memory, the
+// gather through rank2 is a shared-memory load; the wrap shift comes from
+// the bin's coordinates, not from a table; fcen and the nine dh terms are
+// warp shuffle sums, dh then summed over the block's warps in warp order
+// into one partial per block (dh_reduce_kernel adds the partials).
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads) asn_chain_sum_kernel(
+    const int16_t* __restrict__ rank2, const int16_t* __restrict__ idx,
+    const T* __restrict__ cmp, const T* __restrict__ gsum,
+    const T* __restrict__ gr, T* __restrict__ gt, T* __restrict__ fcen,
+    T* __restrict__ dh_part, Grid g, int kpad, int A, T d_live) {
+  __shared__ T gv[kWarpsPerBlock][3 * (kDeadSlot + 1)];
+  __shared__ T red[kWarpsPerBlock][9];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * kWarpsPerBlock + warp;
+  const int nrows = g.nx * g.ny * g.nz * g.cap;
+  T dh[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) dh[i] = T(0);
+  if (row < nrows) {
+    const int cell = row / g.cap;
+    const T* c = cmp + (size_t)row * 6 * A;
+    const T* gs = gsum + (size_t)row * 5 * A;
+    T* v = gv[warp];
+    for (int a = lane; a < A; a += 32) {
+      const T ux = c[a], uy = c[A + a], uz = c[2 * A + a];
+      const T d = c[3 * A + a], dfc = c[5 * A + a];
+      const T gux = gs[a], guy = gs[A + a], guz = gs[2 * A + a];
+      const bool live = d < d_live;
+      const T inv_d = live ? T(1) / d : T(0);
+      const T dot = gux * ux + guy * uy + guz * uz;
+      const T g_cd =
+          live ? gs[3 * A + a] + gs[4 * A + a] * dfc - dot * inv_d : T(0);
+      v[a] = gux * inv_d + g_cd * ux;
+      v[(kDeadSlot + 1) + a] = guy * inv_d + g_cd * uy;
+      v[2 * (kDeadSlot + 1) + a] = guz * inv_d + g_cd * uz;
+    }
+    __syncwarp();
+    const int16_t* r2row = rank2 + (size_t)row * kpad;
+    const int16_t* irow = idx + (size_t)row * kpad;
+    const T* grow = gr + (size_t)row * 3 * kpad;
+    T* orow = gt + (size_t)row * 3 * kpad;
+    T fx = T(0), fy = T(0), fz = T(0);
+    for (int k = lane; k < kpad; k += 32) {
+      const int r = r2row[k], w = irow[k];
+      T gx = grow[k], gy = grow[kpad + k], gz = grow[2 * kpad + k];
+      if (r >= 0 && r < A) {
+        gx += v[r];
+        gy += v[(kDeadSlot + 1) + r];
+        gz += v[2 * (kDeadSlot + 1) + r];
+      }
+      orow[k] = gx;
+      orow[kpad + k] = gy;
+      orow[2 * kpad + k] = gz;
+      fx += gx;
+      fy += gy;
+      fz += gz;
+      const int o = w >= 0 ? w / g.cap : 27;
+      if (o < 27) {
+        int ox, oy, oz, sx, sy, sz;
+        offset_of(o, 1, ox, oy, oz);
+        neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz);
+        const T sv[3] = {T(sx), T(sy), T(sz)};
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          dh[m * 3] -= sv[m] * gx;
+          dh[m * 3 + 1] -= sv[m] * gy;
+          dh[m * 3 + 2] -= sv[m] * gz;
+        }
+      }
+    }
+    fx = warp_sum(fx);
+    fy = warp_sum(fy);
+    fz = warp_sum(fz);
+    if (lane == 0) {
+      fcen[(size_t)row * 3] = fx;
+      fcen[(size_t)row * 3 + 1] = fy;
+      fcen[(size_t)row * 3 + 2] = fz;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const T sum = warp_sum(dh[i]);
+    if (lane == 0) red[warp][i] = sum;
+  }
+  __syncthreads();
+  if (threadIdx.x < 9) {
+    T sum = T(0);
+    for (int wi = 0; wi < kWarpsPerBlock; ++wi) sum += red[wi][threadIdx.x];
+    dh_part[(size_t)blockIdx.x * 9 + threadIdx.x] = sum;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Neighbor-role force on the window lanes — replaces aev_asn.py:2083
+// _wing_kernel.
+//
+// wing[bin, w, c] = -sum over the bin's slots of gt[slot, c, inv[slot, w]]
+// for the 27 cap window lanes w; a lane no section keeps has inv =
+// kpad - 1, a compact lane where gt is always 0. The fold to the owner
+// bins stays aev_roll._fold_wing. Bound: reading inv [NC, cap, wpad]
+// int16 and gt (bytes). Design: the gather form, not a scatter: a block
+// serves 256 window lanes of one bin, a thread one lane; slot after slot
+// (in order: a fixed sum), the slot's 3 x kpad values of gt are staged in
+// shared memory and every thread reads the one its inv names; the reads
+// of inv coalesce over w.
+// ---------------------------------------------------------------------------
+constexpr int kWingThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kWingThreads) asn_wing_kernel(
+    const T* __restrict__ gt, const int16_t* __restrict__ inv,
+    T* __restrict__ wing, int cap, int wpad, int kpad) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s = reinterpret_cast<T*>(smem_raw);  // [3][kpad]
+  const int bin = blockIdx.x;
+  const int w = blockIdx.y * kWingThreads + threadIdx.x;
+  const int W = 27 * cap;
+  T ax = T(0), ay = T(0), az = T(0);
+  for (int slot = 0; slot < cap; ++slot) {
+    const size_t row = (size_t)bin * cap + slot;
+    __syncthreads();
+    for (int i = threadIdx.x; i < 3 * kpad; i += kWingThreads)
+      s[i] = gt[row * 3 * kpad + i];
+    __syncthreads();
+    if (w < W) {
+      int iv = inv[row * wpad + w];
+      if (iv < 0 || iv >= kpad) iv = kpad - 1;
+      ax += s[iv];
+      ay += s[kpad + iv];
+      az += s[2 * kpad + iv];
+    }
+  }
+  if (w < W) {
+    T* o = wing + ((size_t)bin * W + w) * 3;
+    o[0] = -ax;
+    o[1] = -ay;
+    o[2] = -az;
   }
 }
 
@@ -507,10 +937,7 @@ int asn_build_idx(const int* ip, const double*, const void* inv, void* idx,
 //     a_s[8] a_off[8]
 // fp: rc eta mu0 delta tiny_e pmin rca big rep_rc kf alpha[8] zeff[8]
 template <typename T>
-int asn_step_fused(const int* ip, const double* fp, const void* pos,
-                   const void* sp, const void* h, const void* idx, void* rad,
-                   void* cmp, void* rank2, void* deficit, void* stream) {
-  StepParams<T> p;
+bool step_params_from(const int* ip, const double* fp, StepParams<T>& p) {
   p.g = grid_from(ip);
   p.wpad = ip[4];
   p.kpad = ip[5];
@@ -521,8 +948,9 @@ int asn_step_fused(const int* ip, const double* fp, const void* pos,
   p.env = ip[10];
   p.kf15 = ip[11];
   if (!sections_from(ip + 12, p.sec) || !grid_ok(p.g, p.wpad, p.kpad) ||
-      p.NR < 1 || p.NR > kMaxNR || p.atot < 0 || p.atot > kDeadSlot)
-    return cudaErrorInvalidValue;
+      p.NR < 1 || p.NR > kMaxNR || p.atot < 0 || p.atot > kDeadSlot ||
+      p.srl != p.sec.n * p.NR)
+    return false;
   const int* st = ip + 12 + kSecInts;
   for (int i = 0; i < kMaxS; ++i) {
     p.a_s[i] = st[i];
@@ -538,6 +966,7 @@ int asn_step_fused(const int* ip, const double* fp, const void* pos,
   p.tiny_e = (T)fp[4];
   p.pmin = (T)fp[5];
   p.pi_rc = (T)(kPi / rc);
+  p.dfc_rk = (T)(-0.5 * kPi / rc);
   p.rca = (T)rca;
   p.pi_rca = (T)(kPi / rca);
   p.dfc_k = (T)(-0.5 * kPi / rca);
@@ -547,30 +976,65 @@ int asn_step_fused(const int* ip, const double* fp, const void* pos,
   p.a2b = (T)1.8897261258369282;
   p.one_m = (T)(1.0 - 1e-6);
   p.pi = (T)kPi;
+  return true;
+}
+
+template <typename T>
+int asn_step_fused(const int* ip, const double* fp, const void* pos,
+                   const void* sp, const void* h, const void* idx, void* rad,
+                   void* cmp, void* rank2, void* deficit, void* stream) {
+  StepParams<T> p;
+  if (!step_params_from(ip, fp, p)) return cudaErrorInvalidValue;
   const int nrows = p.g.nx * p.g.ny * p.g.nz * p.g.cap;
   asn_step_fused_kernel<T><<<row_blocks(nrows), kThreads, 0,
                              (cudaStream_t)stream>>>(
       (const T*)pos, (const int*)sp, (const T*)h, (const int16_t*)idx,
-      (T*)rad, (T*)cmp, (int*)rank2, (int*)deficit, p);
+      (T*)rad, (T*)cmp, (int16_t*)rank2, (int*)deficit, p);
   return (int)cudaGetLastError();
 }
 
-// ip: rows atot n_blocks zeta_int | base[28] q[28]
+// ip, fp: as asn_step_fused (the stage-2 entries are not read)
+template <typename T>
+int asn_radial_gamma(const int* ip, const double* fp, const void* pos,
+                     const void* sp, const void* h, const void* idx,
+                     const void* ga, void* gr, void* stream) {
+  StepParams<T> p;
+  if (!step_params_from(ip, fp, p)) return cudaErrorInvalidValue;
+  const int nrows = p.g.nx * p.g.ny * p.g.nz * p.g.cap;
+  asn_radial_gamma_kernel<T><<<row_blocks(nrows), kThreads, 0,
+                               (cudaStream_t)stream>>>(
+      (const T*)pos, (const int*)sp, (const T*)h, (const int16_t*)idx,
+      (const T*)ga, (T*)gr, p);
+  return (int)cudaGetLastError();
+}
+
+// ip: rows atot n_blocks zeta_int | base[28] q[28] off1[28] off2[28]
+//     a1[28] a2[28] same[28]
 // fp: rca eta zeta mu0 delta tiny cos_m[8] sin_m[8] pmin
 template <typename T>
-int asn_packed_fwd(const int* ip, const double* fp, const void* cat,
-                   const void* table, void* out, void* stream) {
-  PackedParams<T> p;
+bool packed_params_from(const int* ip, const double* fp, PackedParams<T>& p) {
   p.rows = ip[0];
   p.atot = ip[1];
   p.n_blocks = ip[2];
   p.zeta_int = ip[3];
   if (p.rows < 0 || p.atot < 1 || p.atot > kDeadSlot || p.n_blocks < 1 ||
       p.n_blocks > kMaxBlocks)
-    return cudaErrorInvalidValue;
+    return false;
+  p.max_q = 0;
   for (int b = 0; b < kMaxBlocks; ++b) {
     p.base[b] = ip[4 + b];
     p.q[b] = ip[4 + kMaxBlocks + b];
+    p.off1[b] = ip[4 + 2 * kMaxBlocks + b];
+    p.off2[b] = ip[4 + 3 * kMaxBlocks + b];
+    p.a1[b] = ip[4 + 4 * kMaxBlocks + b];
+    p.a2[b] = ip[4 + 5 * kMaxBlocks + b];
+    p.same[b] = ip[4 + 6 * kMaxBlocks + b];
+    if (b >= p.n_blocks) continue;
+    const int q = p.same[b] ? p.a1[b] * (p.a1[b] - 1) / 2 : p.a1[b] * p.a2[b];
+    if (p.q[b] != q || p.off1[b] < 0 || p.off1[b] + p.a1[b] > p.atot ||
+        p.off2[b] < 0 || p.off2[b] + p.a2[b] > p.atot)
+      return false;
+    if (q > p.max_q) p.max_q = q;
   }
   p.rca = (T)fp[0];
   p.eta = (T)fp[1];
@@ -583,6 +1047,14 @@ int asn_packed_fwd(const int* ip, const double* fp, const void* cat,
     p.sin_m[m] = (T)fp[6 + kNZ + m];
   }
   p.pmin = (T)fp[6 + 2 * kNZ];
+  return true;
+}
+
+template <typename T>
+int asn_packed_fwd(const int* ip, const double* fp, const void* cat,
+                   const void* table, void* out, void* stream) {
+  PackedParams<T> p;
+  if (!packed_params_from(ip, fp, p)) return cudaErrorInvalidValue;
   if (p.rows == 0) return cudaSuccess;
   const size_t smem = sizeof(T) * kWarpsPerBlock * 5 * p.atot;
   cudaError_t err = set_smem(asn_packed_fwd_kernel<T>, smem);
@@ -590,6 +1062,69 @@ int asn_packed_fwd(const int* ip, const double* fp, const void* cat,
   asn_packed_fwd_kernel<T><<<row_blocks(p.rows), kThreads, smem,
                              (cudaStream_t)stream>>>(
       (const T*)cat, (const int*)table, (T*)out, p);
+  return (int)cudaGetLastError();
+}
+
+constexpr size_t kMaxSmem = 227 * 1024;
+
+template <typename T>
+int asn_packed_bwd(const int* ip, const double* fp, const void* cat,
+                   const void* table, const void* ga, void* out,
+                   void* stream) {
+  PackedParams<T> p;
+  if (!packed_params_from(ip, fp, p)) return cudaErrorInvalidValue;
+  if (p.rows == 0) return cudaSuccess;
+  // as many warps (rows) per block as the shared memory holds
+  const size_t per_warp = sizeof(T) * (10 * (size_t)p.atot + 3 * p.max_q);
+  int warps = kWarpsPerBlock;
+  while (warps > 1 && warps * per_warp > kMaxSmem) warps /= 2;
+  const size_t smem = warps * per_warp;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(asn_packed_bwd_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  asn_packed_bwd_kernel<T><<<(p.rows + warps - 1) / warps, 32 * warps, smem,
+                             (cudaStream_t)stream>>>(
+      (const T*)cat, (const int*)table, (const T*)ga, (T*)out, p, warps);
+  return (int)cudaGetLastError();
+}
+
+// ip: nx ny nz cap kpad atot n_part; fp: the live-slot distance bound
+template <typename T>
+int asn_chain_sum(const int* ip, const double* fp, const void* rank2,
+                  const void* idx, const void* cmp, const void* gsum,
+                  const void* gr, void* gt, void* fcen, void* dh_part,
+                  void* dh, void* stream) {
+  const Grid g = grid_from(ip);
+  const int kpad = ip[4], atot = ip[5], n_part = ip[6];
+  const int nrows = g.nx * g.ny * g.nz * g.cap;
+  if (g.cap < 1 || kpad < 32 || kpad % 32 || atot < 0 || atot > kDeadSlot ||
+      n_part != row_blocks(nrows))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  asn_chain_sum_kernel<T><<<n_part, kThreads, 0, st>>>(
+      (const int16_t*)rank2, (const int16_t*)idx, (const T*)cmp,
+      (const T*)gsum, (const T*)gr, (T*)gt, (T*)fcen, (T*)dh_part, g, kpad,
+      atot, (T)fp[0]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dh_reduce_kernel<T><<<1, kRedThreads, 0, st>>>((const T*)dh_part, n_part,
+                                                 (T*)dh);
+  return (int)cudaGetLastError();
+}
+
+// ip: nc cap wpad kpad
+template <typename T>
+int asn_wing(const int* ip, const double*, const void* gt, const void* inv,
+             void* wing, void* stream) {
+  const int nc = ip[0], cap = ip[1], wpad = ip[2], kpad = ip[3];
+  const size_t smem = sizeof(T) * 3 * (size_t)kpad;
+  if (nc < 1 || cap < 1 || wpad < 27 * cap || kpad < 1 || smem > kMaxSmem)
+    return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(asn_wing_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 blocks(nc, (27 * cap + kWingThreads - 1) / kWingThreads);
+  asn_wing_kernel<T><<<blocks, kWingThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)gt, (const int16_t*)inv, (T*)wing, cap, wpad, kpad);
   return (int)cudaGetLastError();
 }
 
@@ -613,6 +1148,30 @@ int asn_packed_fwd(const int* ip, const double* fp, const void* cat,
                                       const void* cat, const void* table,    \
                                       void* out, void* stream) {             \
     return asn_packed_fwd<T>(ip, fp, cat, table, out, stream);               \
+  }                                                                           \
+  extern "C" int asn_radial_gamma_##SUF(                                     \
+      const int* ip, const double* fp, const void* pos, const void* sp,      \
+      const void* h, const void* idx, const void* ga, void* gr,              \
+      void* stream) {                                                         \
+    return asn_radial_gamma<T>(ip, fp, pos, sp, h, idx, ga, gr, stream);     \
+  }                                                                           \
+  extern "C" int asn_packed_bwd_##SUF(const int* ip, const double* fp,       \
+                                      const void* cat, const void* table,    \
+                                      const void* ga, void* out,             \
+                                      void* stream) {                         \
+    return asn_packed_bwd<T>(ip, fp, cat, table, ga, out, stream);           \
+  }                                                                           \
+  extern "C" int asn_chain_sum_##SUF(                                        \
+      const int* ip, const double* fp, const void* rank2, const void* idx,   \
+      const void* cmp, const void* gsum, const void* gr, void* gt,           \
+      void* fcen, void* dh_part, void* dh, void* stream) {                   \
+    return asn_chain_sum<T>(ip, fp, rank2, idx, cmp, gsum, gr, gt, fcen,     \
+                            dh_part, dh, stream);                             \
+  }                                                                           \
+  extern "C" int asn_wing_##SUF(const int* ip, const double* fp,             \
+                                const void* gt, const void* inv, void* wing, \
+                                void* stream) {                               \
+    return asn_wing<T>(ip, fp, gt, inv, wing, stream);                       \
   }
 
 AEV_ASN_ENTRY(float, f32)

@@ -1,7 +1,8 @@
 // Device helpers shared by the AEV kernels of aev_roll.cu and aev_asn.cu:
 // math overloads for float and double, the roll-bin window geometry
-// (neighbor bin, wrap shift, shifted candidate position) and the angular
-// pair-term body, which both angular forwards evaluate per slot pair.
+// (neighbor bin, wrap shift, shifted candidate position), the angular
+// pair-term body, which the angular kernels evaluate per slot pair, and
+// the fixed-order sum of the backwards' per-block box-cotangent partials.
 //
 // Included by each .cu file (each builds into its own library); everything
 // here lives in an anonymous namespace.
@@ -134,6 +135,27 @@ __device__ __forceinline__ void pair_terms_core(
   for (int m = 0; m < kNZ; ++m) {
     t.base[m] = T(0.5) * (T(1) + t.c95 * p.cos_m[m] + t.sv * p.sin_m[m]);
     t.f1[m] = zeta_pow(t.base[m], p);
+  }
+}
+
+constexpr int kRedThreads = 256;
+
+// dh[i] = sum over blocks of dh_part[:, i], fixed order (one block).
+template <typename T>
+__global__ void dh_reduce_kernel(const T* __restrict__ dh_part, int n,
+                                 T* __restrict__ dh) {
+  __shared__ T red[kRedThreads];
+  for (int i = 0; i < 9; ++i) {
+    T s = T(0);
+    for (int r = threadIdx.x; r < n; r += blockDim.x) s += dh_part[r * 9 + i];
+    red[threadIdx.x] = s;
+    __syncthreads();
+    for (int half = blockDim.x / 2; half > 0; half /= 2) {
+      if (threadIdx.x < half) red[threadIdx.x] += red[threadIdx.x + half];
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) dh[i] = red[0];
+    __syncthreads();
   }
 }
 

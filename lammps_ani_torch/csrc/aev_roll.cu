@@ -35,7 +35,6 @@
 namespace {
 
 constexpr int kMaxNR = 16;  // radial shifts per species (ANI: 16)
-constexpr int kRedThreads = 256;
 
 // Fixed-order tree sum of vals[blockDim][9] into out[9] (thread 0 writes).
 template <typename T>
@@ -266,25 +265,6 @@ __global__ void radial_bwd_kernel(const T* __restrict__ pos,
       for (int c = 0; c < 3; ++c) dh[m * 3 + c] += sv[m] * wv[c];
   }
   block_sum9(red, dh, dh_part + (size_t)cell * 9);
-}
-
-// dh[i] = sum over blocks of dh_part[:, i], fixed order (one block).
-template <typename T>
-__global__ void dh_reduce_kernel(const T* __restrict__ dh_part, int n,
-                                 T* __restrict__ dh) {
-  __shared__ T red[kRedThreads];
-  for (int i = 0; i < 9; ++i) {
-    T s = T(0);
-    for (int r = threadIdx.x; r < n; r += blockDim.x) s += dh_part[r * 9 + i];
-    red[threadIdx.x] = s;
-    __syncthreads();
-    for (int half = blockDim.x / 2; half > 0; half /= 2) {
-      if (threadIdx.x < half) red[threadIdx.x] += red[threadIdx.x + half];
-      __syncthreads();
-    }
-    if (threadIdx.x == 0) dh[i] = red[0];
-    __syncthreads();
-  }
 }
 
 // ---------------------------------------------------------------------------

@@ -1,11 +1,20 @@
-"""The MD engine driver: one chunk = bin rebuild + up to N velocity-Verlet
-steps.
+"""The MD engine's host loop: one chunk = rebuild + up to N
+velocity-Verlet steps.
 
-Port of lammps_ani_tpu/md/simulation.py with one engine, the JAX
-package's `pallas_full`: both AEV channels come from the roll-grid
-kernels (ops/aev_roll.py) over one fine bin grid, rebuilt every
-`rebuild_every` steps; no neighbor matrix, no mirror tables. Step
-(LAMMPS fix nve + optional fix langevin):
+Port of lammps_ani_tpu/md/simulation.py with two engines, under the JAX
+package's names:
+
+  * `pallas_asn` (the default): both AEV channels and the XTB repulsion
+    term from the assignment-compacted kernels (ops/aev_asn.py) over one
+    coarse bin grid (side >= Rcr + skin); every `rebuild_every` steps the
+    bins and the window-lane assignment (keep radius Rcr + skin) are
+    rebuilt. The compact sections, the angular caps and the occupancy
+    tiers are sized from one degree measure at `init_state`.
+  * `pallas_full`: both channels from the roll-grid kernels
+    (ops/aev_roll.py) over one fine bin grid; no repulsion term.
+
+Neither keeps a neighbor matrix or mirror tables. Step (LAMMPS fix nve +
+optional fix langevin):
 
   v += dt/2 * ftm2v * f/m ;  x += dt * v ;  f = forces(x) (+ Langevin)
   v += dt/2 * ftm2v * f/m
@@ -13,9 +22,10 @@ kernels (ops/aev_roll.py) over one fine bin grid, rebuilt every
 Neighbor contract (LAMMPS `neigh_modify check yes`): if any atom moved
 more than skin/2 since the rebuild, the chunk stops before the next step
 and `run` resumes from a fresh rebuild at exactly that state. Capacity
-overflow (a roll bin over `cap`, an angular cap truncating neighbors) is
-reported per chunk; `run` grows exactly that capacity and re-runs the
-chunk from its input state.
+overflow (a roll bin over `cap`, a compact section over its lanes, an
+angular cap truncating neighbors, the last tier short of rows) is
+reported per chunk with its size; `run` grows exactly that capacity,
+never shrinking one, and re-runs the chunk from its input state.
 
 Not ported yet (they raise NotImplementedError): NoseHoover, NPT and the
 barostats, RATTLE constraints, `extra_force`, and the mirror engine the
@@ -33,6 +43,7 @@ import torch
 from .. import units
 from .._device import resolve_device
 from ..models import potential as potmod
+from ..ops import aev_asn
 from ..ops import cell_list as clmod
 from ..ops import cell_roll as crmod
 from ..ops import neighbors as nbops
@@ -44,6 +55,17 @@ from .state import MDState
 ROLL_CAP_MARGIN = 4
 # Multiplicative margin of the measured per-species angular degrees.
 ANG_CAP_MARGIN = 1.1
+# asn engine: margin of the measured keep-radius degrees (the sections).
+SEC_MARGIN = 1.1
+# asn engine, occupancy tiers of the pair stage: at most this many tiers,
+# none below this many atoms; row capacities of the tiers before the last
+# (a spill only cascades) and of the last (the one that must hold).
+ANG_TIERS = 3
+ANG_TIER_MIN_ATOMS = 4096
+TIER_ROWS_MARGIN, TIER_ROWS_EXTRA = 1.06, 64
+LAST_TIER_ROWS_MARGIN, LAST_TIER_ROWS_EXTRA = 1.3, 4096
+
+ENGINES = ("pallas_asn", "pallas_full")
 
 
 def _ceil_to(x, m) -> int:
@@ -67,15 +89,18 @@ class NeighborConfig:
 
 
 class Simulation:
-    """Host-side orchestration of the roll engine on one device.
+    """Host-side orchestration of one engine on one device.
 
-    Runs on the card unless `device` says otherwise."""
+    `engine`: "pallas_asn" (None: the default, as the JAX package on its
+    accelerator) or "pallas_full". Runs on the card unless `device` says
+    otherwise."""
 
     def __init__(self, potential: potmod.ANIPotential, species: np.ndarray,
                  masses: np.ndarray, nbr: NeighborConfig, dt: float = 0.5,
                  integrator=None, dtype=torch.float32,
                  barostat=None, constraints=None,
-                 extra_force: Optional[Callable] = None, device=None):
+                 extra_force: Optional[Callable] = None, device=None,
+                 engine: Optional[str] = None):
         if integrator is not None and not isinstance(integrator,
                                                      integrate.Langevin):
             raise NotImplementedError(
@@ -87,11 +112,15 @@ class Simulation:
             raise NotImplementedError("RATTLE constraints are not ported yet")
         if extra_force is not None:
             raise NotImplementedError("extra_force is not ported yet")
-        if potential.spec.repulsion is not None:
-            raise NotImplementedError(
-                "the roll engine has no repulsion term; the asn engine that "
-                "carries it is not ported to the driver yet (use "
-                "potential.atomic_energies_asn)")
+        engine = engine or "pallas_asn"
+        if engine not in ENGINES:
+            raise ValueError(f"engine {engine!r}: expected one of {ENGINES}")
+        if engine == "pallas_full" and potential.spec.repulsion is not None:
+            raise ValueError(
+                "engine pallas_full has no pair-distance channel for the "
+                "repulsion term; use pallas_asn")
+        self.engine = engine
+        self._asn = engine == "pallas_asn"
         self.device = resolve_device(device)
         n = len(species)
         self.nbr = nbr
@@ -119,8 +148,13 @@ class Simulation:
         self._roll_grid = None
         self._roll_shell = 2
         self._rlist_query = nbr.rlist
-        # cumulative capacity regrows (callers warm up until it stops)
+        self._sections = None  # asn: ((species, lanes), ...) compact layout
+        self._tiers = None  # asn: ((caps_t, rows_t), ...) or None
+        # cumulative capacity regrows (callers warm up until it stops):
+        # chunks that were run again, and what was grown
         self.regrow_events = 0
+        self.regrow_kinds = {"roll": 0, "sections": 0, "angular_caps": 0,
+                             "tier_rows": 0}
 
     def _apply_order(self):
         self.inv_order = np.argsort(self.order)
@@ -155,8 +189,11 @@ class Simulation:
         pos_w = nbops.wrap_positions(pos_t, box)
         bins = self._bins(pos_w, box)
         pe, force, virial, _ = self._forces(pos_w, box, bins)
+        # the asn tables are stale after the next rebuild and large: the
+        # state does not carry them
         return MDState(pos=pos_w, vel=vel_t, force=force, box=box, step=0,
-                       pe=pe, virial=virial, pos_at_rebuild=pos_w, bins=bins)
+                       pe=pe, virial=virial, pos_at_rebuild=pos_w,
+                       bins=None if self._asn else bins)
 
     def _spatial_sort(self, pos: np.ndarray, box: nbops.Box):
         """Species-major / cell-minor atom order (the JAX package's
@@ -185,10 +222,14 @@ class Simulation:
 
     @property
     def _roll_side(self) -> float:
-        """One fine grid serves both channels: the angular kernels read
-        the 27-bin window (side >= Rca + skin), the radial a shell-2
-        window (2 side >= Rcr + skin)."""
+        """Least bin side. pallas_asn: one coarse grid whose 27-bin window
+        reaches the keep radius (side >= Rcr + skin). pallas_full: one fine
+        grid for both channels: the angular kernels read the 27-bin window
+        (side >= Rca + skin), the radial a shell-2 window (2 side >= Rcr +
+        skin)."""
         spec = self.potential.spec
+        if self._asn:
+            return spec.cutoff + self.nbr.skin
         return max(spec.aev.angular_cutoff + self.nbr.skin,
                    (spec.cutoff + self.nbr.skin) / 2.0)
 
@@ -198,19 +239,23 @@ class Simulation:
         if probe is None:
             raise NotImplementedError(
                 f"box too small for a 3x3x3 roll grid of side "
-                f"{self._roll_side:.2f} A; the mirror engine that serves "
-                "such boxes is not ported yet")
+                f"{self._roll_side:.2f} A (engine {self.engine}); the "
+                "mirror engine that serves such boxes is not ported yet")
         cnt = int(crmod.build_bins(probe, nbops.wrap_positions(pos, box),
                                    self.species, box).count_max)
         cap = _ceil_to(cnt + 2 + ROLL_CAP_MARGIN, 4)
         self._roll_grid = crmod.RollGrid(ncells=probe.ncells, cap=cap)
-        perp = self._perp_lengths(box_h)
-        side_now = float((perp / np.asarray(probe.ncells)).min())
         spec = self.potential.spec
-        # radial window: shell 1 if one bin reaches Rcr + skin, else 2
-        self._roll_shell = (1 if side_now >= spec.cutoff + self.nbr.skin
-                            else 2)
-        self._rlist_query = spec.aev.angular_cutoff + self.nbr.skin
+        if self._asn:
+            # the degree measure also sizes the sections (keep radius)
+            self._rlist_query = self.nbr.rlist
+        else:
+            perp = self._perp_lengths(box_h)
+            side_now = float((perp / np.asarray(probe.ncells)).min())
+            # radial window: shell 1 if one bin reaches Rcr + skin, else 2
+            self._roll_shell = (1 if side_now >= spec.cutoff + self.nbr.skin
+                                else 2)
+            self._rlist_query = spec.aev.angular_cutoff + self.nbr.skin
         if self.nbr.use_cell_list:
             self._grid = clmod.CellGrid.for_box(box_h, self._rlist_query,
                                                 self.nbr.cell_capacity)
@@ -251,8 +296,12 @@ class Simulation:
         """Per-species angular caps from the measured per-species degrees
         within Rca (+10% and +2, +4 more for small degrees, rounded to 4;
         0 for species absent as neighbors). `regrow` never shrinks a cap
-        and grows each by at least 4."""
+        and grows each by at least 4. The asn engine sizes its compact
+        sections (degrees within the keep radius Rcr + skin) and its
+        occupancy tiers (the per-atom degree matrix within Rca) from the
+        same measure."""
         spec = self.potential.spec
+        n_sp = spec.aev.num_species
 
         def measure():
             pos_w = nbops.wrap_positions(pos, box)
@@ -260,13 +309,19 @@ class Simulation:
             species_ext = nbops.extended_species(self.species, nlist.ghosts)
             _, dist = nbops.neighbor_displacements(pos_w, box, nlist)
             species_j = species_ext[nlist.idx]
-            in_ang = (nlist.mask & (species_j >= 0)
-                      & (dist < spec.aev.angular_cutoff))
-            degrees = [int(torch.sum(in_ang & (species_j == s), dim=1).max())
-                       for s in range(spec.aev.num_species)]
-            return degrees, int(nlist.max_count)
+            mask = nlist.mask & (species_j >= 0)
+            in_ang = mask & (dist < spec.aev.angular_cutoff)
+            cnt = torch.stack([torch.sum(in_ang & (species_j == s), dim=1)
+                               for s in range(n_sp)], dim=1)
+            sec = None
+            if self._asn:
+                in_keep = mask & (dist < spec.cutoff + self.nbr.skin)
+                sec = [int(torch.sum(in_keep & (species_j == s), dim=1).max())
+                       for s in range(n_sp)]
+            return ((cnt.max(0).values.tolist(), cnt, sec),
+                    int(nlist.max_count))
 
-        degrees, max_deg = measure()
+        (degrees, cnt, sec_degrees), max_deg = measure()
         for _ in range(16):
             if max_deg <= self._k_max:
                 break
@@ -274,7 +329,7 @@ class Simulation:
             # cell table reporting k_max + 1): regrow and re-measure
             self._probe_cell_capacity(pos, box)
             self._k_max = _ceil_to(max_deg * 1.1 + 4, 8)
-            degrees, max_deg = measure()
+            (degrees, cnt, sec_degrees), max_deg = measure()
         else:
             raise RuntimeError(f"degree measure kept truncating (max_count "
                                f"{max_deg} > k_max {self._k_max})")
@@ -291,17 +346,74 @@ class Simulation:
                          for c, o in zip(caps, old))
         self.potential = self.potential.with_spec(
             dataclasses.replace(spec, angular_caps=caps))
+        if self._asn:
+            self._sections = aev_asn.sections_from_degrees(sec_degrees,
+                                                           SEC_MARGIN)
+            self._tiers = self._derive_tiers(cnt.cpu().numpy(), caps)
+
+    def _derive_tiers(self, cnt, caps):
+        """Occupancy tiers of the asn pair stage from the measured degree
+        matrix `cnt` [n, S]: rows whose per-species degrees fit narrower
+        caps run fewer pair lanes; the last tier runs the full caps. Only
+        the last tier's row capacity must hold (a spill cascades from tier
+        to tier and the last one's is reported in the deficit), so it gets
+        the generous margin. None: one tier is as good, or too few atoms."""
+        n = self.n_atoms
+        if ANG_TIERS < 2 or n < ANG_TIER_MIN_ATOMS:
+            return None
+
+        def rows(count):
+            return min(int(count * TIER_ROWS_MARGIN) + TIER_ROWS_EXTRA, n)
+
+        ladder = (aev_asn.search_tier_ladder(cnt, caps, max_pre=ANG_TIERS - 1)
+                  if ANG_TIERS > 2 else None)
+        if ladder is not None:
+            tiers = [(tuple(caps_t), rows(n_t)) for caps_t, n_t in ladder]
+            rest = n - sum(n_t for _, n_t in ladder)
+            tiers.append((tuple(caps), min(
+                int(rest * LAST_TIER_ROWS_MARGIN) + LAST_TIER_ROWS_EXTRA, n)))
+            return tuple(tiers)
+        res = aev_asn.search_tiers(cnt, caps)
+        if res is None:
+            return None
+        caps0, n0 = res
+        return ((tuple(caps0), rows(n0)),
+                (tuple(caps), min(int((n - n0) * LAST_TIER_ROWS_MARGIN) + 256,
+                                  n)))
+
+    @property
+    def kpad(self) -> int:
+        """asn: compact lanes per center (the sections and one dead lane,
+        rounded up to 128)."""
+        return aev_asn._round_lane(sum(k for _, k in self._sections) + 1)
 
     def _bins(self, pos, box):
-        return crmod.build_bins(self._roll_grid, pos, self.species, box)
+        """The rebuild: the roll bins, and for the asn engine (bins,
+        assignment) over the keep radius Rcr + skin (it covers Rca + skin,
+        and the step re-compacts the lanes within Rca anyway)."""
+        bins = crmod.build_bins(self._roll_grid, pos, self.species, box)
+        if not self._asn:
+            return bins
+        return bins, aev_asn.build_assignment(
+            self._roll_grid, bins, pos, box, self._sections, self.kpad,
+            self.potential.spec.cutoff + self.nbr.skin)
 
     # ---------- per step ----------
 
     def _forces(self, pos, box, bins):
-        """(pe, force, virial, angular deficit) in kcal/mol units."""
-        pe, f, w, deficit = potmod.energy_forces_virial_roll(
-            self.potential, self.species, pos, box, self._roll_grid, bins,
-            self.species_counts, radial_shell=self._roll_shell)
+        """(pe, force, virial, angular deficit) in kcal/mol units; the
+        deficit is one number (pallas_full) or one per species and, when
+        tiered, the rows the last tier could not hold (pallas_asn)."""
+        if self._asn:
+            rbins, rasn = bins
+            pe, f, w, deficit = potmod.energy_forces_virial_asn(
+                self.potential, self.species, pos, box,
+                (self._roll_grid, rbins, rasn, self._sections, self._tiers),
+                self.species_counts)
+        else:
+            pe, f, w, deficit = potmod.energy_forces_virial_roll(
+                self.potential, self.species, pos, box, self._roll_grid,
+                bins, self.species_counts, radial_shell=self._roll_shell)
         c = units.HARTREE2KCALMOL
         return pe * c, f * c, w * c, deficit
 
@@ -331,18 +443,27 @@ class Simulation:
         """One rebuild + up to n_take steps; stops early (before stepping)
         once any atom moved more than skin/2 since the rebuild.
 
-        Returns (state, thermo [k, 6], max displacement, overflow codes,
-        roll occupancy, steps done)."""
+        Returns (state, thermo [k, 6], max displacement, overflow, steps
+        done). `overflow` names what this chunk's rebuild or steps
+        outgrew, with the size `run` grows it by: "roll" (a bin's
+        occupancy), "sections" (per-species lanes over the section),
+        "angular" (per-species neighbors over the cap) and "tier_rows"
+        (rows the last tier could not hold); empty when nothing did."""
         box = state.box
         pos_w = nbops.wrap_positions(state.pos, box)
         bins = self._bins(pos_w, box)
-        roll_count = int(bins.count_max)
-        overflow = {"ghost": False, "k_max": False, "angular": False,
-                    "roll": roll_count > self._roll_grid.cap}
+        rbins, rasn = bins if self._asn else (bins, None)
+        overflow = {}
+        roll_count = int(rbins.count_max)
+        if roll_count > self._roll_grid.cap:
+            overflow["roll"] = roll_count
+        if rasn is not None and float(rasn.ovf) > 0:
+            overflow["sections"] = rasn.ovf_sec.cpu().numpy()
         st = state.replace(pos=pos_w, bins=bins, pos_at_rebuild=pos_w)
-        if overflow["roll"]:
-            # atoms fell out of the grid: no step would be right
-            return st, None, 0.0, overflow, roll_count, 0
+        if overflow:
+            # atoms fell out of the grid or of the assignment: no step
+            # would be right
+            return st.replace(bins=None), None, 0.0, overflow, 0
         half_skin = self.nbr.skin / 2.0
         rows, deficits = [], []
         n_done = 0
@@ -356,10 +477,65 @@ class Simulation:
             rows.append(self._thermo(st))
             n_done += 1
         if deficits:
-            overflow["angular"] = bool(torch.stack(deficits).max() > 0)
+            # the worst deficit over the chunk's steps, per entry
+            worst = torch.stack(deficits).max(0).values.cpu().numpy()
+            n_sp = self.potential.spec.aev.num_species
+            if not self._asn:
+                if worst > 0:
+                    overflow["angular"] = float(worst)
+            else:
+                if worst[:n_sp].max() > 0:
+                    overflow["angular"] = worst[:n_sp]
+                if len(worst) > n_sp and worst[n_sp] > 0:
+                    overflow["tier_rows"] = int(worst[n_sp])
         disp = float(torch.linalg.norm(st.pos - pos_w, dim=-1).max())
         thermo = torch.stack(rows) if rows else None
-        return st, thermo, disp, overflow, roll_count, n_done
+        if self._asn:
+            st = st.replace(bins=None)
+        return st, thermo, disp, overflow, n_done
+
+    def _regrow(self, state: MDState, overflow: dict):
+        """Grow exactly the capacities that `overflow` names, each by what
+        was measured (never less than one rounding step, never down)."""
+        if "roll" in overflow:
+            # to the measured occupancy (+2, rounded to 4): every extra
+            # slot adds 27 window lanes to every kernel of the step
+            old = self._roll_grid.cap
+            new_cap = max(_ceil_to(overflow["roll"] + 2, 4), old + 4)
+            self._roll_grid = crmod.RollGrid(ncells=self._roll_grid.ncells,
+                                             cap=new_cap)
+            self.regrow_kinds["roll"] += 1
+        if "sections" in overflow:
+            # exactly the overflowing sections, by their reported deficits
+            # (a re-measure at the chunk's input state could give back the
+            # sections that just overflowed)
+            dv = overflow["sections"]
+            self._sections = tuple(
+                (s, k + max(4, _ceil_to(dv[s], 4))
+                 if s < len(dv) and dv[s] > 0 else k)
+                for s, k in self._sections)
+            self.regrow_kinds["sections"] += 1
+        if "angular" in overflow and not self._asn:
+            self._derive_angular_caps(state.pos, state.box, regrow=True)
+            self.regrow_kinds["angular_caps"] += 1
+        elif "angular" in overflow or "tier_rows" in overflow:
+            spec = self.potential.spec
+            caps = spec.angular_caps
+            if "angular" in overflow:
+                # exactly the overflowing caps, by the kernels' per-species
+                # deficits: no degree re-measure
+                caps = tuple(
+                    c if (c == 0 or d <= 0) else c + max(4, _ceil_to(d, 4))
+                    for c, d in zip(caps, overflow["angular"]))
+                self.potential = self.potential.with_spec(
+                    dataclasses.replace(spec, angular_caps=caps))
+                self.regrow_kinds["angular_caps"] += 1
+            if self._tiers is not None:
+                last_rows = self._tiers[-1][1]
+                if "tier_rows" in overflow:
+                    last_rows += max(256, int(overflow["tier_rows"] * 1.5))
+                    self.regrow_kinds["tier_rows"] += 1
+                self._tiers = self._tiers[:-1] + ((caps, last_rows),)
 
     # ---------- host API ----------
 
@@ -374,25 +550,20 @@ class Simulation:
         recap_attempts = 0
         while done < n_steps:
             take = min(chunk, n_steps - done)
-            new_state, thermo, disp, ovf, roll_count, n_done = self._chunk(
-                state, take)
-            if any(ovf.values()):
+            new_state, thermo, disp, overflow, n_done = self._chunk(state,
+                                                                    take)
+            if overflow:
                 # grow exactly what overflowed; re-run the chunk from its
                 # (untouched) input state
                 recap_attempts += 1
                 self.regrow_events += 1
                 if recap_attempts > 8:
                     raise RuntimeError(
-                        f"capacities keep overflowing after 8 regrows: {ovf}")
-                if ovf["roll"]:
-                    old = self._roll_grid.cap
-                    new_cap = max(_ceil_to(roll_count + 2, 4), old + 4)
-                    self._roll_grid = crmod.RollGrid(
-                        ncells=self._roll_grid.ncells, cap=new_cap)
-                if ovf["angular"]:
-                    self._derive_angular_caps(state.pos, state.box,
-                                              regrow=True)
+                        "capacities keep overflowing after 8 regrows: "
+                        f"{overflow}")
+                self._regrow(state, overflow)
                 continue
+            # the limit is on consecutive regrows without progress
             recap_attempts = 0
             if n_done == 0:
                 raise RuntimeError(

@@ -8,8 +8,7 @@ Port of lammps_ani_tpu/models/potential.py, two paths:
     `pallas_full` engine); no repulsion term;
   * asn (`atomic_energies_asn`): both channels and the repulsion energy
     from the assignment-compacted kernels of ops/aev_asn.py over one
-    coarse grid (the `pallas_asn` engine), in compact AEV columns. Its
-    forces run on the CPU only until the backward kernels are ported.
+    coarse grid (the `pallas_asn` engine), in compact AEV columns.
 
 Forces come from
 `torch.autograd.grad`, the virial from the derivative with respect to an
@@ -166,16 +165,9 @@ def atomic_energies_asn(pot: ANIPotential, species: torch.Tensor,
     local = species >= 0
     aev = torch.where(local[:, None], torch.cat([radial, angular], dim=1),
                       0.0)
-    n_shf = len(spec.aev.shf_r) * len(spec.aev.eta_r)
-    srl_full = spec.aev.num_species * n_shf
-    asub = spec.aev.angular_sublength
-    chans = aev_asn.present_channels(spec.aev, spec.angular_caps, sect)
-    col_idx = tuple([s * n_shf + j for s, _ in sect for j in range(n_shf)]
-                    + [srl_full + ch0 + j for ch0 in chans
-                       for j in range(asub)])
     atomic = netmod.atomic_energies_sorted(spec.net, pot.params,
                                            species_counts, aev,
-                                           col_idx=col_idx)
+                                           col_idx=asn_col_idx(spec, sect))
     e = netmod.ensemble_energies(atomic) + spec.shifter(species,
                                                         dtype=aev.dtype)
     if spec.repulsion is not None:
@@ -183,13 +175,23 @@ def atomic_energies_asn(pot: ANIPotential, species: torch.Tensor,
     return torch.where(local, e, 0.0), deficit
 
 
+def asn_col_idx(spec: ANISpec, sections):
+    """Columns of the full AEV that the asn path's compact AEV holds: the
+    radial columns of the present sections, then the present species-pair
+    blocks."""
+    n_shf = len(spec.aev.shf_r) * len(spec.aev.eta_r)
+    srl_full = spec.aev.num_species * n_shf
+    asub = spec.aev.angular_sublength
+    chans = aev_asn.present_channels(spec.aev, spec.angular_caps, sections)
+    return tuple([s * n_shf + j for s, _ in sections for j in range(n_shf)]
+                 + [srl_full + ch0 + j for ch0 in chans for j in range(asub)])
+
+
 def energy_forces_virial_asn(pot: ANIPotential, species: torch.Tensor,
                              pos: torch.Tensor, box: Box, asn_state,
                              species_counts: Sequence[int]):
-    """(E, F [n,3], W [3,3], deficit) in Hartree units via the asn path,
-    by autograd through the plain versions: CPU tensors only for now."""
-    if pos.device.type != "cpu":
-        raise NotImplementedError(aev_asn.BACKWARD_MISSING)
+    """(E, F [n,3], W [3,3], deficit) in Hartree units via the asn path;
+    the fused op's backward supplies exact dpos and box cotangents."""
     energy, deps, dpos, deficit = _strained(
         pos, box, lambda p, b: atomic_energies_asn(
             pot, species, p, b, asn_state, species_counts))

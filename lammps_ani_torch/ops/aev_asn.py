@@ -1,10 +1,9 @@
-"""Assignment-compacted AEV channels: the rebuild and the forward of the
-`pallas_asn` engine, four hand-written Hopper kernels and their plain
-PyTorch versions.
+"""Assignment-compacted AEV channels: the rebuild, the forward and the
+backward of the `pallas_asn` engine, eight hand-written Hopper kernels
+and their plain PyTorch versions.
 
-Port of lammps_ani_tpu/ops/aev_asn.py, rebuild and forward (the backward
-kernels come in the next slice). One coarse roll grid (bin side >= Rcr +
-skin) serves both AEV channels:
+Port of lammps_ani_tpu/ops/aev_asn.py (the fused path: `aev_asn_fused`).
+One coarse roll grid (bin side >= Rcr + skin) serves both AEV channels:
 
   * At rebuild, each center's 27-bin window lanes within the keep radius
     (Rcr + skin) are ranked into per-species compact sections:
@@ -21,6 +20,14 @@ skin) serves both AEV channels:
     present species-pair block, from a static pair-lane table, per flat
     atom row (`packed_fwd`), optionally in occupancy tiers of narrower
     caps.
+  * The backward recomputes the compact geometry for the radial and
+    repulsion cotangents (`radial_gamma`), sums the pair cotangents into
+    the packed slots on the tier rows the forward gathered (`packed_bwd`),
+    chains the slots back to the compact lanes through `rank2` and adds
+    the radial part, with the center force and the box cotangent
+    (`chain_sum`), and gathers the neighbor-role force onto the window
+    lanes through `inv` (`wing`); `aev_roll._fold_wing` rolls the window
+    slabs back to their owner bins.
 
 The host-side sizing and the flat-row glue keep their JAX names. The
 JAX `_prep_asn` candidate planes have no counterpart: the plain versions
@@ -29,17 +36,18 @@ them from the [NC, cap] grid rows of `aev_roll._grid_inputs`.
 
 Each wrapper launches its CUDA kernel (csrc/aev_asn.cu, built at first use
 by ops/_build.py) for tensors on the card, and runs the plain PyTorch
-version beside it for tensors on the CPU. The plain versions are built
-from differentiable torch ops: on the CPU, autograd through them gives
-forces and the box cotangent. On the card the forward's backward (four
-more kernels) is the next slice: `aev_asn_fused` raises there.
+version beside it for tensors on the CPU. `aev_asn_fused` is one
+autograd.Function on both devices: its backward is the four backward
+wrappers. The plain forwards are also differentiable torch ops, so
+`plain=True` gives forces and the box cotangent by autograd alone: the
+oracle the explicit backward is held against.
 
 Conventions (as the TPU kernels): empty slots are parked at 1e6 with
 species -1; self is excluded by lane index (13 cap + slot); the keep test
 is d2 <= keep_r^2; dist = sqrt(max(d2, 1e-12)) with d2 = (dx dx + dy dy)
 + dz dz; dead compact lanes sit at dist 1e6; dead packed slots hold
-u = 0, d = 2 Rca + 10, fc = dfc = 0; rank2 of a lane without a slot is
-127; overflow and deficits are per species, max(count - cap) from a
+u = 0, d = 2 Rca + 10, fc = dfc = 0; rank2 (int16) of a lane without a
+slot is 127; overflow and deficits are per species, max(count - cap) from a
 -2^20 floor.
 """
 
@@ -64,26 +72,26 @@ ANGSTROM2BOHR = 1.8897261258369282
 _MAX_S = 8
 _MAX_BLOCKS = 28
 
-# Plain-integer launch counts of the four CUDA kernels (one per wrapper
+# Plain-integer launch counts of the eight CUDA kernels (one per wrapper
 # call that launches its kernel) and call counts of their plain versions
 # made by the wrappers (CPU tensors). `reset_counts()` zeroes both.
 LAUNCHES = {"build_inv": 0, "build_idx": 0, "step_fused": 0,
-            "packed_fwd": 0}
+            "packed_fwd": 0, "radial_gamma": 0, "packed_bwd": 0,
+            "chain_sum": 0, "wing": 0}
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 
-# The TPU kernels of ops/aev_asn.py that the four kernels replace.
+# The TPU kernels of ops/aev_asn.py that the eight kernels replace.
 REPLACES = {
     "build_inv": "lammps_ani_tpu/ops/aev_asn.py:243 _build_inv_kernel",
     "build_idx": "lammps_ani_tpu/ops/aev_asn.py:309 _build_idx_kernel",
     "step_fused": "lammps_ani_tpu/ops/aev_asn.py:1178 _step_fused_kernel",
     "packed_fwd": "lammps_ani_tpu/ops/aev_asn.py:1794 _packed_fwd_kernel",
+    "radial_gamma":
+        "lammps_ani_tpu/ops/aev_asn.py:850 _radial_gamma_only_kernel",
+    "packed_bwd": "lammps_ani_tpu/ops/aev_asn.py:1833 _packed_bwd_kernel",
+    "chain_sum": "lammps_ani_tpu/ops/aev_asn.py:2047 _chain_sum_kernel",
+    "wing": "lammps_ani_tpu/ops/aev_asn.py:2083 _wing_kernel",
 }
-
-BACKWARD_MISSING = (
-    "the asn forward has no backward on the card yet: its four kernels "
-    "(aev_asn.py _radial_gamma_only_kernel, _packed_bwd_kernel, "
-    "_chain_sum_kernel, _wing_kernel) are the next slice of the port; "
-    "forces on the asn path run on the CPU only")
 
 
 def reset_counts():
@@ -373,7 +381,7 @@ def _norm_tiers(tiers, caps, r, n_pad2):
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch versions of the four kernels
+# Plain PyTorch versions of the eight kernels
 # ---------------------------------------------------------------------------
 
 
@@ -450,30 +458,90 @@ def _step_consts(spec, dtype):
                 big=2.0 * rca + 10.0, tiny=tiny, pmin=tiny)
 
 
-def _rep_half_plain(rep, dist, a_ij, z_ij, rin, pmin):
-    """Repulsion half pair energies (aev_asn.py `_rep_pair`) in Hartree;
-    0 outside `rin`."""
+def _rep_pair_plain(rep, dist, a_ij, z_ij, rin):
+    """(e, de/d dist) of the repulsion half pair energy (aev_asn.py
+    `_rep_pair`) in Hartree; 0 outside `rin`."""
     rc = rep.cutoff
     safe = torch.where(rin, dist * ANGSTROM2BOHR, 1.0)
     r_kf = (safe * torch.sqrt(safe) if rep.k_f == 1.5
             else torch.exp(rep.k_f * torch.log(safe)))
     core = z_ij / safe * torch.exp(-a_ij * r_kf)
+    dcore_db = core * (-1.0 / safe - a_ij * rep.k_f * r_kf / safe)
     x = dist / rc
     if rep.cutoff_fn == "cosine":
         env = 0.5 * torch.cos(math.pi * x) + 0.5
+        denv = (-0.5 * math.pi / rc) * torch.sin(math.pi * x)
     elif rep.cutoff_fn == "none":
         env = torch.ones_like(x)
+        denv = torch.zeros_like(x)
     else:  # smooth
-        x2 = torch.clamp(x * x, 0.0, 1.0 - 1e-6)
-        env = torch.exp(1.0 - 1.0 / (1.0 - x2))
+        u = 1.0 - torch.clamp(x * x, 0.0, 1.0 - 1e-6)
+        env = torch.exp(1.0 - 1.0 / u)
+        denv = env * (-2.0 * x / (rc * u * u))
     e = 0.5 * torch.where(rin, core * env, 0.0)
+    de = 0.5 * torch.where(
+        rin, dcore_db * ANGSTROM2BOHR * env + core * denv, 0.0)
+    return e, de
+
+
+def _rep_half_plain(rep, dist, a_ij, z_ij, rin, pmin):
+    """Repulsion half pair energies, flushed below `pmin`."""
+    e, _ = _rep_pair_plain(rep, dist, a_ij, z_ij, rin)
     return torch.where((e > pmin) | (e < -pmin), e, 0.0)
+
+
+def _padded_candidates(ncells, pos_g, sp_g, h, wpad):
+    """Candidate positions of every bin's 27-bin window, padded so that
+    lane wpad (a dead idx) reads zeros, as the TPU gather does."""
+    cp, _ = aev_roll._candidates(ncells, pos_g, sp_g, h, 1)
+    return torch.nn.functional.pad(cp, (0, 0, 0, wpad + 1 - cp.shape[1]))
+
+
+def _lane_geometry(cp, ctr, iv, wpad):
+    """(ax, ay, az, valid, dist) [rows, cap, kpad] of the compact lanes
+    `iv` (window lanes, int64): a = center - candidate; dead lanes sit at
+    dist 1e6."""
+    r, cap, kpad = iv.shape
+    cand = torch.gather(cp, 1, iv.reshape(r, cap * kpad, 1)
+                        .expand(-1, -1, 3)).reshape(r, cap, kpad, 3)
+    ax = ctr[:, :, None, 0] - cand[..., 0]
+    ay = ctr[:, :, None, 1] - cand[..., 1]
+    az = ctr[:, :, None, 2] - cand[..., 2]
+    valid = iv < wpad
+    dist = torch.where(valid, torch.sqrt(torch.clamp(
+        _d2(ax, ay, az), min=1e-12)), 1e6)
+    return ax, ay, az, valid, dist
+
+
+def _rep_tables(rep, sections, kpad, dtype, dev):
+    """Repulsion parameters by compact lane (a_j, z_j [kpad]) and by
+    center species (a_c, z_c [9]; entry 8: empty slot)."""
+    offs, _ = _sec_offsets(sections)
+    a_j = torch.zeros(kpad, dtype=dtype, device=dev)
+    z_j = torch.zeros(kpad, dtype=dtype, device=dev)
+    a_c = torch.zeros(_MAX_S + 1, dtype=dtype, device=dev)
+    z_c = torch.zeros(_MAX_S + 1, dtype=dtype, device=dev)
+    for (s, k_s), off in zip(sections, offs):
+        a_j[off:off + k_s] = rep.alpha[s]
+        z_j[off:off + k_s] = rep.zeff[s]
+        a_c[s] = rep.alpha[s]
+        z_c[s] = rep.zeff[s]
+    return a_j, z_j, a_c, z_c
+
+
+def _rep_lanes(rep, tables, sp_rows, valid, dist):
+    """(a_ij, z_ij, rin) of the compact lanes of the centers `sp_rows`."""
+    a_j, z_j, a_c, z_c = tables
+    csp = torch.where(sp_rows >= 0, sp_rows.to(torch.int64), _MAX_S)
+    a_ij = torch.sqrt(torch.clamp(a_j * a_c[csp][..., None], min=1e-12))
+    z_ij = z_j * z_c[csp][..., None]
+    return a_ij, z_ij, valid & (z_ij > 0) & (dist < rep.cutoff)
 
 
 def step_fused_plain(pos_g, sp_g, h, idx, ncells, spec, sections, caps,
                      rep):
     """(rad [NC, cap, srl+1], cmp [NC, cap, 6, atot], rank2 [NC, cap,
-    kpad] int32, deficit [8] int32): one geometry pass through `idx`.
+    kpad] int16, deficit [8] int32): one geometry pass through `idx`.
 
     rad: radial columns si*NR + k of the present sections, the repulsion
     energy last; cmp: the stage-2 packed slots, fields (ux, uy, uz, d,
@@ -487,35 +555,17 @@ def step_fused_plain(pos_g, sp_g, h, idx, ncells, spec, sections, caps,
     rc, rca, nr, pmin = k["rc"], k["rca"], k["nr"], k["pmin"]
     offs, _ = _sec_offsets(sections)
     a_offs, atot = _a_offsets(sections, caps)
-    cp, _ = aev_roll._candidates(ncells, pos_g, sp_g, h, 1)
-    # lane wpad (a dead idx) reads zeros, as the TPU gather does
-    cp = torch.nn.functional.pad(cp, (0, 0, 0, wpad + 1 - cp.shape[1]))
+    cp = _padded_candidates(ncells, pos_g, sp_g, h, wpad)
     deficit = torch.full((_MAX_S,), DEFICIT_FLOOR, dtype=torch.int32,
                          device=dev)
     if rep is not None:
-        a_j = torch.zeros(kpad, dtype=dtype, device=dev)
-        z_j = torch.zeros(kpad, dtype=dtype, device=dev)
-        a_c = torch.zeros(_MAX_S + 1, dtype=dtype, device=dev)
-        z_c = torch.zeros(_MAX_S + 1, dtype=dtype, device=dev)
-        for (s, k_s), off in zip(sections, offs):
-            a_j[off:off + k_s] = rep.alpha[s]
-            z_j[off:off + k_s] = rep.zeff[s]
-            a_c[s] = rep.alpha[s]
-            z_c[s] = rep.zeff[s]
+        rep_tab = _rep_tables(rep, sections, kpad, dtype, dev)
     lane_ids = torch.arange(kpad, device=dev)
     rads, cmps, rank2s = [], [], []
     for rs in _chunks(nc, cap * kpad * 24):
         iv = idx[rs].to(torch.int64)
         r = iv.shape[0]
-        cand = torch.gather(cp[rs], 1, iv.reshape(r, cap * kpad, 1)
-                            .expand(-1, -1, 3)).reshape(r, cap, kpad, 3)
-        ctr = pos_g[rs]
-        ax = ctr[:, :, None, 0] - cand[..., 0]
-        ay = ctr[:, :, None, 1] - cand[..., 1]
-        az = ctr[:, :, None, 2] - cand[..., 2]
-        valid = iv < wpad
-        dist = torch.where(valid, torch.sqrt(torch.clamp(
-            _d2(ax, ay, az), min=1e-12)), 1e6)
+        ax, ay, az, valid, dist = _lane_geometry(cp[rs], pos_g[rs], iv, wpad)
 
         # radial columns, compact section order, and the repulsion column
         in_cut = valid & (dist <= rc)
@@ -532,11 +582,7 @@ def step_fused_plain(pos_g, sp_g, h, idx, ncells, spec, sections, caps,
                 cols[si][kk] = t[..., off:off + k_s].sum(-1)
         cols = [c for per_sec in cols for c in per_sec]
         if rep is not None:
-            csp = torch.where(sp_g[rs] >= 0, sp_g[rs].to(torch.int64), _MAX_S)
-            a_ij = torch.sqrt(torch.clamp(a_j * a_c[csp][..., None],
-                                          min=1e-12))
-            z_ij = z_j * z_c[csp][..., None]
-            rin = valid & (z_ij > 0) & (dist < rep.cutoff)
+            a_ij, z_ij, rin = _rep_lanes(rep, rep_tab, sp_g[rs], valid, dist)
             cols.append(_rep_half_plain(rep, dist, a_ij, z_ij, rin,
                                         pmin).sum(-1))
         else:
@@ -545,7 +591,7 @@ def step_fused_plain(pos_g, sp_g, h, idx, ncells, spec, sections, caps,
 
         # stage 2: first caps[s] in-Rca lanes of each section -> slots
         in_ang = valid & (dist <= rca)
-        rank2 = torch.full((r, cap, kpad), DEAD_SLOT, dtype=torch.int32,
+        rank2 = torch.full((r, cap, kpad), DEAD_SLOT, dtype=torch.int16,
                            device=dev)
         src = torch.full((r, cap, atot + 1), kpad, dtype=torch.int64,
                          device=dev)  # lane of each slot; kpad: empty
@@ -560,7 +606,7 @@ def step_fused_plain(pos_g, sp_g, h, idx, ncells, spec, sections, caps,
             rank = cum - 1
             keep = m & (rank < a_s)
             rank2[..., off:off + k_s] = torch.where(
-                keep, rank + a_off, DEAD_SLOT).to(torch.int32)
+                keep, rank + a_off, DEAD_SLOT).to(torch.int16)
             tgt = torch.where(keep, rank + a_off, atot).to(torch.int64)
             src.scatter_(2, tgt, lane_ids[off:off + k_s].expand_as(tgt))
         src = src[..., :atot]
@@ -613,6 +659,158 @@ def packed_fwd_plain(cat, spec, caps_t, a_offs):
                     cols.append(torch.where(v > pmin, v, 0.0).sum(-1))
         outs.append(2.0 * torch.stack(cols, dim=-1))
     return torch.cat(outs)
+
+
+def radial_gamma_plain(pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep):
+    """gr [NC, cap, 3, kpad]: the compact lanes' vector cotangents from the
+    radial and repulsion cotangent `ga` [NC, cap, srl+1] (the derivative
+    of `step_fused`'s rad with respect to a = center - candidate):
+    gamma (a / d) with gamma = sum_k ga[si*NR + k] 0.25 e_k (dfc - 2 eta
+    x_k fc) + ga[srl] dE_rep/dd. Dead lanes give 0."""
+    nc, cap = sp_g.shape
+    kpad = idx.shape[-1]
+    wpad = _round_lane(27 * cap)
+    dev, dtype = pos_g.device, pos_g.dtype
+    k = _step_consts(spec, dtype)
+    rc, nr = k["rc"], k["nr"]
+    offs, _ = _sec_offsets(sections)
+    cp = _padded_candidates(ncells, pos_g, sp_g, h, wpad)
+    if rep is not None:
+        rep_tab = _rep_tables(rep, sections, kpad, dtype, dev)
+    # lane -> radial column base (si * NR); lanes of no section: column 0
+    # with weight 0
+    col0 = torch.zeros(kpad, dtype=torch.int64, device=dev)
+    in_sec = torch.zeros(kpad, dtype=dtype, device=dev)
+    for si, ((_, k_s), off) in enumerate(zip(sections, offs)):
+        col0[off:off + k_s] = si * nr
+        in_sec[off:off + k_s] = 1.0
+    outs = []
+    for rs in _chunks(nc, cap * kpad * 24):
+        iv = idx[rs].to(torch.int64)
+        ax, ay, az, valid, dist = _lane_geometry(cp[rs], pos_g[rs], iv, wpad)
+        in_cut = valid & (dist <= rc)
+        fc = torch.where(in_cut, 0.5 * torch.cos(dist * (math.pi / rc)) + 0.5,
+                         0.0)
+        dfc = torch.where(in_cut, (-0.5 * math.pi / rc)
+                          * torch.sin(dist * (math.pi / rc)), 0.0)
+        x = torch.clamp(dist, max=rc + 1.0) - k["mu0"]
+        g = ga[rs]
+        gamma = torch.zeros_like(dist)
+        for kk in range(nr):
+            xk = x - kk * k["delta"]
+            e = torch.exp(-k["eta"] * xk * xk)
+            e = torch.where(e > k["tiny"], e, 0.0)
+            db = 0.25 * e * (dfc - (2.0 * k["eta"]) * xk * fc)
+            gamma = gamma + db * (g[:, :, col0 + kk] * in_sec)
+        if rep is not None:
+            a_ij, z_ij, rin = _rep_lanes(rep, rep_tab, sp_g[rs], valid, dist)
+            _, de = _rep_pair_plain(rep, dist, a_ij, z_ij, rin)
+            gamma = gamma + de * g[:, :, -1:]
+        gd = gamma / dist
+        outs.append(torch.stack([gd * ax, gd * ay, gd * az], dim=2))
+    return torch.cat(outs)
+
+
+def packed_bwd_plain(cat, ga_t, spec, caps_t, a_offs):
+    """[rows, 5 atot] per-slot cotangent sums (of ux, uy, uz, d, fc, field
+    after field) of the rows of `cat` for the cotangent `ga_t` [rows,
+    n_blocks * 32] of `packed_fwd`'s columns: both arms of every pair
+    lane."""
+    rows = cat.shape[0]
+    atot = cat.shape[1] // 5
+    blocks, q_total, _ = _packed_layout(spec, caps_t, a_offs)
+    cst = aev_roll.angular_consts(spec, cat.dtype)
+    n_a, nsz = cst["n_a"], len(cst["cos_m"])
+    tab = _lane_table(spec, caps_t, a_offs, cat.device).to(torch.int64)
+    i1, i2, bi = tab[:, 0], tab[:, 1], tab[:, 2]
+    outs = []
+    for rs in _chunks(rows, q_total * 128):
+        c = cat[rs].reshape(-1, 5, atot)
+        u = c[:, 0:3]
+        pt = aev_roll._pair_terms_core(
+            cst, u[:, :, i1].transpose(1, 2), u[:, :, i2].transpose(1, 2),
+            c[:, 3, i1], c[:, 3, i2], c[:, 4, i1], c[:, 4, i2])
+        g = 2.0 * ga_t[rs].reshape(-1, len(blocks), n_a, nsz)[:, bi]
+        df2 = [torch.zeros_like(pt["fc12"]) for _ in range(n_a)]
+        dcos = torch.zeros_like(pt["fc12"])
+        for m in range(nsz):
+            f1 = pt["f1_m"][m]
+            df1 = torch.zeros_like(dcos)
+            for j, e in enumerate(pt["e_j"]):
+                df1 = df1 + g[:, :, j, m] * (pt["fc12"] * e)
+                df2[j] = df2[j] + g[:, :, j, m] * f1
+            dbase = df1 * (cst["zeta"] / pt["base_m"][m]) * f1
+            dcos = dcos + dbase * 0.5 * (
+                cst["cos_m"][m] - pt["c95"] / pt["sv"] * cst["sin_m"][m]
+            ) * 0.95
+        drmean = torch.zeros_like(dcos)
+        dfc12 = torch.zeros_like(dcos)
+        for j, e in enumerate(pt["e_j"]):
+            drmean = drmean + df2[j] * pt["fc12"] * e * (
+                -2.0 * cst["eta"]) * (pt["x2"] - j * cst["delta"])
+            dfc12 = dfc12 + df2[j] * e
+        # rmean beyond rca + 1 is clamped: no gradient
+        drmean = torch.where(pt["d1"] + pt["d2"] <= 2.0 * (cst["rca"] + 1.0),
+                             drmean, 0.0)
+        out = c.new_zeros((c.shape[0], 5, atot))
+        for i_own, u_other, fc_other in ((i1, pt["u2"], pt["fc2"]),
+                                         (i2, pt["u1"], pt["fc1"])):
+            arm = torch.cat([(dcos[..., None] * u_other).transpose(1, 2),
+                             (0.5 * drmean)[:, None], (dfc12 * fc_other)
+                             [:, None]], dim=1)
+            out.index_add_(2, i_own, arm)
+        outs.append(out.reshape(-1, 5 * atot))
+    return torch.cat(outs) if outs else cat.new_zeros((0, 5 * atot))
+
+
+def chain_sum_plain(rank2, idx, cmp, gsum, gr, ncells, spec):
+    """(gt [NC, cap, 3, kpad], fcen [NC, cap, 3], dh [3, 3]): the packed
+    slots' cotangents `gsum` [NC, cap, 5, atot] chained to vector
+    cotangents (slots with d < Rca + 5: g_cd = gd + gfc dfc - (gu . u) / d,
+    g = gu / d + g_cd u), gathered to the compact lanes through `rank2`
+    (no slot: 0) and added to the radial part `gr`; the center force is
+    the lane sum; dh[m, c] = -sum over lanes of S_m g_c with S the wrap
+    shift of the lane's window offset idx // cap (dead lanes: none)."""
+    nc, cap, kpad = idx.shape
+    atot = cmp.shape[-1]
+    sh = aev_roll._wrap_shift_tables(ncells, 1, cmp.dtype, cmp.device)
+    sh = torch.nn.functional.pad(sh, (0, 0, 0, 1))  # offset 27: no shift
+    gts, fcens = [], []
+    dh = cmp.new_zeros((3, 3))
+    for rs in _chunks(nc, cap * kpad * 16):
+        c, g = cmp[rs], gsum[rs]
+        u, d, dfc = c[:, :, 0:3], c[:, :, 3], c[:, :, 5]
+        gu, gd, gfc = g[:, :, 0:3], g[:, :, 3], g[:, :, 4]
+        mask = d < spec.angular_cutoff + 5.0
+        inv_d = torch.where(mask, 1.0 / d, 0.0)
+        g_cd = torch.where(
+            mask, gd + gfc * dfc - torch.sum(gu * u, dim=2) * inv_d, 0.0)
+        gv = gu * inv_d[:, :, None] + g_cd[:, :, None] * u
+        gv = torch.nn.functional.pad(gv, (0, 1))  # slot atot: zeros
+        r2 = rank2[rs].to(torch.int64)
+        r2 = torch.where(r2 < atot, r2, atot)
+        gt = torch.gather(gv, 3, r2[:, :, None, :].expand(-1, -1, 3, -1))
+        gt = gt + gr[rs]
+        o_k = torch.clamp(idx[rs].to(torch.int64) // cap, max=27)
+        s_k = torch.gather(sh[rs], 1, o_k.reshape(-1, cap * kpad, 1)
+                           .expand(-1, -1, 3)).reshape(-1, cap, kpad, 3)
+        dh = dh - torch.einsum("nakm,nack->mc", s_k, gt)
+        gts.append(gt)
+        fcens.append(gt.sum(-1))
+    return torch.cat(gts), torch.cat(fcens), dh
+
+
+def wing_plain(gt, inv):
+    """wing [NC, 27 cap, 3]: the neighbor-role force on the window lanes,
+    wing[b, w, c] = -sum over the bin's slots of gt[b, slot, c, inv[b,
+    slot, w]] (a dead inv is kpad - 1, a lane where gt is 0)."""
+    nc, cap = gt.shape[:2]
+    w = 27 * cap
+    outs = []
+    for rs in _chunks(nc, cap * w * 6):
+        iv = inv[rs, :, None, :w].to(torch.int64).expand(-1, -1, 3, -1)
+        outs.append(-torch.gather(gt[rs], 3, iv).sum(1).transpose(1, 2))
+    return torch.cat(outs).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -725,25 +923,18 @@ def _rep_fields(rep, sections):
             _pad8(rep.zeff[s] for s, _ in sections))
 
 
-def step_fused(pos_g, sp_g, h, idx, ncells, spec, sections, caps, rep):
-    """(rad, cmp, rank2, deficit) (replaces aev_asn._step_fused_kernel)."""
-    if not _route("step_fused", pos_g, sp_g, h, idx):
-        return step_fused_plain(pos_g, sp_g, h, idx, ncells, spec, sections,
-                                caps, rep)
-    _check_grid("step_fused", ncells, pos_g, sp_g, h)
+def _check_idx(name, idx, sp_g):
     nc, cap = sp_g.shape
-    kpad = idx.shape[-1]
-    if idx.shape != (nc, cap, kpad) or idx.dtype != torch.int16:
-        raise ValueError(f"step_fused: idx {tuple(idx.shape)} {idx.dtype}")
-    dev, dtype = pos_g.device, pos_g.dtype
+    if (idx.dim() != 3 or idx.shape[:2] != (nc, cap)
+            or idx.dtype != torch.int16):
+        raise ValueError(f"{name}: idx {tuple(idx.shape)} {idx.dtype}")
+
+
+def _step_params(ncells, cap, kpad, spec, sections, caps, rep, dtype):
+    """(ip, fp) of asn_step_fused and asn_radial_gamma (StepParams)."""
     k = _step_consts(spec, dtype)
     a_offs, atot = _a_offsets(sections, caps)
     srl = len(sections) * k["nr"]
-    rad = torch.empty((nc, cap, srl + 1), dtype=dtype, device=dev)
-    cmp = torch.empty((nc, cap, 6, atot), dtype=dtype, device=dev)
-    rank2 = torch.empty((nc, cap, kpad), dtype=torch.int32, device=dev)
-    deficit = torch.full((_MAX_S,), DEFICIT_FLOOR, dtype=torch.int32,
-                         device=dev)
     rep_i, rep_f, alpha, zeff = _rep_fields(rep, sections)
     a_s = _pad8(a_offs[s][1] if s in a_offs else 0 for s, _ in sections)
     a_off = _pad8(a_offs[s][0] if s in a_offs else 0 for s, _ in sections)
@@ -751,10 +942,53 @@ def step_fused(pos_g, sp_g, h, idx, ncells, spec, sections, caps, rep):
           + rep_i + _sec_ints(sections) + a_s + a_off)
     fp = ([k["rc"], k["eta"], k["mu0"], k["delta"], k["tiny"], k["pmin"],
            k["rca"], k["big"]] + rep_f + alpha + zeff)
+    return ip, fp
+
+
+def step_fused(pos_g, sp_g, h, idx, ncells, spec, sections, caps, rep):
+    """(rad, cmp, rank2, deficit) (replaces aev_asn._step_fused_kernel)."""
+    if not _route("step_fused", pos_g, sp_g, h, idx):
+        return step_fused_plain(pos_g, sp_g, h, idx, ncells, spec, sections,
+                                caps, rep)
+    _check_grid("step_fused", ncells, pos_g, sp_g, h)
+    _check_idx("step_fused", idx, sp_g)
+    nc, cap = sp_g.shape
+    kpad = idx.shape[-1]
+    dev, dtype = pos_g.device, pos_g.dtype
+    _, atot = _a_offsets(sections, caps)
+    srl = len(sections) * _step_consts(spec, dtype)["nr"]
+    rad = torch.empty((nc, cap, srl + 1), dtype=dtype, device=dev)
+    cmp = torch.empty((nc, cap, 6, atot), dtype=dtype, device=dev)
+    rank2 = torch.empty((nc, cap, kpad), dtype=torch.int16, device=dev)
+    deficit = torch.full((_MAX_S,), DEFICIT_FLOOR, dtype=torch.int32,
+                         device=dev)
+    ip, fp = _step_params(ncells, cap, kpad, spec, sections, caps, rep, dtype)
     _launch("step_fused",
             f"asn_step_fused_{_suffix('step_fused', dtype)}", ip, fp, pos_g,
             sp_g, h, idx, rad, cmp, rank2, deficit)
     return rad, cmp, rank2, deficit
+
+
+def _packed_params(name, cat, spec, caps_t, a_offs):
+    """(blocks, ip, fp, table) of the packed pair kernels."""
+    rows, w5 = cat.shape
+    atot = w5 // 5
+    blocks, _, _ = _packed_layout(spec, caps_t, a_offs)
+    if len(blocks) > _MAX_BLOCKS or atot * 5 != w5 or atot > DEAD_SLOT:
+        raise ValueError(f"{name}: {len(blocks)} blocks, cat {w5} wide")
+    ip, fp = aev_roll._angular_params(spec, (), cat.dtype)
+    pad = [0] * (_MAX_BLOCKS - len(blocks))
+    counts = [b[5] * (b[5] - 1) // 2 if b[7] else b[5] * b[6]
+              for b in blocks]
+    ints = [rows, atot, len(blocks), ip[1]]
+    # base, pair count, arm offsets, arm widths, same-species flag
+    for col in ([b[8] for b in blocks], counts, [b[3] for b in blocks],
+                [b[4] for b in blocks], [b[5] for b in blocks],
+                [b[6] for b in blocks], [int(b[7]) for b in blocks]):
+        ints += col + pad
+    pmin = 1e-30 if cat.dtype == torch.float32 else 0.0
+    return (blocks, ints, fp + [pmin],
+            _lane_table(spec, caps_t, a_offs, cat.device))
 
 
 def packed_fwd(cat, spec, caps_t, a_offs):
@@ -762,23 +996,98 @@ def packed_fwd(cat, spec, caps_t, a_offs):
     call per occupancy tier)."""
     if not _route("packed_fwd", cat):
         return packed_fwd_plain(cat, spec, caps_t, a_offs)
-    rows, w5 = cat.shape
-    atot = w5 // 5
-    blocks, q_total, _ = _packed_layout(spec, caps_t, a_offs)
-    if len(blocks) > _MAX_BLOCKS or atot * 5 != w5:
-        raise ValueError(f"packed_fwd: {len(blocks)} blocks, cat {w5} wide")
-    ip, fp = aev_roll._angular_params(spec, (), cat.dtype)
-    table = _lane_table(spec, caps_t, a_offs, cat.device)
-    out = torch.empty((rows, len(blocks) * 32), dtype=cat.dtype,
+    blocks, ip, fp, table = _packed_params("packed_fwd", cat, spec, caps_t,
+                                           a_offs)
+    out = torch.empty((cat.shape[0], len(blocks) * 32), dtype=cat.dtype,
                       device=cat.device)
-    bases = [b[8] for b in blocks]
-    counts = [b[5] * (b[5] - 1) // 2 if b[7] else b[5] * b[6]
-              for b in blocks]
-    pad = [0] * (_MAX_BLOCKS - len(blocks))
-    pmin = 1e-30 if cat.dtype == torch.float32 else 0.0
     _launch("packed_fwd", f"asn_packed_fwd_{_suffix('packed_fwd', cat.dtype)}",
-            [rows, atot, len(blocks), ip[1]] + bases + pad + counts + pad,
-            fp + [pmin], cat, table, out)
+            ip, fp, cat, table, out)
+    return out
+
+
+def radial_gamma(pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep):
+    """gr [NC, cap, 3, kpad] (replaces aev_asn._radial_gamma_only_kernel)."""
+    if not _route("radial_gamma", pos_g, sp_g, h, idx, ga):
+        return radial_gamma_plain(pos_g, sp_g, h, idx, ga, ncells, spec,
+                                  sections, rep)
+    _check_grid("radial_gamma", ncells, pos_g, sp_g, h)
+    _check_idx("radial_gamma", idx, sp_g)
+    nc, cap = sp_g.shape
+    kpad = idx.shape[-1]
+    dtype = pos_g.dtype
+    ip, fp = _step_params(ncells, cap, kpad, spec, sections,
+                          (0,) * spec.num_species, rep, dtype)
+    srl = ip[8]
+    if ga.shape != (nc, cap, srl + 1) or ga.dtype != dtype:
+        raise ValueError(f"radial_gamma: ga {tuple(ga.shape)} {ga.dtype}, "
+                         f"expected {(nc, cap, srl + 1)} {dtype}")
+    gr = torch.empty((nc, cap, 3, kpad), dtype=dtype, device=pos_g.device)
+    _launch("radial_gamma",
+            f"asn_radial_gamma_{_suffix('radial_gamma', dtype)}", ip, fp,
+            pos_g, sp_g, h, idx, ga, gr)
+    return gr
+
+
+def packed_bwd(cat, ga_t, spec, caps_t, a_offs):
+    """[rows, 5 atot] (replaces aev_asn._packed_bwd_kernel; one call per
+    occupancy tier)."""
+    if not _route("packed_bwd", cat, ga_t):
+        return packed_bwd_plain(cat, ga_t, spec, caps_t, a_offs)
+    blocks, ip, fp, table = _packed_params("packed_bwd", cat, spec, caps_t,
+                                           a_offs)
+    if (ga_t.shape != (cat.shape[0], len(blocks) * 32)
+            or ga_t.dtype != cat.dtype):
+        raise ValueError(f"packed_bwd: ga {tuple(ga_t.shape)} {ga_t.dtype} "
+                         f"for {len(blocks)} blocks, cat {tuple(cat.shape)}")
+    out = torch.empty_like(cat)
+    _launch("packed_bwd", f"asn_packed_bwd_{_suffix('packed_bwd', cat.dtype)}",
+            ip, fp, cat, table, ga_t, out)
+    return out
+
+
+def chain_sum(rank2, idx, cmp, gsum, gr, ncells, spec):
+    """(gt, fcen, dh) (replaces aev_asn._chain_sum_kernel)."""
+    if not _route("chain_sum", rank2, idx, cmp, gsum, gr):
+        return chain_sum_plain(rank2, idx, cmp, gsum, gr, ncells, spec)
+    nc, cap, kpad = idx.shape
+    atot = cmp.shape[-1]
+    dtype, dev = cmp.dtype, cmp.device
+    ok = (nc == ncells[0] * ncells[1] * ncells[2]
+          and rank2.shape == idx.shape and rank2.dtype == torch.int16
+          and idx.dtype == torch.int16 and cmp.shape == (nc, cap, 6, atot)
+          and gsum.shape == (nc, cap, 5, atot) and gsum.dtype == dtype
+          and gr.shape == (nc, cap, 3, kpad) and gr.dtype == dtype
+          and atot <= DEAD_SLOT)
+    if not ok:
+        raise ValueError(
+            f"chain_sum: rank2 {tuple(rank2.shape)} {rank2.dtype}, idx "
+            f"{tuple(idx.shape)} {idx.dtype}, cmp {tuple(cmp.shape)}, gsum "
+            f"{tuple(gsum.shape)} {gsum.dtype}, gr {tuple(gr.shape)} "
+            f"{gr.dtype} do not fit ncells {tuple(ncells)}")
+    gt = torch.empty_like(gr)
+    fcen = torch.empty((nc, cap, 3), dtype=dtype, device=dev)
+    n_part = -(-nc * cap // 8)
+    dh_part = torch.empty((n_part, 9), dtype=dtype, device=dev)
+    dh = torch.empty((3, 3), dtype=dtype, device=dev)
+    _launch("chain_sum", f"asn_chain_sum_{_suffix('chain_sum', dtype)}",
+            [*ncells, cap, kpad, atot, n_part],
+            [spec.angular_cutoff + 5.0], rank2, idx, cmp, gsum, gr, gt, fcen,
+            dh_part, dh)
+    return gt, fcen, dh
+
+
+def wing(gt, inv):
+    """wing [NC, 27 cap, 3] (replaces aev_asn._wing_kernel)."""
+    if not _route("wing", gt, inv):
+        return wing_plain(gt, inv)
+    nc, cap, _, kpad = gt.shape
+    if (gt.shape[2] != 3 or inv.dim() != 3 or inv.shape[:2] != (nc, cap)
+            or inv.dtype != torch.int16 or inv.shape[2] < 27 * cap):
+        raise ValueError(f"wing: gt {tuple(gt.shape)}, inv "
+                         f"{tuple(inv.shape)} {inv.dtype}")
+    out = torch.empty((nc, 27 * cap, 3), dtype=gt.dtype, device=gt.device)
+    _launch("wing", f"asn_wing_{_suffix('wing', gt.dtype)}",
+            [nc, cap, inv.shape[2], kpad], [0.0], gt, inv, out)
     return out
 
 
@@ -787,7 +1096,9 @@ def packed_fwd(cat, spec, caps_t, a_offs):
 # ---------------------------------------------------------------------------
 
 
-_KERNELS = {"step": step_fused, "packed": packed_fwd}
+_KERNELS = {"step": step_fused, "packed": packed_fwd,
+            "gamma": radial_gamma, "packed_bwd": packed_bwd,
+            "chain": chain_sum, "wing": wing}
 _PLAIN = {"step": step_fused_plain, "packed": packed_fwd_plain}
 
 
@@ -864,61 +1175,123 @@ def _tier_partition(cnts, sp_order, tiers, n):
 
 def _angular_pair_stage(spec, sections, caps, tiers, n, cmp, deficit, cell,
                         slot, ops):
-    """([n, n_blocks * 32] compact angular AEV, deficit) from the packed
-    slots: flat atom rows (padded to the flat row block), optionally split
-    into occupancy tiers of narrower caps; tiered, the deficit gains one
-    trailing entry, the rows the last tier could not hold."""
+    """([n, n_blocks * 32] compact angular AEV, deficit, part) from the
+    packed slots: flat atom rows (padded to the flat row block), optionally
+    split into occupancy tiers of narrower caps; tiered, the deficit gains
+    one trailing entry, the rows the last tier could not hold. `part` is
+    what the backward reads again: the rows each packed call was given
+    ("cats", with the tier layout and partition when tiered); None without
+    pair blocks."""
     rca = spec.angular_cutoff
     a_offs, atot = _a_offsets(sections, caps)
     dtype, dev = cmp.dtype, cmp.device
     if _packed_layout(spec, caps, a_offs) is None:
-        return cmp.new_zeros((n, 0)), deficit
+        return cmp.new_zeros((n, 0)), deficit, None
     r = _r_flat(n)
     n_pad2 = -(-n // r) * r
     pad_row = _tier_pad_row(atot, rca, dtype, dev)
     cat = _compact_to_flat(cmp, cell, slot, n, n_pad2, pad_row)
     tiers_n = _norm_tiers(tiers, caps, r, n_pad2)
     if tiers_n is None:
-        return ops["packed"](cat, spec, caps, a_offs)[:n], deficit
+        out = ops["packed"](cat, spec, caps, a_offs)[:n]
+        return out, deficit, dict(tiers=None, cats=[cat])
     cnts, sp_order = _row_counts(cat, a_offs, rca)
     pos_of, row_ats, valids, spill = _tier_partition(cnts, sp_order,
                                                      tiers_n, n)
-    outs = []
-    for (caps_t, _), row_at, valid in zip(tiers_n, row_ats, valids):
-        outs.append(ops["packed"](_gather_tier_cat(cat, row_at, valid,
-                                                   pad_row),
-                                  spec, caps_t, a_offs))
+    cats = [_gather_tier_cat(cat, row_at, valid, pad_row)
+            for row_at, valid in zip(row_ats, valids)]
+    outs = [ops["packed"](cat_t, spec, caps_t, a_offs)
+            for (caps_t, _), cat_t in zip(tiers_n, cats)]
     out = torch.cat(outs)[pos_of[:n]]
-    return out, torch.cat([deficit, spill.to(dtype)[None]])
+    part = dict(tiers=tiers_n, cats=cats, pos_of=pos_of, row_at=row_ats,
+                valid=valids)
+    return out, torch.cat([deficit, spill.to(dtype)[None]]), part
+
+
+def _angular_gsum_grid(spec, sections, caps, n, inv_bins, g_ang, part, ops):
+    """[NC, cap, 5, atot]: the packed slots' cotangent sums in grid
+    layout, from the angular cotangent `g_ang` [n, n_blocks * 32], over
+    the same rows the forward's packed calls were given (`part`)."""
+    a_offs, atot = _a_offsets(sections, caps)
+    if part is None:
+        gsum = g_ang.new_zeros((n, 5 * atot))
+    elif part["tiers"] is None:
+        cat = part["cats"][0]
+        ga = torch.nn.functional.pad(g_ang, (0, 0, 0, cat.shape[0] - n))
+        gsum = ops["packed_bwd"](cat, ga, spec, caps, a_offs)[:n]
+    else:
+        n_pad2 = part["pos_of"].shape[0]
+        ga = torch.nn.functional.pad(g_ang, (0, 0, 0, n_pad2 - n))
+        outs = []
+        for (caps_t, _), row_at, valid, cat_t in zip(
+                part["tiers"], part["row_at"], part["valid"], part["cats"]):
+            ga_t = torch.where(valid[:, None], ga[row_at], 0.0)
+            outs.append(ops["packed_bwd"](cat_t, ga_t, spec, caps_t, a_offs))
+        gsum = torch.cat(outs)[part["pos_of"][:n]]
+    gsum = aev_roll._to_grid_rows(inv_bins, gsum, 0.0)
+    return gsum.reshape(*gsum.shape[:2], 5, atot).contiguous()
 
 
 def _forward(static, pos, h, inv_bins, csp_grid, cell, slot, idx, ops):
+    """((radial, erep, angular, deficit), (cmp, rank2, part)): the outputs
+    and what the backward reads again."""
     spec, ncells, sections, caps, tiers, rep = static
     pos_g, sp_g = aev_roll._grid_inputs(inv_bins, pos, csp_grid)
-    rad, cmp, _, deficit = ops["step"](pos_g, sp_g, h, idx, ncells, spec,
-                                       sections, caps, rep)
+    rad, cmp, rank2, deficit = ops["step"](pos_g, sp_g, h, idx, ncells, spec,
+                                           sections, caps, rep)
     n = cell.shape[0]
     srl = rad.shape[-1] - 1
     rows = rad[cell, slot]
     deficit = deficit[:spec.num_species].to(pos.dtype)
-    angular, deficit = _angular_pair_stage(spec, sections, caps, tiers, n,
-                                           cmp, deficit, cell, slot, ops)
-    return rows[:, :srl], rows[:, srl], angular, deficit
+    angular, deficit, part = _angular_pair_stage(
+        spec, sections, caps, tiers, n, cmp, deficit, cell, slot, ops)
+    return (rows[:, :srl], rows[:, srl], angular, deficit), (cmp, rank2, part)
+
+
+def _backward(static, pos, h, inv_bins, csp_grid, cell, slot, idx, inv, cmp,
+              rank2, part, g_rad, g_rep, g_ang, ops):
+    """(dpos [n, 3], dh [3, 3]) of the fused forward: the radial and
+    repulsion cotangents on the compact lanes, summed with the angular
+    chain before one wing gather, one fold and one dh."""
+    spec, ncells, sections, caps, _, rep = static
+    n = cell.shape[0]
+    pos_g, sp_g = aev_roll._grid_inputs(inv_bins, pos, csp_grid)
+    ga = aev_roll._to_grid_rows(
+        inv_bins, torch.cat([g_rad, g_rep[:, None]], dim=1), 0.0).contiguous()
+    gr = ops["gamma"](pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep)
+    gsum = _angular_gsum_grid(spec, sections, caps, n, inv_bins, g_ang, part,
+                              ops)
+    gt, fcen, dh = ops["chain"](rank2, idx, cmp, gsum, gr, ncells, spec)
+    del gr
+    wing_g = ops["wing"](gt, inv)
+    return aev_roll._fold_wing(ncells, 1, fcen, wing_g)[cell, slot], dh
 
 
 class _AsnFused(torch.autograd.Function):
-    """The fused forward on the card; its backward is the next slice."""
+    """The fused forward and its explicit backward (the kernels on the
+    card, their plain versions on the CPU). The stage-2 slots, `rank2` and
+    the rows of the packed calls ride from the forward to the backward."""
 
     @staticmethod
-    def forward(ctx, pos, h, inv_bins, csp_grid, cell, slot, idx, static):
-        out = _forward(static, pos, h, inv_bins, csp_grid, cell, slot, idx,
-                       _KERNELS)
+    def forward(ctx, pos, h, inv_bins, csp_grid, cell, slot, idx, inv,
+                static):
+        out, (cmp, rank2, part) = _forward(static, pos, h, inv_bins,
+                                           csp_grid, cell, slot, idx,
+                                           _KERNELS)
+        ctx.static = static
+        ctx.save_for_backward(pos, h, inv_bins, csp_grid, cell, slot, idx,
+                              inv)
+        # intermediates (no output of this function): kept on the context
+        ctx.residuals = (cmp, rank2, part)
         ctx.mark_non_differentiable(out[3])
         return out
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(BACKWARD_MISSING)
+    def backward(ctx, g_rad, g_rep, g_ang, _):
+        dpos, dh = _backward(ctx.static, *ctx.saved_tensors, *ctx.residuals,
+                             g_rad.contiguous(), g_rep.contiguous(),
+                             g_ang.contiguous(), _KERNELS)
+        return (dpos, dh) + (None,) * 7
 
 
 def build_assignment(grid, bins, pos, box, sections, kpad, keep_radius):
@@ -957,10 +1330,12 @@ def aev_asn_fused(aev_spec, grid, bins, asn, pos, box, sections, caps,
     deficit then gains a trailing entry, the rows the last tier could not
     hold.
 
-    Differentiable with respect to `pos` and `box.h` on the CPU (autograd
-    through the plain versions). On the card it launches the kernels and
-    has no backward yet. `plain=True` runs the plain versions whatever
-    the device (the reference the kernels are held against)."""
+    Differentiable with respect to `pos` and `box.h`: one autograd.Function
+    whose backward is the four backward kernels on the card and their
+    plain versions on the CPU. `plain=True` runs the plain forwards
+    whatever the device and leaves the gradient to autograd through them
+    (the reference the kernels and the explicit backward are held
+    against)."""
     tiers_t = (tuple((tuple(int(c) for c in caps_t), int(rw))
                      for caps_t, rw in tiers) if tiers else None)
     static = (aev_spec, tuple(grid.ncells), tuple(sections), tuple(caps),
@@ -968,7 +1343,5 @@ def aev_asn_fused(aev_spec, grid, bins, asn, pos, box, sections, caps,
     args = (pos, box.h.contiguous(), bins.inv, bins.species_grid, bins.cell,
             bins.slot, asn.idx)
     if plain:
-        return _forward(static, *args, _PLAIN)
-    if pos.device.type == "cuda":
-        return _AsnFused.apply(*args, static)
-    return _forward(static, *args, _KERNELS)
+        return _forward(static, *args, _PLAIN)[0]
+    return _AsnFused.apply(*args, asn.inv, static)

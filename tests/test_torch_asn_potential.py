@@ -252,20 +252,27 @@ def test_npz_carries_the_repulsion_term(tmp_path):
 
 
 def test_unported_asn_uses_raise(efv):
-    """Forces on the asn path need the backward kernels of the next
-    slice: on tensors off the CPU, energy_forces_virial_asn raises; the
-    MD driver refuses a potential with the repulsion term (only the asn
-    engine carries it)."""
+    """What still raises around the asn path: the repulsion term on the
+    `pallas_full` engine (only the asn engine carries it), an engine name
+    the port does not know, a box too small for the asn engine's 3x3x3
+    grid of side Rcr + skin (the mirror engine that serves it is not
+    ported), and the roll path's energies with a repulsion spec."""
     _, _, p = efv
     species = torch.tensor(p["species"])
-    with pytest.raises(NotImplementedError, match="_radial_gamma_only"):
-        tpotmod.energy_forces_virial_asn(
-            p["pot"], species, p["pos"].to("meta"), p["box"], p["state"],
-            p["counts"])
-    with pytest.raises(NotImplementedError, match="repulsion"):
-        tlat.Simulation(potential=p["pot"], species=p["species"],
-                        masses=np.ones(len(species)),
-                        nbr=tlat.NeighborConfig(cutoff=5.1), device="cpu")
+    kw = dict(potential=p["pot"], species=p["species"],
+              masses=np.ones(len(species)), device="cpu",
+              dtype=torch.float64)
+    with pytest.raises(ValueError, match="repulsion"):
+        tlat.Simulation(nbr=tlat.NeighborConfig(cutoff=5.1),
+                        engine="pallas_full", **kw)
+    with pytest.raises(ValueError, match="engine"):
+        tlat.Simulation(nbr=tlat.NeighborConfig(cutoff=5.1), engine="xla",
+                        **kw)
+    sim = tlat.Simulation(nbr=tlat.NeighborConfig(cutoff=5.1, skin=3.0), **kw)
+    assert sim.engine == "pallas_asn"
+    with pytest.raises(NotImplementedError, match="mirror engine"):
+        # 24 A box: no 3x3x3 grid of side 5.1 + 3.0
+        sim.init_state(p["pos"].numpy(), p["box"])
     with pytest.raises(ValueError, match="repulsion"):
         tpotmod.atomic_energies_roll(p["pot"], species, p["pos"], p["box"],
                                      None, None, p["counts"])

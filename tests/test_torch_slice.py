@@ -55,7 +55,7 @@ def _port_sim(s, integrator=None, **nbr_kw):
     return tlat.Simulation(potential=s["tpot"], species=s["species"],
                            masses=s["masses"], nbr=_nbr(tlat, **nbr_kw),
                            dt=DT, dtype=torch.float64, integrator=integrator,
-                           device="cpu")
+                           device="cpu", engine="pallas_full")
 
 
 def _jax_mirror_run(s, n_steps, integrator=None):
