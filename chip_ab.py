@@ -1,0 +1,84 @@
+"""Time named asn kernels of the checkout in the working directory, on one
+CUDA card, and count the SASS lines nvcc emitted for them.
+
+Two builds of one kernel can be told apart only inside one process sequence
+on one card: run this script once per checkout, in turns, from one shell
+command, with each checkout's root as the working directory:
+
+    for t in parent change change parent; do
+        (cd $t && python3 /path/to/chip_ab.py $t step_fused radial_gamma)
+    done
+
+It imports `chip_smoke` and `lammps_ani_torch` from the working directory
+(not from beside this file), builds that checkout's kernels, sets up the
+101,250-atom water box of chip_smoke's main path at its first rebuild (f32,
+ANI-2x + XTB repulsion, the sizing `Simulation` derives), and prints one
+JSON line: for each named kernel three rounds of 20 launches by CUDA events
+(ms per launch), and for each f32 kernel function of csrc/aev_asn.cu whose
+name contains one of the names, the count of SASS lines and of a few kinds
+of operation among them (`cuobjdump -sass`). A name must be a key of
+chip_smoke's `asn_calls` in that checkout.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+KINDS = ("LDL", "STL", "LDG", "STG", "MUFU", "SHFL", "BRA")
+
+
+def sass_counts(names):
+    """{function: {"n": SASS lines, kind: count}} of the f32 kernels of
+    the freshly built aev_asn library that carry one of `names`."""
+    from lammps_ani_torch.ops import _build
+
+    lib = str(_build._target("aev_asn.cu"))
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            hit = [n for n in names if f"asn_{n}_kernelIf" in fn]
+            cur = hit[0] if hit else None
+            if cur:
+                out[cur] = dict.fromkeys(("n",) + KINDS, 0)
+        elif cur and "/*" in line and ";" in line:
+            out[cur]["n"] += 1
+            for kind in KINDS:
+                if f" {kind}" in line or f"{kind}." in line:
+                    out[cur][kind] += 1
+    return out
+
+
+def main(argv):
+    if len(argv) < 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.getcwd())  # this checkout, not this file's
+    import chip_smoke as c
+
+    tag, names = argv[1], argv[2:]
+    c._build.build_all()
+    data = c.water_box(15)
+    sim = c.make_sim(data, torch.float32, "cuda")
+    box = c.make_box(data, torch.float32, "cuda")
+    state = sim.init_state(data.positions, box)
+    calls = c.asn_calls(c.asn_inputs(sim, state.pos, box))
+    ms = {name: [c.time_ms(calls[name][0], reps=20, warm=2) for _ in range(3)]
+          for name in names}
+    print(json.dumps({"tree": tag, "card": c.nvidia_smi_line(),
+                      "atoms": data.n_atoms, "ms": ms,
+                      "sass": sass_counts(names)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

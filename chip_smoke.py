@@ -17,16 +17,23 @@ object per line; any failure raises and the script exits non-zero:
            (f64).
   potential  E, F, W of the roll engine on the card against the plain path
            on the CPU, WATER30 x 4^3 (1,920 atoms), f64.
-  asn_kernels  the eight asn kernels (csrc/aev_asn.cu: assignment build
-           inv and idx, fused step forward, packed angular pairs, and the
-           backward's radial_gamma, packed_bwd, chain_sum and wing) against
+  asn_kernels  the twelve asn kernels (csrc/aev_asn.cu: assignment build
+           inv and idx, fused step forward, packed angular pairs, the
+           backward's radial_gamma, packed_bwd, chain_sum and wing, and the
+           per-channel radial_fwd_asn, compact_asn, radial_bwd_asn and
+           decompact_chain, the radial ones in both column layouts) against
            their plain versions on the card at WATER30 x 6^3 with ANI-2x +
            XTB repulsion, sized by `Simulation`, in f64 and f32: integer
            outputs exactly, floats within the limits below; the whole
-           backward (dpos, dh) of `aev_asn_fused` against autograd through
-           the plain forwards (f64); two calls bit for bit (f32); E, F, W of
-           `energy_forces_virial_asn` on the card against the CPU (f64);
-           with repulsion off, F and W against the roll engine's (f64).
+           backward (dpos, dh) of `aev_asn_fused`, `radial_aev_asn` and
+           `angular_aev_asn` against autograd through the plain forwards
+           (f64), two calls of each bit for bit (f64 and f32); the
+           per-channel forwards equal to the fused forward bit for bit;
+           the summed per-channel gradients against the fused gradient;
+           `n_out` below the atom count on the card against the CPU (f64);
+           E, F, W of `energy_forces_virial_asn` on the card against the
+           CPU (f64); with repulsion off, F and W against the roll
+           engine's (f64).
   main     the MD main path through the user's entry points (zoo.ani2x
            with repulsion, Simulation with its default engine pallas_asn,
            init_state, run): ANI-2x + XTB repulsion at full width, one
@@ -55,8 +62,16 @@ object per line; any failure raises and the script exits non-zero:
            on the card; with repulsion off, the energies against the roll
            engine's at the same positions (held in f64, reported in f32);
            the MLP's forward and backward ms on the compact columns.
+  asn_channels  the per-channel surface at the same state and sizing
+           (f32, 101,250 atoms, tiered as the main path), its launch
+           counts zeroed just before and read just after: `radial_aev_asn`
+           and `angular_aev_asn`, forward and forward + backward, beside
+           `aev_asn_fused` (CUDA events, three rounds of 10, the median),
+           in compact columns and once in the full layout; forwards equal
+           to the fused forward bit for bit; then each of the four
+           per-channel kernels' error, ms, plain ms and bound.
 
-Then one line {"kernels": [...]} (all twelve kernels), nvidia-smi's name
+Then one line {"kernels": [...]} (all sixteen kernels), nvidia-smi's name
 and power-limit line, and last {"ok": true, "device": {...}}.
 """
 
@@ -89,8 +104,11 @@ TILE = os.path.join(ROOT, "examples", "benchmark", "data", "equil_water30.npz")
 SOURCE = "lammps_ani_torch/csrc/aev_roll.cu"
 ASN_SOURCE = "lammps_ani_torch/csrc/aev_asn.cu"
 KERNELS = ("radial_fwd", "radial_bwd", "angular_fwd", "angular_bwd")
+# the kernels of the MD main path, and those of the per-channel surface
 ASN_KERNELS = ("build_inv", "build_idx", "step_fused", "packed_fwd",
                "radial_gamma", "packed_bwd", "chain_sum", "wing")
+CHANNEL_KERNELS = ("radial_fwd_asn", "compact_asn", "radial_bwd_asn",
+                   "decompact_chain")
 CHUNK = 12
 
 # The 30-atom water tile (species H=0, O=3) and the masses of the 7 ANI-2x
@@ -364,7 +382,7 @@ def phase_build():
     names = {}
     for fn, used in regs.items():
         for kname in (*KERNELS, "dh_reduce",
-                      *(f"asn_{k}" for k in ASN_KERNELS)):
+                      *(f"asn_{k}" for k in ASN_KERNELS + CHANNEL_KERNELS)):
             if f"{kname}_kernel" in fn:
                 suf = ("f64" if f"{kname}_kernelId" in fn else
                        "f32" if f"{kname}_kernelIf" in fn else "any")
@@ -566,7 +584,8 @@ def phase_main(device, rep=15, equil_chunks=12, warm_chunks=2,
     else:
         raise AssertionError("main: every timed window regrew a capacity: "
                              f"{sim.regrow_kinds}")
-    launches, plain = dict(asn.LAUNCHES), dict(asn.PLAIN_CALLS)
+    launches = {name: asn.LAUNCHES[name] for name in ASN_KERNELS}
+    plain = dict(asn.PLAIN_CALLS)
     line = {"phase": "main", "engine": sim.engine, "atoms": data.n_atoms,
             "dtype": "float32", "models": 1, "repulsion": True,
             "dt_fs": sim.dt, **_md_numbers(sim, rows, chunk_ms),
@@ -587,6 +606,9 @@ def phase_main(device, rep=15, equil_chunks=12, warm_chunks=2,
     _check_md("main", equil_rows + warm_rows + rows, state, launches, plain)
     if any(ar.LAUNCHES.values()) or any(ar.PLAIN_CALLS.values()):
         raise AssertionError("main: the asn engine ran a roll kernel")
+    if any(asn.LAUNCHES[name] for name in CHANNEL_KERNELS):
+        raise AssertionError("main: the fused path ran a per-channel kernel: "
+                             f"{asn.LAUNCHES}")
     return sim, state, launches
 
 
@@ -711,21 +733,31 @@ def device_time(prof, calls, group_keys):
 #     for the two owner-pass visits;
 #   chain_sum, per filled slot: 25; per assigned lane: gather, sum and the
 #     nine dh terms 24;
-#   wing, per assigned lane: 3 adds.
+#   wing, per assigned lane: 3 adds;
+#   radial_fwd_asn and compact_asn: step_fused's radial and stage-2 terms,
+#     each with the gather and distance;
+#   radial_bwd_asn: radial_gamma's terms, and per assigned lane 3 adds for
+#     fcen and the nine dh terms;
+#   decompact_chain: chain_sum's terms less the 3 adds of the radial part.
 ASN_OPS = {"build_inv": {"lane": 10}, "build_idx": {"lane": 2},
            "step_fused": {"lane": 10, "rcr": 110, "rep": 30, "kept": 20},
            "packed_fwd": {"pair": 165},
            "radial_gamma": {"lane": 16, "rcr": 167, "rep": 45},
            "packed_bwd": {"pair": 350},
-           "chain_sum": {"kept": 25, "lane": 24}, "wing": {"lane": 3}}
+           "chain_sum": {"kept": 25, "lane": 24}, "wing": {"lane": 3},
+           "radial_fwd_asn": {"lane": 10, "rcr": 110, "rep": 30},
+           "compact_asn": {"lane": 10, "kept": 20},
+           "radial_bwd_asn": {"lane": 28, "rcr": 167, "rep": 45},
+           "decompact_chain": {"kept": 25, "lane": 21}}
 
 
 def asn_inputs(sim, pos, box, seed=0):
-    """The eight asn kernels' inputs as the path hands them over, at the
+    """The asn kernels' inputs as the paths hand them over, at the
     wrapped positions `pos`, after a fresh rebuild: grid inputs; inv and
     idx; the forward's residuals (slots, rank2, the rows of each packed
     call); seeded cotangents of (radial, erep, angular) and what the
-    backward makes of them on the way (ga, gr, the tier cotangents, gsum,
+    backward makes of them on the way (ga, and ga_full, the same cotangent
+    in the full radial column layout; gr, the tier cotangents, gsum,
     gt)."""
     spec = sim.potential.spec
     grid, sections, caps = sim._roll_grid, sim._sections, spec.angular_caps
@@ -742,6 +774,14 @@ def asn_inputs(sim, pos, box, seed=0):
                                        device=pos.device) for o in out[:3])
     ga = ar._to_grid_rows(bins.inv, torch.cat([g_rad, g_rep[:, None]], 1),
                           0.0).contiguous()
+    # the full layout: the sections' column blocks at species * 16, the
+    # repulsion cotangent last
+    col0, srl_full = asn._radial_layout(spec.aev, sections, False)
+    nr = ga.shape[-1] // len(sections)
+    ga_full = ga.new_zeros(ga.shape[:2] + (srl_full + 1,))
+    for si, c0 in enumerate(col0):
+        ga_full[..., c0:c0 + nr] = ga[..., si * nr:(si + 1) * nr]
+    ga_full[..., -1] = ga[..., -1]
     a_offs, atot = asn._a_offsets(sections, caps)
     n = bins.cell.shape[0]
     if part["tiers"] is None:
@@ -763,14 +803,16 @@ def asn_inputs(sim, pos, box, seed=0):
     gt, _, _ = asn.chain_sum(rank2, a.idx, cmp, gsum, gr, grid.ncells,
                              spec.aev)
     return dict(pos_g=pos_g, sp_g=sp_g, h=h, bins=bins, a=a, cmp=cmp,
-                rank2=rank2, packed=packed, ga=ga, gr=gr, gsum=gsum, gt=gt,
+                rank2=rank2, packed=packed, ga=ga, ga_full=ga_full, gr=gr,
+                gsum=gsum, gt=gt,
                 ncells=grid.ncells, spec=spec, sections=sections, caps=caps,
                 kpad=sim.kpad, a_offs=a_offs, atot=atot,
                 keep_r=spec.cutoff + sim.nbr.skin, n=n)
 
 
-def asn_calls(k):
-    """{name: (kernel call, plain call)} on the same inputs."""
+def asn_calls(k, compact_cols=True):
+    """{name: (kernel call, plain call)} on the same inputs; the radial
+    per-channel kernels in compact columns or in the full layout."""
     spec, aev = k["spec"], k["spec"].aev
     g = (k["pos_g"], k["sp_g"], k["h"])
     idx, inv = k["a"].idx, k["a"].inv
@@ -779,6 +821,12 @@ def asn_calls(k):
     gam = (idx, k["ga"], k["ncells"], aev, k["sections"], spec.repulsion)
     chain = (k["rank2"], idx, k["cmp"], k["gsum"], k["gr"], k["ncells"], aev)
     ao = k["a_offs"]
+    rfwd = (idx, k["ncells"], aev, k["sections"], spec.repulsion,
+            compact_cols)
+    rbwd = (idx, k["ga"] if compact_cols else k["ga_full"], k["ncells"], aev,
+            k["sections"], spec.repulsion, compact_cols)
+    cpt = (idx, k["ncells"], aev, k["sections"], k["caps"])
+    dchain = (k["rank2"], idx, k["cmp"], k["gsum"], k["ncells"], aev)
     return {
         "build_inv": (lambda: asn.build_inv(*g, *build),
                       lambda: asn.build_inv_plain(*g, *build)),
@@ -802,6 +850,14 @@ def asn_calls(k):
                       lambda: asn.chain_sum_plain(*chain)),
         "wing": (lambda: (asn.wing(k["gt"], inv),),
                  lambda: (asn.wing_plain(k["gt"], inv),)),
+        "radial_fwd_asn": (lambda: (asn.radial_fwd_asn(*g, *rfwd),),
+                           lambda: (asn.radial_fwd_asn_plain(*g, *rfwd),)),
+        "compact_asn": (lambda: asn.compact_asn(*g, *cpt),
+                        lambda: asn.compact_asn_plain(*g, *cpt)),
+        "radial_bwd_asn": (lambda: asn.radial_bwd_asn(*g, *rbwd),
+                           lambda: asn.radial_bwd_asn_plain(*g, *rbwd)),
+        "decompact_chain": (lambda: asn.decompact_chain(*dchain),
+                            lambda: asn.decompact_chain_plain(*dchain)),
     }
 
 
@@ -812,12 +868,20 @@ ASN_OUTPUTS = {"build_inv": (("inv", True), ("ovf", True)),
                               ("rank2", True), ("deficit", True)),
                "radial_gamma": (("gr", False),),
                "chain_sum": (("gt", False), ("fcen", False), ("dh", False)),
-               "wing": (("wing", False),)}
+               "wing": (("wing", False),),
+               "radial_fwd_asn": (("rad", False),),
+               "compact_asn": (("cmp", False), ("rank2", True),
+                               ("deficit", True)),
+               "radial_bwd_asn": (("g", False), ("fcen", False),
+                                  ("dh", False)),
+               "decompact_chain": (("gt", False), ("fcen", False),
+                                   ("dh", False))}
 
 
 def _chain_dh_scale(k, gt):
-    """Sum of |S| |gt| over the lanes: the size of the terms of
-    chain_sum's dh."""
+    """Sum of |S| |gt| over the lanes: the size of the terms of the dh of
+    chain_sum, decompact_chain and radial_bwd_asn (gt: their first
+    output)."""
     cap = k["sp_g"].shape[1]
     sh = ar._wrap_shift_tables(k["ncells"], 1, gt.dtype, gt.device).abs()
     sh = torch.nn.functional.pad(sh, (0, 0, 0, 1))
@@ -906,7 +970,11 @@ def asn_bound(name, k, work):
     and its cotangent (srl + 1); the packed slots (6 atot) and their
     cotangents (5 atot); each packed row's 5 atot fields and its columns;
     the lane cotangents gr and gt (3 kpad each); fcen (3) and dh (9); the
-    wing (27 x 3 per grid slot). Operations: ASN_OPS on `work`."""
+    wing (27 x 3 per grid slot). The per-channel kernels move their fused
+    siblings' rows less what they leave out: radial_fwd_asn no slots and no
+    rank2, compact_asn no rad, radial_bwd_asn radial_gamma's rows with fcen
+    and dh, decompact_chain chain_sum's without gr. Operations: ASN_OPS on
+    `work`."""
     n, f = k["n"], k["pos_g"].element_size()
     cap = k["sp_g"].shape[1]
     wpad, kpad, atot = asn._round_lane(27 * cap), k["kpad"], k["atot"]
@@ -935,10 +1003,23 @@ def asn_bound(name, k, work):
     elif name == "packed_bwd":
         nbytes = n * (10 * atot + ncols) * f
         n_ops = ops["pair"] * work["pairs"]
-    elif name == "chain_sum":
-        nbytes = (n * kpad * 4 + n * 11 * atot * f + n * 6 * kpad * f
+    elif name in ("chain_sum", "decompact_chain"):
+        planes = 6 if name == "chain_sum" else 3
+        nbytes = (n * kpad * 4 + n * 11 * atot * f + n * planes * kpad * f
                   + n * 3 * f + 9 * f)
         n_ops = ops["kept"] * work["kept"] + ops["lane"] * work["keep"]
+    elif name == "radial_fwd_asn":
+        nbytes = base_in + n * kpad * 2 + n * srl1 * f
+        n_ops = (ops["lane"] * work["keep"]
+                 + (ops["rcr"] + ops["rep"]) * work["rcr"])
+    elif name == "compact_asn":
+        nbytes = base_in + n * kpad * 2 + n * 6 * atot * f + n * kpad * 2
+        n_ops = ops["lane"] * work["keep"] + ops["kept"] * work["kept"]
+    elif name == "radial_bwd_asn":
+        nbytes = (base_in + n * kpad * 2 + n * srl1 * f + n * 3 * kpad * f
+                  + n * 3 * f + 9 * f)
+        n_ops = (ops["lane"] * work["keep"]
+                 + (ops["rcr"] + ops["rep"]) * work["rcr"])
     else:  # wing
         nbytes = n * 3 * kpad * f + n * wpad * 2 + n * 27 * 3 * f
         n_ops = ops["lane"] * work["keep"]
@@ -955,11 +1036,14 @@ def _to_cpu(bins, a):
 
 
 def phase_asn_kernels(device, rep=6):
-    """The eight asn kernels against their plain versions at WATER30 x
-    rep^3 (f64 and f32); the whole backward against autograd through the
-    plain forwards (f64); two calls bit for bit (f32); E, F, W on the card
-    against the CPU, and with repulsion off against the roll engine
-    (f64)."""
+    """The twelve asn kernels against their plain versions at WATER30 x
+    rep^3 (f64 and f32; the radial per-channel kernels in both column
+    layouts); the backwards of the three entry points against autograd
+    through the plain forwards (f64), two calls bit for bit (f64 and f32);
+    the per-channel forwards against the fused forward bit for bit, their
+    summed gradients against the fused gradient; `n_out` on the card
+    against the CPU (f64); E, F, W on the card against the CPU, and with
+    repulsion off against the roll engine (f64)."""
     data = water_box(rep)
     result = {}
     for dtype in (torch.float64, torch.float32):
@@ -968,68 +1052,231 @@ def phase_asn_kernels(device, rep=6):
         state = sim.init_state(data.positions, box)
         k = asn_inputs(sim, state.pos, box)
         errs = {}
-        for name, (kern, plain) in asn_calls(k).items():
+        calls = asn_calls(k)
+        full = asn_calls(k, compact_cols=False)
+        calls.update({f"{name}_full_layout": full[name]
+                      for name in ("radial_fwd_asn", "radial_bwd_asn")})
+        for name, (kern, plain) in calls.items():
             got = kern()
             ref = plain()
             _sync(device)
-            errs[name] = asn_compare(name, k, got, ref)
+            errs[name] = asn_compare(name.removesuffix("_full_layout"), k,
+                                     got, ref)
             del got, ref
-        result[str(dtype).replace("torch.", "")] = errs
+        del calls, full
+        tag = str(dtype).replace("torch.", "")
+        result[tag] = errs
+        limits = (1e-9, 1e-8) if dtype == torch.float64 else (None, None)
+        result[f"backward_{tag}"] = asn_backward_checks(sim, state, k,
+                                                        *limits)
+        result[f"channels_vs_fused_{tag}"] = asn_channels_vs_fused(sim,
+                                                                   state, k)
         if dtype == torch.float64:
-            result["backward_vs_autograd_f64"] = asn_backward_check(
-                sim, state, k, 1e-9, 1e-8)
+            result["n_out_card_vs_cpu_f64"] = asn_n_out_vs_cpu(sim, state, k)
             result["efw_card_vs_cpu_f64"] = asn_efw_vs_cpu(sim, state, k,
                                                            data)
             result["norep_fw_vs_roll_f64"] = asn_fw_vs_roll(sim, state, data,
                                                             device)
-        else:
-            result["repeat_f32"] = asn_backward_check(sim, state, k, None,
-                                                      None)
         del k
         torch.cuda.empty_cache()
     emit({"phase": "asn_kernels", "atoms": data.n_atoms, **asn_sizing(sim),
           **result})
 
 
-def asn_backward_check(sim, state, k, dpos_limit, dh_limit):
-    """dpos and dh of sum(outputs x seeded cotangents) through
-    `aev_asn_fused`: two calls of the explicit backward (the kernels) must
-    agree bit for bit; with limits given, they are held against autograd
-    through the plain forwards."""
+def asn_entry_points(sim, bins, a, n_out=None):
+    """{name: fn(pos, box, plain, compact_cols=True) -> the differentiable
+    outputs} of the three entry points at `sim`'s sizing."""
     spec = sim.potential.spec
-    g = torch.Generator(device=state.pos.device).manual_seed(4)
-    cots = None
+    head = (spec.aev, sim._roll_grid, bins, a)
 
-    def grads(plain):
-        nonlocal cots
-        pos = state.pos.clone().requires_grad_(True)
-        h = state.box.h.clone().requires_grad_(True)
-        out = asn.aev_asn_fused(
-            spec.aev, sim._roll_grid, k["bins"], k["a"], pos,
-            Box(h=h, origin=state.box.origin), sim._sections,
-            spec.angular_caps, tiers=sim._tiers, repulsion=spec.repulsion,
-            plain=plain)
-        if cots is None:
-            cots = [torch.randn(o.shape, generator=g, dtype=o.dtype,
-                                device=o.device) for o in out[:3]]
-        e = sum((o * c).sum() for o, c in zip(out[:3], cots))
-        return torch.autograd.grad(e, (pos, h))
+    def fused(pos, box, plain, compact_cols=True):
+        return asn.aev_asn_fused(
+            *head, pos, box, sim._sections, spec.angular_caps,
+            tiers=sim._tiers, repulsion=spec.repulsion, n_out=n_out,
+            plain=plain)[:3]
 
-    first, second = grads(False), grads(False)
-    _sync(state.pos.device)
-    same = all(torch.equal(x, y) for x, y in zip(first, second))
-    line = {"two_calls_bit_for_bit": same}
-    if not same:
-        raise AssertionError("asn backward: two calls differ")
-    if dpos_limit is not None:
-        ref = grads(True)
-        line.update(dpos_err=float((first[0] - ref[0]).abs().max()),
-                    dpos_limit=dpos_limit,
-                    dh_err=float((first[1] - ref[1]).abs().max()),
-                    dh_limit=dh_limit)
-        if not (line["dpos_err"] <= dpos_limit
-                and line["dh_err"] <= dh_limit):
-            raise AssertionError(f"asn backward vs autograd: {line}")
+    def radial(pos, box, plain, compact_cols=True):
+        return asn.radial_aev_asn(
+            *head, pos, box, sim._sections, repulsion=spec.repulsion,
+            n_out=n_out, compact_cols=compact_cols, plain=plain)
+
+    def angular(pos, box, plain, compact_cols=True):
+        return asn.angular_aev_asn(
+            *head, pos, box, sim._sections, spec.angular_caps,
+            tiers=sim._tiers, n_out=n_out, compact_cols=compact_cols,
+            plain=plain)[:1]
+
+    return {"fused": fused, "radial": radial, "angular": angular}
+
+
+def _cotangents(outs, seed=4):
+    g = torch.Generator(device=outs[0].device).manual_seed(seed)
+    return [torch.randn(o.shape, generator=g, dtype=o.dtype, device=o.device)
+            for o in outs]
+
+
+def _grads(fn, pos0, box0, cots, plain=False, **kw):
+    """(dpos, dh) of sum(outputs x cotangents) of an entry point."""
+    pos = pos0.clone().requires_grad_(True)
+    h = box0.h.clone().requires_grad_(True)
+    out = fn(pos, Box(h=h, origin=box0.origin), plain, **kw)
+    e = sum((o * c).sum() for o, c in zip(out, cots))
+    return torch.autograd.grad(e, (pos, h))
+
+
+def asn_backward_checks(sim, state, k, dpos_limit, dh_limit):
+    """dpos and dh of sum(outputs x seeded cotangents) through each entry
+    point (the per-channel ones in both column layouts): two calls of the
+    explicit backward (the kernels) must agree bit for bit; with limits
+    given, they are held against autograd through the plain forwards."""
+    fns = asn_entry_points(sim, k["bins"], k["a"])
+    with torch.no_grad():
+        fused_out = fns["fused"](state.pos, state.box, False)
+    cots = _cotangents(fused_out)
+    cases = {"fused": (fns["fused"], cots, {}),
+             "radial": (fns["radial"], cots[:2], {}),
+             "angular": (fns["angular"], cots[2:], {})}
+    for name in ("radial", "angular"):
+        with torch.no_grad():
+            out = fns[name](state.pos, state.box, False, compact_cols=False)
+        cases[f"{name}_full_layout"] = (fns[name], _cotangents(out, 5),
+                                        {"compact_cols": False})
+    lines = {}
+    for name, (fn, cot, kw) in cases.items():
+        first = _grads(fn, state.pos, state.box, cot, **kw)
+        second = _grads(fn, state.pos, state.box, cot, **kw)
+        _sync(state.pos.device)
+        same = all(torch.equal(x, y) for x, y in zip(first, second))
+        line = {"two_calls_bit_for_bit": same}
+        if not same:
+            raise AssertionError(f"asn backward ({name}): two calls differ")
+        if dpos_limit is not None:
+            ref = _grads(fn, state.pos, state.box, cot, plain=True, **kw)
+            line.update(dpos_err=float((first[0] - ref[0]).abs().max()),
+                        dpos_limit=dpos_limit,
+                        dh_err=float((first[1] - ref[1]).abs().max()),
+                        dh_limit=dh_limit)
+            if not (line["dpos_err"] <= dpos_limit
+                    and line["dh_err"] <= dh_limit):
+                raise AssertionError(f"asn backward ({name}) vs autograd: "
+                                     f"{line}")
+        lines[name] = line
+    return lines
+
+
+def channel_forwards_vs_fused(sim, k, pos, box):
+    """(fused outputs, {output: equal}): the per-channel forwards in
+    compact columns must equal the fused forward's outputs bit for bit,
+    deficit included, and the full layout must hold the same columns at
+    their torchani places among exact zeros."""
+    spec = sim.potential.spec
+    head = (spec.aev, sim._roll_grid, k["bins"], k["a"], pos, box,
+            sim._sections)
+    with torch.no_grad():
+        fused = asn.aev_asn_fused(*head, spec.angular_caps, tiers=sim._tiers,
+                                  repulsion=spec.repulsion)
+        rad = asn.radial_aev_asn(*head, repulsion=spec.repulsion,
+                                 compact_cols=True)
+        ang = asn.angular_aev_asn(*head, spec.angular_caps, tiers=sim._tiers,
+                                  compact_cols=True)
+        rad_f = asn.radial_aev_asn(*head, repulsion=spec.repulsion)
+        ang_f = asn.angular_aev_asn(*head, spec.angular_caps,
+                                    tiers=sim._tiers)
+    _sync(pos.device)
+    equal = {"radial": torch.equal(rad[0], fused[0]),
+             "erep": torch.equal(rad[1], fused[1]),
+             "angular": torch.equal(ang[0], fused[2]),
+             "deficit": torch.equal(ang[1], fused[3])}
+    col0, srl = asn._radial_layout(spec.aev, sim._sections, False)
+    chans = asn.present_channels(spec.aev, spec.angular_caps, sim._sections)
+
+    def placed(full, compact, starts, width):
+        """`full` holds `compact`'s column blocks at `starts` and exact
+        zeros elsewhere."""
+        absent = torch.ones(full.shape[1], dtype=torch.bool,
+                            device=full.device)
+        for c in starts:
+            absent[c:c + width] = False
+        return (torch.equal(torch.cat([full[:, c:c + width] for c in starts],
+                                      1), compact)
+                and not bool(full[:, absent].any()))
+
+    equal["radial_full_layout"] = (
+        rad_f[0].shape[1] == srl == spec.aev.radial_length
+        and placed(rad_f[0], fused[0], col0, 16)
+        and torch.equal(rad_f[1], fused[1]))
+    equal["angular_full_layout"] = (
+        ang_f[0].shape[1] == spec.aev.angular_length
+        and placed(ang_f[0], fused[2], chans, 32)
+        and torch.equal(ang_f[1], fused[3]))
+    if not all(equal.values()):
+        raise AssertionError(f"per-channel forward vs fused forward: {equal}")
+    return fused, equal
+
+
+def asn_channels_vs_fused(sim, state, k):
+    """The per-channel forwards against the fused forward
+    (`channel_forwards_vs_fused`); d(radial) + d(angular) is held
+    against the fused gradient for the same cotangents (f64: dpos 1e-9,
+    dh 1e-8; f32: TOL of the largest dpos entry and of the sum of the
+    magnitudes of dh's terms)."""
+    pos, box = state.pos, state.box
+    fused, equal = channel_forwards_vs_fused(sim, k, pos, box)
+    fns = asn_entry_points(sim, k["bins"], k["a"])
+    # seed 0: the cotangents `asn_inputs` drew, so k["gt"] holds the terms
+    # of this dh
+    cots = _cotangents(fused[:3], seed=0)
+    g_f = _grads(fns["fused"], pos, box, cots)
+    g_r = _grads(fns["radial"], pos, box, cots[:2])
+    g_a = _grads(fns["angular"], pos, box, cots[2:])
+    line = {"forward_bit_for_bit": equal}
+    atol, rtol = TOL[pos.dtype]
+    for lab, i, lim64 in (("dpos", 0, 1e-9), ("dh", 1, 1e-8)):
+        err = float((g_r[i] + g_a[i] - g_f[i]).abs().max())
+        scale = (_chain_dh_scale(k, k["gt"]) if lab == "dh"
+                 else float(g_f[i].abs().max()))
+        limit = lim64 if pos.dtype == torch.float64 else atol + rtol * scale
+        line[f"summed_{lab}_err"] = err
+        line[f"summed_{lab}_limit"] = limit
+        if not err <= limit:
+            raise AssertionError(f"d(radial) + d(angular) vs fused: {line}")
+    return line
+
+
+def asn_n_out_vs_cpu(sim, state, k):
+    """With `n_out` below the atom count: outputs and (dpos, dh) of the
+    three entry points on the card (kernels) against the CPU (plain
+    versions, explicit backward) on the same rebuild, f64."""
+    n_out = k["n"] // 2
+    bins_c, a_c = _to_cpu(k["bins"], k["a"])
+    pos_c = state.pos.cpu()
+    box_c = Box(h=state.box.h.cpu(), origin=state.box.origin.cpu())
+    card = asn_entry_points(sim, k["bins"], k["a"], n_out)
+    cpu = asn_entry_points(sim, bins_c, a_c, n_out)
+    line = {"n_out": n_out, "atoms": k["n"]}
+    for name in card:
+        with torch.no_grad():
+            out = card[name](state.pos, state.box, False)
+            out_c = cpu[name](pos_c, box_c, False)
+        cots = _cotangents(out)
+        g = _grads(card[name], state.pos, state.box, cots)
+        g_c = _grads(cpu[name], pos_c, box_c, [c.cpu() for c in cots])
+        # rows beyond n_out carry no cotangent, yet every atom is a neighbor
+        moved = int((g[0].abs().sum(1) > 0).sum())
+        res = {"rows": int(out[0].shape[0]), "atoms_with_force": moved,
+               "out_err": max(float((x.cpu() - y).abs().max())
+                              for x, y in zip(out, out_c)),
+               "out_limit": 1e-10,
+               "dpos_err": float((g[0].cpu() - g_c[0]).abs().max()),
+               "dpos_limit": 1e-9,
+               "dh_err": float((g[1].cpu() - g_c[1]).abs().max()),
+               "dh_limit": 1e-8}
+        line[name] = res
+        if not (res["rows"] == n_out and moved > n_out
+                and res["out_err"] <= 1e-10 and res["dpos_err"] <= 1e-9
+                and res["dh_err"] <= 1e-8):
+            raise AssertionError(f"n_out on the card vs the CPU ({name}): "
+                                 f"{res}")
     return line
 
 
@@ -1100,9 +1347,30 @@ def mlp_ms(sim, reps=10):
     return f_ms, time_ms(fwd_bwd, reps=reps)
 
 
+def asn_kernel_row(name, k, kern, plain_fn, work, launches, reps):
+    """(the kernel's row of the `kernels` line, its timing entry): error
+    against the plain version (raises beyond the limit), ms, the plain
+    version's ms and the bound, on the inputs `k`."""
+    err = asn_compare(name, k, kern(), plain_fn())
+    torch.cuda.synchronize()
+    b_ms, b_by = asn_bound(name, k, work)
+    ms = time_ms(kern, reps=reps, warm=1)
+    plain_ms = time_ms(plain_fn, reps=2, warm=1)
+    torch.cuda.empty_cache()
+    timing = {**err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+              "bound_by": b_by}
+    row = {"name": name, "route": "cuda", "source": ASN_SOURCE,
+           "replaces": asn.REPLACES[name].split()[0], "launches": launches,
+           "max_abs_err": err["max_abs_err"],
+           "err_over_limit": err["worst_ratio"], "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None}
+    return row, timing
+
+
 def phase_asn_timing(device, sim, state, launches, roll_sim, reps=10):
     """The asn path at the main path's final state (f32); returns the
-    eight kernels' rows. Launches per MD step: a step is one force
+    eight main-path kernels' rows. Launches per MD step: a step is one force
     evaluation, which launches step_fused once."""
     torch.cuda.empty_cache()
     dtype = torch.float32
@@ -1114,24 +1382,14 @@ def phase_asn_timing(device, sim, state, launches, roll_sim, reps=10):
     ovf = float(k["a"].ovf)
     work = asn_work(k)
     rows, timing = [], {}
-    for name, (kern, plain_fn) in asn_calls(k).items():
-        err = asn_compare(name, k, kern(), plain_fn())
-        _sync(device)
-        b_ms, b_by = asn_bound(name, k, work)
-        ms = time_ms(kern, reps=reps, warm=1)
-        plain_ms = time_ms(plain_fn, reps=2, warm=1)
-        torch.cuda.empty_cache()
-        timing[name] = {**err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "launches_per_step": (launches[name]
-                                              / launches["step_fused"])}
-        rows.append({
-            "name": name, "route": "cuda", "source": ASN_SOURCE,
-            "replaces": asn.REPLACES[name].split()[0],
-            "launches": launches[name], "max_abs_err": err["max_abs_err"],
-            "err_over_limit": err["worst_ratio"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None})
+    calls = asn_calls(k)
+    for name in ASN_KERNELS:
+        row, timing[name] = asn_kernel_row(name, k, *calls[name], work,
+                                           launches[name], reps)
+        timing[name]["launches_per_step"] = (launches[name]
+                                             / launches["step_fused"])
+        rows.append(row)
+    del calls
     bins, a = k["bins"], k["a"]
     spec = sim.potential.spec
     a_state = (sim._roll_grid, bins, a, sim._sections, sim._tiers)
@@ -1174,6 +1432,103 @@ def phase_asn_timing(device, sim, state, launches, roll_sim, reps=10):
         raise AssertionError(f"asn path: overflow {ovf}, deficit {dmax}")
     if not e_err <= e_lim:
         raise AssertionError(f"asn energies vs plain: {e_err} > {e_lim}")
+    return rows
+
+
+def _median3(fn, reps):
+    """Three rounds of `reps` calls by CUDA events: (median ms, rounds)."""
+    rounds = [time_ms(fn, reps=reps) for _ in range(3)]
+    return float(np.median(rounds)), rounds
+
+
+def phase_asn_channels(device, sim, state, reps=10):
+    """The per-channel surface at the main path's final state and sizing
+    (f32), after a fresh rebuild; returns the four per-channel kernels'
+    rows. The launch counts are zeroed just before the entry points are
+    driven and read just after; the four kernels' comparisons with their
+    plain versions follow and are not counted."""
+    torch.cuda.empty_cache()
+    box = state.box
+    pos = nbops.wrap_positions(state.pos, box)
+    k = asn_inputs(sim, pos, box)
+    work = asn_work(k)
+    fns = asn_entry_points(sim, k["bins"], k["a"])
+
+    asn.reset_counts()
+    fused, equal = channel_forwards_vs_fused(sim, k, pos, box)
+    finite = all(bool(torch.isfinite(x).all()) for x in fused[:3])
+    ovf, dmax = float(k["a"].ovf), float(fused[3].max())
+    cots = _cotangents(fused[:3], seed=0)  # as `asn_inputs` drew them
+    cases = {"fused": (fns["fused"], cots, {}),
+             "radial": (fns["radial"], cots[:2], {}),
+             "angular": (fns["angular"], cots[2:], {})}
+    del fused
+    grads = {name: _grads(fn, pos, box, cot)
+             for name, (fn, cot, _) in cases.items()}
+    atol, rtol = TOL[pos.dtype]
+    summed = {}
+    for lab, i in (("dpos", 0), ("dh", 1)):
+        ref = grads["fused"][i]
+        scale = (_chain_dh_scale(k, k["gt"]) if lab == "dh"
+                 else float(ref.abs().max()))
+        summed[lab] = {
+            "err": float((grads["radial"][i] + grads["angular"][i]
+                          - ref).abs().max()),
+            "limit": atol + rtol * scale}
+    del grads
+
+    # the full torchani layout, as a caller gets it by default
+    for name in ("radial", "angular"):
+        with torch.no_grad():
+            out = fns[name](pos, box, False, compact_cols=False)
+        cases[f"{name}_full_layout"] = (fns[name], _cotangents(out, 5),
+                                        {"compact_cols": False})
+        del out
+    times = {}
+    for name, (fn, cot, kw) in cases.items():
+        def forward(fn=fn, kw=kw):
+            with torch.no_grad():
+                fn(pos, box, False, **kw)
+
+        def forward_backward(fn=fn, cot=cot, kw=kw):
+            _grads(fn, pos, box, cot, **kw)
+
+        f_ms, f_rounds = _median3(forward, reps)
+        fb_ms, fb_rounds = _median3(forward_backward, reps)
+        times[name] = {"forward_ms": f_ms, "forward_rounds_ms": f_rounds,
+                       "forward_backward_ms": fb_ms,
+                       "forward_backward_rounds_ms": fb_rounds}
+        torch.cuda.empty_cache()
+    launches, plain = dict(asn.LAUNCHES), dict(asn.PLAIN_CALLS)
+    del cases, cots
+
+    rows, timing = [], {}
+    calls = asn_calls(k)
+    for name in CHANNEL_KERNELS:
+        row, timing[name] = asn_kernel_row(name, k, *calls[name], work,
+                                           launches[name], reps)
+        rows.append(row)
+    emit({"phase": "asn_channels", "atoms": sim.n_atoms, "dtype": "float32",
+          "repulsion": True, **asn_sizing(sim), "work": work, "ovf": ovf,
+          "deficit_max": dmax, "forward_equals_fused_bit_for_bit": equal,
+          "summed_gradients_vs_fused": summed, "entry_points": times,
+          "both_channels_over_fused": {
+              key: (times["radial"][key] + times["angular"][key])
+              / times["fused"][key]
+              for key in ("forward_ms", "forward_backward_ms")},
+          "launches": launches, "plain_calls": plain, "kernels": timing})
+    if not finite:
+        raise AssertionError("asn_channels: non-finite AEV or repulsion")
+    if not (ovf <= 0 and dmax <= 0):
+        raise AssertionError(f"asn_channels: overflow {ovf}, deficit {dmax}")
+    if any(launches[name] == 0 for name in CHANNEL_KERNELS):
+        raise AssertionError(f"asn_channels: a per-channel kernel was not "
+                             f"launched: {launches}")
+    if any(plain.values()):
+        raise AssertionError(f"asn_channels: a plain version ran: {plain}")
+    if any(v["err"] > v["limit"] for v in summed.values()):
+        raise AssertionError("asn_channels: d(radial) + d(angular) vs the "
+                             f"fused gradient: {summed}")
     return rows
 
 
@@ -1282,6 +1637,7 @@ def main() -> int:
         device, sim, state)
     rows = phase_timing(roll_sim, roll_state, roll_launches, work_start)
     rows += phase_asn_timing(device, sim, state, launches, roll_sim)
+    rows += phase_asn_channels(device, sim, state)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,11 @@
 // Assignment-compacted AEV kernels for Hopper (sm_90a), written by hand.
 //
-// Eight kernels replace the eight Pallas kernels of the rebuild, the fused
-// forward and the fused backward of lammps_ani_tpu/ops/aev_asn.py (the
-// `pallas_asn` engine). Each computes what its TPU kernel computes (see
+// Twelve kernels replace twelve Pallas kernels of
+// lammps_ani_tpu/ops/aev_asn.py: the eight of the rebuild, the fused
+// forward and the fused backward (the `pallas_asn` engine), and the four of
+// the per-channel surface (radial_aev_asn, angular_aev_asn), which share
+// their device functions with the fused kernels and differ from them only
+// in what is compiled out. Each computes what its TPU kernel computes (see
 // lammps_ani_torch/ops/aev_asn.py for the contract and the plain PyTorch
 // version of each); none copies its block structure:
 //
@@ -232,22 +235,36 @@ __global__ void __launch_bounds__(kThreads) asn_build_idx_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Fused step forward — replaces aev_asn.py:1178 _step_fused_kernel.
+// The step forward: one body, three kernels.
 //
 // Per row, one pass over its compact lanes (window lanes read through
 // idx; dead lanes idx == wpad sit at dist 1e6):
-//   rad[row, si*NR + k] = sum over section si's lanes within Rcr of
-//     0.25 fc(d) exp(-eta (d - mu0 - k delta)^2),
-//   rad[row, srl] = sum of the XTB repulsion half pair energies;
+//   radial part: rad[row, col0[si] + k] = sum over section si's lanes
+//     within Rcr of 0.25 fc(d) exp(-eta (d - mu0 - k delta)^2),
+//     rad[row, srl] = sum of the XTB repulsion half pair energies; in the
+//     radial-only kernel, column blocks no section claims (the full
+//     layout's absent species) are 0;
 //   stage 2: the first a_s lanes of section si within Rca (ascending lane)
 //     go to packed slots a_off + rank of cmp[row, field, slot] (fields ux,
 //     uy, uz, d, fc, dfc), rank2[row, k] = that slot (int16; 127: none), and
 //     deficit[s] = max over rows of (count within Rca - a_s).
+//   asn_step_fused_kernel      both parts — replaces aev_asn.py:1178
+//                              _step_fused_kernel;
+//   asn_radial_fwd_asn_kernel  the radial part alone — replaces
+//                              aev_asn.py:762 _radial_fwd_asn_kernel
+//                              (body _radial_cols_mxu :717);
+//   asn_compact_asn_kernel     stage 2 alone — replaces aev_asn.py:1153
+//                              _compact_asn_kernel (body _stage2_compact
+//                              :1044).
+// The part a kernel does not need is compiled out (`if constexpr`), so a
+// channel alone and the fused kernel execute the same expressions in the
+// same order on the same lanes and agree bit for bit.
 // Bound: writing rad, cmp and rank2 and reading idx (bytes) against 16
 // exps per in-cutoff lane (operations); see chip_smoke.py for the count.
 // Design: one warp per row, 32 lanes at a time, section by section, so
-// the 16 radial accumulators of one section stay in registers; stage-2
-// ranks from one ballot per chunk; sums by warp shuffles.
+// the 16 radial accumulators of one section stay in registers (the
+// radial-only kernel keeps nothing else live, the stage-2 kernel none of
+// them); stage-2 ranks from one ballot per chunk; sums by warp shuffles.
 // ---------------------------------------------------------------------------
 template <typename T>
 struct StepParams {
@@ -256,6 +273,7 @@ struct StepParams {
   int has_rep, env, kf15;  // env: 0 smooth, 1 cosine, 2 none
   Sections sec;
   int a_s[kMaxS], a_off[kMaxS];  // stage-2 cap and packed offset (0: none)
+  int col0[kMaxS];               // first radial column of each section
   T rc, eta, mu0, delta, pi_rc, dfc_rk, tiny_e, pmin;
   T rca, pi_rca, dfc_k, big;
   T rep_rc, kf, a2b, one_m, pi;
@@ -306,6 +324,185 @@ __device__ __forceinline__ T rep_half_grad(const StepParams<T>& p, T dist,
   return T(0.5) * (dcore * p.a2b * env + core * denv);
 }
 
+// Repulsion parameters of a center of species `csp` (0 for an empty slot
+// or a species of no section).
+template <typename T>
+__device__ __forceinline__ void center_rep(const StepParams<T>& p, int csp,
+                                           T& a_i, T& z_i) {
+  a_i = T(0);
+  z_i = T(0);
+  for (int si = 0; si < p.sec.n; ++si) {
+    if (csp == p.sec.species[si]) {
+      a_i = p.alpha[si];
+      z_i = p.zeff[si];
+    }
+  }
+}
+
+// Pair parameters of that center with the lanes of section si.
+template <typename T>
+__device__ __forceinline__ void section_rep(const StepParams<T>& p, int si,
+                                            T a_i, T z_i, T& a_ij, T& z_ij) {
+  z_ij = p.zeff[si] * z_i;
+  a_ij = p.alpha[si] * a_i;
+  a_ij = m_sqrt(a_ij > T(1e-12) ? a_ij : T(1e-12));
+}
+
+// One lane's radial terms, added to its section's NR accumulators
+// (aev_asn.py `_radial_cols_mxu`).
+template <typename T>
+__device__ __forceinline__ void radial_cols_lane(const StepParams<T>& p,
+                                                 bool valid, T dist,
+                                                 T (&acc)[kMaxNR]) {
+  if (valid && dist <= p.rc) {
+    const T pref = T(0.25) * (T(0.5) * m_cos(dist * p.pi_rc) + T(0.5));
+    const T x = dist - p.mu0;
+#pragma unroll
+    for (int kk = 0; kk < kMaxNR; ++kk) {
+      if (kk < p.NR) {
+        const T xk = x - T(kk) * p.delta;
+        T e = m_exp(-p.eta * xk * xk);
+        e = e > p.tiny_e ? e : T(0);
+        const T t = pref * e;
+        acc[kk] += t > p.pmin ? t : T(0);
+      }
+    }
+  }
+}
+
+// Stage 2 for one chunk of 32 lanes of a section with cap a_s at packed
+// offset a_off (aev_asn.py `_stage2_compact`): the lane's packed slot, or
+// kDeadSlot; a kept lane writes its six slot fields. `carry` counts the
+// section's in-Rca lanes so far. Every lane of the warp calls it.
+template <typename T>
+__device__ __forceinline__ int stage2_lane(const StepParams<T>& p,
+                                           const LaneGeom<T>& lg, int a_s,
+                                           int a_off, unsigned below,
+                                           int& carry, T* crow) {
+  const int A = p.atot;
+  const T dist = lg.dist;
+  int r2 = kDeadSlot;
+  const bool m = lg.valid && dist <= p.rca;
+  const unsigned bal = __ballot_sync(kFull, m);
+  const int rank = carry + __popc(bal & below);
+  if (m && rank < a_s) {
+    r2 = a_off + rank;
+    const bool live = dist > T(1e-6);
+    const T d = live ? dist : p.big;
+    const T inv_d = T(1) / d;
+    const bool in = live && dist <= p.rca;
+    crow[r2] = lg.dx * inv_d;
+    crow[A + r2] = lg.dy * inv_d;
+    crow[2 * A + r2] = lg.dz * inv_d;
+    crow[3 * A + r2] = d;
+    crow[4 * A + r2] = in ? T(0.5) * m_cos(dist * p.pi_rca) + T(0.5) : T(0);
+    crow[5 * A + r2] = in ? p.dfc_k * m_sin(dist * p.pi_rca) : T(0);
+  }
+  carry += __popc(bal);
+  return r2;
+}
+
+// The slots of a section that no lane filled: u = 0, d = big, fc = dfc = 0.
+template <typename T>
+__device__ __forceinline__ void stage2_park(const StepParams<T>& p, int a_s,
+                                            int a_off, int carry, int lane,
+                                            T* crow) {
+  const int A = p.atot;
+  const int filled = carry < a_s ? carry : a_s;
+  for (int t = a_off + filled + lane; t < a_off + a_s; t += 32) {
+    crow[t] = T(0);
+    crow[A + t] = T(0);
+    crow[2 * A + t] = T(0);
+    crow[3 * A + t] = p.big;
+    crow[4 * A + t] = T(0);
+    crow[5 * A + t] = T(0);
+  }
+}
+
+// One row of the step forward, by one warp. `red`: the block's shared
+// per-species deficit maxima (stage 2 only).
+template <typename T, bool RADIAL, bool STAGE2>
+__device__ __forceinline__ void step_row(
+    const StepParams<T>& p, const T* __restrict__ pos,
+    const int* __restrict__ sp, const T* __restrict__ hmat,
+    const int16_t* __restrict__ idx, T* __restrict__ rad, T* __restrict__ cmp,
+    int16_t* __restrict__ rank2, int* red, int row, int lane) {
+  const Grid& g = p.g;
+  T h[9];
+  for (int i = 0; i < 9; ++i) h[i] = hmat[i];
+  const int cell = row / g.cap;
+  const int csp = sp[row];
+  const T cx = pos[row * 3], cy = pos[row * 3 + 1], cz = pos[row * 3 + 2];
+  const unsigned below = (1u << lane) - 1u;
+  const int A = p.atot;
+  T a_i = T(0), z_i = T(0);
+  if constexpr (RADIAL) center_rep(p, csp, a_i, z_i);
+  const int16_t* irow = idx + (size_t)row * p.kpad;
+  int16_t* r2row = STAGE2 ? rank2 + (size_t)row * p.kpad : nullptr;
+  T* crow = STAGE2 ? cmp + (size_t)row * 6 * A : nullptr;
+  T* rrow = RADIAL ? rad + (size_t)row * (p.srl + 1) : nullptr;
+  T rep = T(0);
+  unsigned claimed = 0;  // column blocks (of NR) that a section writes
+  int k_total = 0;
+  for (int si = 0; si < p.sec.n; ++si) {
+    const int off = p.sec.off[si], end = off + p.sec.k[si];
+    const int a_s = p.a_s[si], a_off = p.a_off[si], c0 = p.col0[si];
+    k_total = end;
+    T z_ij = T(0), a_ij = T(0);
+    if constexpr (RADIAL) section_rep(p, si, a_i, z_i, a_ij, z_ij);
+    T acc[kMaxNR];
+#pragma unroll
+    for (int kk = 0; kk < kMaxNR; ++kk) acc[kk] = T(0);
+    int carry = 0;
+    for (int base = off; base < end; base += 32) {
+      const int k = base + lane;
+      const bool in_sec = k < end;
+      const int w = in_sec ? (int)irow[k] : p.wpad;
+      const LaneGeom<T> lg =
+          lane_geometry(g, pos, h, cell, cx, cy, cz, w, p.wpad);
+      if constexpr (RADIAL) {
+        radial_cols_lane(p, lg.valid, lg.dist, acc);
+        if (p.has_rep && lg.valid && z_ij > T(0) && lg.dist < p.rep_rc)
+          rep += rep_half(p, lg.dist, a_ij, z_ij);
+      }
+      if constexpr (STAGE2) {
+        int r2 = kDeadSlot;
+        if (a_s > 0) r2 = stage2_lane(p, lg, a_s, a_off, below, carry, crow);
+        if (in_sec) r2row[k] = (int16_t)r2;
+      }
+    }
+    if constexpr (RADIAL) {
+      // c0 is read once per section: indexing p.col0 inside this loop
+      // costs the fused kernel a fifth of its time (0.69 against 0.57 ms
+      // at 101,250 atoms on an H100)
+      for (int kk = 0; kk < p.NR; ++kk) {
+        const T s = warp_sum(acc[kk]);
+        if (lane == kk) rrow[c0 + kk] = s;
+      }
+      if constexpr (!STAGE2) claimed |= 1u << (c0 / p.NR);
+    }
+    if constexpr (STAGE2) {
+      if (a_s > 0) {
+        stage2_park(p, a_s, a_off, carry, lane, crow);
+        if (lane == 0) atomicMax(&red[p.sec.species[si]], carry - a_s);
+      }
+    }
+  }
+  if constexpr (STAGE2) {
+    for (int k = k_total + lane; k < p.kpad; k += 32)
+      r2row[k] = (int16_t)kDeadSlot;
+  }
+  if constexpr (RADIAL) {
+    // the fused kernel writes compact columns only: every block claimed
+    if constexpr (!STAGE2) {
+      for (int c = lane; c < p.srl; c += 32)
+        if (!((claimed >> (c / p.NR)) & 1u)) rrow[c] = T(0);
+    }
+    rep = warp_sum(rep);
+    if (lane == 0) rrow[p.srl] = rep;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) asn_step_fused_kernel(
     const T* __restrict__ pos, const int* __restrict__ sp,
@@ -315,158 +512,147 @@ __global__ void __launch_bounds__(kThreads) asn_step_fused_kernel(
   __shared__ int red[kMaxS];
   if (threadIdx.x < kMaxS) red[threadIdx.x] = kFloor;
   __syncthreads();
-  const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const Grid& g = p.g;
-  const int nrows = g.nx * g.ny * g.nz * g.cap;
-  if (row < nrows) {
-    T h[9];
-    for (int i = 0; i < 9; ++i) h[i] = hmat[i];
-    const int cell = row / g.cap;
-    const int csp = sp[row];
-    const T cx = pos[row * 3], cy = pos[row * 3 + 1], cz = pos[row * 3 + 2];
-    const unsigned below = (1u << lane) - 1u;
-    const int A = p.atot;
-    T a_i = T(0), z_i = T(0);
-    for (int si = 0; si < p.sec.n; ++si) {
-      if (csp == p.sec.species[si]) {
-        a_i = p.alpha[si];
-        z_i = p.zeff[si];
-      }
-    }
-    const int16_t* irow = idx + (size_t)row * p.kpad;
-    int16_t* r2row = rank2 + (size_t)row * p.kpad;
-    T* crow = cmp + (size_t)row * 6 * A;
-    T* rrow = rad + (size_t)row * (p.srl + 1);
-    T rep = T(0);
-    int k_total = 0;
-    for (int si = 0; si < p.sec.n; ++si) {
-      const int off = p.sec.off[si], end = off + p.sec.k[si];
-      const int a_s = p.a_s[si], a_off = p.a_off[si];
-      k_total = end;
-      const T z_ij = p.zeff[si] * z_i;
-      T a_ij = p.alpha[si] * a_i;
-      a_ij = m_sqrt(a_ij > T(1e-12) ? a_ij : T(1e-12));
-      T acc[kMaxNR];
-#pragma unroll
-      for (int kk = 0; kk < kMaxNR; ++kk) acc[kk] = T(0);
-      int carry = 0;
-      for (int base = off; base < end; base += 32) {
-        const int k = base + lane;
-        const bool in_sec = k < end;
-        const int w = in_sec ? (int)irow[k] : p.wpad;
-        const LaneGeom<T> lg =
-            lane_geometry(g, pos, h, cell, cx, cy, cz, w, p.wpad);
-        const bool valid = lg.valid;
-        const T dx = lg.dx, dy = lg.dy, dz = lg.dz, dist = lg.dist;
-        if (valid && dist <= p.rc) {
-          const T pref = T(0.25) * (T(0.5) * m_cos(dist * p.pi_rc) + T(0.5));
-          const T x = dist - p.mu0;
-#pragma unroll
-          for (int kk = 0; kk < kMaxNR; ++kk) {
-            if (kk < p.NR) {
-              const T xk = x - T(kk) * p.delta;
-              T e = m_exp(-p.eta * xk * xk);
-              e = e > p.tiny_e ? e : T(0);
-              const T t = pref * e;
-              acc[kk] += t > p.pmin ? t : T(0);
-            }
-          }
-        }
-        if (p.has_rep && valid && z_ij > T(0) && dist < p.rep_rc)
-          rep += rep_half(p, dist, a_ij, z_ij);
-        int r2 = kDeadSlot;
-        if (a_s > 0) {
-          const bool m = valid && dist <= p.rca;
-          const unsigned bal = __ballot_sync(kFull, m);
-          const int rank = carry + __popc(bal & below);
-          if (m && rank < a_s) {
-            r2 = a_off + rank;
-            const bool live = dist > T(1e-6);
-            const T d = live ? dist : p.big;
-            const T inv_d = T(1) / d;
-            const bool in = live && dist <= p.rca;
-            crow[r2] = dx * inv_d;
-            crow[A + r2] = dy * inv_d;
-            crow[2 * A + r2] = dz * inv_d;
-            crow[3 * A + r2] = d;
-            crow[4 * A + r2] =
-                in ? T(0.5) * m_cos(dist * p.pi_rca) + T(0.5) : T(0);
-            crow[5 * A + r2] = in ? p.dfc_k * m_sin(dist * p.pi_rca) : T(0);
-          }
-          carry += __popc(bal);
-        }
-        if (in_sec) r2row[k] = (int16_t)r2;
-      }
-      for (int kk = 0; kk < p.NR; ++kk) {
-        const T s = warp_sum(acc[kk]);
-        if (lane == kk) rrow[si * p.NR + kk] = s;
-      }
-      if (a_s > 0) {
-        const int filled = carry < a_s ? carry : a_s;
-        for (int t = a_off + filled + lane; t < a_off + a_s; t += 32) {
-          crow[t] = T(0);
-          crow[A + t] = T(0);
-          crow[2 * A + t] = T(0);
-          crow[3 * A + t] = p.big;
-          crow[4 * A + t] = T(0);
-          crow[5 * A + t] = T(0);
-        }
-        if (lane == 0) atomicMax(&red[p.sec.species[si]], carry - a_s);
-      }
-    }
-    for (int k = k_total + lane; k < p.kpad; k += 32)
-      r2row[k] = (int16_t)kDeadSlot;
-    rep = warp_sum(rep);
-    if (lane == 0) rrow[p.srl] = rep;
-  }
+  if (row < p.g.nx * p.g.ny * p.g.nz * p.g.cap)
+    step_row<T, true, true>(p, pos, sp, hmat, idx, rad, cmp, rank2, red, row,
+                            threadIdx.x & 31);
+  flush_species_max(red, deficit);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) asn_radial_fwd_asn_kernel(
+    const T* __restrict__ pos, const int* __restrict__ sp,
+    const T* __restrict__ hmat, const int16_t* __restrict__ idx,
+    T* __restrict__ rad, StepParams<T> p) {
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row < p.g.nx * p.g.ny * p.g.nz * p.g.cap)
+    step_row<T, true, false>(p, pos, sp, hmat, idx, rad, nullptr, nullptr,
+                             nullptr, row, threadIdx.x & 31);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) asn_compact_asn_kernel(
+    const T* __restrict__ pos, const int* __restrict__ sp,
+    const T* __restrict__ hmat, const int16_t* __restrict__ idx,
+    T* __restrict__ cmp, int16_t* __restrict__ rank2,
+    int* __restrict__ deficit, StepParams<T> p) {
+  __shared__ int red[kMaxS];
+  if (threadIdx.x < kMaxS) red[threadIdx.x] = kFloor;
+  __syncthreads();
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row < p.g.nx * p.g.ny * p.g.nz * p.g.cap)
+    step_row<T, false, true>(p, pos, sp, hmat, idx, nullptr, cmp, rank2, red,
+                             row, threadIdx.x & 31);
   flush_species_max(red, deficit);
 }
 
 // ---------------------------------------------------------------------------
-// Radial and repulsion backward on the compact lanes — replaces
-// aev_asn.py:850 _radial_gamma_only_kernel (body _radial_gamma_core :776).
+// Box cotangent of lane cotangents (aev_asn.py `_dh_from_compact` :595),
+// shared by the radial backward and the two chains.
 //
-// gr[row, c, k] = gamma (a_c / d) of compact lane k, with
-//   gamma = sum_kk ga[row, si*NR + kk] 0.25 e_kk (dfc - 2 eta x_kk fc)
+// dh[m][c] -= S_m g_c for a compact lane reading window lane w of a center
+// in bin `cell`: S is the wrap shift of the window offset w / cap, from
+// the bin's coordinates (no table); a dead lane (w == wpad, offset >= 27)
+// carries none. A thread keeps nine partial sums; the block adds them by
+// warp shuffles, then over its warps in warp order, into one partial per
+// block; dh_reduce_kernel (aev_common.cuh) adds the partials in a fixed
+// order.
+// ---------------------------------------------------------------------------
+template <typename T>
+__device__ __forceinline__ void dh_from_lane(const Grid& g, int cell, int w,
+                                             T gx, T gy, T gz, T (&dh)[9]) {
+  const int o = w >= 0 ? w / g.cap : 27;
+  if (o < 27) {
+    int ox, oy, oz, sx, sy, sz;
+    offset_of(o, 1, ox, oy, oz);
+    neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz);
+    const T sv[3] = {T(sx), T(sy), T(sz)};
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      dh[m * 3] -= sv[m] * gx;
+      dh[m * 3 + 1] -= sv[m] * gy;
+      dh[m * 3 + 2] -= sv[m] * gz;
+    }
+  }
+}
+
+// Every thread of the block calls it (it synchronizes the block).
+template <typename T>
+__device__ __forceinline__ void block_dh_partial(T (&dh)[9],
+                                                 T (*red)[9],
+                                                 T* __restrict__ dh_part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const T sum = warp_sum(dh[i]);
+    if (lane == 0) red[warp][i] = sum;
+  }
+  __syncthreads();
+  if (threadIdx.x < 9) {
+    T sum = T(0);
+    for (int wi = 0; wi < kWarpsPerBlock; ++wi) sum += red[wi][threadIdx.x];
+    dh_part[(size_t)blockIdx.x * 9 + threadIdx.x] = sum;
+  }
+}
+
+// The row's center force: the sum of its lanes' cotangents.
+template <typename T>
+__device__ __forceinline__ void store_fcen(T fx, T fy, T fz,
+                                           T* __restrict__ fcen, int row,
+                                           int lane) {
+  fx = warp_sum(fx);
+  fy = warp_sum(fy);
+  fz = warp_sum(fz);
+  if (lane == 0) {
+    fcen[(size_t)row * 3] = fx;
+    fcen[(size_t)row * 3 + 1] = fy;
+    fcen[(size_t)row * 3 + 2] = fz;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Radial and repulsion backward on the compact lanes: one body
+// (aev_asn.py `_radial_gamma_core` :776), two kernels.
+//
+// g[row, c, k] = gamma (a_c / d) of compact lane k, with
+//   gamma = sum_kk ga[row, col0[si] + kk] 0.25 e_kk (dfc - 2 eta x_kk fc)
 //           + ga[row, srl] d(rep_half)/dd
 // for lane k of section si: the derivative of the forward's rad with
 // respect to a = center - candidate. The geometry is recomputed through
 // idx with the forward's own device functions (lane_geometry, the cutoff
 // and basis expressions, rep_half_grad beside rep_half). Dead lanes and
-// the lanes above the sections give exactly 0. Bound: writing the three
-// [NC, cap, kpad] planes (bytes); 16 exps per in-cutoff lane. Design: one
-// warp per row, section by section, 32 lanes at a time, as the forward;
-// the row's srl + 1 cotangents sit in shared memory; no reduction at all
-// (each lane owns its output).
+// the lanes above the sections give exactly 0.
+//   asn_radial_gamma_kernel    g alone — replaces aev_asn.py:850
+//                              _radial_gamma_only_kernel;
+//   asn_radial_bwd_asn_kernel  g, the center force fcen[row] (the sum over
+//                              the row's lanes) and the box cotangent dh —
+//                              replaces aev_asn.py:816
+//                              _radial_bwd_asn_kernel.
+// Bound: writing the three [NC, cap, kpad] planes (bytes); 16 exps per
+// in-cutoff lane. Design: one warp per row, section by section, 32 lanes
+// at a time, as the forward; the row's srl + 1 cotangents sit in shared
+// memory; each lane owns its outputs; the sums of the second kernel are
+// compiled out of the first.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads) asn_radial_gamma_kernel(
-    const T* __restrict__ pos, const int* __restrict__ sp,
-    const T* __restrict__ hmat, const int16_t* __restrict__ idx,
-    const T* __restrict__ ga, T* __restrict__ gr, StepParams<T> p) {
-  __shared__ T gas[kWarpsPerBlock][kMaxS * kMaxNR + 1];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * kWarpsPerBlock + warp;
+template <typename T, bool SUMS>
+__device__ __forceinline__ void radial_gamma_row(
+    const StepParams<T>& p, const T* __restrict__ pos,
+    const int* __restrict__ sp, const T* __restrict__ hmat,
+    const int16_t* __restrict__ idx, const T* __restrict__ ga, T* gas,
+    T* __restrict__ gr, int row, int lane, T& fx, T& fy, T& fz,
+    T (&dh)[9]) {
   const Grid& g = p.g;
-  const int nrows = g.nx * g.ny * g.nz * g.cap;
-  if (row >= nrows) return;
   T h[9];
   for (int i = 0; i < 9; ++i) h[i] = hmat[i];
   const int cell = row / g.cap;
   const int csp = sp[row];
   const T cx = pos[row * 3], cy = pos[row * 3 + 1], cz = pos[row * 3 + 2];
   const T* garow = ga + (size_t)row * (p.srl + 1);
-  for (int i = lane; i <= p.srl; i += 32) gas[warp][i] = garow[i];
+  for (int i = lane; i <= p.srl; i += 32) gas[i] = garow[i];
   __syncwarp();
-  const T g_rep = gas[warp][p.srl];
-  T a_i = T(0), z_i = T(0);
-  for (int si = 0; si < p.sec.n; ++si) {
-    if (csp == p.sec.species[si]) {
-      a_i = p.alpha[si];
-      z_i = p.zeff[si];
-    }
-  }
+  const T g_rep = gas[p.srl];
+  T a_i, z_i;
+  center_rep(p, csp, a_i, z_i);
   const int16_t* irow = idx + (size_t)row * p.kpad;
   T* out = gr + (size_t)row * 3 * p.kpad;
   const T two_eta = T(2) * p.eta;
@@ -474,13 +660,13 @@ __global__ void __launch_bounds__(kThreads) asn_radial_gamma_kernel(
   for (int si = 0; si < p.sec.n; ++si) {
     const int off = p.sec.off[si], end = off + p.sec.k[si];
     k_total = end;
-    const T z_ij = p.zeff[si] * z_i;
-    T a_ij = p.alpha[si] * a_i;
-    a_ij = m_sqrt(a_ij > T(1e-12) ? a_ij : T(1e-12));
-    const T* gsec = gas[warp] + si * p.NR;
+    T z_ij, a_ij;
+    section_rep(p, si, a_i, z_i, a_ij, z_ij);
+    const T* gsec = gas + p.col0[si];
     for (int k = off + lane; k < end; k += 32) {
+      const int w = (int)irow[k];
       const LaneGeom<T> lg =
-          lane_geometry(g, pos, h, cell, cx, cy, cz, (int)irow[k], p.wpad);
+          lane_geometry(g, pos, h, cell, cx, cy, cz, w, p.wpad);
       const T dist = lg.dist;
       T gamma = T(0);
       if (lg.valid && dist <= p.rc) {
@@ -500,9 +686,16 @@ __global__ void __launch_bounds__(kThreads) asn_radial_gamma_kernel(
       if (p.has_rep && lg.valid && z_ij > T(0) && dist < p.rep_rc)
         gamma += g_rep * rep_half_grad(p, dist, a_ij, z_ij);
       const T gd = gamma / dist;
-      out[k] = gd * lg.dx;
-      out[p.kpad + k] = gd * lg.dy;
-      out[2 * p.kpad + k] = gd * lg.dz;
+      const T gx = gd * lg.dx, gy = gd * lg.dy, gz = gd * lg.dz;
+      out[k] = gx;
+      out[p.kpad + k] = gy;
+      out[2 * p.kpad + k] = gz;
+      if constexpr (SUMS) {
+        fx += gx;
+        fy += gy;
+        fz += gz;
+        dh_from_lane(g, cell, w, gx, gy, gz, dh);
+      }
     }
   }
   for (int k = k_total + lane; k < p.kpad; k += 32) {
@@ -510,6 +703,42 @@ __global__ void __launch_bounds__(kThreads) asn_radial_gamma_kernel(
     out[p.kpad + k] = T(0);
     out[2 * p.kpad + k] = T(0);
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) asn_radial_gamma_kernel(
+    const T* __restrict__ pos, const int* __restrict__ sp,
+    const T* __restrict__ hmat, const int16_t* __restrict__ idx,
+    const T* __restrict__ ga, T* __restrict__ gr, StepParams<T> p) {
+  __shared__ T gas[kWarpsPerBlock][kMaxS * kMaxNR + 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * kWarpsPerBlock + warp;
+  if (row >= p.g.nx * p.g.ny * p.g.nz * p.g.cap) return;
+  T fx = T(0), fy = T(0), fz = T(0), dh[9];
+  radial_gamma_row<T, false>(p, pos, sp, hmat, idx, ga, gas[warp], gr, row,
+                             lane, fx, fy, fz, dh);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) asn_radial_bwd_asn_kernel(
+    const T* __restrict__ pos, const int* __restrict__ sp,
+    const T* __restrict__ hmat, const int16_t* __restrict__ idx,
+    const T* __restrict__ ga, T* __restrict__ gr, T* __restrict__ fcen,
+    T* __restrict__ dh_part, StepParams<T> p) {
+  __shared__ T gas[kWarpsPerBlock][kMaxS * kMaxNR + 1];
+  __shared__ T red[kWarpsPerBlock][9];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * kWarpsPerBlock + warp;
+  T dh[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) dh[i] = T(0);
+  if (row < p.g.nx * p.g.ny * p.g.nz * p.g.cap) {
+    T fx = T(0), fy = T(0), fz = T(0);
+    radial_gamma_row<T, true>(p, pos, sp, hmat, idx, ga, gas[warp], gr, row,
+                              lane, fx, fy, fz, dh);
+    store_fcen(fx, fy, fz, fcen, row, lane);
+  }
+  block_dh_partial(dh, red, dh_part);
 }
 
 // ---------------------------------------------------------------------------
@@ -720,24 +949,78 @@ __global__ void __launch_bounds__(kThreads) asn_packed_bwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Slot cotangents -> compact lanes, summed with the radial part — replaces
-// aev_asn.py:2047 _chain_sum_kernel (_chain_to_stage1 :1975,
-// _dh_from_compact :595).
+// Slot cotangents -> compact lanes: one body (aev_asn.py `_chain_to_stage1`
+// :1975), two kernels.
 //
 // Per row: the packed slots' cotangents gsum [5][atot] (of ux, uy, uz, d,
 // fc) become vector cotangents (slots with d < Rca + 5 only:
 // g_cd = gd + gfc dfc - (gu . u) / d, g = gu / d + g_cd u); compact lane k
-// takes the vector of its slot rank2[k] (no slot: 0) plus the radial part
-// gr[., k]: gt [row][3][kpad]. fcen[row] = the sum over lanes;
-// dh[m][c] = -sum over lanes of S_m g_c with S the wrap shift of the
-// lane's window offset idx / cap (dead lanes, offset >= 27: none). Bound:
-// reading gr and writing gt, three [NC, cap, kpad] planes each (bytes).
-// Design: one warp per row; the slot vectors sit in shared memory, the
-// gather through rank2 is a shared-memory load; the wrap shift comes from
-// the bin's coordinates, not from a table; fcen and the nine dh terms are
-// warp shuffle sums, dh then summed over the block's warps in warp order
-// into one partial per block (dh_reduce_kernel adds the partials).
+// takes the vector of its slot rank2[k] (no slot: 0): gt [row][3][kpad].
+// fcen[row] = the sum over lanes; dh as dh_from_lane above.
+//   asn_chain_sum_kernel        adds the radial part gr[., k] to every lane
+//                               first — replaces aev_asn.py:2047
+//                               _chain_sum_kernel;
+//   asn_decompact_chain_kernel  the slot chain alone (gr is neither read
+//                               nor passed) — replaces aev_asn.py:2013
+//                               _decompact_chain_kernel.
+// Bound: writing gt (and reading gr), three [NC, cap, kpad] planes each
+// (bytes). Design: one warp per row; the slot vectors sit in shared
+// memory, the gather through rank2 is a shared-memory load; fcen is a warp
+// shuffle sum, dh one partial per block (block_dh_partial).
 // ---------------------------------------------------------------------------
+template <typename T, bool ADD_RADIAL>
+__device__ __forceinline__ void chain_row(
+    const int16_t* __restrict__ rank2, const int16_t* __restrict__ idx,
+    const T* __restrict__ cmp, const T* __restrict__ gsum,
+    const T* __restrict__ gr, T* __restrict__ gt, T* __restrict__ fcen, T* v,
+    const Grid& g, int kpad, int A, T d_live, int row, int lane,
+    T (&dh)[9]) {
+  const int cell = row / g.cap;
+  const T* c = cmp + (size_t)row * 6 * A;
+  const T* gs = gsum + (size_t)row * 5 * A;
+  for (int a = lane; a < A; a += 32) {
+    const T ux = c[a], uy = c[A + a], uz = c[2 * A + a];
+    const T d = c[3 * A + a], dfc = c[5 * A + a];
+    const T gux = gs[a], guy = gs[A + a], guz = gs[2 * A + a];
+    const bool live = d < d_live;
+    const T inv_d = live ? T(1) / d : T(0);
+    const T dot = gux * ux + guy * uy + guz * uz;
+    const T g_cd =
+        live ? gs[3 * A + a] + gs[4 * A + a] * dfc - dot * inv_d : T(0);
+    v[a] = gux * inv_d + g_cd * ux;
+    v[(kDeadSlot + 1) + a] = guy * inv_d + g_cd * uy;
+    v[2 * (kDeadSlot + 1) + a] = guz * inv_d + g_cd * uz;
+  }
+  __syncwarp();
+  const int16_t* r2row = rank2 + (size_t)row * kpad;
+  const int16_t* irow = idx + (size_t)row * kpad;
+  const T* grow = ADD_RADIAL ? gr + (size_t)row * 3 * kpad : nullptr;
+  T* orow = gt + (size_t)row * 3 * kpad;
+  T fx = T(0), fy = T(0), fz = T(0);
+  for (int k = lane; k < kpad; k += 32) {
+    const int r = r2row[k], w = irow[k];
+    T gx = T(0), gy = T(0), gz = T(0);
+    if constexpr (ADD_RADIAL) {
+      gx = grow[k];
+      gy = grow[kpad + k];
+      gz = grow[2 * kpad + k];
+    }
+    if (r >= 0 && r < A) {
+      gx += v[r];
+      gy += v[(kDeadSlot + 1) + r];
+      gz += v[2 * (kDeadSlot + 1) + r];
+    }
+    orow[k] = gx;
+    orow[kpad + k] = gy;
+    orow[2 * kpad + k] = gz;
+    fx += gx;
+    fy += gy;
+    fz += gz;
+    dh_from_lane(g, cell, w, gx, gy, gz, dh);
+  }
+  store_fcen(fx, fy, fz, fcen, row, lane);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) asn_chain_sum_kernel(
     const int16_t* __restrict__ rank2, const int16_t* __restrict__ idx,
@@ -748,82 +1031,32 @@ __global__ void __launch_bounds__(kThreads) asn_chain_sum_kernel(
   __shared__ T red[kWarpsPerBlock][9];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row = blockIdx.x * kWarpsPerBlock + warp;
-  const int nrows = g.nx * g.ny * g.nz * g.cap;
   T dh[9];
 #pragma unroll
   for (int i = 0; i < 9; ++i) dh[i] = T(0);
-  if (row < nrows) {
-    const int cell = row / g.cap;
-    const T* c = cmp + (size_t)row * 6 * A;
-    const T* gs = gsum + (size_t)row * 5 * A;
-    T* v = gv[warp];
-    for (int a = lane; a < A; a += 32) {
-      const T ux = c[a], uy = c[A + a], uz = c[2 * A + a];
-      const T d = c[3 * A + a], dfc = c[5 * A + a];
-      const T gux = gs[a], guy = gs[A + a], guz = gs[2 * A + a];
-      const bool live = d < d_live;
-      const T inv_d = live ? T(1) / d : T(0);
-      const T dot = gux * ux + guy * uy + guz * uz;
-      const T g_cd =
-          live ? gs[3 * A + a] + gs[4 * A + a] * dfc - dot * inv_d : T(0);
-      v[a] = gux * inv_d + g_cd * ux;
-      v[(kDeadSlot + 1) + a] = guy * inv_d + g_cd * uy;
-      v[2 * (kDeadSlot + 1) + a] = guz * inv_d + g_cd * uz;
-    }
-    __syncwarp();
-    const int16_t* r2row = rank2 + (size_t)row * kpad;
-    const int16_t* irow = idx + (size_t)row * kpad;
-    const T* grow = gr + (size_t)row * 3 * kpad;
-    T* orow = gt + (size_t)row * 3 * kpad;
-    T fx = T(0), fy = T(0), fz = T(0);
-    for (int k = lane; k < kpad; k += 32) {
-      const int r = r2row[k], w = irow[k];
-      T gx = grow[k], gy = grow[kpad + k], gz = grow[2 * kpad + k];
-      if (r >= 0 && r < A) {
-        gx += v[r];
-        gy += v[(kDeadSlot + 1) + r];
-        gz += v[2 * (kDeadSlot + 1) + r];
-      }
-      orow[k] = gx;
-      orow[kpad + k] = gy;
-      orow[2 * kpad + k] = gz;
-      fx += gx;
-      fy += gy;
-      fz += gz;
-      const int o = w >= 0 ? w / g.cap : 27;
-      if (o < 27) {
-        int ox, oy, oz, sx, sy, sz;
-        offset_of(o, 1, ox, oy, oz);
-        neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz);
-        const T sv[3] = {T(sx), T(sy), T(sz)};
+  if (row < g.nx * g.ny * g.nz * g.cap)
+    chain_row<T, true>(rank2, idx, cmp, gsum, gr, gt, fcen, gv[warp], g, kpad,
+                       A, d_live, row, lane, dh);
+  block_dh_partial(dh, red, dh_part);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) asn_decompact_chain_kernel(
+    const int16_t* __restrict__ rank2, const int16_t* __restrict__ idx,
+    const T* __restrict__ cmp, const T* __restrict__ gsum,
+    T* __restrict__ gt, T* __restrict__ fcen, T* __restrict__ dh_part, Grid g,
+    int kpad, int A, T d_live) {
+  __shared__ T gv[kWarpsPerBlock][3 * (kDeadSlot + 1)];
+  __shared__ T red[kWarpsPerBlock][9];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * kWarpsPerBlock + warp;
+  T dh[9];
 #pragma unroll
-        for (int m = 0; m < 3; ++m) {
-          dh[m * 3] -= sv[m] * gx;
-          dh[m * 3 + 1] -= sv[m] * gy;
-          dh[m * 3 + 2] -= sv[m] * gz;
-        }
-      }
-    }
-    fx = warp_sum(fx);
-    fy = warp_sum(fy);
-    fz = warp_sum(fz);
-    if (lane == 0) {
-      fcen[(size_t)row * 3] = fx;
-      fcen[(size_t)row * 3 + 1] = fy;
-      fcen[(size_t)row * 3 + 2] = fz;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 9; ++i) {
-    const T sum = warp_sum(dh[i]);
-    if (lane == 0) red[warp][i] = sum;
-  }
-  __syncthreads();
-  if (threadIdx.x < 9) {
-    T sum = T(0);
-    for (int wi = 0; wi < kWarpsPerBlock; ++wi) sum += red[wi][threadIdx.x];
-    dh_part[(size_t)blockIdx.x * 9 + threadIdx.x] = sum;
-  }
+  for (int i = 0; i < 9; ++i) dh[i] = T(0);
+  if (row < g.nx * g.ny * g.nz * g.cap)
+    chain_row<T, false>(rank2, idx, cmp, gsum, nullptr, gt, fcen, gv[warp], g,
+                        kpad, A, d_live, row, lane, dh);
+  block_dh_partial(dh, red, dh_part);
 }
 
 // ---------------------------------------------------------------------------
@@ -934,7 +1167,7 @@ int asn_build_idx(const int* ip, const double*, const void* inv, void* idx,
 }
 
 // ip: nx ny nz cap wpad kpad NR atot srl has_rep env kf15 | sections |
-//     a_s[8] a_off[8]
+//     a_s[8] a_off[8] col0[8] | n_part (the kernels with dh only)
 // fp: rc eta mu0 delta tiny_e pmin rca big rep_rc kf alpha[8] zeff[8]
 template <typename T>
 bool step_params_from(const int* ip, const double* fp, StepParams<T>& p) {
@@ -949,14 +1182,19 @@ bool step_params_from(const int* ip, const double* fp, StepParams<T>& p) {
   p.kf15 = ip[11];
   if (!sections_from(ip + 12, p.sec) || !grid_ok(p.g, p.wpad, p.kpad) ||
       p.NR < 1 || p.NR > kMaxNR || p.atot < 0 || p.atot > kDeadSlot ||
-      p.srl != p.sec.n * p.NR)
+      p.srl % p.NR || p.srl > kMaxS * kMaxNR)
     return false;
   const int* st = ip + 12 + kSecInts;
   for (int i = 0; i < kMaxS; ++i) {
     p.a_s[i] = st[i];
     p.a_off[i] = st[kMaxS + i];
+    p.col0[i] = st[2 * kMaxS + i];
     p.alpha[i] = (T)fp[10 + i];
     p.zeff[i] = (T)fp[10 + kMaxS + i];
+    // a section's NR columns are one whole block of the row's srl
+    if (i < p.sec.n && (p.col0[i] < 0 || p.col0[i] % p.NR ||
+                        p.col0[i] + p.NR > p.srl))
+      return false;
   }
   const double rc = fp[0], rca = fp[6];
   p.rc = (T)rc;
@@ -984,12 +1222,68 @@ int asn_step_fused(const int* ip, const double* fp, const void* pos,
                    const void* sp, const void* h, const void* idx, void* rad,
                    void* cmp, void* rank2, void* deficit, void* stream) {
   StepParams<T> p;
-  if (!step_params_from(ip, fp, p)) return cudaErrorInvalidValue;
+  if (!step_params_from(ip, fp, p) || p.srl != p.sec.n * p.NR)
+    return cudaErrorInvalidValue;
   const int nrows = p.g.nx * p.g.ny * p.g.nz * p.g.cap;
   asn_step_fused_kernel<T><<<row_blocks(nrows), kThreads, 0,
                              (cudaStream_t)stream>>>(
       (const T*)pos, (const int*)sp, (const T*)h, (const int16_t*)idx,
       (T*)rad, (T*)cmp, (int16_t*)rank2, (int*)deficit, p);
+  return (int)cudaGetLastError();
+}
+
+// ip, fp: as asn_step_fused (the stage-2 entries are not read)
+template <typename T>
+int asn_radial_fwd_asn(const int* ip, const double* fp, const void* pos,
+                       const void* sp, const void* h, const void* idx,
+                       void* rad, void* stream) {
+  StepParams<T> p;
+  if (!step_params_from(ip, fp, p)) return cudaErrorInvalidValue;
+  const int nrows = p.g.nx * p.g.ny * p.g.nz * p.g.cap;
+  asn_radial_fwd_asn_kernel<T><<<row_blocks(nrows), kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+      (const T*)pos, (const int*)sp, (const T*)h, (const int16_t*)idx,
+      (T*)rad, p);
+  return (int)cudaGetLastError();
+}
+
+// ip, fp: as asn_step_fused (the radial and repulsion entries are not read)
+template <typename T>
+int asn_compact_asn(const int* ip, const double* fp, const void* pos,
+                    const void* sp, const void* h, const void* idx, void* cmp,
+                    void* rank2, void* deficit, void* stream) {
+  StepParams<T> p;
+  if (!step_params_from(ip, fp, p)) return cudaErrorInvalidValue;
+  const int nrows = p.g.nx * p.g.ny * p.g.nz * p.g.cap;
+  asn_compact_asn_kernel<T><<<row_blocks(nrows), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+      (const T*)pos, (const int*)sp, (const T*)h, (const int16_t*)idx,
+      (T*)cmp, (int16_t*)rank2, (int*)deficit, p);
+  return (int)cudaGetLastError();
+}
+
+constexpr int kStepInts = 12 + kSecInts + 3 * kMaxS;
+
+// ip: as asn_step_fused, then n_part (one dh partial per block); fp: as
+// asn_step_fused
+template <typename T>
+int asn_radial_bwd_asn(const int* ip, const double* fp, const void* pos,
+                       const void* sp, const void* h, const void* idx,
+                       const void* ga, void* gr, void* fcen, void* dh_part,
+                       void* dh, void* stream) {
+  StepParams<T> p;
+  if (!step_params_from(ip, fp, p)) return cudaErrorInvalidValue;
+  const int nrows = p.g.nx * p.g.ny * p.g.nz * p.g.cap;
+  const int n_part = ip[kStepInts];
+  if (n_part != row_blocks(nrows)) return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  asn_radial_bwd_asn_kernel<T><<<n_part, kThreads, 0, st>>>(
+      (const T*)pos, (const int*)sp, (const T*)h, (const int16_t*)idx,
+      (const T*)ga, (T*)gr, (T*)fcen, (T*)dh_part, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dh_reduce_kernel<T><<<1, kRedThreads, 0, st>>>((const T*)dh_part, n_part,
+                                                 (T*)dh);
   return (int)cudaGetLastError();
 }
 
@@ -1112,6 +1406,29 @@ int asn_chain_sum(const int* ip, const double* fp, const void* rank2,
   return (int)cudaGetLastError();
 }
 
+// ip, fp: as asn_chain_sum
+template <typename T>
+int asn_decompact_chain(const int* ip, const double* fp, const void* rank2,
+                        const void* idx, const void* cmp, const void* gsum,
+                        void* gt, void* fcen, void* dh_part, void* dh,
+                        void* stream) {
+  const Grid g = grid_from(ip);
+  const int kpad = ip[4], atot = ip[5], n_part = ip[6];
+  const int nrows = g.nx * g.ny * g.nz * g.cap;
+  if (g.cap < 1 || kpad < 32 || kpad % 32 || atot < 0 || atot > kDeadSlot ||
+      n_part != row_blocks(nrows))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  asn_decompact_chain_kernel<T><<<n_part, kThreads, 0, st>>>(
+      (const int16_t*)rank2, (const int16_t*)idx, (const T*)cmp,
+      (const T*)gsum, (T*)gt, (T*)fcen, (T*)dh_part, g, kpad, atot, (T)fp[0]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dh_reduce_kernel<T><<<1, kRedThreads, 0, st>>>((const T*)dh_part, n_part,
+                                                 (T*)dh);
+  return (int)cudaGetLastError();
+}
+
 // ip: nc cap wpad kpad
 template <typename T>
 int asn_wing(const int* ip, const double*, const void* gt, const void* inv,
@@ -1167,6 +1484,32 @@ int asn_wing(const int* ip, const double*, const void* gt, const void* inv,
       void* fcen, void* dh_part, void* dh, void* stream) {                   \
     return asn_chain_sum<T>(ip, fp, rank2, idx, cmp, gsum, gr, gt, fcen,     \
                             dh_part, dh, stream);                             \
+  }                                                                           \
+  extern "C" int asn_radial_fwd_asn_##SUF(                                   \
+      const int* ip, const double* fp, const void* pos, const void* sp,      \
+      const void* h, const void* idx, void* rad, void* stream) {             \
+    return asn_radial_fwd_asn<T>(ip, fp, pos, sp, h, idx, rad, stream);      \
+  }                                                                           \
+  extern "C" int asn_compact_asn_##SUF(                                      \
+      const int* ip, const double* fp, const void* pos, const void* sp,      \
+      const void* h, const void* idx, void* cmp, void* rank2, void* deficit, \
+      void* stream) {                                                         \
+    return asn_compact_asn<T>(ip, fp, pos, sp, h, idx, cmp, rank2, deficit,  \
+                              stream);                                        \
+  }                                                                           \
+  extern "C" int asn_radial_bwd_asn_##SUF(                                   \
+      const int* ip, const double* fp, const void* pos, const void* sp,      \
+      const void* h, const void* idx, const void* ga, void* gr, void* fcen,  \
+      void* dh_part, void* dh, void* stream) {                               \
+    return asn_radial_bwd_asn<T>(ip, fp, pos, sp, h, idx, ga, gr, fcen,      \
+                                 dh_part, dh, stream);                        \
+  }                                                                           \
+  extern "C" int asn_decompact_chain_##SUF(                                  \
+      const int* ip, const double* fp, const void* rank2, const void* idx,   \
+      const void* cmp, const void* gsum, void* gt, void* fcen,               \
+      void* dh_part, void* dh, void* stream) {                               \
+    return asn_decompact_chain<T>(ip, fp, rank2, idx, cmp, gsum, gt, fcen,   \
+                                  dh_part, dh, stream);                       \
   }                                                                           \
   extern "C" int asn_wing_##SUF(const int* ip, const double* fp,             \
                                 const void* gt, const void* inv, void* wing, \

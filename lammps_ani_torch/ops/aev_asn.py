@@ -1,9 +1,10 @@
-"""Assignment-compacted AEV channels: the rebuild, the forward and the
-backward of the `pallas_asn` engine, eight hand-written Hopper kernels
-and their plain PyTorch versions.
+"""Assignment-compacted AEV channels: the rebuild, the fused forward and
+backward of the `pallas_asn` engine and the per-channel surface beside
+them, twelve hand-written Hopper kernels and their plain PyTorch versions.
 
-Port of lammps_ani_tpu/ops/aev_asn.py (the fused path: `aev_asn_fused`).
-One coarse roll grid (bin side >= Rcr + skin) serves both AEV channels:
+Port of lammps_ani_tpu/ops/aev_asn.py (`aev_asn_fused`, `radial_aev_asn`,
+`angular_aev_asn`; the packed pair stage only). One coarse roll grid (bin
+side >= Rcr + skin) serves both AEV channels:
 
   * At rebuild, each center's 27-bin window lanes within the keep radius
     (Rcr + skin) are ranked into per-species compact sections:
@@ -29,6 +30,32 @@ One coarse roll grid (bin side >= Rcr + skin) serves both AEV channels:
     lanes through `inv` (`wing`); `aev_roll._fold_wing` rolls the window
     slabs back to their owner bins.
 
+The per-channel surface runs each channel alone over the same frozen
+assignment, so that a radial column and an angular block can be held
+against a reference apart from one another:
+
+  * `radial_aev_asn`: the radial part of the step alone
+    (`radial_fwd_asn`); its backward gives the lane cotangents, the center
+    force and the box cotangent in one kernel (`radial_bwd_asn`), then
+    `wing` and the fold.
+  * `angular_aev_asn`: stage 2 alone (`compact_asn`), then the packed pair
+    stage; its backward is `packed_bwd`, the slot chain without a radial
+    part (`decompact_chain`), `wing` and the fold.
+
+The four per-channel kernels are built from the device functions of their
+fused siblings, so the per-channel forwards equal `aev_asn_fused`'s
+outputs bit for bit; the gradients agree to rounding (the fused backward
+sums the channels before one wing gather and one fold).
+
+Column layouts. `aev_asn_fused` always gives compact columns: the present
+sections' radial blocks in `sections` order, the present species-pair
+blocks in ascending torchani offset (`present_channels`). The per-channel
+entry points give either (`compact_cols`): by default the full torchani
+layout, with zero columns for species and pairs that no section holds.
+`n_out` on all three entry points gives AEV rows, and does pair-block
+work, for the first `n_out` binned atoms only (a domain's owned atoms);
+the other atoms still take their neighbor-role force in the backward.
+
 The host-side sizing and the flat-row glue keep their JAX names. The
 JAX `_prep_asn` candidate planes have no counterpart: the plain versions
 build candidates with `aev_roll._candidates` and the kernels compute
@@ -36,11 +63,11 @@ them from the [NC, cap] grid rows of `aev_roll._grid_inputs`.
 
 Each wrapper launches its CUDA kernel (csrc/aev_asn.cu, built at first use
 by ops/_build.py) for tensors on the card, and runs the plain PyTorch
-version beside it for tensors on the CPU. `aev_asn_fused` is one
-autograd.Function on both devices: its backward is the four backward
-wrappers. The plain forwards are also differentiable torch ops, so
-`plain=True` gives forces and the box cotangent by autograd alone: the
-oracle the explicit backward is held against.
+version beside it for tensors on the CPU. Each entry point is one
+autograd.Function on both devices: its backward is the backward wrappers.
+The plain forwards are also differentiable torch ops, so `plain=True`
+gives forces and the box cotangent by autograd alone: the oracle the
+explicit backwards are held against.
 
 Conventions (as the TPU kernels): empty slots are parked at 1e6 with
 species -1; self is excluded by lane index (13 cap + slot); the keep test
@@ -72,15 +99,16 @@ ANGSTROM2BOHR = 1.8897261258369282
 _MAX_S = 8
 _MAX_BLOCKS = 28
 
-# Plain-integer launch counts of the eight CUDA kernels (one per wrapper
+# Plain-integer launch counts of the twelve CUDA kernels (one per wrapper
 # call that launches its kernel) and call counts of their plain versions
 # made by the wrappers (CPU tensors). `reset_counts()` zeroes both.
 LAUNCHES = {"build_inv": 0, "build_idx": 0, "step_fused": 0,
             "packed_fwd": 0, "radial_gamma": 0, "packed_bwd": 0,
-            "chain_sum": 0, "wing": 0}
+            "chain_sum": 0, "wing": 0, "radial_fwd_asn": 0,
+            "compact_asn": 0, "radial_bwd_asn": 0, "decompact_chain": 0}
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 
-# The TPU kernels of ops/aev_asn.py that the eight kernels replace.
+# The TPU kernels of ops/aev_asn.py that the twelve kernels replace.
 REPLACES = {
     "build_inv": "lammps_ani_tpu/ops/aev_asn.py:243 _build_inv_kernel",
     "build_idx": "lammps_ani_tpu/ops/aev_asn.py:309 _build_idx_kernel",
@@ -91,6 +119,13 @@ REPLACES = {
     "packed_bwd": "lammps_ani_tpu/ops/aev_asn.py:1833 _packed_bwd_kernel",
     "chain_sum": "lammps_ani_tpu/ops/aev_asn.py:2047 _chain_sum_kernel",
     "wing": "lammps_ani_tpu/ops/aev_asn.py:2083 _wing_kernel",
+    "radial_fwd_asn":
+        "lammps_ani_tpu/ops/aev_asn.py:762 _radial_fwd_asn_kernel",
+    "compact_asn": "lammps_ani_tpu/ops/aev_asn.py:1153 _compact_asn_kernel",
+    "radial_bwd_asn":
+        "lammps_ani_tpu/ops/aev_asn.py:816 _radial_bwd_asn_kernel",
+    "decompact_chain":
+        "lammps_ani_tpu/ops/aev_asn.py:2013 _decompact_chain_kernel",
 }
 
 
@@ -381,7 +416,7 @@ def _norm_tiers(tiers, caps, r, n_pad2):
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch versions of the eight kernels
+# Plain PyTorch versions of the twelve kernels
 # ---------------------------------------------------------------------------
 
 
@@ -538,6 +573,125 @@ def _rep_lanes(rep, tables, sp_rows, valid, dist):
     return a_ij, z_ij, valid & (z_ij > 0) & (dist < rep.cutoff)
 
 
+def _radial_layout(spec, sections, compact_cols):
+    """(first radial column of each section, srl): compact columns follow
+    the `sections` order, the full layout the species number, over all
+    species of the spec."""
+    nr = aev_roll.radial_consts(spec)[4]
+    if compact_cols:
+        return [si * nr for si in range(len(sections))], len(sections) * nr
+    return [s * nr for s, _ in sections], spec.num_species * nr
+
+
+def _radial_cols_plain(k, sections, layout, rep, rep_tab, sp_rows, valid,
+                       dist):
+    """[rows, cap, srl + 1]: the radial columns of one chunk of rows (NR
+    per section at its column base, zeros elsewhere) and the repulsion
+    energy in the last."""
+    rc, nr, pmin = k["rc"], k["nr"], k["pmin"]
+    offs, _ = _sec_offsets(sections)
+    col0, srl = layout
+    in_cut = valid & (dist <= rc)
+    pref = 0.25 * torch.where(
+        in_cut, 0.5 * torch.cos(dist * (math.pi / rc)) + 0.5, 0.0)
+    x = torch.clamp(dist, max=rc + 1.0) - k["mu0"]
+    cols = [None] * (srl + 1)
+    for kk in range(nr):
+        e = torch.exp(-k["eta"] * (x - kk * k["delta"]) ** 2)
+        e = torch.where(e > k["tiny"], e, 0.0)
+        t = pref * e
+        t = torch.where(t > pmin, t, 0.0)
+        for c0, (_, k_s), off in zip(col0, sections, offs):
+            cols[c0 + kk] = t[..., off:off + k_s].sum(-1)
+    if rep is not None:
+        a_ij, z_ij, rin = _rep_lanes(rep, rep_tab, sp_rows, valid, dist)
+        cols[srl] = _rep_half_plain(rep, dist, a_ij, z_ij, rin, pmin).sum(-1)
+    zero = torch.zeros_like(dist[..., 0])
+    return torch.stack([zero if c is None else c for c in cols], dim=-1)
+
+
+def _stage2_plain(k, sections, caps, ax, ay, az, valid, dist, deficit):
+    """(cmp [rows, cap, 6, atot], rank2 [rows, cap, kpad] int16) of one
+    chunk of rows: the first caps[s] in-Rca lanes of each section go to
+    packed slots; `deficit` [8] takes the running maxima in place."""
+    rca = k["rca"]
+    r, cap, kpad = dist.shape
+    dev = dist.device
+    offs, _ = _sec_offsets(sections)
+    a_offs, atot = _a_offsets(sections, caps)
+    lane_ids = torch.arange(kpad, device=dev)
+    in_ang = valid & (dist <= rca)
+    rank2 = torch.full((r, cap, kpad), DEAD_SLOT, dtype=torch.int16,
+                       device=dev)
+    src = torch.full((r, cap, atot + 1), kpad, dtype=torch.int64,
+                     device=dev)  # lane of each slot; kpad: empty
+    for (s, k_s), off in zip(sections, offs):
+        if s not in a_offs:
+            continue
+        a_off, a_s = a_offs[s]
+        m = in_ang[..., off:off + k_s]
+        cum = torch.cumsum(m.to(torch.int32), dim=-1)
+        deficit[s] = torch.maximum(
+            deficit[s], (cum[..., -1].max() - a_s).to(torch.int32))
+        rank = cum - 1
+        keep = m & (rank < a_s)
+        rank2[..., off:off + k_s] = torch.where(
+            keep, rank + a_off, DEAD_SLOT).to(torch.int16)
+        tgt = torch.where(keep, rank + a_off, atot).to(torch.int64)
+        src.scatter_(2, tgt, lane_ids[off:off + k_s].expand_as(tgt))
+    src = src[..., :atot]
+    live = src < kpad
+    cax, cay, caz = (torch.gather(torch.nn.functional.pad(a, (0, 1)), 2,
+                                  src) for a in (ax, ay, az))
+    cax, cay, caz = (torch.where(live, a, 0.0) for a in (cax, cay, caz))
+    cd = torch.sqrt(torch.clamp(_d2(cax, cay, caz), min=1e-12))
+    mask = cd > 1e-6
+    d_safe = torch.where(mask, cd, k["big"])
+    inv_d = 1.0 / d_safe
+    inside = mask & (cd <= rca)
+    fc = torch.where(inside, 0.5 * torch.cos(cd * (math.pi / rca)) + 0.5,
+                     0.0)
+    dfc = torch.where(inside, (-0.5 * math.pi / rca)
+                      * torch.sin(cd * (math.pi / rca)), 0.0)
+    cmp = torch.stack([cax * inv_d, cay * inv_d, caz * inv_d, d_safe, fc,
+                       dfc], dim=2)
+    return cmp, rank2
+
+
+def _step_plain(pos_g, sp_g, h, idx, ncells, spec, sections, caps, rep,
+                compact_cols, radial, stage2):
+    """One geometry pass through `idx` over chunks of rows, with the
+    radial part, the stage-2 part or both: (rad, cmp, rank2, deficit),
+    None for the part left out."""
+    nc, cap = sp_g.shape
+    kpad = idx.shape[-1]
+    wpad = _round_lane(27 * cap)
+    dev, dtype = pos_g.device, pos_g.dtype
+    k = _step_consts(spec, dtype)
+    cp = _padded_candidates(ncells, pos_g, sp_g, h, wpad)
+    deficit = torch.full((_MAX_S,), DEFICIT_FLOOR, dtype=torch.int32,
+                         device=dev)
+    layout = _radial_layout(spec, sections, compact_cols)
+    rep_tab = (_rep_tables(rep, sections, kpad, dtype, dev)
+               if radial and rep is not None else None)
+    rads, cmps, rank2s = [], [], []
+    for rs in _chunks(nc, cap * kpad * 24):
+        iv = idx[rs].to(torch.int64)
+        ax, ay, az, valid, dist = _lane_geometry(cp[rs], pos_g[rs], iv, wpad)
+        if radial:
+            rads.append(_radial_cols_plain(k, sections, layout, rep, rep_tab,
+                                           sp_g[rs], valid, dist))
+        if stage2:
+            cmp, rank2 = _stage2_plain(k, sections, caps, ax, ay, az, valid,
+                                       dist, deficit)
+            cmps.append(cmp)
+            rank2s.append(rank2)
+    return (torch.cat(rads) if radial else None,
+            torch.cat(cmps) if stage2 else None,
+            torch.cat(rank2s) if stage2 else None,
+            deficit if stage2 else None)
+
+
 def step_fused_plain(pos_g, sp_g, h, idx, ncells, spec, sections, caps,
                      rep):
     """(rad [NC, cap, srl+1], cmp [NC, cap, 6, atot], rank2 [NC, cap,
@@ -547,86 +701,26 @@ def step_fused_plain(pos_g, sp_g, h, idx, ncells, spec, sections, caps,
     energy last; cmp: the stage-2 packed slots, fields (ux, uy, uz, d,
     fc, dfc); rank2: each compact lane's packed slot (127: none); deficit:
     per species max over rows of (count within Rca - caps[s])."""
-    nc, cap = sp_g.shape
-    kpad = idx.shape[-1]
-    wpad = _round_lane(27 * cap)
-    dev, dtype = pos_g.device, pos_g.dtype
-    k = _step_consts(spec, dtype)
-    rc, rca, nr, pmin = k["rc"], k["rca"], k["nr"], k["pmin"]
-    offs, _ = _sec_offsets(sections)
-    a_offs, atot = _a_offsets(sections, caps)
-    cp = _padded_candidates(ncells, pos_g, sp_g, h, wpad)
-    deficit = torch.full((_MAX_S,), DEFICIT_FLOOR, dtype=torch.int32,
-                         device=dev)
-    if rep is not None:
-        rep_tab = _rep_tables(rep, sections, kpad, dtype, dev)
-    lane_ids = torch.arange(kpad, device=dev)
-    rads, cmps, rank2s = [], [], []
-    for rs in _chunks(nc, cap * kpad * 24):
-        iv = idx[rs].to(torch.int64)
-        r = iv.shape[0]
-        ax, ay, az, valid, dist = _lane_geometry(cp[rs], pos_g[rs], iv, wpad)
+    return _step_plain(pos_g, sp_g, h, idx, ncells, spec, sections, caps,
+                       rep, True, True, True)
 
-        # radial columns, compact section order, and the repulsion column
-        in_cut = valid & (dist <= rc)
-        pref = 0.25 * torch.where(
-            in_cut, 0.5 * torch.cos(dist * (math.pi / rc)) + 0.5, 0.0)
-        x = torch.clamp(dist, max=rc + 1.0) - k["mu0"]
-        cols = [[None] * nr for _ in sections]
-        for kk in range(nr):
-            e = torch.exp(-k["eta"] * (x - kk * k["delta"]) ** 2)
-            e = torch.where(e > k["tiny"], e, 0.0)
-            t = pref * e
-            t = torch.where(t > pmin, t, 0.0)
-            for si, ((_, k_s), off) in enumerate(zip(sections, offs)):
-                cols[si][kk] = t[..., off:off + k_s].sum(-1)
-        cols = [c for per_sec in cols for c in per_sec]
-        if rep is not None:
-            a_ij, z_ij, rin = _rep_lanes(rep, rep_tab, sp_g[rs], valid, dist)
-            cols.append(_rep_half_plain(rep, dist, a_ij, z_ij, rin,
-                                        pmin).sum(-1))
-        else:
-            cols.append(torch.zeros_like(dist[..., 0]))
-        rads.append(torch.stack(cols, dim=-1))
 
-        # stage 2: first caps[s] in-Rca lanes of each section -> slots
-        in_ang = valid & (dist <= rca)
-        rank2 = torch.full((r, cap, kpad), DEAD_SLOT, dtype=torch.int16,
-                           device=dev)
-        src = torch.full((r, cap, atot + 1), kpad, dtype=torch.int64,
-                         device=dev)  # lane of each slot; kpad: empty
-        for (s, k_s), off in zip(sections, offs):
-            if s not in a_offs:
-                continue
-            a_off, a_s = a_offs[s]
-            m = in_ang[..., off:off + k_s]
-            cum = torch.cumsum(m.to(torch.int32), dim=-1)
-            deficit[s] = torch.maximum(
-                deficit[s], (cum[..., -1].max() - a_s).to(torch.int32))
-            rank = cum - 1
-            keep = m & (rank < a_s)
-            rank2[..., off:off + k_s] = torch.where(
-                keep, rank + a_off, DEAD_SLOT).to(torch.int16)
-            tgt = torch.where(keep, rank + a_off, atot).to(torch.int64)
-            src.scatter_(2, tgt, lane_ids[off:off + k_s].expand_as(tgt))
-        src = src[..., :atot]
-        live = src < kpad
-        cax, cay, caz = (torch.gather(torch.nn.functional.pad(a, (0, 1)), 2,
-                                      src) for a in (ax, ay, az))
-        cax, cay, caz = (torch.where(live, a, 0.0) for a in (cax, cay, caz))
-        cd = torch.sqrt(torch.clamp(_d2(cax, cay, caz), min=1e-12))
-        mask = cd > 1e-6
-        d_safe = torch.where(mask, cd, k["big"])
-        inv_d = 1.0 / d_safe
-        inside = mask & (cd <= rca)
-        fc = torch.where(inside, 0.5 * torch.cos(cd * (math.pi / rca)) + 0.5,
-                         0.0)
-        dfc = torch.where(inside, (-0.5 * math.pi / rca)
-                          * torch.sin(cd * (math.pi / rca)), 0.0)
-        cmps.append(torch.stack([cax * inv_d, cay * inv_d, caz * inv_d,
-                                 d_safe, fc, dfc], dim=2))
-        rank2s.append(rank2)
-    return torch.cat(rads), torch.cat(cmps), torch.cat(rank2s), deficit
+def radial_fwd_asn_plain(pos_g, sp_g, h, idx, ncells, spec, sections, rep,
+                         compact_cols=True):
+    """rad [NC, cap, srl + 1]: the radial part of `step_fused_plain` alone.
+    Compact columns: si*NR + k in `sections` order (srl = NR x sections);
+    full layout: s*NR + k over all species of the spec, zeros for those no
+    section holds (srl = NR x num_species). The repulsion energy is the
+    last column in both."""
+    return _step_plain(pos_g, sp_g, h, idx, ncells, spec, sections, None,
+                       rep, compact_cols, True, False)[0]
+
+
+def compact_asn_plain(pos_g, sp_g, h, idx, ncells, spec, sections, caps):
+    """(cmp [NC, cap, 6, atot], rank2 [NC, cap, kpad] int16, deficit [8]
+    int32): the stage-2 part of `step_fused_plain` alone."""
+    return _step_plain(pos_g, sp_g, h, idx, ncells, spec, sections, caps,
+                       None, True, False, True)[1:]
 
 
 def packed_fwd_plain(cat, spec, caps_t, a_offs):
@@ -661,12 +755,28 @@ def packed_fwd_plain(cat, spec, caps_t, a_offs):
     return torch.cat(outs)
 
 
-def radial_gamma_plain(pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep):
-    """gr [NC, cap, 3, kpad]: the compact lanes' vector cotangents from the
-    radial and repulsion cotangent `ga` [NC, cap, srl+1] (the derivative
-    of `step_fused`'s rad with respect to a = center - candidate):
-    gamma (a / d) with gamma = sum_k ga[si*NR + k] 0.25 e_k (dfc - 2 eta
-    x_k fc) + ga[srl] dE_rep/dd. Dead lanes give 0."""
+def _lane_dh(sh_rows, idx_rows, cap, g):
+    """[3, 3] box cotangent of the lane cotangents `g` [rows, cap, 3, kpad]:
+    dh[m, c] = -sum over lanes of S_m g_c, S the wrap shift of the lane's
+    window offset idx // cap from `sh_rows` [rows, 28, 3] (offset 27, a
+    dead lane: none)."""
+    r, _, kpad = idx_rows.shape
+    o_k = torch.clamp(idx_rows.to(torch.int64) // cap, max=27)
+    s_k = torch.gather(sh_rows, 1, o_k.reshape(-1, cap * kpad, 1)
+                       .expand(-1, -1, 3)).reshape(-1, cap, kpad, 3)
+    return -torch.einsum("nakm,nack->mc", s_k, g)
+
+
+def _shift_tables(ncells, dtype, device):
+    """[NC, 28, 3] wrap shifts of the 27 window offsets; entry 27: 0."""
+    sh = aev_roll._wrap_shift_tables(ncells, 1, dtype, device)
+    return torch.nn.functional.pad(sh, (0, 0, 0, 1))
+
+
+def _radial_gamma_plain(pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep,
+                        compact_cols, sums):
+    """The radial backward over chunks of rows: (g, fcen, dh), the last
+    two None without `sums`."""
     nc, cap = sp_g.shape
     kpad = idx.shape[-1]
     wpad = _round_lane(27 * cap)
@@ -677,14 +787,17 @@ def radial_gamma_plain(pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep):
     cp = _padded_candidates(ncells, pos_g, sp_g, h, wpad)
     if rep is not None:
         rep_tab = _rep_tables(rep, sections, kpad, dtype, dev)
-    # lane -> radial column base (si * NR); lanes of no section: column 0
-    # with weight 0
+    # lane -> radial column base; lanes of no section: column 0 with
+    # weight 0
     col0 = torch.zeros(kpad, dtype=torch.int64, device=dev)
     in_sec = torch.zeros(kpad, dtype=dtype, device=dev)
-    for si, ((_, k_s), off) in enumerate(zip(sections, offs)):
-        col0[off:off + k_s] = si * nr
+    for c0, (_, k_s), off in zip(
+            _radial_layout(spec, sections, compact_cols)[0], sections, offs):
+        col0[off:off + k_s] = c0
         in_sec[off:off + k_s] = 1.0
-    outs = []
+    sh = _shift_tables(ncells, dtype, dev) if sums else None
+    outs, fcens = [], []
+    dh = pos_g.new_zeros((3, 3)) if sums else None
     for rs in _chunks(nc, cap * kpad * 24):
         iv = idx[rs].to(torch.int64)
         ax, ay, az, valid, dist = _lane_geometry(cp[rs], pos_g[rs], iv, wpad)
@@ -707,8 +820,32 @@ def radial_gamma_plain(pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep):
             _, de = _rep_pair_plain(rep, dist, a_ij, z_ij, rin)
             gamma = gamma + de * g[:, :, -1:]
         gd = gamma / dist
-        outs.append(torch.stack([gd * ax, gd * ay, gd * az], dim=2))
-    return torch.cat(outs)
+        out = torch.stack([gd * ax, gd * ay, gd * az], dim=2)
+        outs.append(out)
+        if sums:
+            fcens.append(out.sum(-1))
+            dh = dh + _lane_dh(sh[rs], idx[rs], cap, out)
+    return torch.cat(outs), (torch.cat(fcens) if sums else None), dh
+
+
+def radial_gamma_plain(pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep):
+    """gr [NC, cap, 3, kpad]: the compact lanes' vector cotangents from the
+    radial and repulsion cotangent `ga` [NC, cap, srl+1] (the derivative
+    of `step_fused`'s rad with respect to a = center - candidate):
+    gamma (a / d) with gamma = sum_k ga[si*NR + k] 0.25 e_k (dfc - 2 eta
+    x_k fc) + ga[srl] dE_rep/dd. Dead lanes give 0."""
+    return _radial_gamma_plain(pos_g, sp_g, h, idx, ga, ncells, spec,
+                               sections, rep, True, False)[0]
+
+
+def radial_bwd_asn_plain(pos_g, sp_g, h, idx, ga, ncells, spec, sections,
+                         rep, compact_cols=True):
+    """(g [NC, cap, 3, kpad], fcen [NC, cap, 3], dh [3, 3]): the lane
+    cotangents of `radial_gamma_plain` for a cotangent `ga` of
+    `radial_fwd_asn`'s output in either column layout, the center force
+    (their lane sum) and the box cotangent of the lanes' wrap shifts."""
+    return _radial_gamma_plain(pos_g, sp_g, h, idx, ga, ncells, spec,
+                               sections, rep, compact_cols, True)
 
 
 def packed_bwd_plain(cat, ga_t, spec, caps_t, a_offs):
@@ -763,18 +900,12 @@ def packed_bwd_plain(cat, ga_t, spec, caps_t, a_offs):
     return torch.cat(outs) if outs else cat.new_zeros((0, 5 * atot))
 
 
-def chain_sum_plain(rank2, idx, cmp, gsum, gr, ncells, spec):
-    """(gt [NC, cap, 3, kpad], fcen [NC, cap, 3], dh [3, 3]): the packed
-    slots' cotangents `gsum` [NC, cap, 5, atot] chained to vector
-    cotangents (slots with d < Rca + 5: g_cd = gd + gfc dfc - (gu . u) / d,
-    g = gu / d + g_cd u), gathered to the compact lanes through `rank2`
-    (no slot: 0) and added to the radial part `gr`; the center force is
-    the lane sum; dh[m, c] = -sum over lanes of S_m g_c with S the wrap
-    shift of the lane's window offset idx // cap (dead lanes: none)."""
+def _chain_plain(rank2, idx, cmp, gsum, gr, ncells, spec):
+    """The slot chain over chunks of rows, added to the radial part `gr`
+    where one is given: (gt, fcen, dh)."""
     nc, cap, kpad = idx.shape
     atot = cmp.shape[-1]
-    sh = aev_roll._wrap_shift_tables(ncells, 1, cmp.dtype, cmp.device)
-    sh = torch.nn.functional.pad(sh, (0, 0, 0, 1))  # offset 27: no shift
+    sh = _shift_tables(ncells, cmp.dtype, cmp.device)
     gts, fcens = [], []
     dh = cmp.new_zeros((3, 3))
     for rs in _chunks(nc, cap * kpad * 16):
@@ -790,14 +921,29 @@ def chain_sum_plain(rank2, idx, cmp, gsum, gr, ncells, spec):
         r2 = rank2[rs].to(torch.int64)
         r2 = torch.where(r2 < atot, r2, atot)
         gt = torch.gather(gv, 3, r2[:, :, None, :].expand(-1, -1, 3, -1))
-        gt = gt + gr[rs]
-        o_k = torch.clamp(idx[rs].to(torch.int64) // cap, max=27)
-        s_k = torch.gather(sh[rs], 1, o_k.reshape(-1, cap * kpad, 1)
-                           .expand(-1, -1, 3)).reshape(-1, cap, kpad, 3)
-        dh = dh - torch.einsum("nakm,nack->mc", s_k, gt)
+        if gr is not None:
+            gt = gt + gr[rs]
+        dh = dh + _lane_dh(sh[rs], idx[rs], cap, gt)
         gts.append(gt)
         fcens.append(gt.sum(-1))
     return torch.cat(gts), torch.cat(fcens), dh
+
+
+def chain_sum_plain(rank2, idx, cmp, gsum, gr, ncells, spec):
+    """(gt [NC, cap, 3, kpad], fcen [NC, cap, 3], dh [3, 3]): the packed
+    slots' cotangents `gsum` [NC, cap, 5, atot] chained to vector
+    cotangents (slots with d < Rca + 5: g_cd = gd + gfc dfc - (gu . u) / d,
+    g = gu / d + g_cd u), gathered to the compact lanes through `rank2`
+    (no slot: 0) and added to the radial part `gr`; the center force is
+    the lane sum; dh[m, c] = -sum over lanes of S_m g_c with S the wrap
+    shift of the lane's window offset idx // cap (dead lanes: none)."""
+    return _chain_plain(rank2, idx, cmp, gsum, gr, ncells, spec)
+
+
+def decompact_chain_plain(rank2, idx, cmp, gsum, ncells, spec):
+    """(gt, fcen, dh) of `chain_sum_plain` without a radial part: the slot
+    chain through `rank2` alone."""
+    return _chain_plain(rank2, idx, cmp, gsum, None, ncells, spec)
 
 
 def wing_plain(gt, inv):
@@ -930,16 +1076,20 @@ def _check_idx(name, idx, sp_g):
         raise ValueError(f"{name}: idx {tuple(idx.shape)} {idx.dtype}")
 
 
-def _step_params(ncells, cap, kpad, spec, sections, caps, rep, dtype):
-    """(ip, fp) of asn_step_fused and asn_radial_gamma (StepParams)."""
+def _step_params(ncells, cap, kpad, spec, sections, caps, rep, dtype,
+                 compact_cols=True):
+    """(ip, fp) of the kernels of the step and of the radial backward
+    (StepParams); `caps` None: no stage 2."""
     k = _step_consts(spec, dtype)
+    if caps is None:
+        caps = (0,) * spec.num_species
     a_offs, atot = _a_offsets(sections, caps)
-    srl = len(sections) * k["nr"]
+    col0, srl = _radial_layout(spec, sections, compact_cols)
     rep_i, rep_f, alpha, zeff = _rep_fields(rep, sections)
     a_s = _pad8(a_offs[s][1] if s in a_offs else 0 for s, _ in sections)
     a_off = _pad8(a_offs[s][0] if s in a_offs else 0 for s, _ in sections)
     ip = ([*ncells, cap, _round_lane(27 * cap), kpad, k["nr"], atot, srl]
-          + rep_i + _sec_ints(sections) + a_s + a_off)
+          + rep_i + _sec_ints(sections) + a_s + a_off + _pad8(col0))
     fp = ([k["rc"], k["eta"], k["mu0"], k["delta"], k["tiny"], k["pmin"],
            k["rca"], k["big"]] + rep_f + alpha + zeff)
     return ip, fp
@@ -1005,6 +1155,12 @@ def packed_fwd(cat, spec, caps_t, a_offs):
     return out
 
 
+def _check_ga(name, ga, shape, dtype):
+    if ga.shape != shape or ga.dtype != dtype:
+        raise ValueError(f"{name}: ga {tuple(ga.shape)} {ga.dtype}, "
+                         f"expected {shape} {dtype}")
+
+
 def radial_gamma(pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep):
     """gr [NC, cap, 3, kpad] (replaces aev_asn._radial_gamma_only_kernel)."""
     if not _route("radial_gamma", pos_g, sp_g, h, idx, ga):
@@ -1015,12 +1171,9 @@ def radial_gamma(pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep):
     nc, cap = sp_g.shape
     kpad = idx.shape[-1]
     dtype = pos_g.dtype
-    ip, fp = _step_params(ncells, cap, kpad, spec, sections,
-                          (0,) * spec.num_species, rep, dtype)
-    srl = ip[8]
-    if ga.shape != (nc, cap, srl + 1) or ga.dtype != dtype:
-        raise ValueError(f"radial_gamma: ga {tuple(ga.shape)} {ga.dtype}, "
-                         f"expected {(nc, cap, srl + 1)} {dtype}")
+    ip, fp = _step_params(ncells, cap, kpad, spec, sections, None, rep,
+                          dtype)
+    _check_ga("radial_gamma", ga, (nc, cap, ip[8] + 1), dtype)
     gr = torch.empty((nc, cap, 3, kpad), dtype=dtype, device=pos_g.device)
     _launch("radial_gamma",
             f"asn_radial_gamma_{_suffix('radial_gamma', dtype)}", ip, fp,
@@ -1045,32 +1198,46 @@ def packed_bwd(cat, ga_t, spec, caps_t, a_offs):
     return out
 
 
-def chain_sum(rank2, idx, cmp, gsum, gr, ncells, spec):
-    """(gt, fcen, dh) (replaces aev_asn._chain_sum_kernel)."""
-    if not _route("chain_sum", rank2, idx, cmp, gsum, gr):
-        return chain_sum_plain(rank2, idx, cmp, gsum, gr, ncells, spec)
+def _dh_buffers(nc, cap, dtype, dev):
+    """(n_part, dh_part [n_part, 9], dh [3, 3]): one partial per block of
+    8 rows, and the sum the reduce kernel writes."""
+    n_part = -(-nc * cap // 8)
+    return (n_part, torch.empty((n_part, 9), dtype=dtype, device=dev),
+            torch.empty((3, 3), dtype=dtype, device=dev))
+
+
+def _check_chain(name, rank2, idx, cmp, gsum, ncells, gr=None):
     nc, cap, kpad = idx.shape
     atot = cmp.shape[-1]
-    dtype, dev = cmp.dtype, cmp.device
+    dtype = cmp.dtype
     ok = (nc == ncells[0] * ncells[1] * ncells[2]
           and rank2.shape == idx.shape and rank2.dtype == torch.int16
           and idx.dtype == torch.int16 and cmp.shape == (nc, cap, 6, atot)
           and gsum.shape == (nc, cap, 5, atot) and gsum.dtype == dtype
-          and gr.shape == (nc, cap, 3, kpad) and gr.dtype == dtype
+          and (gr is None
+               or (gr.shape == (nc, cap, 3, kpad) and gr.dtype == dtype))
           and atot <= DEAD_SLOT)
     if not ok:
         raise ValueError(
-            f"chain_sum: rank2 {tuple(rank2.shape)} {rank2.dtype}, idx "
+            f"{name}: rank2 {tuple(rank2.shape)} {rank2.dtype}, idx "
             f"{tuple(idx.shape)} {idx.dtype}, cmp {tuple(cmp.shape)}, gsum "
-            f"{tuple(gsum.shape)} {gsum.dtype}, gr {tuple(gr.shape)} "
-            f"{gr.dtype} do not fit ncells {tuple(ncells)}")
+            f"{tuple(gsum.shape)} {gsum.dtype}"
+            + ("" if gr is None else f", gr {tuple(gr.shape)} {gr.dtype}")
+            + f" do not fit ncells {tuple(ncells)}")
+
+
+def chain_sum(rank2, idx, cmp, gsum, gr, ncells, spec):
+    """(gt, fcen, dh) (replaces aev_asn._chain_sum_kernel)."""
+    if not _route("chain_sum", rank2, idx, cmp, gsum, gr):
+        return chain_sum_plain(rank2, idx, cmp, gsum, gr, ncells, spec)
+    _check_chain("chain_sum", rank2, idx, cmp, gsum, ncells, gr)
+    nc, cap, kpad = idx.shape
+    dtype, dev = cmp.dtype, cmp.device
     gt = torch.empty_like(gr)
     fcen = torch.empty((nc, cap, 3), dtype=dtype, device=dev)
-    n_part = -(-nc * cap // 8)
-    dh_part = torch.empty((n_part, 9), dtype=dtype, device=dev)
-    dh = torch.empty((3, 3), dtype=dtype, device=dev)
+    n_part, dh_part, dh = _dh_buffers(nc, cap, dtype, dev)
     _launch("chain_sum", f"asn_chain_sum_{_suffix('chain_sum', dtype)}",
-            [*ncells, cap, kpad, atot, n_part],
+            [*ncells, cap, kpad, cmp.shape[-1], n_part],
             [spec.angular_cutoff + 5.0], rank2, idx, cmp, gsum, gr, gt, fcen,
             dh_part, dh)
     return gt, fcen, dh
@@ -1091,6 +1258,88 @@ def wing(gt, inv):
     return out
 
 
+def radial_fwd_asn(pos_g, sp_g, h, idx, ncells, spec, sections, rep,
+                   compact_cols=True):
+    """rad [NC, cap, srl + 1] (replaces aev_asn._radial_fwd_asn_kernel)."""
+    if not _route("radial_fwd_asn", pos_g, sp_g, h, idx):
+        return radial_fwd_asn_plain(pos_g, sp_g, h, idx, ncells, spec,
+                                    sections, rep, compact_cols)
+    _check_grid("radial_fwd_asn", ncells, pos_g, sp_g, h)
+    _check_idx("radial_fwd_asn", idx, sp_g)
+    nc, cap = sp_g.shape
+    dtype = pos_g.dtype
+    ip, fp = _step_params(ncells, cap, idx.shape[-1], spec, sections, None,
+                          rep, dtype, compact_cols)
+    rad = torch.empty((nc, cap, ip[8] + 1), dtype=dtype, device=pos_g.device)
+    _launch("radial_fwd_asn",
+            f"asn_radial_fwd_asn_{_suffix('radial_fwd_asn', dtype)}", ip, fp,
+            pos_g, sp_g, h, idx, rad)
+    return rad
+
+
+def compact_asn(pos_g, sp_g, h, idx, ncells, spec, sections, caps):
+    """(cmp, rank2, deficit) (replaces aev_asn._compact_asn_kernel)."""
+    if not _route("compact_asn", pos_g, sp_g, h, idx):
+        return compact_asn_plain(pos_g, sp_g, h, idx, ncells, spec, sections,
+                                 caps)
+    _check_grid("compact_asn", ncells, pos_g, sp_g, h)
+    _check_idx("compact_asn", idx, sp_g)
+    nc, cap = sp_g.shape
+    kpad = idx.shape[-1]
+    dev, dtype = pos_g.device, pos_g.dtype
+    _, atot = _a_offsets(sections, caps)
+    cmp = torch.empty((nc, cap, 6, atot), dtype=dtype, device=dev)
+    rank2 = torch.empty((nc, cap, kpad), dtype=torch.int16, device=dev)
+    deficit = torch.full((_MAX_S,), DEFICIT_FLOOR, dtype=torch.int32,
+                         device=dev)
+    ip, fp = _step_params(ncells, cap, kpad, spec, sections, caps, None,
+                          dtype)
+    _launch("compact_asn", f"asn_compact_asn_{_suffix('compact_asn', dtype)}",
+            ip, fp, pos_g, sp_g, h, idx, cmp, rank2, deficit)
+    return cmp, rank2, deficit
+
+
+def radial_bwd_asn(pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep,
+                   compact_cols=True):
+    """(g, fcen, dh) (replaces aev_asn._radial_bwd_asn_kernel)."""
+    if not _route("radial_bwd_asn", pos_g, sp_g, h, idx, ga):
+        return radial_bwd_asn_plain(pos_g, sp_g, h, idx, ga, ncells, spec,
+                                    sections, rep, compact_cols)
+    _check_grid("radial_bwd_asn", ncells, pos_g, sp_g, h)
+    _check_idx("radial_bwd_asn", idx, sp_g)
+    nc, cap = sp_g.shape
+    kpad = idx.shape[-1]
+    dev, dtype = pos_g.device, pos_g.dtype
+    ip, fp = _step_params(ncells, cap, kpad, spec, sections, None, rep,
+                          dtype, compact_cols)
+    _check_ga("radial_bwd_asn", ga, (nc, cap, ip[8] + 1), dtype)
+    g = torch.empty((nc, cap, 3, kpad), dtype=dtype, device=dev)
+    fcen = torch.empty((nc, cap, 3), dtype=dtype, device=dev)
+    n_part, dh_part, dh = _dh_buffers(nc, cap, dtype, dev)
+    _launch("radial_bwd_asn",
+            f"asn_radial_bwd_asn_{_suffix('radial_bwd_asn', dtype)}",
+            ip + [n_part], fp, pos_g, sp_g, h, idx, ga, g, fcen, dh_part, dh)
+    return g, fcen, dh
+
+
+def decompact_chain(rank2, idx, cmp, gsum, ncells, spec):
+    """(gt, fcen, dh) (replaces aev_asn._decompact_chain_kernel)."""
+    if not _route("decompact_chain", rank2, idx, cmp, gsum):
+        return decompact_chain_plain(rank2, idx, cmp, gsum, ncells, spec)
+    _check_chain("decompact_chain", rank2, idx, cmp, gsum, ncells)
+    nc, cap, kpad = idx.shape
+    dtype, dev = cmp.dtype, cmp.device
+    gt = torch.empty((nc, cap, 3, kpad), dtype=dtype, device=dev)
+    fcen = torch.empty((nc, cap, 3), dtype=dtype, device=dev)
+    n_part, dh_part, dh = _dh_buffers(nc, cap, dtype, dev)
+    _launch("decompact_chain",
+            f"asn_decompact_chain_{_suffix('decompact_chain', dtype)}",
+            [*ncells, cap, kpad, cmp.shape[-1], n_part],
+            [spec.angular_cutoff + 5.0], rank2, idx, cmp, gsum, gt, fcen,
+            dh_part, dh)
+    return gt, fcen, dh
+
+
 # ---------------------------------------------------------------------------
 # Flat-row glue and the fused forward
 # ---------------------------------------------------------------------------
@@ -1098,8 +1347,11 @@ def wing(gt, inv):
 
 _KERNELS = {"step": step_fused, "packed": packed_fwd,
             "gamma": radial_gamma, "packed_bwd": packed_bwd,
-            "chain": chain_sum, "wing": wing}
-_PLAIN = {"step": step_fused_plain, "packed": packed_fwd_plain}
+            "chain": chain_sum, "wing": wing, "radial": radial_fwd_asn,
+            "compact": compact_asn, "radial_bwd": radial_bwd_asn,
+            "decompact": decompact_chain}
+_PLAIN = {"step": step_fused_plain, "packed": packed_fwd_plain,
+          "radial": radial_fwd_asn_plain, "compact": compact_asn_plain}
 
 
 def _tier_pad_row(atot, rca, dtype, device):
@@ -1208,10 +1460,20 @@ def _angular_pair_stage(spec, sections, caps, tiers, n, cmp, deficit, cell,
     return out, torch.cat([deficit, spill.to(dtype)[None]]), part
 
 
-def _angular_gsum_grid(spec, sections, caps, n, inv_bins, g_ang, part, ops):
+def _pad_rows(x, n_all):
+    """`x` [n, ...] with zero rows appended up to n_all rows (the atoms
+    beyond `n_out` carry no cotangent)."""
+    if x.shape[0] == n_all:
+        return x
+    return torch.cat([x, x.new_zeros((n_all - x.shape[0],) + x.shape[1:])])
+
+
+def _angular_gsum_grid(spec, sections, caps, n, inv_bins, g_ang, part, ops,
+                       n_all=None):
     """[NC, cap, 5, atot]: the packed slots' cotangent sums in grid
     layout, from the angular cotangent `g_ang` [n, n_blocks * 32], over
-    the same rows the forward's packed calls were given (`part`)."""
+    the same rows the forward's packed calls were given (`part`); `n_all`
+    binned atoms (default n), those from n on with zero sums."""
     a_offs, atot = _a_offsets(sections, caps)
     if part is None:
         gsum = g_ang.new_zeros((n, 5 * atot))
@@ -1228,39 +1490,47 @@ def _angular_gsum_grid(spec, sections, caps, n, inv_bins, g_ang, part, ops):
             ga_t = torch.where(valid[:, None], ga[row_at], 0.0)
             outs.append(ops["packed_bwd"](cat_t, ga_t, spec, caps_t, a_offs))
         gsum = torch.cat(outs)[part["pos_of"][:n]]
-    gsum = aev_roll._to_grid_rows(inv_bins, gsum, 0.0)
+    gsum = aev_roll._to_grid_rows(inv_bins, _pad_rows(gsum, n_all or n), 0.0)
     return gsum.reshape(*gsum.shape[:2], 5, atot).contiguous()
 
 
-def _forward(static, pos, h, inv_bins, csp_grid, cell, slot, idx, ops):
+def _forward(static, pos, h, inv_bins, csp_grid, cell, slot, idx, ops,
+             n_out=None):
     """((radial, erep, angular, deficit), (cmp, rank2, part)): the outputs
-    and what the backward reads again."""
+    (rows of the first `n_out` atoms) and what the backward reads again."""
     spec, ncells, sections, caps, tiers, rep = static
     pos_g, sp_g = aev_roll._grid_inputs(inv_bins, pos, csp_grid)
     rad, cmp, rank2, deficit = ops["step"](pos_g, sp_g, h, idx, ncells, spec,
                                            sections, caps, rep)
-    n = cell.shape[0]
+    n = cell.shape[0] if n_out is None else n_out
     srl = rad.shape[-1] - 1
-    rows = rad[cell, slot]
+    rows = rad[cell[:n], slot[:n]]
     deficit = deficit[:spec.num_species].to(pos.dtype)
     angular, deficit, part = _angular_pair_stage(
         spec, sections, caps, tiers, n, cmp, deficit, cell, slot, ops)
     return (rows[:, :srl], rows[:, srl], angular, deficit), (cmp, rank2, part)
 
 
+def _cotangent_grid_rows(inv_bins, g_rad, g_rep, n_all):
+    """[NC, cap, srl + 1]: the radial cotangent with the repulsion
+    cotangent in the last column, in grid layout."""
+    ga = _pad_rows(torch.cat([g_rad, g_rep[:, None]], dim=1), n_all)
+    return aev_roll._to_grid_rows(inv_bins, ga, 0.0).contiguous()
+
+
 def _backward(static, pos, h, inv_bins, csp_grid, cell, slot, idx, inv, cmp,
               rank2, part, g_rad, g_rep, g_ang, ops):
     """(dpos [n, 3], dh [3, 3]) of the fused forward: the radial and
     repulsion cotangents on the compact lanes, summed with the angular
-    chain before one wing gather, one fold and one dh."""
+    chain before one wing gather, one fold and one dh. The cotangents may
+    cover the first atoms only (`n_out`)."""
     spec, ncells, sections, caps, _, rep = static
-    n = cell.shape[0]
+    n_all = cell.shape[0]
     pos_g, sp_g = aev_roll._grid_inputs(inv_bins, pos, csp_grid)
-    ga = aev_roll._to_grid_rows(
-        inv_bins, torch.cat([g_rad, g_rep[:, None]], dim=1), 0.0).contiguous()
+    ga = _cotangent_grid_rows(inv_bins, g_rad, g_rep, n_all)
     gr = ops["gamma"](pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep)
-    gsum = _angular_gsum_grid(spec, sections, caps, n, inv_bins, g_ang, part,
-                              ops)
+    gsum = _angular_gsum_grid(spec, sections, caps, g_ang.shape[0], inv_bins,
+                              g_ang, part, ops, n_all)
     gt, fcen, dh = ops["chain"](rank2, idx, cmp, gsum, gr, ncells, spec)
     del gr
     wing_g = ops["wing"](gt, inv)
@@ -1274,10 +1544,10 @@ class _AsnFused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pos, h, inv_bins, csp_grid, cell, slot, idx, inv,
-                static):
+                static, n_out):
         out, (cmp, rank2, part) = _forward(static, pos, h, inv_bins,
                                            csp_grid, cell, slot, idx,
-                                           _KERNELS)
+                                           _KERNELS, n_out)
         ctx.static = static
         ctx.save_for_backward(pos, h, inv_bins, csp_grid, cell, slot, idx,
                               inv)
@@ -1291,7 +1561,131 @@ class _AsnFused(torch.autograd.Function):
         dpos, dh = _backward(ctx.static, *ctx.saved_tensors, *ctx.residuals,
                              g_rad.contiguous(), g_rep.contiguous(),
                              g_ang.contiguous(), _KERNELS)
-        return (dpos, dh) + (None,) * 7
+        return (dpos, dh) + (None,) * 8
+
+
+def _radial_forward(static, pos, h, inv_bins, csp_grid, cell, slot, idx, ops,
+                    n_out=None):
+    """(radial [n, srl], erep [n]): the radial channel alone."""
+    spec, ncells, sections, rep, compact_cols = static
+    pos_g, sp_g = aev_roll._grid_inputs(inv_bins, pos, csp_grid)
+    rad = ops["radial"](pos_g, sp_g, h, idx, ncells, spec, sections, rep,
+                        compact_cols)
+    n = cell.shape[0] if n_out is None else n_out
+    srl = rad.shape[-1] - 1
+    rows = rad[cell[:n], slot[:n]]
+    return rows[:, :srl], rows[:, srl]
+
+
+def _radial_backward(static, pos, h, inv_bins, csp_grid, cell, slot, idx,
+                     inv, g_rad, g_rep, ops):
+    """(dpos [n, 3], dh [3, 3]) of the radial channel: lane cotangents,
+    center force and dh from one kernel, then its own wing and fold."""
+    spec, ncells, sections, rep, compact_cols = static
+    pos_g, sp_g = aev_roll._grid_inputs(inv_bins, pos, csp_grid)
+    ga = _cotangent_grid_rows(inv_bins, g_rad, g_rep, cell.shape[0])
+    g, fcen, dh = ops["radial_bwd"](pos_g, sp_g, h, idx, ga, ncells, spec,
+                                    sections, rep, compact_cols)
+    wing_g = ops["wing"](g, inv)
+    return aev_roll._fold_wing(ncells, 1, fcen, wing_g)[cell, slot], dh
+
+
+class _RadialAsn(torch.autograd.Function):
+    """The radial channel and its explicit backward (the kernels on the
+    card, their plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, pos, h, inv_bins, csp_grid, cell, slot, idx, inv,
+                static, n_out):
+        ctx.static = static
+        ctx.save_for_backward(pos, h, inv_bins, csp_grid, cell, slot, idx,
+                              inv)
+        return _radial_forward(static, pos, h, inv_bins, csp_grid, cell,
+                               slot, idx, _KERNELS, n_out)
+
+    @staticmethod
+    def backward(ctx, g_rad, g_rep):
+        dpos, dh = _radial_backward(ctx.static, *ctx.saved_tensors,
+                                    g_rad.contiguous(), g_rep.contiguous(),
+                                    _KERNELS)
+        return (dpos, dh) + (None,) * 8
+
+
+def _place_blocks(spec, caps, sections, angular):
+    """The full torchani layout of compact angular columns: the present
+    species-pair blocks (ascending offset, `present_channels`) at their
+    offsets among zero blocks."""
+    asub = spec.angular_sublength
+    at = {ch0: i * asub for i, ch0 in enumerate(
+        present_channels(spec, caps, sections))}
+    zero = angular.new_zeros((angular.shape[0], asub))
+    return torch.cat([angular[:, at[ch0]:at[ch0] + asub] if ch0 in at
+                      else zero for ch0 in range(0, spec.angular_length,
+                                                 asub)], dim=1)
+
+
+def _cut_blocks(spec, caps, sections, full):
+    """The compact columns of a full-layout tensor: the present blocks cut
+    out again (the inverse of `_place_blocks`)."""
+    asub = spec.angular_sublength
+    return torch.cat([full[:, ch0:ch0 + asub] for ch0 in
+                      present_channels(spec, caps, sections)]
+                     or [full[:, :0]], dim=1)
+
+
+def _angular_forward(static, pos, h, inv_bins, csp_grid, cell, slot, idx,
+                     ops, n_out=None):
+    """((angular, deficit), (cmp, rank2, part)): the angular channel alone
+    and what its backward reads again."""
+    spec, ncells, sections, caps, tiers, compact_cols = static
+    pos_g, sp_g = aev_roll._grid_inputs(inv_bins, pos, csp_grid)
+    cmp, rank2, deficit = ops["compact"](pos_g, sp_g, h, idx, ncells, spec,
+                                         sections, caps)
+    n = cell.shape[0] if n_out is None else n_out
+    deficit = deficit[:spec.num_species].to(pos.dtype)
+    angular, deficit, part = _angular_pair_stage(
+        spec, sections, caps, tiers, n, cmp, deficit, cell, slot, ops)
+    if not compact_cols:
+        angular = _place_blocks(spec, caps, sections, angular)
+    return (angular, deficit), (cmp, rank2, part)
+
+
+def _angular_backward(static, inv_bins, cell, slot, idx, inv, cmp, rank2,
+                      part, g_ang, ops):
+    """(dpos [n, 3], dh [3, 3]) of the angular channel from the forward's
+    slots, `rank2` and packed rows: it reads no positions."""
+    spec, ncells, sections, caps, _, compact_cols = static
+    if not compact_cols:
+        g_ang = _cut_blocks(spec, caps, sections, g_ang)
+    gsum = _angular_gsum_grid(spec, sections, caps, g_ang.shape[0], inv_bins,
+                              g_ang.contiguous(), part, ops, cell.shape[0])
+    gt, fcen, dh = ops["decompact"](rank2, idx, cmp, gsum, ncells, spec)
+    wing_g = ops["wing"](gt, inv)
+    return aev_roll._fold_wing(ncells, 1, fcen, wing_g)[cell, slot], dh
+
+
+class _AngularAsn(torch.autograd.Function):
+    """The angular channel and its explicit backward. The stage-2 slots,
+    `rank2` and the rows of the packed calls ride from the forward to the
+    backward, as in `_AsnFused`."""
+
+    @staticmethod
+    def forward(ctx, pos, h, inv_bins, csp_grid, cell, slot, idx, inv,
+                static, n_out):
+        out, (cmp, rank2, part) = _angular_forward(
+            static, pos, h, inv_bins, csp_grid, cell, slot, idx, _KERNELS,
+            n_out)
+        ctx.static = static
+        ctx.save_for_backward(inv_bins, cell, slot, idx, inv)
+        ctx.residuals = (cmp, rank2, part)
+        ctx.mark_non_differentiable(out[1])
+        return out
+
+    @staticmethod
+    def backward(ctx, g_ang, _):
+        dpos, dh = _angular_backward(ctx.static, *ctx.saved_tensors,
+                                     *ctx.residuals, g_ang, _KERNELS)
+        return (dpos, dh) + (None,) * 8
 
 
 def build_assignment(grid, bins, pos, box, sections, kpad, keep_radius):
@@ -1317,8 +1711,20 @@ def build_assignment(grid, bins, pos, box, sections, kpad, keep_radius):
     return Assignment(idx=idx, inv=inv, ovf=ovf_sec.max(), ovf_sec=ovf_sec)
 
 
+def _tiers_static(tiers):
+    return (tuple((tuple(int(c) for c in caps_t), int(rw))
+                  for caps_t, rw in tiers) if tiers else None)
+
+
+def _check_n_out(n_out, bins):
+    n = bins.cell.shape[0]
+    if n_out is not None and not 0 < n_out <= n:
+        raise ValueError(f"n_out {n_out} outside (0, {n}]")
+    return None if n_out == n else n_out
+
+
 def aev_asn_fused(aev_spec, grid, bins, asn, pos, box, sections, caps,
-                  tiers=None, repulsion=None, plain=False):
+                  tiers=None, repulsion=None, n_out=None, plain=False):
     """(radial [n, S_present*16], erep [n] Hartree, angular [n, blocks*32],
     deficit): both AEV channels in compact columns (present sections;
     present species-pair blocks, see present_channels) through one fused
@@ -1328,7 +1734,9 @@ def aev_asn_fused(aev_spec, grid, bins, asn, pos, box, sections, caps,
     a cap truncated real neighbors this step. `tiers` ((caps_t, rows_t),
     ..., last at the full caps): occupancy tiers of the pair stage; the
     deficit then gains a trailing entry, the rows the last tier could not
-    hold.
+    hold. `n_out`: AEV rows, and pair-block work, for the first n_out
+    binned atoms only (a domain's owned atoms); the others still take
+    their neighbor-role force through the gradient.
 
     Differentiable with respect to `pos` and `box.h`: one autograd.Function
     whose backward is the four backward kernels on the card and their
@@ -1336,12 +1744,57 @@ def aev_asn_fused(aev_spec, grid, bins, asn, pos, box, sections, caps,
     whatever the device and leaves the gradient to autograd through them
     (the reference the kernels and the explicit backward are held
     against)."""
-    tiers_t = (tuple((tuple(int(c) for c in caps_t), int(rw))
-                     for caps_t, rw in tiers) if tiers else None)
     static = (aev_spec, tuple(grid.ncells), tuple(sections), tuple(caps),
-              tiers_t, repulsion)
+              _tiers_static(tiers), repulsion)
+    n_out = _check_n_out(n_out, bins)
     args = (pos, box.h.contiguous(), bins.inv, bins.species_grid, bins.cell,
             bins.slot, asn.idx)
     if plain:
-        return _forward(static, *args, _PLAIN)[0]
-    return _AsnFused.apply(*args, asn.inv, static)
+        return _forward(static, *args, _PLAIN, n_out)[0]
+    return _AsnFused.apply(*args, asn.inv, static, n_out)
+
+
+def radial_aev_asn(aev_spec, grid, bins, asn, pos, box, sections,
+                   repulsion=None, n_out=None, compact_cols=False,
+                   plain=False):
+    """(radial [n_out, S*16], erep [n_out] Hartree): the radial channel
+    alone over the frozen assignment `asn`, with the XTB repulsion energy
+    of each atom where `repulsion` is given (else zeros).
+
+    `compact_cols`: only the present sections' 16 columns each, in
+    `sections` order, as `aev_asn_fused` gives them; by default the full
+    layout s*16 + k over all species of the spec, zeros for the species no
+    section holds. The cotangent arrives in the same layout. `n_out`,
+    `plain`: as in `aev_asn_fused`. Differentiable with respect to `pos`
+    and `box.h` (explicit backward: `radial_bwd_asn`, `wing`, the fold)."""
+    static = (aev_spec, tuple(grid.ncells), tuple(sections), repulsion,
+              bool(compact_cols))
+    n_out = _check_n_out(n_out, bins)
+    args = (pos, box.h.contiguous(), bins.inv, bins.species_grid, bins.cell,
+            bins.slot, asn.idx)
+    if plain:
+        return _radial_forward(static, *args, _PLAIN, n_out)
+    return _RadialAsn.apply(*args, asn.inv, static, n_out)
+
+
+def angular_aev_asn(aev_spec, grid, bins, asn, pos, box, sections, caps,
+                    tiers=None, n_out=None, compact_cols=False, plain=False):
+    """(angular [n_out, angular_length], deficit): the angular channel
+    alone over the frozen assignment `asn` (stage-2 compaction, then the
+    packed pair stage, tiered where `tiers` is given).
+
+    `compact_cols`: only the present species-pair blocks' 32 columns each,
+    ascending torchani offset (`present_channels`), as `aev_asn_fused`
+    gives them; by default the full torchani layout with zero blocks for
+    absent pairs. The cotangent arrives in the same layout. `caps`,
+    `tiers`, the deficit, `n_out` and `plain`: as in `aev_asn_fused`.
+    Differentiable with respect to `pos` and `box.h` (explicit backward:
+    `packed_bwd`, `decompact_chain`, `wing`, the fold)."""
+    static = (aev_spec, tuple(grid.ncells), tuple(sections), tuple(caps),
+              _tiers_static(tiers), bool(compact_cols))
+    n_out = _check_n_out(n_out, bins)
+    args = (pos, box.h.contiguous(), bins.inv, bins.species_grid, bins.cell,
+            bins.slot, asn.idx)
+    if plain:
+        return _angular_forward(static, *args, _PLAIN, n_out)[0]
+    return _AngularAsn.apply(*args, asn.inv, static, n_out)

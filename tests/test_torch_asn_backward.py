@@ -308,6 +308,8 @@ def test_wrappers_count_plain_calls_on_the_cpu(bwd):
     assert tasn.PLAIN_CALLS == {"build_inv": 0, "build_idx": 0,
                                 "step_fused": 1, "packed_fwd": 2,
                                 "radial_gamma": 1, "packed_bwd": 2,
-                                "chain_sum": 1, "wing": 1}
+                                "chain_sum": 1, "wing": 1,
+                                "radial_fwd_asn": 0, "compact_asn": 0,
+                                "radial_bwd_asn": 0, "decompact_chain": 0}
     assert not any(tasn.LAUNCHES.values())
     assert set(tasn.REPLACES) == set(tasn.LAUNCHES)

@@ -156,3 +156,84 @@ def test_repulsion_column_is_positive_and_apart(fused):
     assert (got["rep"]["erep"] > 0).all()
     np.testing.assert_array_equal(got["rep"]["radial"],
                                   got["norep"]["radial"])
+
+
+# --- n_out: rows of the first atoms only ------------------------------------
+
+N_OUT = 500
+
+
+@pytest.fixture(scope="module")
+def fused_nout():
+    """`aev_asn_fused(n_out=500)` of 810 atoms, tiered, with repulsion:
+    outputs and the `jax.vjp` of seeded normal cotangents on (radial, erep,
+    angular), once, beside the port's outputs and explicit backward."""
+    import jax
+    import jax.numpy as jnp
+
+    from lammps_ani_tpu.ops import neighbors as jnb
+    from lammps_ani_torch.ops.neighbors import Box
+
+    species, pos, h, origin = asn_system()
+    sections, kpad, caps, _ = sizing(species, pos, h)
+    j, t = grids(species, pos, h, origin)
+    ta = tasn.build_assignment(t["grid"], t["bins"], t["pos"], t["box"],
+                               sections, kpad, KEEP_R)
+    ja = jasn.Assignment(idx=jnp.asarray(ta.idx.numpy()),
+                         inv=jnp.asarray(ta.inv.numpy()),
+                         ovf=jnp.asarray(float(ta.ovf)),
+                         ovf_sec=jnp.asarray(ta.ovf_sec.numpy()))
+    jspec, tspec = jaev.ani2x_aev_spec(), taev.ani2x_aev_spec()
+    jrs = jrep.RepulsionSpec.for_symbols(SYMBOLS, cutoff=5.1)
+    trs = trep.RepulsionSpec.for_symbols(SYMBOLS, cutoff=5.1)
+    caps0 = tuple(max(4, c - 4) if c else 0 for c in caps)
+    tiers = ((caps0, N_OUT // 2), (caps, N_OUT))
+
+    def f(p, hh):
+        return jasn.aev_asn_fused(
+            jspec, j["grid"], j["bins"], ja, p,
+            jnb.Box(h=hh, origin=j["box"].origin), sections, caps,
+            tiers=tiers, repulsion=jrs, interpret=True, n_out=N_OUT)
+
+    out, vjp = jax.vjp(f, j["pos"], j["box"].h)
+    rng = np.random.default_rng(19)
+    cots = [rng.standard_normal(o.shape) for o in out[:3]]
+    ref_grads = vjp(tuple(jnp.asarray(c) for c in cots)
+                    + (jnp.zeros_like(out[3]),))
+
+    p = t["pos"].clone().requires_grad_(True)
+    hh = t["box"].h.clone().requires_grad_(True)
+    got = tasn.aev_asn_fused(tspec, t["grid"], t["bins"], ta, p,
+                             Box(h=hh, origin=t["box"].origin), sections,
+                             caps, tiers=tiers, repulsion=trs, n_out=N_OUT)
+    e = sum((o * torch.tensor(c)).sum() for o, c in zip(got[:3], cots))
+    got_grads = torch.autograd.grad(e, (p, hh))
+    return dict(ref=_as_np(out), got=_as_np(got),
+                ref_grads=[np.asarray(g) for g in ref_grads],
+                got_grads=[g.numpy() for g in got_grads])
+
+
+@pytest.mark.parametrize("quantity", QUANTITIES)
+def test_forward_with_n_out_matches_jax(fused_nout, quantity):
+    """Rows of the first n_out binned atoms only, the pair stage and the
+    tier partition over those rows; f64 limits as above."""
+    r, g = fused_nout["ref"][quantity], fused_nout["got"][quantity]
+    assert g.shape == r.shape
+    if quantity == "deficit":
+        np.testing.assert_array_equal(g, r)
+        assert g.shape == (8,) and g.max() <= 0
+        return
+    assert g.shape[0] == N_OUT and np.abs(r).max() > 0
+    np.testing.assert_allclose(g, r, rtol=0,
+                               atol=1e-10 + 1e-10 * np.abs(r).max())
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["dpos", "dh"])
+def test_backward_with_n_out_matches_jax_vjp(fused_nout, which):
+    """The rows beyond n_out carry zero cotangent, while every binned atom
+    takes its neighbor-role force: 1e-11 of the largest entry."""
+    r, g = fused_nout["ref_grads"][which], fused_nout["got_grads"][which]
+    assert g.shape == r.shape and np.abs(r).max() > 1.0
+    np.testing.assert_allclose(g, r, rtol=0, atol=1e-11 * np.abs(r).max())
+    if which == 0:
+        assert (np.abs(g[N_OUT:]).sum(1) > 0).sum() > 100

@@ -72,7 +72,7 @@ def test_precision_policy_is_set_at_import(blocked_import):
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "chip_ab.py"]))
 def test_no_source_imports_jax_or_the_jax_package(path):
     """Also imports inside functions, which an import run does not reach."""
     tree = ast.parse((ROOT / path).read_text())
@@ -121,3 +121,14 @@ def test_chip_smoke_fails_alone(tmp_path):
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_chip_ab_fails_without_a_card(monkeypatch, capsys):
+    """The A/B timing script measures on the card only: with no card it
+    exits non-zero and prints no result; without kernel names, its usage."""
+    import chip_ab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_ab.main(["chip_ab.py", "here", "step_fused"]) == 1
+    assert chip_ab.main(["chip_ab.py"]) == 2
+    assert capsys.readouterr().out == ""
