@@ -34,6 +34,16 @@ object per line; any failure raises and the script exits non-zero:
            E, F, W of `energy_forces_virial_asn` on the card against the
            CPU (f64); with repulsion off, F and W against the roll
            engine's (f64).
+  asn_blocks  the per-block pair stage (pair_stage "blocks" and
+           "blocks_full") at WATER30 x 6^3, sized by
+           `Simulation(pair_stage="blocks")`, f64 and f32: its four
+           kernels (block_fwd, block_fwd_tri, block_bwd, block_bwd_tri)
+           against their plain versions at the full caps and at tier caps,
+           in both same-species forms, two calls of each backward bit for
+           bit; the backwards of `aev_asn_fused` and `angular_aev_asn` with
+           both stages against autograd through the plain forwards, both
+           stages against the packed one, forward and gradients, and E, F,
+           W with "blocks" on the card against the CPU (f64).
   main     the MD main path through the user's entry points (zoo.ani2x
            with repulsion, Simulation with its default engine pallas_asn,
            init_state, run): ANI-2x + XTB repulsion at full width, one
@@ -70,8 +80,24 @@ object per line; any failure raises and the script exits non-zero:
            in compact columns and once in the full layout; forwards equal
            to the fused forward bit for bit; then each of the four
            per-channel kernels' error, ms, plain ms and bound.
+  blocks_md  the asn MD path with pair_stage "blocks" (two tiers under the
+           per-block work model, sized by itself) from the main path's
+           final positions and velocities: 1 warm and 3 timed chunks, its
+           launch counts zeroed just before and read just after (the ten
+           kernels of the path all launched, packed_fwd and packed_bwd and
+           every plain version not); ms/step, ns/day, sizing, regrows;
+           one chunk under torch.profiler; then each per-block kernel at
+           the final state: error, ms, plain ms, bound, launches per step;
+           and one force evaluation there through each of the three pair
+           stages on the same tiers (ms, forces against packed's).
+  pair_stage  the pair stage alone on synthetic rows (the counterpart of
+           examples/benchmark/micro_pair_stage.py at its defaults: 100,352
+           rows, caps H 16 / O 8, f32): forward and backward ms of packed,
+           blocks and blocks_full (three rounds of 10, the median), each
+           against packed, and each per-block kernel's ms, launches per
+           call, plain ms on 8,192 rows and bound.
 
-Then one line {"kernels": [...]} (all sixteen kernels), nvidia-smi's name
+Then one line {"kernels": [...]} (all twenty kernels), nvidia-smi's name
 and power-limit line, and last {"ok": true, "device": {...}}.
 """
 
@@ -109,6 +135,11 @@ ASN_KERNELS = ("build_inv", "build_idx", "step_fused", "packed_fwd",
                "radial_gamma", "packed_bwd", "chain_sum", "wing")
 CHANNEL_KERNELS = ("radial_fwd_asn", "compact_asn", "radial_bwd_asn",
                    "decompact_chain")
+# the per-block pair stage's kernels, and the kernels of an MD step on it
+BLOCK_KERNELS = ("block_fwd", "block_fwd_tri", "block_bwd", "block_bwd_tri")
+BLOCK_MD_KERNELS = tuple(k for k in ASN_KERNELS
+                         if k not in ("packed_fwd", "packed_bwd")
+                         ) + BLOCK_KERNELS
 CHUNK = 12
 
 # The 30-atom water tile (species H=0, O=3) and the masses of the 7 ANI-2x
@@ -179,10 +210,11 @@ def water_box(rep: int) -> LammpsData:
 
 
 def make_sim(data, dtype, device, integrator=None, rebuild_every=CHUNK,
-             seed=1, engine=None, repulsion=None):
+             seed=1, engine=None, repulsion=None, pair_stage=None):
     """A `Simulation` of ANI-2x, one model, weights drawn from `seed`;
     the default engine (pallas_asn) carries the XTB repulsion term, the
-    roll engine (pallas_full) cannot."""
+    roll engine (pallas_full) cannot; `pair_stage`: the asn engine's
+    angular pair stage (None: packed)."""
     n = data.n_atoms
     if repulsion is None:
         repulsion = engine != "pallas_full"
@@ -195,7 +227,7 @@ def make_sim(data, dtype, device, integrator=None, rebuild_every=CHUNK,
     return Simulation(potential=pot, species=data.species,
                       masses=data.masses_by_type[data.species], nbr=nbr,
                       dt=0.5, integrator=integrator, dtype=dtype,
-                      device=device, engine=engine)
+                      device=device, engine=engine, pair_stage=pair_stage)
 
 
 def make_box(data, dtype, device):
@@ -382,7 +414,8 @@ def phase_build():
     names = {}
     for fn, used in regs.items():
         for kname in (*KERNELS, "dh_reduce",
-                      *(f"asn_{k}" for k in ASN_KERNELS + CHANNEL_KERNELS)):
+                      *(f"asn_{k}" for k in ASN_KERNELS + CHANNEL_KERNELS
+                        + BLOCK_KERNELS)):
             if f"{kname}_kernel" in fn:
                 suf = ("f64" if f"{kname}_kernelId" in fn else
                        "f32" if f"{kname}_kernelIf" in fn else "any")
@@ -545,7 +578,7 @@ def asn_sizing(sim):
             "sections": [list(x) for x in sim._sections], "kpad": sim.kpad,
             "angular_caps": list(sim.potential.spec.angular_caps),
             "tiers": sim._tiers and [[list(c), r] for c, r in sim._tiers],
-            "k_max": sim._k_max}
+            "k_max": sim._k_max, "pair_stage": sim.pair_stage}
 
 
 def phase_main(device, rep=15, equil_chunks=12, warm_chunks=2,
@@ -606,9 +639,9 @@ def phase_main(device, rep=15, equil_chunks=12, warm_chunks=2,
     _check_md("main", equil_rows + warm_rows + rows, state, launches, plain)
     if any(ar.LAUNCHES.values()) or any(ar.PLAIN_CALLS.values()):
         raise AssertionError("main: the asn engine ran a roll kernel")
-    if any(asn.LAUNCHES[name] for name in CHANNEL_KERNELS):
-        raise AssertionError("main: the fused path ran a per-channel kernel: "
-                             f"{asn.LAUNCHES}")
+    if any(asn.LAUNCHES[name] for name in CHANNEL_KERNELS + BLOCK_KERNELS):
+        raise AssertionError("main: the packed fused path ran a per-channel "
+                             f"or a per-block kernel: {asn.LAUNCHES}")
     return sim, state, launches
 
 
@@ -765,7 +798,7 @@ def asn_inputs(sim, pos, box, seed=0):
     pos_g, sp_g = ar._grid_inputs(bins.inv, pos, bins.species_grid)
     h = box.h.contiguous()
     static = (spec.aev, tuple(grid.ncells), sections, caps, sim._tiers,
-              spec.repulsion)
+              spec.repulsion, sim.pair_stage)
     out, (cmp, rank2, part) = asn._forward(
         static, pos, h, bins.inv, bins.species_grid, bins.cell, bins.slot,
         a.idx, asn._KERNELS)
@@ -799,11 +832,13 @@ def asn_inputs(sim, pos, box, seed=0):
     gr = asn.radial_gamma(pos_g, sp_g, h, a.idx, ga, grid.ncells, spec.aev,
                           sections, spec.repulsion)
     gsum = asn._angular_gsum_grid(spec.aev, sections, caps, n, bins.inv,
-                                  g_ang, part, asn._KERNELS)
+                                  g_ang, part, asn._KERNELS,
+                                  pair_stage=sim.pair_stage)
     gt, _, _ = asn.chain_sum(rank2, a.idx, cmp, gsum, gr, grid.ncells,
                              spec.aev)
     return dict(pos_g=pos_g, sp_g=sp_g, h=h, bins=bins, a=a, cmp=cmp,
-                rank2=rank2, packed=packed, ga=ga, ga_full=ga_full, gr=gr,
+                rank2=rank2, packed=packed, part=part, g_ang=g_ang, ga=ga,
+                ga_full=ga_full, gr=gr,
                 gsum=gsum, gt=gt,
                 ncells=grid.ncells, spec=spec, sections=sections, caps=caps,
                 kpad=sim.kpad, a_offs=a_offs, atot=atot,
@@ -1083,17 +1118,19 @@ def phase_asn_kernels(device, rep=6):
           **result})
 
 
-def asn_entry_points(sim, bins, a, n_out=None):
+def asn_entry_points(sim, bins, a, n_out=None, pair_stage=None):
     """{name: fn(pos, box, plain, compact_cols=True) -> the differentiable
-    outputs} of the three entry points at `sim`'s sizing."""
+    outputs} of the three entry points at `sim`'s sizing and pair stage
+    (or `pair_stage`)."""
     spec = sim.potential.spec
     head = (spec.aev, sim._roll_grid, bins, a)
+    stage = pair_stage or sim.pair_stage
 
     def fused(pos, box, plain, compact_cols=True):
         return asn.aev_asn_fused(
             *head, pos, box, sim._sections, spec.angular_caps,
             tiers=sim._tiers, repulsion=spec.repulsion, n_out=n_out,
-            plain=plain)[:3]
+            plain=plain, pair_stage=stage)[:3]
 
     def radial(pos, box, plain, compact_cols=True):
         return asn.radial_aev_asn(
@@ -1104,7 +1141,7 @@ def asn_entry_points(sim, bins, a, n_out=None):
         return asn.angular_aev_asn(
             *head, pos, box, sim._sections, spec.angular_caps,
             tiers=sim._tiers, n_out=n_out, compact_cols=compact_cols,
-            plain=plain)[:1]
+            plain=plain, pair_stage=stage)[:1]
 
     return {"fused": fused, "radial": radial, "angular": angular}
 
@@ -1124,12 +1161,15 @@ def _grads(fn, pos0, box0, cots, plain=False, **kw):
     return torch.autograd.grad(e, (pos, h))
 
 
-def asn_backward_checks(sim, state, k, dpos_limit, dh_limit):
+def asn_backward_checks(sim, state, k, dpos_limit, dh_limit, names=None,
+                        pair_stage=None):
     """dpos and dh of sum(outputs x seeded cotangents) through each entry
-    point (the per-channel ones in both column layouts): two calls of the
-    explicit backward (the kernels) must agree bit for bit; with limits
-    given, they are held against autograd through the plain forwards."""
-    fns = asn_entry_points(sim, k["bins"], k["a"])
+    point (the per-channel ones in both column layouts; `names`: these
+    cases only) with the pair stage `pair_stage` (default: the sim's): two
+    calls of the explicit backward (the kernels) must agree bit for bit;
+    with limits given, they are held against autograd through the plain
+    forwards."""
+    fns = asn_entry_points(sim, k["bins"], k["a"], pair_stage=pair_stage)
     with torch.no_grad():
         fused_out = fns["fused"](state.pos, state.box, False)
     cots = _cotangents(fused_out)
@@ -1143,6 +1183,8 @@ def asn_backward_checks(sim, state, k, dpos_limit, dh_limit):
                                         {"compact_cols": False})
     lines = {}
     for name, (fn, cot, kw) in cases.items():
+        if names is not None and name not in names:
+            continue
         first = _grads(fn, state.pos, state.box, cot, **kw)
         second = _grads(fn, state.pos, state.box, cot, **kw)
         _sync(state.pos.device)
@@ -1294,9 +1336,9 @@ def _efw_line(got, ref, same):
 def asn_efw_vs_cpu(sim, state, k, data):
     """E, F, W of the asn engine's force evaluation on the card (kernels)
     against the same evaluation on the CPU (plain versions, explicit
-    backward), f64, on the same rebuild."""
+    backward), f64, on the same rebuild and pair stage."""
     got = sim._forces(state.pos, state.box, (k["bins"], k["a"]))
-    sim_c = make_sim(data, torch.float64, "cpu")
+    sim_c = make_sim(data, torch.float64, "cpu", pair_stage=sim.pair_stage)
     box_c = make_box(data, torch.float64, "cpu")
     sim_c.init_state(data.positions, box_c)
     same = (asn_sizing(sim_c) == asn_sizing(sim)
@@ -1572,22 +1614,25 @@ def norep_vs_roll(sim, pos, box, a_state, roll_sim, device):
     return out
 
 
-PROFILE_GROUPS = tuple(
-    [(name, (f"asn_{name}_kernel",)) for name in ASN_KERNELS]
-    + [("dh_reduce", ("dh_reduce_kernel",)),
-       ("matmul", ("gemm", "Gemm", "cutlass", "sm90_xmma", "ampere_",
-                   "Kernel2")),
-       ("roll_fold", ("roll",))])
+def profile_groups(kernels):
+    """torch.profiler kernel-name groups: the asn kernels named, the box
+    cotangent's reduce, matrix products, the fold's rolls."""
+    return tuple(
+        [(name, (f"asn_{name}_kernel",)) for name in kernels]
+        + [("dh_reduce", ("dh_reduce_kernel",)),
+           ("matmul", ("gemm", "Gemm", "cutlass", "sm90_xmma", "ampere_",
+                       "Kernel2")),
+           ("roll_fold", ("roll",))])
 
 
-def phase_profile(sim, state):
-    """Where one asn MD step spends its time, from the main path's final
-    state: one chunk on the host clock and one under torch.profiler. The
-    idle share is 1 - (device busy time of the profiled chunk) / (host
-    time of the unprofiled chunk): the profiler's own host overhead
-    stretches the profiled chunk's wall time. A chunk that overflowed a
-    capacity runs twice (regrow, then again), so both chunks are taken
-    again until one runs without a regrow."""
+def profile_chunk(sim, state, kernels):
+    """Where one asn MD step spends its time: one chunk on the host clock
+    and one under torch.profiler. The idle share is 1 - (device busy time
+    of the profiled chunk) / (host time of the unprofiled chunk): the
+    profiler's own host overhead stretches the profiled chunk's wall time.
+    A chunk that overflowed a capacity runs twice (regrow, then again), so
+    both chunks are taken again until one runs without a regrow. Returns
+    (state, the numbers)."""
     from torch.profiler import ProfilerActivity, profile
 
     regrows = 0
@@ -1606,14 +1651,431 @@ def phase_profile(sim, state):
         regrows += sim.regrow_events - before
     else:
         raise AssertionError("profile: every chunk regrew a capacity")
-    busy, groups, top = device_time(prof, CHUNK, PROFILE_GROUPS)
-    emit({"phase": "profile", "engine": sim.engine, "steps": CHUNK,
-          "regrows_skipped": regrows,
-          "unprofiled_ms_per_step": chunk_ms / CHUNK,
-          "device_busy_ms_per_step": busy,
-          "device_idle_share": 1.0 - busy * CHUNK / chunk_ms,
-          "device_ms_per_step_by_group": groups,
-          "top_kernels_ms_per_step": top})
+    busy, groups, top = device_time(prof, CHUNK, profile_groups(kernels))
+    return state, {"engine": sim.engine, "pair_stage": sim.pair_stage,
+                   "steps": CHUNK, "regrows_skipped": regrows,
+                   "unprofiled_ms_per_step": chunk_ms / CHUNK,
+                   "device_busy_ms_per_step": busy,
+                   "device_idle_share": 1.0 - busy * CHUNK / chunk_ms,
+                   "device_ms_per_step_by_group": groups,
+                   "top_kernels_ms_per_step": top}
+
+
+def phase_profile(sim, state):
+    """The main path's step from its final state (`profile_chunk`)."""
+    _, line = profile_chunk(sim, state, ASN_KERNELS)
+    emit({"phase": "profile", **line})
+
+
+# ---------------------------------------------------------------------------
+# The per-block pair stage (pair_stage "blocks" and "blocks_full")
+# ---------------------------------------------------------------------------
+
+
+def stage_launches(aev, tiers_rows, stage, seed=6):
+    """{kernel: [(rows, arms, column cotangent [rows, 32]), ...]}: every
+    per-block launch of one force evaluation of `stage` over the tiers'
+    flat rows `tiers_rows` [(cat_t, caps_t, a_offs)], with a seeded
+    cotangent for each block."""
+    g = torch.Generator(device=tiers_rows[0][0].device).manual_seed(seed)
+    out = {name: [] for name in BLOCK_KERNELS}
+    for cat_t, caps_t, a_offs in tiers_rows:
+        for kind, args in asn._stage_blocks(aev, caps_t, a_offs, stage):
+            if kind == "zero":
+                continue
+            ga = torch.randn((cat_t.shape[0], 32), generator=g,
+                             dtype=cat_t.dtype, device=cat_t.device)
+            tri = "_tri" if kind == "tri" else ""
+            out["block_fwd" + tri].append((cat_t, args, None))
+            out["block_bwd" + tri].append((cat_t, args, ga))
+    return out
+
+
+def block_call(name, aev, launches, plain=False, accs=None):
+    """One force evaluation's launches of kernel `name` (its plain version
+    with `plain`): the forward's [rows, 32] columns, or the backward's slot
+    sums added into `accs` (zeros where not given)."""
+    if name.startswith("block_fwd"):
+        fn = getattr(asn, name + ("_plain" if plain else ""))
+        return [fn(c, aev, *args) for c, args, _ in launches]
+    fn = getattr(asn, name + ("_plain" if plain else ""))
+    accs = accs or [torch.zeros_like(c) for c, _, _ in launches]
+    return [fn(c, ga, aev, *args, acc)
+            for (c, args, ga), acc in zip(launches, accs)]
+
+
+def block_compare(name, got, ref):
+    """Errors of a per-block kernel against its plain version: TOL of the
+    largest magnitude of each launch's output. Raises beyond it."""
+    worst, max_err = 0.0, 0.0
+    for x, y in zip(got, ref):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"{name}: {tuple(x.shape)} {x.dtype} != "
+                                 f"plain {tuple(y.shape)} {y.dtype}")
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{name}: non-finite output")
+        atol, rtol = TOL[x.dtype]
+        err = float((x - y).abs().max())
+        worst = max(worst, err / (atol + rtol * float(y.abs().max())))
+        max_err = max(max_err, err)
+    if worst > 1.0:
+        raise AssertionError(f"{name}: err {max_err}, {worst} x the limit")
+    return {"max_abs_err": max_err, "worst_ratio": worst,
+            "launches": len(got)}
+
+
+def block_work(launches, rca, live_rows=None):
+    """(bytes, pairs) the launches must move and evaluate: for each block,
+    the real rows' slot fields of its arms read once and 32 columns
+    written (forward), or the fields, the columns' cotangent and the arm
+    slots' sums read and written (backward); its filled slot pairs (both
+    orders for a full same-species block). `live_rows` [rows] bool per
+    launch's rows: the real rows (all where None)."""
+    nbytes = pairs = 0.0
+    for i, (cat, args, ga) in enumerate(launches):
+        f = cat.element_size()
+        atot = cat.shape[1] // 5
+        live = (torch.ones(cat.shape[0], dtype=torch.bool, device=cat.device)
+                if live_rows is None else live_rows[i])
+        n = int(live.sum())
+        d = cat[:, 3 * atot:4 * atot]
+        if len(args) == 2:  # the triangle
+            off1, a1, off2, a2, same, tri = *args, *args, True, True
+        else:
+            (off1, a1, off2, a2, same), tri = args, False
+        c1 = (d[:, off1:off1 + a1] < rca + 1.0).sum(1)[live].double()
+        c2 = (d[:, off2:off2 + a2] < rca + 1.0).sum(1)[live].double()
+        if same:
+            pairs += float((c1 * (c1 - 1) / (2 if tri else 1)).sum())
+        else:
+            pairs += float((c1 * c2).sum())
+        slots = a1 if same else a1 + a2
+        nbytes += n * f * ((5 * slots + 32) if ga is None
+                           else (5 * slots + 32 + 10 * slots))
+    return nbytes, pairs
+
+
+def block_bound(name, nbytes, pairs):
+    n_ops = ASN_OPS["packed_fwd" if "fwd" in name else "packed_bwd"][
+        "pair"] * pairs
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+
+
+def blocks_kernel_checks(aev, tiers_rows):
+    """Each per-block kernel against its plain version on `tiers_rows`, in
+    both same-species forms; each backward twice, bit for bit, adding into
+    nonzero buffers."""
+    out = {}
+    for stage in ("blocks", "blocks_full"):
+        launches = stage_launches(aev, tiers_rows, stage)
+        for name in BLOCK_KERNELS:
+            if not launches[name]:
+                continue
+            if name.startswith("block_bwd"):
+                g = torch.Generator(device=tiers_rows[0][0].device)
+                g.manual_seed(8)
+                base = [torch.randn(c.shape, generator=g, dtype=c.dtype,
+                                    device=c.device)
+                        for c, _, _ in launches[name]]
+                got = block_call(name, aev, launches[name],
+                                 accs=[b.clone() for b in base])
+                again = block_call(name, aev, launches[name],
+                                   accs=[b.clone() for b in base])
+                ref = block_call(name, aev, launches[name], plain=True,
+                                 accs=[b.clone() for b in base])
+                torch.cuda.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                if not same:
+                    raise AssertionError(f"{name} ({stage}): two calls "
+                                         "differ")
+                got = [x - b for x, b in zip(got, base)]
+                ref = [x - b for x, b in zip(ref, base)]
+            else:
+                got = block_call(name, aev, launches[name])
+                ref = block_call(name, aev, launches[name], plain=True)
+                same = None
+            res = block_compare(name, got, ref)
+            res["two_calls_bit_for_bit"] = same
+            out[f"{name}_{stage}"] = res
+            del got, ref
+    return out
+
+
+def stage_vs_packed(sim, k, pos, box):
+    """Forward and (dpos, dh) of `aev_asn_fused` and `angular_aev_asn`
+    (compact columns) through "blocks" and "blocks_full" against the
+    packed stage on the same rebuild, f64: 1e-12 of the largest entry."""
+    out = {}
+    for name in ("fused", "angular"):
+        ref = None
+        for stage in ("packed", "blocks", "blocks_full"):
+            fn = asn_entry_points(sim, k["bins"], k["a"],
+                                  pair_stage=stage)[name]
+            with torch.no_grad():
+                fwd = fn(pos, box, False)
+            cots = _cotangents(fwd, seed=9)
+            res = list(fwd) + list(_grads(fn, pos, box, cots))
+            if ref is None:
+                ref = res
+                continue
+            errs = [float((x - y).abs().max()) / float(y.abs().max())
+                    for x, y in zip(res, ref)]
+            out[f"{name}_{stage}_rel_err"] = max(errs)
+            if not max(errs) <= 1e-12:
+                raise AssertionError(f"{name} {stage} vs packed: {errs}")
+    return out
+
+
+def phase_asn_blocks(device, rep=6):
+    """The per-block stage at WATER30 x rep^3, sized by
+    `Simulation(pair_stage="blocks")`, f64 and f32: the four kernels
+    against their plain versions at the full caps and at tier caps (4
+    below), in both same-species forms, two calls of each backward bit for
+    bit; the backwards of `angular_aev_asn` and `aev_asn_fused` with
+    "blocks" and "blocks_full" against autograd through the plain
+    forwards (f64); both stages against packed (f64); E, F, W with
+    "blocks" on the card against the CPU (f64)."""
+    data = water_box(rep)
+    result = {}
+    for dtype in (torch.float64, torch.float32):
+        sim = make_sim(data, dtype, device, pair_stage="blocks")
+        box = make_box(data, dtype, device)
+        state = sim.init_state(data.positions, box)
+        k = asn_inputs(sim, state.pos, box)
+        spec = sim.potential.spec
+        caps = spec.angular_caps
+        a_offs = k["a_offs"]
+        # the untiered flat rows of every atom, at the full and tier caps
+        static = (spec.aev, tuple(sim._roll_grid.ncells), sim._sections,
+                  caps, None, True, "blocks")
+        _, (_, _, part) = asn._angular_forward(
+            static, state.pos, box.h.contiguous(), k["bins"].inv,
+            k["bins"].species_grid, k["bins"].cell, k["bins"].slot,
+            k["a"].idx, asn._KERNELS)
+        cat = part["cats"][0]
+        caps_t = tuple(max(4, c - 4) if c else 0 for c in caps)
+        tag = str(dtype).replace("torch.", "")
+        result[tag] = blocks_kernel_checks(
+            spec.aev, [(cat, caps, a_offs), (cat, caps_t, a_offs)])
+        if dtype == torch.float64:
+            for stage in ("blocks", "blocks_full"):
+                result[f"backward_{stage}_f64"] = asn_backward_checks(
+                    sim, state, k, 1e-9, 1e-8, pair_stage=stage,
+                    names=("fused", "angular", "angular_full_layout"))
+            result["vs_packed_f64"] = stage_vs_packed(sim, k, state.pos, box)
+            result["efw_card_vs_cpu_f64"] = asn_efw_vs_cpu(sim, state, k,
+                                                           data)
+        del k, part, cat
+        torch.cuda.empty_cache()
+    emit({"phase": "asn_blocks", "atoms": data.n_atoms, **asn_sizing(sim),
+          **result})
+
+
+def phase_blocks_md(device, sim_asn, state_asn, warm_chunks=1,
+                    timed_chunks=3, seed=1, reps=10):
+    """The asn MD path with the per-block pair stage at 101,250 atoms from
+    the main path's final positions and velocities, sized by itself; its
+    launch counts zeroed just before and read just after; one chunk under
+    torch.profiler; then each per-block kernel at the final state against
+    its plain version, its time and its bound, and the force evaluation
+    through each stage. Returns the kernels' rows."""
+    data = water_box(15)
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    torch.cuda.empty_cache()
+    asn.reset_counts()
+    sim = make_sim(data, torch.float32, device,
+                   integrator=integrate.Langevin(temp=300.0, damp=100.0,
+                                                 generator=gen),
+                   rebuild_every=CHUNK, seed=seed, pair_stage="blocks")
+    state = sim.init_state(sim_asn.positions_input_order(state_asn),
+                           make_box(data, torch.float32, device),
+                           vel=sim_asn.velocities_input_order(state_asn))
+    sizing_init = asn_sizing(sim)
+    state, warm_rows = sim.run(state, warm_chunks * CHUNK, thermo_every=1)
+    before = sim.regrow_events
+    state, rows, chunk_ms = _run_timed(sim, state, timed_chunks, device)
+    launches = {name: asn.LAUNCHES[name] for name in BLOCK_MD_KERNELS}
+    others = {name: asn.LAUNCHES[name] for name in asn.LAUNCHES
+              if name not in BLOCK_MD_KERNELS}
+    plain = dict(asn.PLAIN_CALLS)
+    line = {"phase": "blocks_md", "engine": sim.engine,
+            "pair_stage": sim.pair_stage, "atoms": data.n_atoms,
+            "dtype": "float32", "models": 1, "repulsion": True,
+            **_md_numbers(sim, rows, chunk_ms),
+            "sizing_at_init": sizing_init, "sizing": asn_sizing(sim),
+            "regrow_kinds": dict(sim.regrow_kinds),
+            "regrow_events_timed": sim.regrow_events - before,
+            "launches": launches, "other_launches": others,
+            "plain_calls": plain}
+    _check_md("blocks_md", warm_rows + rows, state, launches, plain)
+    if any(others.values()):
+        raise AssertionError(f"blocks_md: a kernel off the path ran: "
+                             f"{others}")
+    state, line["profile"] = profile_chunk(sim, state, BLOCK_MD_KERNELS)
+
+    # each kernel at the final state, after a fresh rebuild
+    box = state.box
+    pos = nbops.wrap_positions(state.pos, box)
+    k = asn_inputs(sim, pos, box)
+    part = k["part"]
+    steps = launches["step_fused"]
+    tiers = part["tiers"] or ((sim.potential.spec.angular_caps, None),)
+    tiers_rows = [(cat_t, caps_t, k["a_offs"])
+                  for (caps_t, _), cat_t in zip(tiers, part["cats"])]
+    live = (part["valid"] if part["tiers"] else
+            [torch.arange(part["cats"][0].shape[0], device=device) < k["n"]])
+    live_of = {id(cat_t): lv for (cat_t, _, _), lv in zip(tiers_rows, live)}
+    calls = stage_launches(sim.potential.spec.aev, tiers_rows, "blocks")
+    rca = sim.potential.spec.aev.angular_cutoff
+    rows_out, timing = [], {}
+    for name in BLOCK_KERNELS:
+        lau = calls[name]
+        live_l = [live_of[id(c)] for c, _, _ in lau]
+        accs = [torch.zeros_like(c) for c, _, _ in lau]
+        err = block_compare(name, block_call(name, sim.potential.spec.aev,
+                                             lau, accs=None),
+                            block_call(name, sim.potential.spec.aev, lau,
+                                       plain=True))
+        torch.cuda.synchronize()
+        nbytes, pairs = block_work(lau, rca, live_l)
+        b_ms, b_by = block_bound(name, nbytes, pairs)
+        ms = time_ms(lambda: block_call(name, sim.potential.spec.aev, lau,
+                                        accs=accs), reps=reps, warm=1)
+        plain_ms = time_ms(lambda: block_call(name, sim.potential.spec.aev,
+                                              lau, plain=True),
+                           reps=2, warm=1)
+        torch.cuda.empty_cache()
+        timing[name] = {**err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "bytes": nbytes, "filled_pairs": pairs,
+                        "launches_per_step": launches[name] / steps}
+        rows_out.append({
+            "name": name, "route": "cuda", "source": ASN_SOURCE,
+            "replaces": asn.REPLACES[name].split()[0],
+            "launches": launches[name], "max_abs_err": err["max_abs_err"],
+            "err_over_limit": err["worst_ratio"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
+    line["kernels"] = timing
+    line["force_eval_vs_packed"] = force_eval_by_stage(sim, pos, box, k)
+    emit(line)
+    return rows_out
+
+
+def force_eval_by_stage(sim, pos, box, k, reps=10):
+    """One force evaluation (`energy_forces_virial_asn`) at the same state,
+    sizing and tiers through each pair stage: ms (CUDA events, three
+    rounds of `reps`, the median) and the energies against packed's."""
+    out, ref = {}, None
+    for stage in ("packed", "blocks", "blocks_full"):
+        a_state = (sim._roll_grid, k["bins"], k["a"], sim._sections,
+                   sim._tiers, stage)
+
+        def evaluate(a_state=a_state):
+            return potmod.energy_forces_virial_asn(
+                sim.potential, sim.species, pos, box, a_state,
+                sim.species_counts)
+
+        e, f, _, _ = evaluate()
+        ms, rounds = _median3(evaluate, reps)
+        out[stage] = {"ms": ms, "rounds_ms": rounds}
+        if ref is None:
+            ref = (e, f)
+            continue
+        atol, rtol = TOL[pos.dtype]
+        out[stage]["pe_rel_err"] = float(abs(e - ref[0]) / abs(ref[0]))
+        out[stage]["force_err_over_limit"] = float(
+            (f - ref[1]).abs().max()) / (atol + rtol * float(
+                ref[1].abs().max()))
+        if not out[stage]["force_err_over_limit"] <= 1.0:
+            raise AssertionError(f"blocks_md: {stage} forces vs packed: "
+                                 f"{out[stage]}")
+    return out
+
+
+def phase_pair_stage(device, rows=100352, caps_h=16, caps_o=8, reps=10,
+                     plain_rows=8192, seed=0):
+    """The pair stage alone on synthetic flat rows (the counterpart of
+    examples/benchmark/micro_pair_stage.py, at its defaults): f32, unit
+    vectors from a normal draw, d uniform in (0.9, 3.4), fc in (0.1, 1),
+    a cotangent from a normal draw, every slot live; forward and backward
+    ms of packed, blocks and blocks_full (CUDA events, three rounds of
+    `reps`, the median), the stages against packed, and each per-block
+    kernel's ms, launches per call, plain ms on `plain_rows` rows and
+    bound."""
+    from lammps_ani_torch.models import aev as aevmod
+
+    aev = aevmod.ani2x_aev_spec()
+    caps = (caps_h, 0, 0, caps_o, 0, 0, 0)
+    sections = ((0, 68), (3, 36))
+    a_offs, atot = asn._a_offsets(sections, caps)
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = torch.float32
+    u = torch.randn((3, rows, atot), generator=g, dtype=dt, device=device)
+    u = u / u.norm(dim=0)
+    d = 0.9 + 2.5 * torch.rand((rows, atot), generator=g, dtype=dt,
+                               device=device)
+    fc = 0.1 + 0.9 * torch.rand((rows, atot), generator=g, dtype=dt,
+                                device=device)
+    cat = torch.cat([u[0], u[1], u[2], d, fc], 1).contiguous()
+    ncols = 32 * len(asn.present_channels(aev, caps, sections))
+    ga = torch.randn((rows, ncols), generator=g, dtype=dt, device=device)
+    del u, d, fc
+    line = {"phase": "pair_stage", "rows": rows, "caps": [caps_h, caps_o],
+            "sections": [list(x) for x in sections], "dtype": "float32"}
+    ref = None
+    for stage in asn.PAIR_STAGES:
+        def fwd(stage=stage):
+            return asn._tier_fwd(asn._KERNELS, cat, aev, caps, a_offs, stage)
+
+        def bwd(stage=stage):
+            return asn._tier_bwd(asn._KERNELS, cat, ga, aev, caps, a_offs,
+                                 stage)
+
+        asn.reset_counts()
+        out = [fwd(), bwd()]
+        counts = {k: v for k, v in asn.LAUNCHES.items() if v}
+        if ref is None:
+            ref = out
+        atol, rtol = TOL[dt]
+        errs = [float((x - y).abs().max()) / (atol + rtol * float(
+            y.abs().max())) for x, y in zip(out, ref)]
+        if max(errs) > 1.0:
+            raise AssertionError(f"pair_stage {stage} vs packed: {errs}")
+        f_ms, f_rounds = _median3(fwd, reps)
+        b_ms, b_rounds = _median3(bwd, reps)
+        line[stage] = {"forward_ms": f_ms, "forward_rounds_ms": f_rounds,
+                       "backward_ms": b_ms, "backward_rounds_ms": b_rounds,
+                       "launches_per_call": counts,
+                       "err_over_limit_vs_packed": errs}
+        del out
+    for stage in ("blocks", "blocks_full"):
+        for key in ("forward_ms", "backward_ms"):
+            line[f"{stage}_over_packed_{key}"] = (line[stage][key]
+                                                  / line["packed"][key])
+    kernels = {}
+    for stage in ("blocks", "blocks_full"):
+        calls = stage_launches(aev, [(cat, caps, a_offs)], stage)
+        sliced = stage_launches(aev, [(cat[:plain_rows].contiguous(), caps,
+                                       a_offs)], stage)
+        for name in BLOCK_KERNELS:
+            if not calls[name]:
+                continue
+            accs = [torch.zeros_like(c) for c, _, _ in calls[name]]
+            nbytes, pairs = block_work(calls[name], aev.angular_cutoff)
+            b_ms, b_by = block_bound(name, nbytes, pairs)
+            kernels[f"{name}_{stage}"] = {
+                "launches_per_call": len(calls[name]),
+                "ms": time_ms(lambda: block_call(name, aev, calls[name],
+                                                 accs=accs), reps=reps),
+                "plain_ms_rows": plain_rows,
+                "plain_ms": time_ms(lambda: block_call(
+                    name, aev, sliced[name], plain=True), reps=2),
+                "bound_ms": b_ms, "bound_by": b_by}
+            torch.cuda.empty_cache()
+    line["kernels"] = kernels
+    emit(line)
 
 
 def main() -> int:
@@ -1631,6 +2093,7 @@ def main() -> int:
     phase_kernels_small(device)
     phase_potential(device)
     phase_asn_kernels(device)
+    phase_asn_blocks(device)
     sim, state, launches = phase_main(device)
     phase_profile(sim, state)
     roll_sim, roll_state, roll_launches, work_start = phase_roll_md(
@@ -1638,6 +2101,8 @@ def main() -> int:
     rows = phase_timing(roll_sim, roll_state, roll_launches, work_start)
     rows += phase_asn_timing(device, sim, state, launches, roll_sim)
     rows += phase_asn_channels(device, sim, state)
+    rows += phase_blocks_md(device, sim, state)
+    phase_pair_stage(device)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,15 @@
 // Assignment-compacted AEV kernels for Hopper (sm_90a), written by hand.
 //
-// Twelve kernels replace twelve Pallas kernels of
+// Sixteen kernels replace sixteen Pallas kernels of
 // lammps_ani_tpu/ops/aev_asn.py: the eight of the rebuild, the fused
-// forward and the fused backward (the `pallas_asn` engine), and the four of
+// forward and the fused backward (the `pallas_asn` engine), the four of
 // the per-channel surface (radial_aev_asn, angular_aev_asn), which share
 // their device functions with the fused kernels and differ from them only
-// in what is compiled out. Each computes what its TPU kernel computes (see
-// lammps_ani_torch/ops/aev_asn.py for the contract and the plain PyTorch
-// version of each); none copies its block structure:
+// in what is compiled out, and the four of the per-block angular pair
+// stage (pair_stage "blocks" and "blocks_full"), which share the packed
+// pair kernels' device functions. Each computes what its TPU kernel
+// computes (see lammps_ani_torch/ops/aev_asn.py for the contract and the
+// plain PyTorch version of each); none copies its block structure:
 //
 //   * The TPU kernels read materialized, lane-padded candidate planes
 //     ([NC, wpad] per coordinate, built by halo copies) and gather from
@@ -741,6 +743,63 @@ __global__ void __launch_bounds__(kThreads) asn_radial_bwd_asn_kernel(
   block_dh_partial(dh, red, dh_part);
 }
 
+// Reduce-scatter of 32 column sums over the warp: after the step of width
+// w, acc[i] holds column i + (lane's bits >= w); at the end lane l holds
+// column l in acc[0]. nvcc does not unroll the inner loop to constant
+// indices, so acc sits in local memory (128 bytes in f32) in every kernel
+// that calls this; a width given as a template constant keeps it in
+// registers (PERF.md, section 6), left to a later change with the timing of
+// the packed kernels it moves.
+template <typename T>
+__device__ __forceinline__ void reduce_scatter32(T (&acc)[kNAZ], int lane) {
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) {
+    const bool upper = (lane & w) != 0;
+#pragma unroll
+    for (int i = 0; i < w; ++i) {
+      const T send = upper ? acc[i] : acc[i + w];
+      const T keep = upper ? acc[i + w] : acc[i];
+      acc[i] = keep + __shfl_xor_sync(kFull, send, w);
+    }
+  }
+}
+
+// One pair's cotangent scalars for the column cotangents gb[32] (scale
+// included): dcos, drmean (0 where the radial mean was clamped), dfc12.
+template <typename T>
+__device__ __forceinline__ void pair_cotangents(const AngConsts<T>& p,
+                                                const PairTerms<T>& pt,
+                                                const T (&gb)[kNAZ],
+                                                T& dcos, T& drmean,
+                                                T& dfc12) {
+  T df2[kNA];
+#pragma unroll
+  for (int j = 0; j < kNA; ++j) df2[j] = T(0);
+  dcos = T(0);
+#pragma unroll
+  for (int m = 0; m < kNZ; ++m) {
+    T df1 = T(0);
+#pragma unroll
+    for (int j = 0; j < kNA; ++j) {
+      const T gjm = gb[j * kNZ + m];
+      df1 += gjm * (pt.fc12 * pt.e[j]);
+      df2[j] += gjm * pt.f1[m];
+    }
+    const T dbase = df1 * (p.zeta / pt.base[m]) * pt.f1[m];
+    dcos += dbase * T(0.5) * (p.cos_m[m] - pt.c95 / pt.sv * p.sin_m[m]) *
+            T(0.95);
+  }
+  drmean = T(0);
+  dfc12 = T(0);
+#pragma unroll
+  for (int j = 0; j < kNA; ++j) {
+    drmean += df2[j] * pt.fc12 * pt.e[j] * (-(T(2) * p.eta)) *
+              (pt.x2 - T(j) * p.delta);
+    dfc12 += df2[j] * pt.e[j];
+  }
+  if (!(pt.dsum <= T(2) * (p.rca + T(1)))) drmean = T(0);
+}
+
 // ---------------------------------------------------------------------------
 // Packed angular pairs — replaces aev_asn.py:1794 _packed_fwd_kernel.
 //
@@ -804,18 +863,7 @@ __global__ void __launch_bounds__(kThreads) asn_packed_fwd_kernel(
         }
       }
     }
-    // reduce-scatter: after the step of width w, acc[i] holds column
-    // i + (lane's bits >= w); at the end lane l holds column l
-#pragma unroll
-    for (int w = 16; w >= 1; w >>= 1) {
-      const bool upper = (lane & w) != 0;
-#pragma unroll
-      for (int i = 0; i < w; ++i) {
-        const T send = upper ? acc[i] : acc[i + w];
-        const T keep = upper ? acc[i + w] : acc[i];
-        acc[i] = keep + __shfl_xor_sync(kFull, send, w);
-      }
-    }
+    reduce_scatter32<T>(acc, lane);
     orow[b * kNAZ + lane] = T(2) * acc[0];
   }
 }
@@ -860,8 +908,6 @@ __global__ void __launch_bounds__(kThreads) asn_packed_bwd_kernel(
     o[i] = T(0);
   }
   __syncwarp();
-  const T two_eta = T(2) * p.eta;
-  const T rlim = T(2) * (p.rca + T(1));
   const T* g_row = ga + (size_t)row * p.n_blocks * kNAZ;
   for (int b = 0; b < p.n_blocks; ++b) {
     T gb[kNAZ];
@@ -874,31 +920,8 @@ __global__ void __launch_bounds__(kThreads) asn_packed_bwd_kernel(
       pair_terms_core<T>(p, s[i1], s[A + i1], s[2 * A + i1], s[i2],
                          s[A + i2], s[2 * A + i2], s[3 * A + i1],
                          s[3 * A + i2], s[4 * A + i1], s[4 * A + i2], pt);
-      T df2[kNA];
-#pragma unroll
-      for (int j = 0; j < kNA; ++j) df2[j] = T(0);
-      T dcos = T(0);
-#pragma unroll
-      for (int m = 0; m < kNZ; ++m) {
-        T df1 = T(0);
-#pragma unroll
-        for (int j = 0; j < kNA; ++j) {
-          const T gjm = gb[j * kNZ + m];
-          df1 += gjm * (pt.fc12 * pt.e[j]);
-          df2[j] += gjm * pt.f1[m];
-        }
-        const T dbase = df1 * (p.zeta / pt.base[m]) * pt.f1[m];
-        dcos += dbase * T(0.5) *
-                (p.cos_m[m] - pt.c95 / pt.sv * p.sin_m[m]) * T(0.95);
-      }
-      T drmean = T(0), dfc12 = T(0);
-#pragma unroll
-      for (int j = 0; j < kNA; ++j) {
-        drmean += df2[j] * pt.fc12 * pt.e[j] * (-two_eta) *
-                  (pt.x2 - T(j) * p.delta);
-        dfc12 += df2[j] * pt.e[j];
-      }
-      if (!(pt.dsum <= rlim)) drmean = T(0);
+      T dcos, drmean, dfc12;
+      pair_cotangents<T>(p, pt, gb, dcos, drmean, dfc12);
       pb[t] = dcos;
       pb[Q + t] = T(0.5) * drmean;
       pb[2 * Q + t] = dfc12;
@@ -946,6 +969,280 @@ __global__ void __launch_bounds__(kThreads) asn_packed_bwd_kernel(
   }
   T* orow = out + (size_t)row * 5 * A;
   for (int i = lane; i < 5 * A; i += 32) orow[i] = o[i];
+}
+
+// ---------------------------------------------------------------------------
+// Per-block angular pairs (the JAX package's LAT_ANG_PACKED=0 stage): one
+// launch per species-pair block per occupancy tier, on the flat rows
+// cat [rows, 5 atot] (fields ux, uy, uz, d, fc). A block's arms are slots
+// [off1, off1 + a1) and [off2, off2 + a2) of a row: the first a_t slots of
+// each section (a tier's caps). Three forms of a block:
+//   cross   two species, every (arm-1, arm-2) slot pair at scale 2;
+//   full    one species, every ordered pair (j, k), j != k, at scale 1 (the
+//           TPU kernel masks the diagonal, whose terms are all 0: skipping
+//           it is exact up to the sign of zero);
+//   tri     one species, the strict upper triangle at scale 2.
+//   asn_block_fwd_kernel      cross and full — replaces aev_asn.py:1291
+//                             _block_fwd_kernel: out [rows, 32], column
+//                             j*8 + m, each pair's terms summed as they come
+//                             (no flush of tiny products);
+//   asn_block_fwd_tri_kernel  tri — replaces aev_asn.py:1503
+//                             _block_fwd_tri_kernel;
+//   asn_block_bwd_kernel      cross and full — replaces aev_asn.py:1328
+//                             _block_bwd_kernel: for the cotangent ga
+//                             [rows, 32] of the block's columns, each arm
+//                             slot's cotangent sums of (ux, uy, uz, d, fc)
+//                             (the radial-mean term only where d1 + d2 <=
+//                             2 (Rca + 1)), added in place into acc [rows,
+//                             5 atot]; a same-species slot takes its arm-1
+//                             sum plus its arm-2 sum;
+//   asn_block_bwd_tri_kernel  tri — replaces aev_asn.py:1519
+//                             _block_bwd_tri_kernel.
+// The TPU kernels cut a block into 128-lane chunks (one grid step or one
+// call each) because a vreg holds 128 lanes; here one launch covers the
+// block whole. Bound: operations (the packed kernels' pair terms, on the
+// pairs of one block) against reading the block's slot fields and writing
+// 32 columns (forward) or reading the columns' cotangent and adding to the
+// block's slots (backward): bytes. Design as the packed kernels: one warp
+// per row stages the block's slots in shared memory; forward, each lane
+// takes every 32nd pair and a reduce-scatter leaves column l on lane l;
+// backward, pass 1 leaves every pair's three scalars in shared memory and
+// pass 2 gives every slot to one lane, which walks its partners in index
+// order (arm 1, then arm 2). Fixed order, no atomics, so two calls agree
+// bit for bit; successive launches on one stream add into acc in turn.
+// ---------------------------------------------------------------------------
+constexpr int kCross = 0, kFullBlock = 1, kTri = 2;
+
+template <typename T>
+struct BlockParams : AngConsts<T> {
+  int rows, atot;
+  int off1, a1, off2, a2;  // the arms' first slots and widths
+  int same;                // one species: off2 = off1, a2 = a1
+  int q;                   // pairs per row of the form launched
+};
+
+// First pair of row j of an a x a strict upper triangle, row by row.
+__device__ __forceinline__ int tri_start(int j, int a) {
+  return j * (2 * a - j - 1) / 2;
+}
+
+// Slot pair (j, k) of pair index t: cross t = j a2 + k; full, the ordered
+// off-diagonal pairs row by row; tri, the upper triangle row by row.
+template <int MODE>
+__device__ __forceinline__ void block_pair(int t, int a1, int a2, int& j,
+                                           int& k) {
+  if (MODE == kCross) {
+    j = t / a2;
+    k = t - j * a2;
+  } else if (MODE == kFullBlock) {
+    j = t / (a1 - 1);
+    const int m = t - j * (a1 - 1);
+    k = m + (m >= j);
+  } else {
+    // counted from the end, the rows hold 1, 2, 3, ... pairs
+    const int r = a1 * (a1 - 1) / 2 - 1 - t;
+    int jr = (int)((sqrtf(8.0f * r + 1.0f) - 1.0f) * 0.5f);
+    while ((jr + 1) * (jr + 2) / 2 <= r) ++jr;
+    while (jr * (jr + 1) / 2 > r) --jr;
+    j = a1 - 2 - jr;
+    k = t - tri_start(j, a1) + j + 1;
+  }
+}
+
+// Pair index of (j, k) (for tri, j < k).
+template <int MODE>
+__device__ __forceinline__ int block_pair_index(int j, int k, int a1,
+                                                int a2) {
+  if (MODE == kCross) return j * a2 + k;
+  if (MODE == kFullBlock) return j * (a1 - 1) + (k < j ? k : k - 1);
+  return tri_start(j, a1) + k - j - 1;
+}
+
+// The block's slots of one row into shared memory, [5][a1] then (cross)
+// [5][a2]; returns the slots staged.
+template <typename T, int MODE>
+__device__ __forceinline__ int stage_block(const T* __restrict__ in, T* s,
+                                           const BlockParams<T>& p,
+                                           int lane) {
+  for (int i = lane; i < 5 * p.a1; i += 32) {
+    const int f = i / p.a1;
+    s[i] = in[f * p.atot + p.off1 + i - f * p.a1];
+  }
+  if (MODE == kCross) {
+    T* s2 = s + 5 * p.a1;
+    for (int i = lane; i < 5 * p.a2; i += 32) {
+      const int f = i / p.a2;
+      s2[i] = in[f * p.atot + p.off2 + i - f * p.a2];
+    }
+  }
+  __syncwarp();
+  return MODE == kCross ? p.a1 + p.a2 : p.a1;
+}
+
+template <typename T>
+__device__ __forceinline__ void block_terms(const AngConsts<T>& p,
+                                            const T* s1, int a1, int j,
+                                            const T* s2, int a2, int k,
+                                            PairTerms<T>& pt) {
+  pair_terms_core<T>(p, s1[j], s1[a1 + j], s1[2 * a1 + j], s2[k],
+                     s2[a2 + k], s2[2 * a2 + k], s1[3 * a1 + j],
+                     s2[3 * a2 + k], s1[4 * a1 + j], s2[4 * a2 + k], pt);
+}
+
+template <typename T, int MODE>
+__device__ __forceinline__ void block_fwd_row(const T* __restrict__ cat,
+                                              T* __restrict__ out, T* s,
+                                              const BlockParams<T>& p,
+                                              int row, int lane) {
+  stage_block<T, MODE>(cat + (size_t)row * 5 * p.atot, s, p, lane);
+  const int a1 = p.a1, a2 = MODE == kCross ? p.a2 : p.a1;
+  const T* s2 = MODE == kCross ? s + 5 * a1 : s;
+  T acc[kNAZ];
+#pragma unroll
+  for (int i = 0; i < kNAZ; ++i) acc[i] = T(0);
+  for (int t = lane; t < p.q; t += 32) {
+    int j, k;
+    block_pair<MODE>(t, a1, a2, j, k);
+    PairTerms<T> pt;
+    block_terms<T>(p, s, a1, j, s2, a2, k, pt);
+#pragma unroll
+    for (int jj = 0; jj < kNA; ++jj) {
+      const T f2 = pt.fc12 * pt.e[jj];
+#pragma unroll
+      for (int m = 0; m < kNZ; ++m) acc[jj * kNZ + m] += f2 * pt.f1[m];
+    }
+  }
+  reduce_scatter32<T>(acc, lane);
+  out[(size_t)row * kNAZ + lane] = (MODE == kFullBlock ? T(1) : T(2)) * acc[0];
+}
+
+// The partner `o` of pair t adds its terms to one slot's five sums: dcos
+// times the partner's unit vector, drmean / 2, dfc12 times its fc.
+template <typename T>
+__device__ __forceinline__ void add_partner(T (&g)[5], const T* pb, int q,
+                                            int t, const T* so, int ao,
+                                            int o) {
+  const T dc = pb[t];
+  g[0] += dc * so[o];
+  g[1] += dc * so[ao + o];
+  g[2] += dc * so[2 * ao + o];
+  g[3] += pb[q + t];
+  g[4] += pb[2 * q + t] * so[4 * ao + o];
+}
+
+template <typename T, int MODE>
+__device__ __forceinline__ void block_bwd_row(const T* __restrict__ cat,
+                                              const T* __restrict__ ga,
+                                              T* __restrict__ acc, T* s,
+                                              const BlockParams<T>& p,
+                                              int row, int lane) {
+  const int slots =
+      stage_block<T, MODE>(cat + (size_t)row * 5 * p.atot, s, p, lane);
+  const int a1 = p.a1, a2 = MODE == kCross ? p.a2 : p.a1, Q = p.q;
+  const T* s2 = MODE == kCross ? s + 5 * a1 : s;
+  T* pb = s + 5 * slots;  // the pairs' scalars, [3][Q]
+  T gb[kNAZ];
+#pragma unroll
+  for (int i = 0; i < kNAZ; ++i)
+    gb[i] = (MODE == kFullBlock ? T(1) : T(2)) * ga[(size_t)row * kNAZ + i];
+  for (int t = lane; t < Q; t += 32) {
+    int j, k;
+    block_pair<MODE>(t, a1, a2, j, k);
+    PairTerms<T> pt;
+    block_terms<T>(p, s, a1, j, s2, a2, k, pt);
+    T dcos, drmean, dfc12;
+    pair_cotangents<T>(p, pt, gb, dcos, drmean, dfc12);
+    pb[t] = dcos;
+    pb[Q + t] = T(0.5) * drmean;
+    pb[2 * Q + t] = dfc12;
+  }
+  __syncwarp();
+  T* orow = acc + (size_t)row * 5 * p.atot;
+  for (int sl = lane; sl < slots; sl += 32) {
+    T g1[5] = {T(0), T(0), T(0), T(0), T(0)};
+    T g2[5] = {T(0), T(0), T(0), T(0), T(0)};
+    int slot;
+    if (MODE == kCross) {
+      if (sl < a1) {  // arm 1: partners k of the second arm
+        for (int k = 0; k < a2; ++k)
+          add_partner<T>(g1, pb, Q, sl * a2 + k, s2, a2, k);
+        slot = p.off1 + sl;
+      } else {  // arm 2: partners j of the first arm
+        const int k = sl - a1;
+        for (int j = 0; j < a1; ++j)
+          add_partner<T>(g2, pb, Q, j * a2 + k, s, a1, j);
+        slot = p.off2 + k;
+      }
+    } else {
+      // arm 1: pairs (sl, k); arm 2: pairs (j, sl)
+      for (int k = MODE == kTri ? sl + 1 : 0; k < a1; ++k)
+        if (k != sl)
+          add_partner<T>(g1, pb, Q, block_pair_index<MODE>(sl, k, a1, a1),
+                         s, a1, k);
+      for (int j = 0; j < (MODE == kTri ? sl : a1); ++j)
+        if (j != sl)
+          add_partner<T>(g2, pb, Q, block_pair_index<MODE>(j, sl, a1, a1),
+                         s, a1, j);
+      slot = p.off1 + sl;
+    }
+#pragma unroll
+    for (int f = 0; f < 5; ++f) orow[f * p.atot + slot] += g1[f] + g2[f];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) asn_block_fwd_kernel(
+    const T* __restrict__ cat, T* __restrict__ out, BlockParams<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* s = reinterpret_cast<T*>(smem_raw) +
+         warp * 5 * (p.same ? p.a1 : p.a1 + p.a2);
+  const int row = blockIdx.x * kWarpsPerBlock + warp;
+  if (row >= p.rows) return;
+  if (p.same)
+    block_fwd_row<T, kFullBlock>(cat, out, s, p, row, lane);
+  else
+    block_fwd_row<T, kCross>(cat, out, s, p, row, lane);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) asn_block_fwd_tri_kernel(
+    const T* __restrict__ cat, T* __restrict__ out, BlockParams<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* s = reinterpret_cast<T*>(smem_raw) + warp * 5 * p.a1;
+  const int row = blockIdx.x * kWarpsPerBlock + warp;
+  if (row >= p.rows) return;
+  block_fwd_row<T, kTri>(cat, out, s, p, row, lane);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) asn_block_bwd_kernel(
+    const T* __restrict__ cat, const T* __restrict__ ga, T* __restrict__ acc,
+    BlockParams<T> p, int warps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* s = reinterpret_cast<T*>(smem_raw) +
+         (size_t)warp * (5 * (p.same ? p.a1 : p.a1 + p.a2) + 3 * p.q);
+  const int row = blockIdx.x * warps + warp;
+  if (row >= p.rows) return;
+  if (p.same)
+    block_bwd_row<T, kFullBlock>(cat, ga, acc, s, p, row, lane);
+  else
+    block_bwd_row<T, kCross>(cat, ga, acc, s, p, row, lane);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) asn_block_bwd_tri_kernel(
+    const T* __restrict__ cat, const T* __restrict__ ga, T* __restrict__ acc,
+    BlockParams<T> p, int warps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* s = reinterpret_cast<T*>(smem_raw) +
+         (size_t)warp * (5 * p.a1 + 3 * p.q);
+  const int row = blockIdx.x * warps + warp;
+  if (row >= p.rows) return;
+  block_bwd_row<T, kTri>(cat, ga, acc, s, p, row, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -1382,6 +1679,81 @@ int asn_packed_bwd(const int* ip, const double* fp, const void* cat,
   return (int)cudaGetLastError();
 }
 
+// ip: rows atot off1 a1 off2 a2 same zeta_int
+// fp: rca eta zeta mu0 delta tiny cos_m[8] sin_m[8]
+// `tri`: the triangle form (one species, at least two slots).
+template <typename T>
+bool block_params_from(const int* ip, const double* fp, bool tri,
+                       BlockParams<T>& p) {
+  p.rows = ip[0];
+  p.atot = ip[1];
+  p.off1 = ip[2];
+  p.a1 = ip[3];
+  p.off2 = ip[4];
+  p.a2 = ip[5];
+  p.same = ip[6];
+  p.zeta_int = ip[7];
+  if (p.rows < 0 || p.atot < 1 || p.atot > kDeadSlot || p.a1 < 1 ||
+      p.a2 < 1 || p.off1 < 0 || p.off1 + p.a1 > p.atot || p.off2 < 0 ||
+      p.off2 + p.a2 > p.atot)
+    return false;
+  if ((p.same || tri) && (p.off1 != p.off2 || p.a1 != p.a2 || !p.same))
+    return false;
+  if (tri && p.a1 < 2) return false;
+  p.q = tri ? p.a1 * (p.a1 - 1) / 2
+            : (p.same ? p.a1 * (p.a1 - 1) : p.a1 * p.a2);
+  p.rca = (T)fp[0];
+  p.eta = (T)fp[1];
+  p.zeta = (T)fp[2];
+  p.mu0 = (T)fp[3];
+  p.delta = (T)fp[4];
+  p.tiny = (T)fp[5];
+  for (int m = 0; m < kNZ; ++m) {
+    p.cos_m[m] = (T)fp[6 + m];
+    p.sin_m[m] = (T)fp[6 + kNZ + m];
+  }
+  return true;
+}
+
+template <typename T>
+int asn_block_fwd(const int* ip, const double* fp, bool tri,
+                  const void* cat, void* out, void* stream) {
+  BlockParams<T> p;
+  if (!block_params_from(ip, fp, tri, p)) return cudaErrorInvalidValue;
+  if (p.rows == 0) return cudaSuccess;
+  const size_t smem =
+      sizeof(T) * kWarpsPerBlock * 5 * (p.same ? p.a1 : p.a1 + p.a2);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = tri ? asn_block_fwd_tri_kernel<T> : asn_block_fwd_kernel<T>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<row_blocks(p.rows), kThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)cat, (T*)out, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int asn_block_bwd(const int* ip, const double* fp, bool tri,
+                  const void* cat, const void* ga, void* acc, void* stream) {
+  BlockParams<T> p;
+  if (!block_params_from(ip, fp, tri, p)) return cudaErrorInvalidValue;
+  if (p.rows == 0) return cudaSuccess;
+  // as many warps (rows) per block as the shared memory holds
+  const size_t per_warp =
+      sizeof(T) * (5 * (size_t)(p.same ? p.a1 : p.a1 + p.a2) + 3 * p.q);
+  int warps = kWarpsPerBlock;
+  while (warps > 1 && warps * per_warp > kMaxSmem) warps /= 2;
+  const size_t smem = warps * per_warp;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = tri ? asn_block_bwd_tri_kernel<T> : asn_block_bwd_kernel<T>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(p.rows + warps - 1) / warps, 32 * warps, smem,
+           (cudaStream_t)stream>>>((const T*)cat, (const T*)ga, (T*)acc, p,
+                                   warps);
+  return (int)cudaGetLastError();
+}
+
 // ip: nx ny nz cap kpad atot n_part; fp: the live-slot distance bound
 template <typename T>
 int asn_chain_sum(const int* ip, const double* fp, const void* rank2,
@@ -1515,6 +1887,26 @@ int asn_wing(const int* ip, const double*, const void* gt, const void* inv,
                                 const void* gt, const void* inv, void* wing, \
                                 void* stream) {                               \
     return asn_wing<T>(ip, fp, gt, inv, wing, stream);                       \
+  }                                                                           \
+  extern "C" int asn_block_fwd_##SUF(const int* ip, const double* fp,        \
+                                     const void* cat, void* out,             \
+                                     void* stream) {                          \
+    return asn_block_fwd<T>(ip, fp, false, cat, out, stream);                \
+  }                                                                           \
+  extern "C" int asn_block_fwd_tri_##SUF(const int* ip, const double* fp,    \
+                                         const void* cat, void* out,         \
+                                         void* stream) {                      \
+    return asn_block_fwd<T>(ip, fp, true, cat, out, stream);                 \
+  }                                                                           \
+  extern "C" int asn_block_bwd_##SUF(const int* ip, const double* fp,        \
+                                     const void* cat, const void* ga,        \
+                                     void* acc, void* stream) {               \
+    return asn_block_bwd<T>(ip, fp, false, cat, ga, acc, stream);            \
+  }                                                                           \
+  extern "C" int asn_block_bwd_tri_##SUF(const int* ip, const double* fp,    \
+                                         const void* cat, const void* ga,    \
+                                         void* acc, void* stream) {           \
+    return asn_block_bwd<T>(ip, fp, true, cat, ga, acc, stream);             \
   }
 
 AEV_ASN_ENTRY(float, f32)

@@ -9,7 +9,11 @@ package's names:
     coarse bin grid (side >= Rcr + skin); every `rebuild_every` steps the
     bins and the window-lane assignment (keep radius Rcr + skin) are
     rebuilt. The compact sections, the angular caps and the occupancy
-    tiers are sized from one degree measure at `init_state`.
+    tiers are sized from one degree measure at `init_state`. `pair_stage`
+    picks the angular pair stage (`aev_asn.PAIR_STAGES`): "packed" (the
+    default) sizes up to three tiers by the chunk-budget ladder, the
+    per-block stages ("blocks", "blocks_full") two tiers under their own
+    work model, as the JAX engine does under LAT_ANG_PACKED=0.
   * `pallas_full`: both channels from the roll-grid kernels
     (ops/aev_roll.py) over one fine bin grid; no repulsion term.
 
@@ -92,15 +96,17 @@ class Simulation:
     """Host-side orchestration of one engine on one device.
 
     `engine`: "pallas_asn" (None: the default, as the JAX package on its
-    accelerator) or "pallas_full". Runs on the card unless `device` says
-    otherwise."""
+    accelerator) or "pallas_full". `pair_stage` (asn engine): the angular
+    pair stage, "packed" (None: the default), "blocks" or "blocks_full".
+    Runs on the card unless `device` says otherwise."""
 
     def __init__(self, potential: potmod.ANIPotential, species: np.ndarray,
                  masses: np.ndarray, nbr: NeighborConfig, dt: float = 0.5,
                  integrator=None, dtype=torch.float32,
                  barostat=None, constraints=None,
                  extra_force: Optional[Callable] = None, device=None,
-                 engine: Optional[str] = None):
+                 engine: Optional[str] = None,
+                 pair_stage: Optional[str] = None):
         if integrator is not None and not isinstance(integrator,
                                                      integrate.Langevin):
             raise NotImplementedError(
@@ -121,6 +127,11 @@ class Simulation:
                 "repulsion term; use pallas_asn")
         self.engine = engine
         self._asn = engine == "pallas_asn"
+        self.pair_stage = pair_stage or "packed"
+        aev_asn._check_stage(self.pair_stage)
+        if not self._asn and self.pair_stage != "packed":
+            raise ValueError(f"pair_stage {pair_stage!r} needs the "
+                             "pallas_asn engine")
         self.device = resolve_device(device)
         n = len(species)
         self.nbr = nbr
@@ -357,7 +368,10 @@ class Simulation:
         caps run fewer pair lanes; the last tier runs the full caps. Only
         the last tier's row capacity must hold (a spill cascades from tier
         to tier and the last one's is reported in the deficit), so it gets
-        the generous margin. None: one tier is as good, or too few atoms."""
+        the generous margin. The packed stage takes the chunk-budget ladder
+        (up to ANG_TIERS tiers); the per-block stages, and the packed one
+        where no ladder pays, take two tiers from `search_tiers` under the
+        stage's work model. None: one tier is as good, or too few atoms."""
         n = self.n_atoms
         if ANG_TIERS < 2 or n < ANG_TIER_MIN_ATOMS:
             return None
@@ -366,14 +380,14 @@ class Simulation:
             return min(int(count * TIER_ROWS_MARGIN) + TIER_ROWS_EXTRA, n)
 
         ladder = (aev_asn.search_tier_ladder(cnt, caps, max_pre=ANG_TIERS - 1)
-                  if ANG_TIERS > 2 else None)
+                  if ANG_TIERS > 2 and self.pair_stage == "packed" else None)
         if ladder is not None:
             tiers = [(tuple(caps_t), rows(n_t)) for caps_t, n_t in ladder]
             rest = n - sum(n_t for _, n_t in ladder)
             tiers.append((tuple(caps), min(
                 int(rest * LAST_TIER_ROWS_MARGIN) + LAST_TIER_ROWS_EXTRA, n)))
             return tuple(tiers)
-        res = aev_asn.search_tiers(cnt, caps)
+        res = aev_asn.search_tiers(cnt, caps, self.pair_stage)
         if res is None:
             return None
         caps0, n0 = res
@@ -408,8 +422,8 @@ class Simulation:
             rbins, rasn = bins
             pe, f, w, deficit = potmod.energy_forces_virial_asn(
                 self.potential, self.species, pos, box,
-                (self._roll_grid, rbins, rasn, self._sections, self._tiers),
-                self.species_counts)
+                (self._roll_grid, rbins, rasn, self._sections, self._tiers,
+                 self.pair_stage), self.species_counts)
         else:
             pe, f, w, deficit = potmod.energy_forces_virial_roll(
                 self.potential, self.species, pos, box, self._roll_grid,

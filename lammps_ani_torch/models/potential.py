@@ -144,11 +144,12 @@ def atomic_energies_asn(pot: ANIPotential, species: torch.Tensor,
                         species_counts: Sequence[int], plain: bool = False):
     """([n] energies, angular deficit) via the assignment path.
 
-    `asn_state` = (grid, bins, asn, sections[, tiers]): one coarse roll
-    grid (bin side >= Rcr + skin), its bins, the frozen assignment of
-    `aev_asn.build_assignment` and its sections, and optional occupancy
-    tiers. Atoms are sorted by species, `species_counts[s]` of species
-    s. Both AEV channels come in compact columns (present radial
+    `asn_state` = (grid, bins, asn, sections[, tiers[, pair_stage]]): one
+    coarse roll grid (bin side >= Rcr + skin), its bins, the frozen
+    assignment of `aev_asn.build_assignment` and its sections, optional
+    occupancy tiers and the angular pair stage (`aev_asn.PAIR_STAGES`,
+    default "packed"). Atoms are sorted by species, `species_counts[s]`
+    of species s. Both AEV channels come in compact columns (present radial
     sections, present species-pair blocks); the first MLP layer gathers
     the matching weight rows. With spec.repulsion, the XTB energies of
     the same kernel pass are added. `plain=True` runs the kernels' plain
@@ -159,9 +160,11 @@ def atomic_energies_asn(pot: ANIPotential, species: torch.Tensor,
                          "angular_caps")
     grid, bins, asn, sect = asn_state[:4]
     tiers = asn_state[4] if len(asn_state) > 4 else None
+    pair_stage = asn_state[5] if len(asn_state) > 5 else "packed"
     radial, e_rep, angular, deficit = aev_asn.aev_asn_fused(
         spec.aev, grid, bins, asn, pos, box, sect, spec.angular_caps,
-        tiers=tiers, repulsion=spec.repulsion, plain=plain)
+        tiers=tiers, repulsion=spec.repulsion, plain=plain,
+        pair_stage=pair_stage)
     local = species >= 0
     aev = torch.where(local[:, None], torch.cat([radial, angular], dim=1),
                       0.0)

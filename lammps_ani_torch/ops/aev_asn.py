@@ -1,9 +1,9 @@
 """Assignment-compacted AEV channels: the rebuild, the fused forward and
 backward of the `pallas_asn` engine and the per-channel surface beside
-them, twelve hand-written Hopper kernels and their plain PyTorch versions.
+them, sixteen hand-written Hopper kernels and their plain PyTorch versions.
 
 Port of lammps_ani_tpu/ops/aev_asn.py (`aev_asn_fused`, `radial_aev_asn`,
-`angular_aev_asn`; the packed pair stage only). One coarse roll grid (bin
+`angular_aev_asn`; both angular pair stages). One coarse roll grid (bin
 side >= Rcr + skin) serves both AEV channels:
 
   * At rebuild, each center's 27-bin window lanes within the keep radius
@@ -20,15 +20,22 @@ side >= Rcr + skin) serves both AEV channels:
   * The angular AEV sums every unordered pair of packed slots of every
     present species-pair block, from a static pair-lane table, per flat
     atom row (`packed_fwd`), optionally in occupancy tiers of narrower
-    caps.
+    caps. The other pair stage (`pair_stage` "blocks" or "blocks_full",
+    the JAX package's LAT_ANG_PACKED=0) launches one kernel per block and
+    tier instead: the cross-species rectangle at scale 2 (`block_fwd`),
+    the same-species strict upper triangle at scale 2 (`block_fwd_tri`)
+    or, "blocks_full", the same-species full matrix less its diagonal at
+    scale 1 (`block_fwd`); its backwards add each block's slot sums into
+    one buffer (`block_bwd`, `block_bwd_tri`).
   * The backward recomputes the compact geometry for the radial and
     repulsion cotangents (`radial_gamma`), sums the pair cotangents into
-    the packed slots on the tier rows the forward gathered (`packed_bwd`),
-    chains the slots back to the compact lanes through `rank2` and adds
-    the radial part, with the center force and the box cotangent
-    (`chain_sum`), and gathers the neighbor-role force onto the window
-    lanes through `inv` (`wing`); `aev_roll._fold_wing` rolls the window
-    slabs back to their owner bins.
+    the packed slots on the tier rows the forward gathered (`packed_bwd`
+    or the per-block backwards), chains the slots back to the compact
+    lanes through `rank2` and adds the radial part, with the center force
+    and the box cotangent (`chain_sum`), and gathers the neighbor-role
+    force onto the window lanes through `inv` (`wing`);
+    `aev_roll._fold_wing` rolls the window slabs back to their owner
+    bins.
 
 The per-channel surface runs each channel alone over the same frozen
 assignment, so that a radial column and an angular block can be held
@@ -38,8 +45,8 @@ against a reference apart from one another:
     (`radial_fwd_asn`); its backward gives the lane cotangents, the center
     force and the box cotangent in one kernel (`radial_bwd_asn`), then
     `wing` and the fold.
-  * `angular_aev_asn`: stage 2 alone (`compact_asn`), then the packed pair
-    stage; its backward is `packed_bwd`, the slot chain without a radial
+  * `angular_aev_asn`: stage 2 alone (`compact_asn`), then either pair
+    stage; its backward is that stage's, the slot chain without a radial
     part (`decompact_chain`), `wing` and the fold.
 
 The four per-channel kernels are built from the device functions of their
@@ -99,16 +106,26 @@ ANGSTROM2BOHR = 1.8897261258369282
 _MAX_S = 8
 _MAX_BLOCKS = 28
 
-# Plain-integer launch counts of the twelve CUDA kernels (one per wrapper
+# The angular pair stages (the JAX package's switches): "packed", one lane
+# table over every block (LAT_ANG_PACKED=1, the default); "blocks", one
+# launch per species-pair block, same-species blocks as their strict upper
+# triangle (LAT_ANG_PACKED=0); "blocks_full", the same with same-species
+# blocks as the full matrix less its diagonal (LAT_ANG_PACKED=0
+# LAT_ANG_TRI=0).
+PAIR_STAGES = ("packed", "blocks", "blocks_full")
+
+# Plain-integer launch counts of the sixteen CUDA kernels (one per wrapper
 # call that launches its kernel) and call counts of their plain versions
 # made by the wrappers (CPU tensors). `reset_counts()` zeroes both.
 LAUNCHES = {"build_inv": 0, "build_idx": 0, "step_fused": 0,
             "packed_fwd": 0, "radial_gamma": 0, "packed_bwd": 0,
             "chain_sum": 0, "wing": 0, "radial_fwd_asn": 0,
-            "compact_asn": 0, "radial_bwd_asn": 0, "decompact_chain": 0}
+            "compact_asn": 0, "radial_bwd_asn": 0, "decompact_chain": 0,
+            "block_fwd": 0, "block_bwd": 0, "block_fwd_tri": 0,
+            "block_bwd_tri": 0}
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 
-# The TPU kernels of ops/aev_asn.py that the twelve kernels replace.
+# The TPU kernels of ops/aev_asn.py that the sixteen kernels replace.
 REPLACES = {
     "build_inv": "lammps_ani_tpu/ops/aev_asn.py:243 _build_inv_kernel",
     "build_idx": "lammps_ani_tpu/ops/aev_asn.py:309 _build_idx_kernel",
@@ -126,6 +143,12 @@ REPLACES = {
         "lammps_ani_tpu/ops/aev_asn.py:816 _radial_bwd_asn_kernel",
     "decompact_chain":
         "lammps_ani_tpu/ops/aev_asn.py:2013 _decompact_chain_kernel",
+    "block_fwd": "lammps_ani_tpu/ops/aev_asn.py:1291 _block_fwd_kernel",
+    "block_bwd": "lammps_ani_tpu/ops/aev_asn.py:1328 _block_bwd_kernel",
+    "block_fwd_tri":
+        "lammps_ani_tpu/ops/aev_asn.py:1503 _block_fwd_tri_kernel",
+    "block_bwd_tri":
+        "lammps_ani_tpu/ops/aev_asn.py:1519 _block_bwd_tri_kernel",
 }
 
 
@@ -133,6 +156,12 @@ def reset_counts():
     for d in (LAUNCHES, PLAIN_CALLS):
         for k in d:
             d[k] = 0
+
+
+def _check_stage(pair_stage):
+    if pair_stage not in PAIR_STAGES:
+        raise ValueError(f"pair_stage {pair_stage!r}: expected one of "
+                         f"{PAIR_STAGES}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,11 +233,40 @@ def _pair_count(caps, present):
                for i, s1 in enumerate(present) for s2 in present[i:])
 
 
-def search_tiers(cnt, caps):
+def _chunk1(a1, a2):
+    """(c1, n_g): the TPU per-block kernels' arm-1 chunk (the most arm-1
+    slots whose a2 pair lanes fit one 128-lane vreg) and chunk count."""
+    c1 = max(1, min(_LANE // max(a2, 1), a1))
+    return c1, -(-a1 // c1)
+
+
+def _tri_block_cost(a):
+    """Padded pair lanes of a same-species block's strict upper triangle
+    (128-lane chunks; none below two slots)."""
+    if a < 2:
+        return 0
+    return -(-(a * (a - 1) // 2) // _LANE) * _LANE
+
+
+def _block_cost(a1, a2, same, tri):
+    """Padded pair lanes per row of one species-pair block in the
+    per-block stage: the TPU kernels' vreg padding, which sizes the
+    tiers (the CUDA kernels have no such padding)."""
+    if same and a1 < _LANE and tri:
+        return _tri_block_cost(a1)
+    c1, n_g = _chunk1(a1, a2)
+    return n_g * (-(-(c1 * a2) // _LANE) * _LANE)
+
+
+def search_tiers(cnt, caps, pair_stage="packed"):
     """Tier-0 caps over the measured per-row degree matrix `cnt` [n, S]
     that minimize the padded pair-lane work (fit rows run tier-0 caps,
-    the rest the full `caps`). Returns (caps0, fit_count) or None when
-    one tier is as good."""
+    the rest the full `caps`) of `pair_stage`'s work model: one shared
+    128-lane pad of the exact pair count ("packed"), or each block's own
+    (`_block_cost`; "blocks" with triangle same-species blocks,
+    "blocks_full" with full ones). Returns (caps0, fit_count) or None
+    when one tier is as good."""
+    _check_stage(pair_stage)
     caps = tuple(int(c) for c in caps)
     present = [s for s in range(len(caps)) if caps[s] > 0]
     if not present:
@@ -217,7 +275,11 @@ def search_tiers(cnt, caps):
     n = cnt.shape[0]
 
     def work(cp):
-        return -(-_pair_count(cp, present) // _LANE) * _LANE
+        if pair_stage == "packed":
+            return -(-_pair_count(cp, present) // _LANE) * _LANE
+        return sum(_block_cost(cp[s1], cp[s2], s1 == s2,
+                               pair_stage == "blocks")
+                   for i, s1 in enumerate(present) for s2 in present[i:])
 
     w_full = work(caps)
     if len(present) > 4:
@@ -416,7 +478,7 @@ def _norm_tiers(tiers, caps, r, n_pad2):
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch versions of the twelve kernels
+# Plain PyTorch versions of the sixteen kernels
 # ---------------------------------------------------------------------------
 
 
@@ -868,27 +930,7 @@ def packed_bwd_plain(cat, ga_t, spec, caps_t, a_offs):
             cst, u[:, :, i1].transpose(1, 2), u[:, :, i2].transpose(1, 2),
             c[:, 3, i1], c[:, 3, i2], c[:, 4, i1], c[:, 4, i2])
         g = 2.0 * ga_t[rs].reshape(-1, len(blocks), n_a, nsz)[:, bi]
-        df2 = [torch.zeros_like(pt["fc12"]) for _ in range(n_a)]
-        dcos = torch.zeros_like(pt["fc12"])
-        for m in range(nsz):
-            f1 = pt["f1_m"][m]
-            df1 = torch.zeros_like(dcos)
-            for j, e in enumerate(pt["e_j"]):
-                df1 = df1 + g[:, :, j, m] * (pt["fc12"] * e)
-                df2[j] = df2[j] + g[:, :, j, m] * f1
-            dbase = df1 * (cst["zeta"] / pt["base_m"][m]) * f1
-            dcos = dcos + dbase * 0.5 * (
-                cst["cos_m"][m] - pt["c95"] / pt["sv"] * cst["sin_m"][m]
-            ) * 0.95
-        drmean = torch.zeros_like(dcos)
-        dfc12 = torch.zeros_like(dcos)
-        for j, e in enumerate(pt["e_j"]):
-            drmean = drmean + df2[j] * pt["fc12"] * e * (
-                -2.0 * cst["eta"]) * (pt["x2"] - j * cst["delta"])
-            dfc12 = dfc12 + df2[j] * e
-        # rmean beyond rca + 1 is clamped: no gradient
-        drmean = torch.where(pt["d1"] + pt["d2"] <= 2.0 * (cst["rca"] + 1.0),
-                             drmean, 0.0)
+        dcos, drmean, dfc12 = _pair_grads(cst, pt, g)
         out = c.new_zeros((c.shape[0], 5, atot))
         for i_own, u_other, fc_other in ((i1, pt["u2"], pt["fc2"]),
                                          (i2, pt["u1"], pt["fc1"])):
@@ -898,6 +940,162 @@ def packed_bwd_plain(cat, ga_t, spec, caps_t, a_offs):
             out.index_add_(2, i_own, arm)
         outs.append(out.reshape(-1, 5 * atot))
     return torch.cat(outs) if outs else cat.new_zeros((0, 5 * atot))
+
+
+def _pair_grads(cst, pt, g):
+    """(dcos, drmean, dfc12) of every slot pair of the pair terms `pt` for
+    the cotangent `g` [..., n_a, n_z] of their 32 columns (scale
+    included), broadcast against the pair axes; drmean is 0 where the
+    radial mean was clamped (d1 + d2 > 2 (Rca + 1))."""
+    n_a, nsz = cst["n_a"], len(cst["cos_m"])
+    df2 = [torch.zeros_like(pt["fc12"]) for _ in range(n_a)]
+    dcos = torch.zeros_like(pt["fc12"])
+    for m in range(nsz):
+        f1 = pt["f1_m"][m]
+        df1 = torch.zeros_like(dcos)
+        for j, e in enumerate(pt["e_j"]):
+            df1 = df1 + g[..., j, m] * (pt["fc12"] * e)
+            df2[j] = df2[j] + g[..., j, m] * f1
+        dbase = df1 * (cst["zeta"] / pt["base_m"][m]) * f1
+        dcos = dcos + dbase * 0.5 * (
+            cst["cos_m"][m] - pt["c95"] / pt["sv"] * cst["sin_m"][m]) * 0.95
+    drmean = torch.zeros_like(dcos)
+    dfc12 = torch.zeros_like(dcos)
+    for j, e in enumerate(pt["e_j"]):
+        drmean = drmean + df2[j] * pt["fc12"] * e * (
+            -2.0 * cst["eta"]) * (pt["x2"] - j * cst["delta"])
+        dfc12 = dfc12 + df2[j] * e
+    drmean = torch.where(pt["d1"] + pt["d2"] <= 2.0 * (cst["rca"] + 1.0),
+                         drmean, 0.0)
+    return dcos, drmean, dfc12
+
+
+def _block_fields(cat, off, a):
+    """[rows, 5, a]: the five slot fields (ux, uy, uz, d, fc) of an arm,
+    the `a` slots from `off` of the flat rows `cat` [rows, 5 atot]."""
+    atot = cat.shape[1] // 5
+    return cat.reshape(cat.shape[0], 5, atot)[:, :, off:off + a]
+
+
+def _block_terms(cst, c1, c2, same):
+    """Pair terms [rows, a1, a2] of every (arm-1 slot, arm-2 slot) of one
+    block from the arms' fields; `same`: fc12 is 0 on the diagonal."""
+    pt = aev_roll._pair_terms_core(
+        cst, c1[:, 0:3].transpose(1, 2)[:, :, None],
+        c2[:, 0:3].transpose(1, 2)[:, None], c1[:, 3, :, None],
+        c2[:, 3, None], c1[:, 4, :, None], c2[:, 4, None])
+    if same:
+        pt["diag"] = torch.eye(c1.shape[2], dtype=torch.bool,
+                               device=c1.device)
+        pt["fc12"] = torch.where(pt["diag"], 0.0, pt["fc12"])
+    return pt
+
+
+def _tri_terms(cst, c, j, k):
+    """Pair terms [rows, q] of the slot pairs (j, k) of one arm's fields."""
+    return aev_roll._pair_terms_core(
+        cst, c[:, 0:3, j].transpose(1, 2), c[:, 0:3, k].transpose(1, 2),
+        c[:, 3, j], c[:, 3, k], c[:, 4, j], c[:, 4, k])
+
+
+def _columns(pt, scale):
+    """[rows, 32]: the pair terms' column sums j*8 + m, times `scale`."""
+    cols = []
+    for e in pt["e_j"]:
+        f2 = pt["fc12"] * e
+        for f1 in pt["f1_m"]:
+            cols.append((f2 * f1).flatten(1).sum(1))
+    return scale * torch.stack(cols, dim=-1)
+
+
+def block_fwd_plain(cat, spec, off1, a1, off2, a2, same):
+    """[rows, 32] angular columns j*8 + m of one species-pair block from
+    the flat rows `cat` [rows, 5 atot] (aev_asn.py `_block_fwd_kernel`):
+    every (arm-1 slot, arm-2 slot) pair of the slots [off1, off1 + a1) and
+    [off2, off2 + a2), summed as they come. Cross species at scale 2;
+    `same` (off2 = off1, a2 = a1): the full matrix at scale 1, its
+    diagonal masked (fc12 = 0)."""
+    cst = aev_roll.angular_consts(spec, cat.dtype)
+    outs = [_columns(_block_terms(cst, _block_fields(cat[rs], off1, a1),
+                                  _block_fields(cat[rs], off2, a2), same),
+                     1.0 if same else 2.0)
+            for rs in _chunks(cat.shape[0], a1 * a2 * 64)]
+    return torch.cat(outs) if outs else cat.new_zeros((0, 32))
+
+
+def block_fwd_tri_plain(cat, spec, off, a):
+    """[rows, 32] angular columns of a same-species block as its strict
+    upper triangle at scale 2 (aev_asn.py `_block_fwd_tri_kernel`; each
+    unordered pair once: the terms are symmetric)."""
+    cst = aev_roll.angular_consts(spec, cat.dtype)
+    j, k = torch.triu_indices(a, a, 1, device=cat.device)
+    outs = [_columns(_tri_terms(cst, _block_fields(cat[rs], off, a), j, k),
+                     2.0)
+            for rs in _chunks(cat.shape[0], a * a * 32)]
+    return torch.cat(outs) if outs else cat.new_zeros((0, 32))
+
+
+def _arm_sums(cst, pt, g, u1, u2, fc1, fc2):
+    """The pair cotangents of `pt` for the column cotangent `g`, as the
+    two arms' terms (ux, uy, uz, d, fc) [rows, 5, *pair axes]: arm 1
+    (dcos u2, drmean / 2, dfc12 fc2) and arm 2 (dcos u1, drmean / 2,
+    dfc12 fc1)."""
+    dcos, drmean, dfc12 = _pair_grads(cst, pt, g)
+    if "diag" in pt:
+        dfc12 = torch.where(pt["diag"], 0.0, dfc12)
+    half = (0.5 * drmean)[:, None]
+    return (torch.cat([dcos[:, None] * u2, half, (dfc12 * fc2)[:, None]], 1),
+            torch.cat([dcos[:, None] * u1, half, (dfc12 * fc1)[:, None]], 1))
+
+
+def block_bwd_plain(cat, ga, spec, off1, a1, off2, a2, same, acc):
+    """Adds one species-pair block's per-slot cotangent sums of (ux, uy,
+    uz, d, fc) into `acc` [rows, 5 atot] in place and returns it
+    (aev_asn.py `_block_bwd_kernel`): `ga` [rows, 32] is the cotangent of
+    `block_fwd_plain`'s columns; arm 1's terms land on its slots, arm 2's
+    on its own, added to arm 1's for a same-species block."""
+    cst = aev_roll.angular_consts(spec, cat.dtype)
+    n_a, nsz = cst["n_a"], len(cst["cos_m"])
+    atot = cat.shape[1] // 5
+    view = acc.view(-1, 5, atot)
+    scale = 1.0 if same else 2.0
+    for rs in _chunks(cat.shape[0], a1 * a2 * 128):
+        c1 = _block_fields(cat[rs], off1, a1)
+        c2 = _block_fields(cat[rs], off2, a2)
+        pt = _block_terms(cst, c1, c2, same)
+        g = scale * ga[rs].reshape(-1, 1, 1, n_a, nsz)
+        arm1, arm2 = _arm_sums(cst, pt, g, c1[:, 0:3, :, None],
+                               c2[:, 0:3, None], c1[:, 4, :, None],
+                               c2[:, 4, None])
+        arm1, arm2 = arm1.sum(3), arm2.sum(2)
+        if same:
+            view[rs, :, off1:off1 + a1] += arm1 + arm2
+        else:
+            view[rs, :, off1:off1 + a1] += arm1
+            view[rs, :, off2:off2 + a2] += arm2
+    return acc
+
+
+def block_bwd_tri_plain(cat, ga, spec, off, a, acc):
+    """Adds a same-species block's per-slot cotangent sums of its strict
+    upper triangle into `acc` [rows, 5 atot] in place and returns it
+    (aev_asn.py `_block_bwd_tri_kernel`): slot j takes its pairs' arm-1
+    terms and, added to them, its pairs' arm-2 terms."""
+    cst = aev_roll.angular_consts(spec, cat.dtype)
+    n_a, nsz = cst["n_a"], len(cst["cos_m"])
+    atot = cat.shape[1] // 5
+    view = acc.view(-1, 5, atot)
+    j, k = torch.triu_indices(a, a, 1, device=cat.device)
+    for rs in _chunks(cat.shape[0], a * a * 64):
+        c = _block_fields(cat[rs], off, a)
+        pt = _tri_terms(cst, c, j, k)
+        g = 2.0 * ga[rs].reshape(-1, 1, n_a, nsz)
+        arm1, arm2 = _arm_sums(cst, pt, g, c[:, 0:3, j], c[:, 0:3, k],
+                               c[:, 4, j], c[:, 4, k])
+        zero = c.new_zeros(c.shape)
+        view[rs, :, off:off + a] += (zero.index_add(2, j, arm1)
+                                     + zero.index_add(2, k, arm2))
+    return acc
 
 
 def _chain_plain(rank2, idx, cmp, gsum, gr, ncells, spec):
@@ -1198,6 +1396,100 @@ def packed_bwd(cat, ga_t, spec, caps_t, a_offs):
     return out
 
 
+# shared memory a block of the card can take (H100: 227 KB)
+MAX_SMEM = 227 * 1024
+
+
+def _block_params(name, cat, spec, off1, a1, off2, a2, same, n_pairs,
+                  pair_scalars):
+    """(ip, fp) of the per-block kernels; raises on arms the rows do not
+    hold and on a row whose staged slots (and, for a backward, the pair
+    scalars of `n_pairs` pairs) exceed one block's shared memory."""
+    rows, w5 = cat.shape
+    atot = w5 // 5
+    if not (atot * 5 == w5 and 0 < atot <= DEAD_SLOT and a1 >= 1
+            and a2 >= 1 and 0 <= off1 and off1 + a1 <= atot and 0 <= off2
+            and off2 + a2 <= atot
+            and (not same or (off1, a1) == (off2, a2))):
+        raise ValueError(f"{name}: arms ({off1}, {a1}), ({off2}, {a2}) "
+                         f"same={same} do not fit rows {tuple(cat.shape)}")
+    slots = a1 if same else a1 + a2
+    need = cat.element_size() * (5 * slots + (3 * n_pairs if pair_scalars
+                                              else 0))
+    if need > MAX_SMEM:
+        raise ValueError(f"{name}: one row needs {need} bytes of shared "
+                         f"memory ({slots} slots, {n_pairs} pairs), above "
+                         f"a block's {MAX_SMEM}")
+    ip, fp = aev_roll._angular_params(spec, (), cat.dtype)
+    return [rows, atot, off1, a1, off2, a2, int(same), ip[1]], fp
+
+
+def _check_block_bwd(name, cat, ga, acc):
+    if (ga.shape != (cat.shape[0], 32) or ga.dtype != cat.dtype
+            or acc.shape != cat.shape or acc.dtype != cat.dtype):
+        raise ValueError(f"{name}: ga {tuple(ga.shape)} {ga.dtype}, acc "
+                         f"{tuple(acc.shape)} {acc.dtype} for rows "
+                         f"{tuple(cat.shape)} {cat.dtype}")
+
+
+def block_fwd(cat, spec, off1, a1, off2, a2, same):
+    """[rows, 32] (replaces aev_asn._block_fwd_kernel; one call per block
+    per occupancy tier)."""
+    if not _route("block_fwd", cat):
+        return block_fwd_plain(cat, spec, off1, a1, off2, a2, same)
+    ip, fp = _block_params("block_fwd", cat, spec, off1, a1, off2, a2, same,
+                           a1 * (a1 - 1) if same else a1 * a2, False)
+    out = torch.empty((cat.shape[0], 32), dtype=cat.dtype, device=cat.device)
+    _launch("block_fwd", f"asn_block_fwd_{_suffix('block_fwd', cat.dtype)}",
+            ip, fp, cat, out)
+    return out
+
+
+def block_bwd(cat, ga, spec, off1, a1, off2, a2, same, acc):
+    """`acc` with the block's slot sums added in place (replaces
+    aev_asn._block_bwd_kernel; one call per block per tier)."""
+    if not _route("block_bwd", cat, ga, acc):
+        return block_bwd_plain(cat, ga, spec, off1, a1, off2, a2, same, acc)
+    _check_block_bwd("block_bwd", cat, ga, acc)
+    ip, fp = _block_params("block_bwd", cat, spec, off1, a1, off2, a2, same,
+                           a1 * (a1 - 1) if same else a1 * a2, True)
+    _launch("block_bwd", f"asn_block_bwd_{_suffix('block_bwd', cat.dtype)}",
+            ip, fp, cat, ga, acc)
+    return acc
+
+
+def block_fwd_tri(cat, spec, off, a):
+    """[rows, 32] (replaces aev_asn._block_fwd_tri_kernel; one call per
+    same-species block per tier, for every 128-lane chunk at once)."""
+    if not _route("block_fwd_tri", cat):
+        return block_fwd_tri_plain(cat, spec, off, a)
+    if a < 2:
+        raise ValueError(f"block_fwd_tri: a block of {a} slot has no pair")
+    ip, fp = _block_params("block_fwd_tri", cat, spec, off, a, off, a, True,
+                           a * (a - 1) // 2, False)
+    out = torch.empty((cat.shape[0], 32), dtype=cat.dtype, device=cat.device)
+    _launch("block_fwd_tri",
+            f"asn_block_fwd_tri_{_suffix('block_fwd_tri', cat.dtype)}", ip,
+            fp, cat, out)
+    return out
+
+
+def block_bwd_tri(cat, ga, spec, off, a, acc):
+    """`acc` with the block's slot sums added in place (replaces
+    aev_asn._block_bwd_tri_kernel)."""
+    if not _route("block_bwd_tri", cat, ga, acc):
+        return block_bwd_tri_plain(cat, ga, spec, off, a, acc)
+    if a < 2:
+        raise ValueError(f"block_bwd_tri: a block of {a} slot has no pair")
+    _check_block_bwd("block_bwd_tri", cat, ga, acc)
+    ip, fp = _block_params("block_bwd_tri", cat, spec, off, a, off, a, True,
+                           a * (a - 1) // 2, True)
+    _launch("block_bwd_tri",
+            f"asn_block_bwd_tri_{_suffix('block_bwd_tri', cat.dtype)}", ip,
+            fp, cat, ga, acc)
+    return acc
+
+
 def _dh_buffers(nc, cap, dtype, dev):
     """(n_part, dh_part [n_part, 9], dh [3, 3]): one partial per block of
     8 rows, and the sum the reduce kernel writes."""
@@ -1349,9 +1641,12 @@ _KERNELS = {"step": step_fused, "packed": packed_fwd,
             "gamma": radial_gamma, "packed_bwd": packed_bwd,
             "chain": chain_sum, "wing": wing, "radial": radial_fwd_asn,
             "compact": compact_asn, "radial_bwd": radial_bwd_asn,
-            "decompact": decompact_chain}
+            "decompact": decompact_chain, "block_fwd": block_fwd,
+            "block_bwd": block_bwd, "block_fwd_tri": block_fwd_tri,
+            "block_bwd_tri": block_bwd_tri}
 _PLAIN = {"step": step_fused_plain, "packed": packed_fwd_plain,
-          "radial": radial_fwd_asn_plain, "compact": compact_asn_plain}
+          "radial": radial_fwd_asn_plain, "compact": compact_asn_plain,
+          "block_fwd": block_fwd_plain, "block_fwd_tri": block_fwd_tri_plain}
 
 
 def _tier_pad_row(atot, rca, dtype, device):
@@ -1425,19 +1720,78 @@ def _tier_partition(cnts, sp_order, tiers, n):
     return pos_of, row_ats, valids, spill
 
 
+def _stage_blocks(spec, caps_t, a_offs, pair_stage):
+    """The per-block stage's calls for one tier, one per present
+    species-pair block in `_pair_blocks` order (ascending channel, the
+    compact column order): ("tri", (off, a)), ("zero", ()) for a triangle
+    without a pair (a < 2), or ("block", (off1, a1, off2, a2, same)).
+    Each arm is the first a_t slots of its section (stage 2 packs a
+    section from its start, so they hold every neighbor of a row that fits
+    the tier's caps)."""
+    calls = []
+    for s1, s2, a1, a2, _, same in aev_roll._pair_blocks(spec, caps_t):
+        if s1 not in a_offs or s2 not in a_offs:
+            continue
+        off1, off2 = a_offs[s1][0], a_offs[s2][0]
+        if same and pair_stage == "blocks":
+            calls.append(("tri", (off1, a1)) if a1 >= 2 else ("zero", ()))
+        else:
+            calls.append(("block", (off1, a1, off2, a2, same)))
+    return calls
+
+
+def _has_pairs(spec, caps, a_offs, pair_stage):
+    """Whether the stage has any output column."""
+    if pair_stage == "packed":
+        return _packed_layout(spec, caps, a_offs) is not None
+    return bool(_stage_blocks(spec, caps, a_offs, pair_stage))
+
+
+def _tier_fwd(ops, cat_t, spec, caps_t, a_offs, pair_stage):
+    """[rows_t, n_blocks * 32]: one tier's columns, from the packed
+    kernel or from one per-block call per block."""
+    if pair_stage == "packed":
+        return ops["packed"](cat_t, spec, caps_t, a_offs)
+    cols = []
+    for kind, args in _stage_blocks(spec, caps_t, a_offs, pair_stage):
+        if kind == "zero":
+            cols.append(cat_t.new_zeros((cat_t.shape[0], 32)))
+        else:
+            fn = ops["block_fwd_tri" if kind == "tri" else "block_fwd"]
+            cols.append(fn(cat_t, spec, *args))
+    return torch.cat(cols, dim=1)
+
+
+def _tier_bwd(ops, cat_t, ga_t, spec, caps_t, a_offs, pair_stage):
+    """[rows_t, 5 atot]: one tier's slot sums for the cotangent `ga_t` of
+    its columns; the per-block calls add into one buffer in block
+    order."""
+    if pair_stage == "packed":
+        return ops["packed_bwd"](cat_t, ga_t, spec, caps_t, a_offs)
+    acc = torch.zeros_like(cat_t)
+    for i, (kind, args) in enumerate(_stage_blocks(spec, caps_t, a_offs,
+                                                   pair_stage)):
+        if kind != "zero":
+            fn = ops["block_bwd_tri" if kind == "tri" else "block_bwd"]
+            fn(cat_t, ga_t[:, 32 * i:32 * (i + 1)].contiguous(), spec,
+               *args, acc)
+    return acc
+
+
 def _angular_pair_stage(spec, sections, caps, tiers, n, cmp, deficit, cell,
-                        slot, ops):
+                        slot, ops, pair_stage):
     """([n, n_blocks * 32] compact angular AEV, deficit, part) from the
     packed slots: flat atom rows (padded to the flat row block), optionally
-    split into occupancy tiers of narrower caps; tiered, the deficit gains
-    one trailing entry, the rows the last tier could not hold. `part` is
-    what the backward reads again: the rows each packed call was given
+    split into occupancy tiers of narrower caps, through the packed or the
+    per-block pair stage (`pair_stage`); tiered, the deficit gains one
+    trailing entry, the rows the last tier could not hold. `part` is what
+    the backward reads again: the rows each tier's calls were given
     ("cats", with the tier layout and partition when tiered); None without
     pair blocks."""
     rca = spec.angular_cutoff
     a_offs, atot = _a_offsets(sections, caps)
     dtype, dev = cmp.dtype, cmp.device
-    if _packed_layout(spec, caps, a_offs) is None:
+    if not _has_pairs(spec, caps, a_offs, pair_stage):
         return cmp.new_zeros((n, 0)), deficit, None
     r = _r_flat(n)
     n_pad2 = -(-n // r) * r
@@ -1445,14 +1799,14 @@ def _angular_pair_stage(spec, sections, caps, tiers, n, cmp, deficit, cell,
     cat = _compact_to_flat(cmp, cell, slot, n, n_pad2, pad_row)
     tiers_n = _norm_tiers(tiers, caps, r, n_pad2)
     if tiers_n is None:
-        out = ops["packed"](cat, spec, caps, a_offs)[:n]
+        out = _tier_fwd(ops, cat, spec, caps, a_offs, pair_stage)[:n]
         return out, deficit, dict(tiers=None, cats=[cat])
     cnts, sp_order = _row_counts(cat, a_offs, rca)
     pos_of, row_ats, valids, spill = _tier_partition(cnts, sp_order,
                                                      tiers_n, n)
     cats = [_gather_tier_cat(cat, row_at, valid, pad_row)
             for row_at, valid in zip(row_ats, valids)]
-    outs = [ops["packed"](cat_t, spec, caps_t, a_offs)
+    outs = [_tier_fwd(ops, cat_t, spec, caps_t, a_offs, pair_stage)
             for (caps_t, _), cat_t in zip(tiers_n, cats)]
     out = torch.cat(outs)[pos_of[:n]]
     part = dict(tiers=tiers_n, cats=cats, pos_of=pos_of, row_at=row_ats,
@@ -1469,18 +1823,18 @@ def _pad_rows(x, n_all):
 
 
 def _angular_gsum_grid(spec, sections, caps, n, inv_bins, g_ang, part, ops,
-                       n_all=None):
+                       n_all=None, pair_stage="packed"):
     """[NC, cap, 5, atot]: the packed slots' cotangent sums in grid
     layout, from the angular cotangent `g_ang` [n, n_blocks * 32], over
-    the same rows the forward's packed calls were given (`part`); `n_all`
-    binned atoms (default n), those from n on with zero sums."""
+    the same rows the forward's pair-stage calls were given (`part`);
+    `n_all` binned atoms (default n), those from n on with zero sums."""
     a_offs, atot = _a_offsets(sections, caps)
     if part is None:
         gsum = g_ang.new_zeros((n, 5 * atot))
     elif part["tiers"] is None:
         cat = part["cats"][0]
         ga = torch.nn.functional.pad(g_ang, (0, 0, 0, cat.shape[0] - n))
-        gsum = ops["packed_bwd"](cat, ga, spec, caps, a_offs)[:n]
+        gsum = _tier_bwd(ops, cat, ga, spec, caps, a_offs, pair_stage)[:n]
     else:
         n_pad2 = part["pos_of"].shape[0]
         ga = torch.nn.functional.pad(g_ang, (0, 0, 0, n_pad2 - n))
@@ -1488,7 +1842,8 @@ def _angular_gsum_grid(spec, sections, caps, n, inv_bins, g_ang, part, ops,
         for (caps_t, _), row_at, valid, cat_t in zip(
                 part["tiers"], part["row_at"], part["valid"], part["cats"]):
             ga_t = torch.where(valid[:, None], ga[row_at], 0.0)
-            outs.append(ops["packed_bwd"](cat_t, ga_t, spec, caps_t, a_offs))
+            outs.append(_tier_bwd(ops, cat_t, ga_t, spec, caps_t, a_offs,
+                                  pair_stage))
         gsum = torch.cat(outs)[part["pos_of"][:n]]
     gsum = aev_roll._to_grid_rows(inv_bins, _pad_rows(gsum, n_all or n), 0.0)
     return gsum.reshape(*gsum.shape[:2], 5, atot).contiguous()
@@ -1498,7 +1853,7 @@ def _forward(static, pos, h, inv_bins, csp_grid, cell, slot, idx, ops,
              n_out=None):
     """((radial, erep, angular, deficit), (cmp, rank2, part)): the outputs
     (rows of the first `n_out` atoms) and what the backward reads again."""
-    spec, ncells, sections, caps, tiers, rep = static
+    spec, ncells, sections, caps, tiers, rep, pair_stage = static
     pos_g, sp_g = aev_roll._grid_inputs(inv_bins, pos, csp_grid)
     rad, cmp, rank2, deficit = ops["step"](pos_g, sp_g, h, idx, ncells, spec,
                                            sections, caps, rep)
@@ -1507,7 +1862,8 @@ def _forward(static, pos, h, inv_bins, csp_grid, cell, slot, idx, ops,
     rows = rad[cell[:n], slot[:n]]
     deficit = deficit[:spec.num_species].to(pos.dtype)
     angular, deficit, part = _angular_pair_stage(
-        spec, sections, caps, tiers, n, cmp, deficit, cell, slot, ops)
+        spec, sections, caps, tiers, n, cmp, deficit, cell, slot, ops,
+        pair_stage)
     return (rows[:, :srl], rows[:, srl], angular, deficit), (cmp, rank2, part)
 
 
@@ -1524,13 +1880,13 @@ def _backward(static, pos, h, inv_bins, csp_grid, cell, slot, idx, inv, cmp,
     repulsion cotangents on the compact lanes, summed with the angular
     chain before one wing gather, one fold and one dh. The cotangents may
     cover the first atoms only (`n_out`)."""
-    spec, ncells, sections, caps, _, rep = static
+    spec, ncells, sections, caps, _, rep, pair_stage = static
     n_all = cell.shape[0]
     pos_g, sp_g = aev_roll._grid_inputs(inv_bins, pos, csp_grid)
     ga = _cotangent_grid_rows(inv_bins, g_rad, g_rep, n_all)
     gr = ops["gamma"](pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep)
     gsum = _angular_gsum_grid(spec, sections, caps, g_ang.shape[0], inv_bins,
-                              g_ang, part, ops, n_all)
+                              g_ang, part, ops, n_all, pair_stage)
     gt, fcen, dh = ops["chain"](rank2, idx, cmp, gsum, gr, ncells, spec)
     del gr
     wing_g = ops["wing"](gt, inv)
@@ -1637,14 +1993,15 @@ def _angular_forward(static, pos, h, inv_bins, csp_grid, cell, slot, idx,
                      ops, n_out=None):
     """((angular, deficit), (cmp, rank2, part)): the angular channel alone
     and what its backward reads again."""
-    spec, ncells, sections, caps, tiers, compact_cols = static
+    spec, ncells, sections, caps, tiers, compact_cols, pair_stage = static
     pos_g, sp_g = aev_roll._grid_inputs(inv_bins, pos, csp_grid)
     cmp, rank2, deficit = ops["compact"](pos_g, sp_g, h, idx, ncells, spec,
                                          sections, caps)
     n = cell.shape[0] if n_out is None else n_out
     deficit = deficit[:spec.num_species].to(pos.dtype)
     angular, deficit, part = _angular_pair_stage(
-        spec, sections, caps, tiers, n, cmp, deficit, cell, slot, ops)
+        spec, sections, caps, tiers, n, cmp, deficit, cell, slot, ops,
+        pair_stage)
     if not compact_cols:
         angular = _place_blocks(spec, caps, sections, angular)
     return (angular, deficit), (cmp, rank2, part)
@@ -1654,11 +2011,12 @@ def _angular_backward(static, inv_bins, cell, slot, idx, inv, cmp, rank2,
                       part, g_ang, ops):
     """(dpos [n, 3], dh [3, 3]) of the angular channel from the forward's
     slots, `rank2` and packed rows: it reads no positions."""
-    spec, ncells, sections, caps, _, compact_cols = static
+    spec, ncells, sections, caps, _, compact_cols, pair_stage = static
     if not compact_cols:
         g_ang = _cut_blocks(spec, caps, sections, g_ang)
     gsum = _angular_gsum_grid(spec, sections, caps, g_ang.shape[0], inv_bins,
-                              g_ang.contiguous(), part, ops, cell.shape[0])
+                              g_ang.contiguous(), part, ops, cell.shape[0],
+                              pair_stage)
     gt, fcen, dh = ops["decompact"](rank2, idx, cmp, gsum, ncells, spec)
     wing_g = ops["wing"](gt, inv)
     return aev_roll._fold_wing(ncells, 1, fcen, wing_g)[cell, slot], dh
@@ -1724,7 +2082,8 @@ def _check_n_out(n_out, bins):
 
 
 def aev_asn_fused(aev_spec, grid, bins, asn, pos, box, sections, caps,
-                  tiers=None, repulsion=None, n_out=None, plain=False):
+                  tiers=None, repulsion=None, n_out=None, plain=False,
+                  pair_stage="packed"):
     """(radial [n, S_present*16], erep [n] Hartree, angular [n, blocks*32],
     deficit): both AEV channels in compact columns (present sections;
     present species-pair blocks, see present_channels) through one fused
@@ -1736,16 +2095,19 @@ def aev_asn_fused(aev_spec, grid, bins, asn, pos, box, sections, caps,
     deficit then gains a trailing entry, the rows the last tier could not
     hold. `n_out`: AEV rows, and pair-block work, for the first n_out
     binned atoms only (a domain's owned atoms); the others still take
-    their neighbor-role force through the gradient.
+    their neighbor-role force through the gradient. `pair_stage`: one of
+    PAIR_STAGES, the angular pair stage's kernels (the same function in
+    another summation order); the backward runs the same stage.
 
     Differentiable with respect to `pos` and `box.h`: one autograd.Function
-    whose backward is the four backward kernels on the card and their
-    plain versions on the CPU. `plain=True` runs the plain forwards
+    whose backward is the backward kernels on the card and their plain
+    versions on the CPU. `plain=True` runs the plain forwards
     whatever the device and leaves the gradient to autograd through them
     (the reference the kernels and the explicit backward are held
     against)."""
+    _check_stage(pair_stage)
     static = (aev_spec, tuple(grid.ncells), tuple(sections), tuple(caps),
-              _tiers_static(tiers), repulsion)
+              _tiers_static(tiers), repulsion, pair_stage)
     n_out = _check_n_out(n_out, bins)
     args = (pos, box.h.contiguous(), bins.inv, bins.species_grid, bins.cell,
             bins.slot, asn.idx)
@@ -1778,20 +2140,23 @@ def radial_aev_asn(aev_spec, grid, bins, asn, pos, box, sections,
 
 
 def angular_aev_asn(aev_spec, grid, bins, asn, pos, box, sections, caps,
-                    tiers=None, n_out=None, compact_cols=False, plain=False):
+                    tiers=None, n_out=None, compact_cols=False, plain=False,
+                    pair_stage="packed"):
     """(angular [n_out, angular_length], deficit): the angular channel
     alone over the frozen assignment `asn` (stage-2 compaction, then the
-    packed pair stage, tiered where `tiers` is given).
+    pair stage `pair_stage`, tiered where `tiers` is given).
 
     `compact_cols`: only the present species-pair blocks' 32 columns each,
     ascending torchani offset (`present_channels`), as `aev_asn_fused`
     gives them; by default the full torchani layout with zero blocks for
     absent pairs. The cotangent arrives in the same layout. `caps`,
-    `tiers`, the deficit, `n_out` and `plain`: as in `aev_asn_fused`.
-    Differentiable with respect to `pos` and `box.h` (explicit backward:
-    `packed_bwd`, `decompact_chain`, `wing`, the fold)."""
+    `tiers`, the deficit, `n_out`, `plain` and `pair_stage`: as in
+    `aev_asn_fused`. Differentiable with respect to `pos` and `box.h`
+    (explicit backward: `packed_bwd` or the per-block backwards,
+    `decompact_chain`, `wing`, the fold)."""
+    _check_stage(pair_stage)
     static = (aev_spec, tuple(grid.ncells), tuple(sections), tuple(caps),
-              _tiers_static(tiers), bool(compact_cols))
+              _tiers_static(tiers), bool(compact_cols), pair_stage)
     n_out = _check_n_out(n_out, bins)
     args = (pos, box.h.contiguous(), bins.inv, bins.species_grid, bins.cell,
             bins.slot, asn.idx)

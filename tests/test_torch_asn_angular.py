@@ -335,7 +335,7 @@ def stages(ang):
     step = tasn.step_fused_plain(*a, caps, ang["trs"])
     alone = tasn.compact_asn_plain(*a, caps)
     static = (ang["tspec"], tuple(t["grid"].ncells), ang["sections"], caps,
-              tiers, True)
+              tiers, True, "packed")
     _, (cmp, rank2, part) = tasn._angular_forward(
         static, t["pos"], t["box"].h, bins.inv, bins.species_grid, bins.cell,
         bins.slot, ta.idx, tasn._KERNELS)

@@ -170,7 +170,7 @@ def stages(bwd):
     residuals, the radial part, the slot sums, the chained lanes."""
     s, t, ta = bwd, bwd["t"], bwd["ta"]
     static = (s["tspec"], tuple(t["grid"].ncells), s["sections"], s["caps"],
-              s["tiers"]["tiered"], s["trs"])
+              s["tiers"]["tiered"], s["trs"], "packed")
     bins = t["bins"]
     _, (cmp, rank2, part) = tasn._forward(
         static, t["pos"], t["box"].h, bins.inv, bins.species_grid, bins.cell,
@@ -310,6 +310,8 @@ def test_wrappers_count_plain_calls_on_the_cpu(bwd):
                                 "radial_gamma": 1, "packed_bwd": 2,
                                 "chain_sum": 1, "wing": 1,
                                 "radial_fwd_asn": 0, "compact_asn": 0,
-                                "radial_bwd_asn": 0, "decompact_chain": 0}
+                                "radial_bwd_asn": 0, "decompact_chain": 0,
+                                "block_fwd": 0, "block_bwd": 0,
+                                "block_fwd_tri": 0, "block_bwd_tri": 0}
     assert not any(tasn.LAUNCHES.values())
     assert set(tasn.REPLACES) == set(tasn.LAUNCHES)
