@@ -9,8 +9,8 @@ It imports neither JAX nor lammps_ani_tpu. Phases, each printing one JSON
 object per line; any failure raises and the script exits non-zero:
 
   device   the card as torch and nvidia-smi report it.
-  build    nvcc builds lammps_ani_torch/csrc/aev_roll.cu and aev_asn.cu
-           for sm_90a, both at once; ptxas's registers per kernel.
+  build    nvcc builds lammps_ani_torch/csrc/aev_roll.cu, aev_asn.cu and
+           probes.cu for sm_90a, all at once; ptxas's registers per kernel.
   kernels  each of the four roll kernels against its plain PyTorch version
            on the card, WATER30 x 6^3 (6,480 atoms), in f64 and f32; the
            kernels' backwards against autograd through the plain forwards
@@ -45,10 +45,10 @@ object per line; any failure raises and the script exits non-zero:
            stages against the packed one, forward and gradients, and E, F,
            W with "blocks" on the card against the CPU (f64).
   main     the MD main path through the user's entry points (zoo.ani2x
-           with repulsion, Simulation with its default engine pallas_asn,
-           init_state, run): ANI-2x + XTB repulsion at full width, one
-           model, weights drawn from a seed, f32; WATER30 x 15^3 = 101,250
-           atoms; dt 0.5 fs, 12-step chunks. The tile was not equilibrated
+           with repulsion, Simulation(cellroll=True), which in f32 on the
+           card is the pallas_asn engine, init_state, run): ANI-2x + XTB
+           repulsion at full width, one model, weights drawn from a seed,
+           f32; WATER30 x 15^3 = 101,250 atoms; dt 0.5 fs, 12-step chunks. The tile was not equilibrated
            under these weights, so 12 chunks of Langevin 300 K at damp
            10 fs come first; then 2 warm and 4 timed chunks at damp 100 fs
            (the timed window is taken again if a capacity regrew in it).
@@ -96,9 +96,34 @@ object per line; any failure raises and the script exits non-zero:
            blocks and blocks_full (three rounds of 10, the median), each
            against packed, and each per-block kernel's ms, launches per
            call, plain ms on 8,192 rows and bound.
+  mirror   the mirror engine (ANI-2x + XTB repulsion) and the xla and
+           pallas hybrids (no repulsion) at WATER30 x 6^3, f64: E, F, W
+           at the start state on the card against the CPU; the pallas
+           hybrid launches radial_fwd and radial_bwd and no plain version,
+           the other two no kernel; the mirror's E, F, W against
+           pallas_asn's at the same positions.
+  mirror_md  the JAX CLI's defaults on the main path's model and tile:
+           Simulation() (the mirror engine), 101,250 atoms, f32, the cell
+           list sized as lammps_ani_tpu/run.py sizes it, Langevin 300 K,
+           dt 0.5 fs, a rebuild every 12 steps, from the main path's final
+           positions and velocities: 1 warm and 3 timed chunks (ms/step,
+           ns/day, regrows by kind, peak memory), one chunk under
+           torch.profiler (device-busy ms/step), and one force evaluation's
+           forces against pallas_asn's at the final state.
+  probes   the probes' entry points (lammps_ani_torch/probes: the
+           counterparts of examples/benchmark/micro_kernel_variants.py,
+           micro_gather.py and micro_pieces.py) at their main sizes, their
+           launch counts zeroed just before and read just after; then each
+           probe kernel's stage or mode (csrc/probes.cu) against its plain
+           version (f32 sums within 5e-6 + 1e-5 of the entry with the same
+           NaN and inf entries; the gathers equal), its ms, plain ms,
+           library ms and bound, and the radial forward kernel on the
+           probe's grid (the JAX probes' production-kernel timings).
 
-Then one line {"kernels": [...]} (all twenty kernels), nvidia-smi's name
-and power-limit line, and last {"ok": true, "device": {...}}.
+Then one line {"kernels": [...]} (the twenty package kernels, the probe
+kernels by stage and mode, and the radial forward kernel's probe
+timing), nvidia-smi's name and power-limit line, and last {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -124,11 +149,16 @@ from lammps_ani_torch.ops import aev_asn as asn
 from lammps_ani_torch.ops import aev_roll as ar
 from lammps_ani_torch.ops import cell_roll as crmod
 from lammps_ani_torch.ops import neighbors as nbops
+from lammps_ani_torch.probes._common import time_ms
+from lammps_ani_torch.probes import micro_gather as pmg
+from lammps_ani_torch.probes import micro_kernel_variants as pmv
+from lammps_ani_torch.probes import micro_pieces as pmp
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TILE = os.path.join(ROOT, "examples", "benchmark", "data", "equil_water30.npz")
 SOURCE = "lammps_ani_torch/csrc/aev_roll.cu"
 ASN_SOURCE = "lammps_ani_torch/csrc/aev_asn.cu"
+PROBE_SOURCE = "lammps_ani_torch/csrc/probes.cu"
 KERNELS = ("radial_fwd", "radial_bwd", "angular_fwd", "angular_bwd")
 # the kernels of the MD main path, and those of the per-channel surface
 ASN_KERNELS = ("build_inv", "build_idx", "step_fused", "packed_fwd",
@@ -149,9 +179,15 @@ MASSES = np.array([1.008, 12.0107, 14.0067, 15.999, 32.06, 18.998403163,
                    35.45])
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores.
+# outside the tensor cores (128 lanes per SM, 2 flops per fused
+# multiply-add). An add, multiply or compare on its own is one
+# instruction of a lane: half that rate. The special-function unit
+# (sqrt, exp2, sin, cos, reciprocal) gives 16 results per clock per SM
+# against the 128 lanes (CUDA programming guide, compute capability 9.0).
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_F32_INSTR = PEAK_F32 / 2
+PEAK_SFU = PEAK_F32 / 16
 
 # Operations each kernel needs per unit of work, counting every add,
 # multiply, compare and transcendental as one (a lower bound):
@@ -210,16 +246,20 @@ def water_box(rep: int) -> LammpsData:
 
 
 def make_sim(data, dtype, device, integrator=None, rebuild_every=CHUNK,
-             seed=1, engine=None, repulsion=None, pair_stage=None):
-    """A `Simulation` of ANI-2x, one model, weights drawn from `seed`;
-    the default engine (pallas_asn) carries the XTB repulsion term, the
-    roll engine (pallas_full) cannot; `pair_stage`: the asn engine's
-    angular pair stage (None: packed)."""
+             seed=1, engine="pallas_asn", repulsion=None, pair_stage=None,
+             cellroll=False, ghost_capacity=None):
+    """A `Simulation` of ANI-2x, one model, weights drawn from `seed`, on
+    `engine` (None: as `cellroll` resolves it, the user's path; the main
+    path's `cellroll=True` in f32 on the card is pallas_asn); the asn
+    engine and the mirror carry the XTB repulsion term, the roll engine
+    (pallas_full) and the hybrids do not; `pair_stage`: the asn engine's
+    angular pair stage (None: packed); `ghost_capacity` (None: max(4096,
+    n / 2), which only the degree measure uses on the grid engines)."""
     n = data.n_atoms
     if repulsion is None:
-        repulsion = engine != "pallas_full"
+        repulsion = engine not in ("pallas_full", "xla", "pallas")
     nbr = NeighborConfig(cutoff=5.1, skin=2.0, k_max=128,
-                         ghost_capacity=max(4096, n // 2),
+                         ghost_capacity=ghost_capacity or max(4096, n // 2),
                          use_cell_list=n > 4096, cell_capacity=32,
                          rebuild_every=rebuild_every)
     pot = zoo.ani2x(num_models=1, seed=seed, dtype=dtype, device=device,
@@ -227,7 +267,8 @@ def make_sim(data, dtype, device, integrator=None, rebuild_every=CHUNK,
     return Simulation(potential=pot, species=data.species,
                       masses=data.masses_by_type[data.species], nbr=nbr,
                       dt=0.5, integrator=integrator, dtype=dtype,
-                      device=device, engine=engine, pair_stage=pair_stage)
+                      device=device, engine=engine, pair_stage=pair_stage,
+                      cellroll=cellroll)
 
 
 def make_box(data, dtype, device):
@@ -382,21 +423,6 @@ def bound(name, k, work):
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
 
-def time_ms(fn, reps, warm=1):
-    """Device time per call: CUDA events around `reps` calls."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -415,11 +441,17 @@ def phase_build():
     for fn, used in regs.items():
         for kname in (*KERNELS, "dh_reduce",
                       *(f"asn_{k}" for k in ASN_KERNELS + CHANNEL_KERNELS
-                        + BLOCK_KERNELS)):
+                        + BLOCK_KERNELS),
+                      "probe_radial_variant", "probe_compact_onehot"):
             if f"{kname}_kernel" in fn:
                 suf = ("f64" if f"{kname}_kernelId" in fn else
-                       "f32" if f"{kname}_kernelIf" in fn else "any")
+                       "f32" if f"{kname}_kernelIf" in fn else
+                       f"stage{fn.split(kname + '_kernelILi')[1][0]}"
+                       if f"{kname}_kernelILi" in fn else "any")
                 names[f"{kname}_{suf}"] = used
+            elif "probe_compact_kernelILi" in fn:
+                mode = fn.split("probe_compact_kernelILi")[1][0]
+                names[f"probe_compact_mode{mode}"] = used
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": names})
 
@@ -594,7 +626,11 @@ def phase_main(device, rep=15, equil_chunks=12, warm_chunks=2,
     sim = make_sim(data, torch.float32, device,
                    integrator=integrate.Langevin(temp=300.0, damp=10.0,
                                                  generator=gen),
-                   rebuild_every=CHUNK, seed=seed)
+                   rebuild_every=CHUNK, seed=seed, engine=None,
+                   cellroll=True)
+    if sim.engine != "pallas_asn":
+        raise AssertionError(f"main: cellroll=True in f32 on the card gave "
+                             f"engine {sim.engine}, not pallas_asn")
     box = make_box(data, torch.float32, device)
     t0 = time.perf_counter()
     state = sim.init_state(data.positions, box, temp=300.0, seed=seed)
@@ -1625,7 +1661,7 @@ def profile_groups(kernels):
            ("roll_fold", ("roll",))])
 
 
-def profile_chunk(sim, state, kernels):
+def profile_chunk(sim, state, kernels, groups=None):
     """Where one asn MD step spends its time: one chunk on the host clock
     and one under torch.profiler. The idle share is 1 - (device busy time
     of the profiled chunk) / (host time of the unprofiled chunk): the
@@ -1651,7 +1687,8 @@ def profile_chunk(sim, state, kernels):
         regrows += sim.regrow_events - before
     else:
         raise AssertionError("profile: every chunk regrew a capacity")
-    busy, groups, top = device_time(prof, CHUNK, profile_groups(kernels))
+    busy, groups, top = device_time(prof, CHUNK,
+                                    groups or profile_groups(kernels))
     return state, {"engine": sim.engine, "pair_stage": sim.pair_stage,
                    "steps": CHUNK, "regrows_skipped": regrows,
                    "unprofiled_ms_per_step": chunk_ms / CHUNK,
@@ -2078,6 +2115,382 @@ def phase_pair_stage(device, rows=100352, caps_h=16, caps_o=8, reps=10,
     emit(line)
 
 
+# ---------------------------------------------------------------------------
+# The mirror engine and its hybrids (plain PyTorch; the pallas hybrid's
+# radial channel is the roll radial kernels')
+# ---------------------------------------------------------------------------
+
+MIRROR_ENGINES = ("mirror", "xla", "pallas")
+# torch.profiler kernel-name groups of a mirror MD step (no kernel of the
+# port's own: PyTorch's gathers, scatters, reductions, products, the rest)
+MIRROR_GROUPS = (("gather_index", ("index", "gather", "Index")),
+                 ("scatter", ("scatter",)),
+                 ("reduce", ("reduce", "Reduce")),
+                 ("matmul", ("gemm", "Gemm", "cutlass", "sm90_xmma",
+                             "ampere_", "Kernel2")),
+                 ("elementwise", ("elementwise", "Elementwise")))
+
+
+def _all_counts():
+    return {"roll": dict(ar.LAUNCHES), "asn": dict(asn.LAUNCHES),
+            "roll_plain": dict(ar.PLAIN_CALLS),
+            "asn_plain": dict(asn.PLAIN_CALLS)}
+
+
+def _reset_all_counts():
+    ar.reset_counts()
+    asn.reset_counts()
+    pmv.reset_counts()
+    pmg.reset_counts()
+
+
+def phase_mirror(device, rep=6):
+    """The mirror engine and the two hybrids at WATER30 x 6^3 (6,480
+    atoms), f64: E, F, W at the start state on the card against the CPU
+    (the mirror with ANI-2x + XTB repulsion, the hybrids without), the
+    launch counts of each card evaluation (the pallas hybrid: radial_fwd
+    and radial_bwd, no plain version; the mirror and the xla hybrid: no
+    kernel), and the mirror's forces against pallas_asn's at the same
+    positions. The ghost capacity holds the 48 A box's 8,448 periodic
+    images within 7.1 A (they outnumber its atoms), and the rebuild at
+    the compared state reports no overflow."""
+    data = water_box(rep)
+    line = {"phase": "mirror", "atoms": data.n_atoms, "dtype": "float64"}
+    for engine in MIRROR_ENGINES:
+        res = {}
+        for dev in (device, "cpu"):
+            _reset_all_counts()
+            sim = make_sim(data, torch.float64, dev, engine=engine,
+                           ghost_capacity=4 * data.n_atoms)
+            st = sim.init_state(data.positions,
+                                make_box(data, torch.float64, dev))
+            _sync(dev)
+            res[dev] = (sim, st, _all_counts())
+            overflow = sim._chunk(st, 0)[3]
+            if overflow:
+                raise AssertionError(f"mirror: {engine} on {dev}: the "
+                                     f"rebuild overflowed: {overflow}")
+        (sk, stk, counts), (sp, stp, _) = res[device], res["cpu"]
+        same = (sk.engine == sp.engine == engine
+                and sk._k_max == sp._k_max and sk._ang_cap == sp._ang_cap
+                and sk._roll_grid == sp._roll_grid
+                and sk.potential.spec.angular_caps
+                == sp.potential.spec.angular_caps)
+        out = _efw_line((stk.pe, stk.force, stk.virial),
+                        (stp.pe, stp.force, stp.virial), same)
+        launched = {k: v for k, v in {**counts["roll"],
+                                      **counts["asn"]}.items() if v}
+        plain = {k: v for k, v in {**counts["roll_plain"],
+                                   **counts["asn_plain"]}.items() if v}
+        out.update(engine=sk.engine, k_max=sk._k_max, ang_cap=sk._ang_cap,
+                   angular_caps=list(sk.potential.spec.angular_caps),
+                   repulsion=sk.potential.spec.repulsion is not None,
+                   roll_grid=None if sk._roll_grid is None else
+                   [list(sk._roll_grid.ncells), sk._roll_grid.cap],
+                   launches=launched, plain_calls=plain)
+        line[engine] = out
+        want = ({"radial_fwd", "radial_bwd"} if engine == "pallas" else set())
+        if not (same and out["pe_rel_err"] <= 1e-11
+                and out["force_err"] <= 1e-9 and out["virial_err"] <= 1e-8):
+            raise AssertionError(f"mirror: {engine} card vs CPU: {out}")
+        if set(launched) != want or plain:
+            raise AssertionError(f"mirror: {engine} launched {launched}, "
+                                 f"plain versions {plain}; expected {want}")
+        if engine == "mirror":
+            mirror_state = (sk, stk)
+        del res
+        torch.cuda.empty_cache()
+    # the mirror against pallas_asn at the same positions (f64)
+    sk, stk = mirror_state
+    sa = make_sim(data, torch.float64, device)
+    sta = sa.init_state(sk.positions_input_order(stk),
+                        make_box(data, torch.float64, device))
+    f_m = torch.as_tensor(sk.forces_input_order(stk))
+    f_a = torch.as_tensor(sa.forces_input_order(sta))
+    err = float((f_m - f_a).abs().max())
+    lim = 1e-10 + 1e-10 * float(f_a.abs().max())
+    line["mirror_vs_pallas_asn"] = {
+        "pe_rel_err": abs(float(stk.pe) - float(sta.pe)) / abs(float(sta.pe)),
+        "pe_limit": 1e-11, "force_err": err, "force_limit": lim,
+        "virial_err": float((stk.virial - sta.virial).abs().max()),
+        "virial_limit": 1e-8}
+    emit(line)
+    v = line["mirror_vs_pallas_asn"]
+    if not (v["pe_rel_err"] <= 1e-11 and err <= lim
+            and v["virial_err"] <= 1e-8):
+        raise AssertionError(f"mirror vs pallas_asn: {v}")
+
+
+def cli_sizing(data, skin=2.0, cutoff=5.1):
+    """k_max and the cell capacity as the JAX CLI sizes them
+    (lammps_ani_tpu/run.py:118-119) from the density."""
+    rlist = cutoff + skin
+    density = data.n_atoms / float(abs(np.linalg.det(data.box_h)))
+    r8 = lambda x: -(-int(x) // 8) * 8
+    return r8(4.19 * rlist ** 3 * density * 1.3 + 8), r8(
+        rlist ** 3 * density * 2.0 + 4)
+
+
+def asn_forces_at(sim_asn, pos_in, box):
+    """The asn engine's (pe, forces in the caller's atom order) at given
+    positions (caller order), after a fresh rebuild; raises if a capacity
+    of that rebuild overflowed."""
+    pos = torch.as_tensor(pos_in[sim_asn.order], dtype=box.h.dtype,
+                          device=box.h.device)
+    pos_w = nbops.wrap_positions(pos, box)
+    bins = sim_asn._bins(pos_w, box)
+    if (int(bins[0].count_max) > sim_asn._roll_grid.cap
+            or float(bins[1].ovf) > 0):
+        raise AssertionError("asn_forces_at: the asn rebuild overflowed")
+    pe, f, _, deficit = sim_asn._forces(pos_w, box, bins)
+    if float(deficit.max()) > 0:
+        raise AssertionError(f"asn_forces_at: angular deficit {deficit}")
+    return float(pe), f.detach().cpu().numpy()[sim_asn.inv_order]
+
+
+def phase_mirror_md(device, sim_asn, state_asn, warm_chunks=1,
+                    timed_chunks=3, seed=1):
+    """The JAX CLI's defaults on the main path's model and tile: the
+    mirror engine (`Simulation` with `cellroll=False`, its default),
+    101,250 atoms, f32, ANI-2x + XTB repulsion, one model, the cell list
+    with k_max and cell capacity sized as the CLI sizes them, ang_skin at
+    its default, Langevin 300 K (damp 100 fs), dt 0.5 fs, a rebuild every
+    12 steps, from the main path's final positions and velocities: 1 warm
+    and 3 timed chunks, one chunk under torch.profiler, regrows by kind,
+    peak memory, and one force evaluation's forces against pallas_asn's at
+    the final state."""
+    data = water_box(15)
+    n = data.n_atoms
+    k_max, cell_cap = cli_sizing(data)
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    pot = zoo.ani2x(num_models=1, seed=seed, dtype=torch.float32,
+                    device=device, repulsion=True)
+    nbr = NeighborConfig(cutoff=5.1, skin=2.0, k_max=k_max,
+                         ghost_capacity=max(2048, n), rebuild_every=CHUNK,
+                         use_cell_list=n > 2000, cell_capacity=cell_cap)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    sim = Simulation(potential=pot, species=data.species,
+                     masses=data.masses_by_type[data.species], nbr=nbr,
+                     dt=0.5, dtype=torch.float32, device=device,
+                     integrator=integrate.Langevin(temp=300.0, damp=100.0,
+                                                   generator=gen))
+    box = make_box(data, torch.float32, device)
+    t0 = time.perf_counter()
+    state = sim.init_state(sim_asn.positions_input_order(state_asn), box,
+                           vel=sim_asn.velocities_input_order(state_asn))
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    sizing_init = {"k_max": sim._k_max, "ang_cap": sim._ang_cap,
+                   "angular_caps": list(sim.potential.spec.angular_caps),
+                   "cell_capacity": sim._grid and sim._grid.cell_capacity}
+    state, warm_rows = sim.run(state, warm_chunks * CHUNK, thermo_every=1)
+    regrow_warm = dict(sim.regrow_kinds)
+    before = sim.regrow_events
+    state, rows, chunk_ms = _run_timed(sim, state, timed_chunks, device)
+    counts = _all_counts()
+    launched = {k: v for k, v in {**counts["roll"], **counts["asn"]}.items()
+                if v}
+    line = {"phase": "mirror_md", "engine": sim.engine, "atoms": n,
+            "dtype": "float32", "models": 1, "repulsion": True,
+            "dt_fs": sim.dt, **_md_numbers(sim, rows, chunk_ms),
+            "init_state_s": t_init,
+            "cli_sizing": {"k_max": k_max, "cell_capacity": cell_cap,
+                           "ghost_capacity": max(2048, n)},
+            "sizing_at_init": sizing_init,
+            "sizing": {"k_max": sim._k_max, "ang_cap": sim._ang_cap,
+                       "angular_caps": list(sim.potential.spec.angular_caps),
+                       "cell_capacity": sim._grid and sim._grid.cell_capacity,
+                       "ghost_capacity": sim.nbr.ghost_capacity},
+            "regrow_kinds_warm": regrow_warm,
+            "regrow_kinds": dict(sim.regrow_kinds),
+            "regrow_events_timed": sim.regrow_events - before,
+            "launches": launched,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    _check_md("mirror_md", warm_rows + rows, state, {"mirror": 1}, {})
+    if sim.engine != "mirror" or launched:
+        raise AssertionError(f"mirror_md: engine {sim.engine}, kernels "
+                             f"launched {launched}")
+    state, line["profile"] = profile_chunk(sim, state, (),
+                                           groups=MIRROR_GROUPS)
+    # one force evaluation at the final state: mirror against pallas_asn
+    pos_in = sim.positions_input_order(state)
+    pe_a, f_a = asn_forces_at(sim_asn, pos_in, state.box)
+    t0 = time.perf_counter()
+    pe_m, f_m, _, _ = sim._forces(state.pos, state.box,
+                                  (state.nbrs, state.bins))
+    _sync(device)
+    f_m = f_m.detach().cpu().numpy()[sim.inv_order]
+    atol, rtol = 5e-6, 1e-4
+    lim = atol + rtol * float(np.abs(f_a).max())
+    line["forces_vs_pallas_asn"] = {
+        "pe_mirror": float(pe_m), "pe_asn": pe_a,
+        "pe_rel_err": abs(float(pe_m) - pe_a) / abs(pe_a),
+        "force_err": float(np.abs(f_m - f_a).max()), "force_limit": lim,
+        "max_abs_force": float(np.abs(f_a).max()),
+        "mirror_eval_host_ms": (time.perf_counter() - t0) * 1e3}
+    emit(line)
+    if not line["forces_vs_pallas_asn"]["force_err"] <= lim:
+        raise AssertionError(f"mirror_md: forces vs pallas_asn: "
+                             f"{line['forces_vs_pallas_asn']}")
+
+
+# ---------------------------------------------------------------------------
+# The probes (lammps_ani_torch/probes, csrc/probes.cu)
+# ---------------------------------------------------------------------------
+
+
+def probe_compare(got, ref, exact=False):
+    """Errors of a probe kernel against its plain version: NaN and inf in
+    the same entries, the finite ones within 5e-6 + 1e-5 of the entry
+    (f32 sums of non-negative terms in another order), or equal (the
+    gathers)."""
+    nan_ok = bool(torch.equal(torch.isnan(got), torch.isnan(ref)))
+    inf_ok = bool(torch.equal(torch.isinf(got), torch.isinf(ref)))
+    fin = torch.isfinite(ref) & torch.isfinite(got)
+    err = (got[fin] - ref[fin]).abs()
+    worst = (float((err / (5e-6 + 1e-5 * ref[fin].abs())).max())
+             if err.numel() else 0.0)
+    out = {"max_abs_err": float(err.max()) if err.numel() else 0.0,
+           "err_over_limit": worst, "nan_pattern_equal": nan_ok,
+           "inf_pattern_equal": inf_ok,
+           "non_finite": int((~torch.isfinite(ref)).sum())}
+    if exact:
+        out["equal"] = bool(torch.equal(got, ref))
+        ok = out["equal"]
+    else:
+        ok = nan_ok and inf_ok and worst <= 1.0
+    return out, ok
+
+
+def phase_probes(device, reps=10):
+    """The probes' own entry points on the card (the counterparts of
+    examples/benchmark/micro_kernel_variants.py, micro_gather.py and
+    micro_pieces.py at their main sizes), their launch counts zeroed
+    just before and read just after; then each probe kernel and mode
+    against its plain version, its ms, plain ms, library ms and bound, and
+    the radial forward kernel (rows 22-23) on the probe grid. Returns the
+    kernels' rows."""
+    _reset_all_counts()
+    variants = {st: pmv.run_variant(st, reps=reps, device=device)
+                for st in pmv.STAGES}
+    gathers = [pmg.run(*case, reps=reps, device=device)
+               for case in pmg.CASES]
+    s = pmp.setup(device=device)
+    bare = pmp.bare_kernel(reps=reps, device=device, s=s)
+    launches_v, launches_g = dict(pmv.LAUNCHES), dict(pmg.LAUNCHES)
+    launches_r = ar.LAUNCHES["radial_fwd"]
+    plain = {**pmv.PLAIN_CALLS, **pmg.PLAIN_CALLS,
+             "radial_fwd": ar.PLAIN_CALLS["radial_fwd"]}
+    if (any(v == 0 for v in {**launches_v, **launches_g}.values())
+            or launches_r == 0 or any(plain.values())):
+        raise AssertionError(f"probes: launches {launches_v} {launches_g} "
+                             f"radial_fwd {launches_r}, plain {plain}")
+    # the pieces of micro_pieces after the count (they launch radial_fwd
+    # again inside radial_aev_roll)
+    pieces = pmp.pieces(reps=reps, device=device, s=s)
+    line = {"phase": "probes", "variants_main": pmv.MAIN,
+            "variants_ms": {st: v["ms"] for st, v in variants.items()},
+            "gather_ms": gathers, "bare_kernel": bare, "pieces_ms": pieces,
+            "launches": {**launches_v, **launches_g,
+                         "radial_fwd": launches_r}}
+    rows, checks = [], {}
+    args = pmv.make_inputs(**pmv.MAIN, seed=0, device=device)
+    nc, cap, w = pmv.MAIN["nc"], pmv.MAIN["cap"], pmv.MAIN["w"]
+    n_in = pmv.pairs_within(*args[:6])
+    line["variants_pairs_within_cutoff"] = n_in
+    for st in pmv.STAGES:
+        got = pmv.radial_variant(st, *args)
+        ref = pmv.radial_variant_plain(st, *args)
+        _sync(device)
+        cols = pmv.WRITTEN[st]
+        err, ok = probe_compare(got[..., :cols], ref[..., :cols])
+        if not (ok and bool(torch.equal(got[..., cols:], ref[..., cols:]))):
+            raise AssertionError(f"probes: variant {st}: {err}")
+        del got, ref
+        plain_ms = time_ms(
+            lambda: pmv.radial_variant_plain(st, *args), reps=1)
+        t_b = pmv.variant_bytes(st, nc, cap, w) / PEAK_BYTES * 1e3
+        ops = pmv.variant_ops(st, nc, cap, w, n_in)
+        t_o = max(ops["fp32"] / PEAK_F32_INSTR, ops["sfu"] / PEAK_SFU) * 1e3
+        b_ms, b_by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+        checks[st] = {**err, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "fp32_ms": ops["fp32"] / PEAK_F32_INSTR * 1e3,
+                      "sfu_ms": ops["sfu"] / PEAK_SFU * 1e3}
+        rows.append({
+            "name": f"probe_radial_variant<{st}>", "route": "cuda",
+            "source": PROBE_SOURCE, "replaces": pmv.REPLACES[st].split()[0],
+            "launches": launches_v[st], "max_abs_err": err["max_abs_err"],
+            "err_over_limit": err["err_over_limit"],
+            "ms": variants[st]["ms"], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    del args
+    torch.cuda.empty_cache()
+    for case, timed in zip(pmg.CASES, gathers):
+        inp = pmg.make_inputs(*case, seed=0, device=device)
+        for mode in pmg.MODES:
+            x, idx = pmg._operands(mode, inp)
+            got = pmg.compact(mode, x, idx, inp["k"])
+            ref = pmg.compact_plain(mode, x, idx, inp["k"])
+            _sync(device)
+            err, ok = probe_compare(got, ref, exact=True)
+            if not ok:
+                raise AssertionError(f"probes: compact {mode} {case}: {err}")
+            del got, ref
+            plain_ms = time_ms(
+                lambda: pmg.compact_plain(mode, x, idx, inp["k"]), reps=1)
+            lib = pmg.library_call(mode, inp)
+            lib_ms = (time_ms(lib, reps=reps) if lib is not None
+                      else None)
+            nbytes = pmg.compact_bytes(mode, inp)
+            b_ms = nbytes / PEAK_BYTES * 1e3
+            checks[f"{mode}{list(case)}"] = {**err, "bytes": nbytes}
+            rows.append({
+                "name": f"probe_compact<{mode}>{list(case)}",
+                "route": "cuda", "source": PROBE_SOURCE,
+                "replaces": pmg.REPLACES[mode].split()[0],
+                "launches": launches_g[mode],
+                "max_abs_err": err["max_abs_err"], "ms": timed[mode],
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
+                "library_ms": lib_ms})
+        del inp
+        torch.cuda.empty_cache()
+    # rows 22-23: the radial forward kernel on the probe grid (shell 1),
+    # one timing for both JAX call sites
+    k = {"pos_g": s["pos_g"], "sp_g": s["sp_g"], "h": s["h"],
+         "ncells": s["grid"].ncells, "shell": 1, "spec": s["spec"],
+         "present_r": s["present"], "present_a": s["present"],
+         "caps": (0,) * 7}
+    got = pmp.bare_call(s)()
+    ref = ar.radial_fwd_plain(k["pos_g"], k["sp_g"], k["h"], k["ncells"], 1,
+                              s["spec"], s["present"])
+    _sync(device)
+    err = compare("radial_fwd", k, got, ref)
+    if err["worst_ratio"] > 1.0:
+        raise AssertionError(f"probes: radial_fwd on the probe grid: {err}")
+    del got, ref
+    plain_ms = time_ms(lambda: ar.radial_fwd_plain(
+        k["pos_g"], k["sp_g"], k["h"], k["ncells"], 1, s["spec"],
+        s["present"]), reps=1)
+    work = work_counts(k)
+    b_ms, b_by = bound("radial_fwd", k, work)
+    line["radial_fwd_probe_grid"] = {
+        "ncells": list(k["ncells"]), "cap": s["grid"].cap, **err,
+        "work": work, "plain_ms": plain_ms, "bound_ms": b_ms}
+    rows.append({
+        "name": "radial_fwd<probe grid>", "route": "cuda", "source": SOURCE,
+        "replaces": "examples/benchmark/micro_kernel_variants.py:189, "
+                    "examples/benchmark/micro_pieces.py:110",
+        "launches": launches_r, "max_abs_err": err["max_abs_err"],
+        "err_over_limit": err["worst_ratio"], "ms": bare["ms"],
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None})
+    line["checks"] = checks
+    emit(line)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2103,6 +2516,9 @@ def main() -> int:
     rows += phase_asn_channels(device, sim, state)
     rows += phase_blocks_md(device, sim, state)
     phase_pair_stage(device)
+    phase_mirror(device)
+    phase_mirror_md(device, sim, state)
+    rows += phase_probes(device)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -16,17 +16,24 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from .ops.neighbors import Box  # noqa: E402
+from .ops.neighbors import Box, Ghosts, NeighborList  # noqa: E402
 from .models.aev import AEVSpec, ani1x_aev_spec, ani2x_aev_spec, compute_aev  # noqa: E402
 from .models.networks import EnergyShifter, NetworkSpec  # noqa: E402
 from .models.potential import (  # noqa: E402
     ANIPotential,
     ANISpec,
+    atomic_energies,
     atomic_energies_asn,
+    atomic_energies_mirror,
     atomic_energies_roll,
+    energy_forces,
+    energy_forces_virial,
     energy_forces_virial_asn,
+    energy_forces_virial_mirror,
     energy_forces_virial_roll,
+    potential_energy,
 )
+from .models.repulsion import RepulsionSpec  # noqa: E402
 from .md.simulation import NeighborConfig, Simulation  # noqa: E402
 from .md.state import MDState  # noqa: E402
 from .md import integrate  # noqa: E402

@@ -1,44 +1,64 @@
 """The MD engine's host loop: one chunk = rebuild + up to N
 velocity-Verlet steps.
 
-Port of lammps_ani_tpu/md/simulation.py with two engines, under the JAX
+Port of lammps_ani_tpu/md/simulation.py, with its engines under the JAX
 package's names:
 
-  * `pallas_asn` (the default): both AEV channels and the XTB repulsion
-    term from the assignment-compacted kernels (ops/aev_asn.py) over one
-    coarse bin grid (side >= Rcr + skin); every `rebuild_every` steps the
-    bins and the window-lane assignment (keep radius Rcr + skin) are
-    rebuilt. The compact sections, the angular caps and the occupancy
-    tiers are sized from one degree measure at `init_state`. `pair_stage`
-    picks the angular pair stage (`aev_asn.PAIR_STAGES`): "packed" (the
-    default) sizes up to three tiers by the chunk-budget ladder, the
-    per-block stages ("blocks", "blocks_full") two tiers under their own
-    work model, as the JAX engine does under LAT_ANG_PACKED=0.
+  * `mirror` (the default, `cellroll=False`): the AEV over a neighbor
+    matrix of radius cutoff + skin and a frozen angular sub-list of radius
+    Rca + ang_skin, both resolved into owner/shift/mirror tables
+    (ops/nbr_grad.py) whose backward gathers instead of scattering; plain
+    PyTorch, no kernel; carries the XTB repulsion term.
+  * `xla` and `pallas`, the cell-roll hybrids: the mirror engine with its
+    radial channel from one coarse roll grid instead (side >= Rcr +
+    ang_skin or Rcr + skin), by `cell_roll.radial_aev_cellroll` (plain
+    PyTorch) or by the radial kernels of ops/aev_roll.py at shell 1; no
+    repulsion term (a repulsion potential runs the plain mirror).
+  * `pallas_asn`: both AEV channels and the XTB repulsion term from the
+    assignment-compacted kernels (ops/aev_asn.py) over one coarse bin grid
+    (side >= Rcr + skin); every `rebuild_every` steps the bins and the
+    window-lane assignment (keep radius Rcr + skin) are rebuilt. The
+    compact sections, the angular caps and the occupancy tiers are sized
+    from one degree measure at `init_state`. `pair_stage` picks the
+    angular pair stage (`aev_asn.PAIR_STAGES`): "packed" (the default)
+    sizes up to three tiers by the chunk-budget ladder, the per-block
+    stages ("blocks", "blocks_full") two tiers under their own work
+    model, as the JAX engine does under LAT_ANG_PACKED=0.
   * `pallas_full`: both channels from the roll-grid kernels
     (ops/aev_roll.py) over one fine bin grid; no repulsion term.
 
-Neither keeps a neighbor matrix or mirror tables. Step (LAMMPS fix nve +
-optional fix langevin):
+`engine=None` resolves as the JAX package does: `cellroll=False` gives
+the mirror engine; `cellroll=True` gives `pallas_asn` in f32 on the card
+(the JAX package's "TPU and f32") and the `xla` hybrid elsewhere. An
+explicit `engine` is the counterpart of the JAX package's LAT_ROLL_IMPL.
+A box too small for the 3x3x3 grid of a roll engine runs the mirror
+engine (`sim.engine` says which ran; an explicit `engine` that does not
+run warns). Step (LAMMPS fix nve + optional fix
+langevin):
 
   v += dt/2 * ftm2v * f/m ;  x += dt * v ;  f = forces(x) (+ Langevin)
   v += dt/2 * ftm2v * f/m
 
 Neighbor contract (LAMMPS `neigh_modify check yes`): if any atom moved
-more than skin/2 since the rebuild, the chunk stops before the next step
+more than skin_eff/2 since the rebuild (skin_eff = skin on the asn and
+roll engines, min(skin, ang_skin) on the mirror engine and its hybrids,
+whose angular sub-list is frozen), the chunk stops before the next step
 and `run` resumes from a fresh rebuild at exactly that state. Capacity
-overflow (a roll bin over `cap`, a compact section over its lanes, an
-angular cap truncating neighbors, the last tier short of rows) is
-reported per chunk with its size; `run` grows exactly that capacity,
-never shrinking one, and re-runs the chunk from its input state.
+overflow (ghost images, the neighbor matrix's k_max, a slot without its
+mirror or an angular sub-list over its cap, a roll bin over `cap`, a
+compact section over its lanes, an angular cap truncating neighbors, the
+last tier short of rows) is reported per chunk; `run` grows exactly that
+capacity, never shrinking one, and re-runs the chunk from its input
+state.
 
 Not ported yet (they raise NotImplementedError): NoseHoover, NPT and the
-barostats, RATTLE constraints, `extra_force`, and the mirror engine the
-JAX package falls back to when the box is too small for a 3x3x3 grid.
+barostats, RATTLE constraints and `extra_force`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -46,10 +66,12 @@ import torch
 
 from .. import units
 from .._device import resolve_device
+from ..models import aev as aevmod
 from ..models import potential as potmod
 from ..ops import aev_asn
 from ..ops import cell_list as clmod
 from ..ops import cell_roll as crmod
+from ..ops import nbr_grad
 from ..ops import neighbors as nbops
 from . import integrate
 from .state import MDState
@@ -69,7 +91,7 @@ ANG_TIER_MIN_ATOMS = 4096
 TIER_ROWS_MARGIN, TIER_ROWS_EXTRA = 1.06, 64
 LAST_TIER_ROWS_MARGIN, LAST_TIER_ROWS_EXTRA = 1.3, 4096
 
-ENGINES = ("pallas_asn", "pallas_full")
+ENGINES = ("mirror", "xla", "pallas", "pallas_full", "pallas_asn")
 
 
 def _ceil_to(x, m) -> int:
@@ -80,6 +102,10 @@ def _ceil_to(x, m) -> int:
 class NeighborConfig:
     cutoff: float  # interaction cutoff (Angstrom)
     skin: float = 2.0
+    # skin of the frozen angular sub-list (mirror engine and hybrids): its
+    # sphere is Rca + ang_skin; the engine holds disp < min(skin,
+    # ang_skin)/2 between rebuilds
+    ang_skin: float = 1.0
     k_max: int = 64  # degree-measure neighbor matrix width (auto-grown)
     ghost_capacity: int = 4096
     n_shell: int = 1
@@ -95,10 +121,14 @@ class NeighborConfig:
 class Simulation:
     """Host-side orchestration of one engine on one device.
 
-    `engine`: "pallas_asn" (None: the default, as the JAX package on its
-    accelerator) or "pallas_full". `pair_stage` (asn engine): the angular
-    pair stage, "packed" (None: the default), "blocks" or "blocks_full".
-    Runs on the card unless `device` says otherwise."""
+    `cellroll`: the JAX package's switch of the cell-roll engines; with
+    `engine=None`, False gives the mirror engine and True `pallas_asn` in
+    f32 on the card, the `xla` hybrid elsewhere. `engine`: one of ENGINES,
+    whatever `cellroll` says; where it cannot run (a repulsion potential
+    on a hybrid, a box too small for its grid) the mirror engine runs and
+    a RuntimeWarning names both. `pair_stage` (asn engine): the angular pair
+    stage, "packed" (None: the default), "blocks" or "blocks_full". Runs
+    on the card unless `device` says otherwise."""
 
     def __init__(self, potential: potmod.ANIPotential, species: np.ndarray,
                  masses: np.ndarray, nbr: NeighborConfig, dt: float = 0.5,
@@ -106,7 +136,7 @@ class Simulation:
                  barostat=None, constraints=None,
                  extra_force: Optional[Callable] = None, device=None,
                  engine: Optional[str] = None,
-                 pair_stage: Optional[str] = None):
+                 pair_stage: Optional[str] = None, cellroll: bool = False):
         if integrator is not None and not isinstance(integrator,
                                                      integrate.Langevin):
             raise NotImplementedError(
@@ -118,21 +148,35 @@ class Simulation:
             raise NotImplementedError("RATTLE constraints are not ported yet")
         if extra_force is not None:
             raise NotImplementedError("extra_force is not ported yet")
-        engine = engine or "pallas_asn"
+        self.device = resolve_device(device)
+        self._engine_asked = engine
+        if engine is None:
+            if not cellroll:
+                engine = "mirror"
+            elif self.device.type == "cuda" and dtype == torch.float32:
+                engine = "pallas_asn"
+            else:
+                engine = "xla"
         if engine not in ENGINES:
             raise ValueError(f"engine {engine!r}: expected one of {ENGINES}")
         if engine == "pallas_full" and potential.spec.repulsion is not None:
             raise ValueError(
                 "engine pallas_full has no pair-distance channel for the "
                 "repulsion term; use pallas_asn")
-        self.engine = engine
-        self._asn = engine == "pallas_asn"
+        # the requested engine (LAT_ROLL_IMPL's counterpart); a repulsion
+        # potential on a hybrid runs the plain mirror, as does a box too
+        # small for the engine's grid (`_setup_grids`)
+        self._roll_impl = engine
+        self._want_cellroll = engine != "mirror" and (
+            potential.spec.repulsion is None or engine == "pallas_asn")
+        self.engine = engine if self._want_cellroll else "mirror"
+        if not self._want_cellroll:
+            self._warn_fallback("a hybrid carries no repulsion term")
         self.pair_stage = pair_stage or "packed"
         aev_asn._check_stage(self.pair_stage)
-        if not self._asn and self.pair_stage != "packed":
+        if engine != "pallas_asn" and self.pair_stage != "packed":
             raise ValueError(f"pair_stage {pair_stage!r} needs the "
                              "pallas_asn engine")
-        self.device = resolve_device(device)
         n = len(species)
         self.nbr = nbr
         self.dt = float(dt)
@@ -154,8 +198,9 @@ class Simulation:
         self.dof = 3 * n - 3
         self.n_atoms = n
         self._shifts = nbops.image_shifts(nbr.n_shell)
-        self._grid = None  # CellGrid of the degree measure
+        self._grid = None  # CellGrid of the neighbor matrix
         self._k_max = nbr.k_max
+        self._ang_cap = None  # angular sub-list capacity (mirror engines)
         self._roll_grid = None
         self._roll_shell = 2
         self._rlist_query = nbr.rlist
@@ -164,8 +209,30 @@ class Simulation:
         # cumulative capacity regrows (callers warm up until it stops):
         # chunks that were run again, and what was grown
         self.regrow_events = 0
-        self.regrow_kinds = {"roll": 0, "sections": 0, "angular_caps": 0,
+        self.regrow_kinds = {"ghost": 0, "k_max": 0, "mirror": 0, "roll": 0,
+                             "sections": 0, "angular_caps": 0,
                              "tier_rows": 0}
+
+    def _warn_fallback(self, why: str):
+        """Warn when an engine the caller named runs as the mirror."""
+        if self._engine_asked not in (None, "mirror"):
+            warnings.warn(f"engine {self._engine_asked!r} cannot run ({why}); "
+                          "the mirror engine runs instead", RuntimeWarning,
+                          stacklevel=3)
+
+    @property
+    def _asn(self) -> bool:
+        return self.engine == "pallas_asn"
+
+    @property
+    def _full(self) -> bool:
+        return self.engine == "pallas_full"
+
+    @property
+    def _mirror_tables(self) -> bool:
+        """The mirror engine or a hybrid: a neighbor matrix and its mirror
+        tables at every rebuild."""
+        return self.engine in ("mirror", "xla", "pallas")
 
     def _apply_order(self):
         self.inv_order = np.argsort(self.order)
@@ -199,12 +266,19 @@ class Simulation:
         self._derive_angular_caps(pos_t, box)
         pos_w = nbops.wrap_positions(pos_t, box)
         bins = self._bins(pos_w, box)
-        pe, force, virial, _ = self._forces(pos_w, box, bins)
+        nlist = nbrs = None
+        struct = bins
+        if self._mirror_tables:
+            nlist = self._build_nlist(pos_w, box)
+            nbrs = self._mirror(nlist, pos_w, box)
+            struct = (nbrs, bins)
+        pe, force, virial, _ = self._forces(pos_w, box, struct)
         # the asn tables are stale after the next rebuild and large: the
         # state does not carry them
         return MDState(pos=pos_w, vel=vel_t, force=force, box=box, step=0,
                        pe=pe, virial=virial, pos_at_rebuild=pos_w,
-                       bins=None if self._asn else bins)
+                       bins=None if self._asn else bins, nlist=nlist,
+                       nbrs=nbrs)
 
     def _spatial_sort(self, pos: np.ndarray, box: nbops.Box):
         """Species-major / cell-minor atom order (the JAX package's
@@ -232,44 +306,69 @@ class Simulation:
                          v / np.linalg.norm(np.cross(h[0], h[1]))])
 
     @property
+    def _skin_eff(self) -> float:
+        """Twice the displacement bound between rebuilds: the asn and
+        roll engines re-compact their angular neighbors from the bins
+        every step (skin); the mirror engine and its hybrids also freeze
+        the angular sub-list (min(skin, ang_skin))."""
+        if self._roll_impl in ("pallas_full", "pallas_asn"):
+            return self.nbr.skin
+        return min(self.nbr.skin, self.nbr.ang_skin)
+
+    @property
     def _roll_side(self) -> float:
-        """Least bin side. pallas_asn: one coarse grid whose 27-bin window
-        reaches the keep radius (side >= Rcr + skin). pallas_full: one fine
-        grid for both channels: the angular kernels read the 27-bin window
-        (side >= Rca + skin), the radial a shell-2 window (2 side >= Rcr +
-        skin)."""
+        """Least bin side. pallas_full: one fine grid for both channels
+        (the angular kernels read the 27-bin window, side >= Rca + skin;
+        the radial a shell-2 window, 2 side >= Rcr + skin). pallas_asn and
+        the pallas hybrid: one coarse grid whose 27-bin window reaches
+        Rcr + skin. The xla hybrid: Rcr + ang_skin, as the JAX package."""
         spec = self.potential.spec
-        if self._asn:
-            return spec.cutoff + self.nbr.skin
-        return max(spec.aev.angular_cutoff + self.nbr.skin,
-                   (spec.cutoff + self.nbr.skin) / 2.0)
+        if self._roll_impl == "pallas_full":
+            return max(spec.aev.angular_cutoff + self._skin_eff,
+                       (spec.cutoff + self._skin_eff) / 2.0)
+        if self._roll_impl in ("pallas", "pallas_asn"):
+            return spec.cutoff + self._skin_eff
+        return spec.cutoff + self.nbr.ang_skin
 
     def _setup_grids(self, pos, box):
+        """The roll grid of a roll engine (None and the mirror engine when
+        the box holds no 3x3x3 grid of its side) and the neighbor matrix's
+        cell grid."""
         box_h = box.h.detach().cpu().numpy().astype(np.float64)
-        probe = crmod.RollGrid.for_box(box_h, self._roll_side, 64)
-        if probe is None:
-            raise NotImplementedError(
-                f"box too small for a 3x3x3 roll grid of side "
-                f"{self._roll_side:.2f} A (engine {self.engine}); the "
-                "mirror engine that serves such boxes is not ported yet")
-        cnt = int(crmod.build_bins(probe, nbops.wrap_positions(pos, box),
-                                   self.species, box).count_max)
-        cap = _ceil_to(cnt + 2 + ROLL_CAP_MARGIN, 4)
-        self._roll_grid = crmod.RollGrid(ncells=probe.ncells, cap=cap)
         spec = self.potential.spec
-        if self._asn:
-            # the degree measure also sizes the sections (keep radius)
-            self._rlist_query = self.nbr.rlist
+        self.engine = self._roll_impl if self._want_cellroll else "mirror"
+        self._roll_grid = None
+        self._rlist_query = self.nbr.rlist
+        probe = (crmod.RollGrid.for_box(box_h, self._roll_side, 64)
+                 if self._want_cellroll else None)
+        if probe is None:
+            if self._want_cellroll:
+                self._warn_fallback("the box holds no 3x3x3 grid of side "
+                                    f"{self._roll_side:.3f} A")
+            self.engine = "mirror"
         else:
-            perp = self._perp_lengths(box_h)
-            side_now = float((perp / np.asarray(probe.ncells)).min())
-            # radial window: shell 1 if one bin reaches Rcr + skin, else 2
-            self._roll_shell = (1 if side_now >= spec.cutoff + self.nbr.skin
-                                else 2)
-            self._rlist_query = spec.aev.angular_cutoff + self.nbr.skin
+            cnt = int(crmod.build_bins(probe, nbops.wrap_positions(pos, box),
+                                       self.species, box).count_max)
+            cap = _ceil_to(cnt + 2 + ROLL_CAP_MARGIN, 4)
+            self._roll_grid = crmod.RollGrid(ncells=probe.ncells, cap=cap)
+        if self._roll_grid is not None and not self._asn:
+            # the angular sub-list (hybrids) or the fine grid's angular
+            # window (pallas_full) is all the neighbor matrix must reach
+            self._rlist_query = spec.aev.angular_cutoff + self.nbr.ang_skin
+            if self.engine == "pallas":
+                self._roll_shell = 1  # the coarse grid reaches the cutoff
+            elif self._full:
+                perp = self._perp_lengths(box_h)
+                side_now = float((perp / np.asarray(probe.ncells)).min())
+                # radial window: shell 1 if one bin reaches Rcr + skin
+                self._roll_shell = (1 if side_now >= spec.cutoff
+                                    + self._skin_eff else 2)
+                self._rlist_query = (spec.aev.angular_cutoff
+                                     + self._skin_eff)
         if self.nbr.use_cell_list:
             self._grid = clmod.CellGrid.for_box(box_h, self._rlist_query,
                                                 self.nbr.cell_capacity)
+            # None: the box is too small for a 3x3x3 cell grid; brute build
             self._probe_cell_capacity(pos, box)
 
     def _probe_cell_capacity(self, pos, box) -> bool:
@@ -303,14 +402,19 @@ class Simulation:
         return nbops.build_neighbor_matrix_brute(pos, box, rq, self._k_max,
                                                  ghosts)
 
-    def _derive_angular_caps(self, pos, box, regrow=False):
+    def _derive_angular_caps(self, pos, box, regrow=False,
+                             regrow_mirror=False):
         """Per-species angular caps from the measured per-species degrees
         within Rca (+10% and +2, +4 more for small degrees, rounded to 4;
-        0 for species absent as neighbors). `regrow` never shrinks a cap
-        and grows each by at least 4. The asn engine sizes its compact
-        sections (degrees within the keep radius Rcr + skin) and its
-        occupancy tiers (the per-atom degree matrix within Rca) from the
-        same measure."""
+        0 for species absent as neighbors), the neighbor matrix's k_max
+        and the angular sub-list's cap (degrees within Rca + ang_skin,
+        +10% and +2, rounded to 4) from one measure. `regrow` never
+        shrinks a capacity and grows each cap by at least 4;
+        `regrow_mirror` (a slot without its mirror, or the sub-list over
+        its cap) grows the sub-list's cap by at least 4 and k_max by at
+        least 8. The asn engine sizes its compact sections (degrees within
+        the keep radius Rcr + skin) and its occupancy tiers (the per-atom
+        degree matrix within Rca) from the same measure."""
         spec = self.potential.spec
         n_sp = spec.aev.num_species
 
@@ -322,6 +426,8 @@ class Simulation:
             species_j = species_ext[nlist.idx]
             mask = nlist.mask & (species_j >= 0)
             in_ang = mask & (dist < spec.aev.angular_cutoff)
+            in_ang_skin = mask & (dist < spec.aev.angular_cutoff
+                                  + self.nbr.ang_skin)
             cnt = torch.stack([torch.sum(in_ang & (species_j == s), dim=1)
                                for s in range(n_sp)], dim=1)
             sec = None
@@ -329,10 +435,11 @@ class Simulation:
                 in_keep = mask & (dist < spec.cutoff + self.nbr.skin)
                 sec = [int(torch.sum(in_keep & (species_j == s), dim=1).max())
                        for s in range(n_sp)]
-            return ((cnt.max(0).values.tolist(), cnt, sec),
+            return ((cnt.max(0).values.tolist(), cnt, sec,
+                     int(in_ang_skin.sum(dim=1).max())),
                     int(nlist.max_count))
 
-        (degrees, cnt, sec_degrees), max_deg = measure()
+        (degrees, cnt, sec_degrees, ang_deg), max_deg = measure()
         for _ in range(16):
             if max_deg <= self._k_max:
                 break
@@ -340,14 +447,24 @@ class Simulation:
             # cell table reporting k_max + 1): regrow and re-measure
             self._probe_cell_capacity(pos, box)
             self._k_max = _ceil_to(max_deg * 1.1 + 4, 8)
-            (degrees, cnt, sec_degrees), max_deg = measure()
+            (degrees, cnt, sec_degrees, ang_deg), max_deg = measure()
         else:
             raise RuntimeError(f"degree measure kept truncating (max_count "
                                f"{max_deg} > k_max {self._k_max})")
-        old_k_max = self._k_max
+        old_ang_cap, old_k_max = self._ang_cap, self._k_max
+        self._ang_cap = _ceil_to(ang_deg * 1.1 + 2, 4)
         self._k_max = _ceil_to(max_deg * 1.1 + 4, 8)
-        if regrow:
+        if regrow or regrow_mirror:
+            # a regrow runs at the chunk's input state, earlier than the
+            # rebuild that overflowed: never shrink
+            if old_ang_cap is not None:
+                self._ang_cap = max(self._ang_cap, old_ang_cap)
             self._k_max = max(self._k_max, old_k_max)
+        if regrow_mirror:
+            # the same margins would re-derive what just failed: grow
+            if old_ang_cap is not None:
+                self._ang_cap = max(self._ang_cap, old_ang_cap + 4)
+            self._k_max = max(self._k_max, _ceil_to(old_k_max + 8, 8))
         m = ANG_CAP_MARGIN
         caps = tuple(0 if d == 0 else _ceil_to(
             int(d * m + 2 + (4 if d * m <= 10 else 0)), 4) for d in degrees)
@@ -402,9 +519,12 @@ class Simulation:
         return aev_asn._round_lane(sum(k for _, k in self._sections) + 1)
 
     def _bins(self, pos, box):
-        """The rebuild: the roll bins, and for the asn engine (bins,
-        assignment) over the keep radius Rcr + skin (it covers Rca + skin,
-        and the step re-compacts the lanes within Rca anyway)."""
+        """The rebuild's roll bins (None without a roll grid), and for the
+        asn engine (bins, assignment) over the keep radius Rcr + skin (it
+        covers Rca + skin, and the step re-compacts the lanes within Rca
+        anyway)."""
+        if self._roll_grid is None:
+            return None
         bins = crmod.build_bins(self._roll_grid, pos, self.species, box)
         if not self._asn:
             return bins
@@ -412,13 +532,44 @@ class Simulation:
             self._roll_grid, bins, pos, box, self._sections, self.kpad,
             self.potential.spec.cutoff + self.nbr.skin)
 
+    def _mirror(self, nlist, pos, box):
+        """MirrorNeighbors with the angular sub-list (radius Rca +
+        ang_skin). The full list's mirror table is skipped when the roll
+        grid serves the radial channel (the hybrids)."""
+        return nbr_grad.mirror_neighbors(
+            nlist, self.n_atoms, pos=pos, box=box,
+            ang_cutoff=self.potential.spec.aev.angular_cutoff
+            + self.nbr.ang_skin, ang_cap=self._ang_cap, species=self.species,
+            main_mirror=self._roll_grid is None)
+
+    def _angular_overflow(self, pos, box, nlist) -> bool:
+        """Any per-species angular degree over the static caps."""
+        spec = self.potential.spec
+        species_ext = nbops.extended_species(self.species, nlist.ghosts)
+        _, dist = nbops.neighbor_displacements(pos, box, nlist)
+        species_j = species_ext[nlist.idx]
+        mask = nlist.mask & (species_j >= 0)
+        return bool(aevmod.angular_cap_deficit(
+            spec.aev, dist, species_j, mask, spec.angular_caps) > 0)
+
     # ---------- per step ----------
 
     def _forces(self, pos, box, bins):
-        """(pe, force, virial, angular deficit) in kcal/mol units; the
-        deficit is one number (pallas_full) or one per species and, when
-        tiered, the rows the last tier could not hold (pallas_asn)."""
-        if self._asn:
+        """(pe, force, virial, angular deficit) in kcal/mol units at the
+        rebuild's structure `bins`: (MirrorNeighbors, roll bins or None)
+        for the mirror engine and its hybrids (no deficit: their caps are
+        checked at the rebuild), the roll bins (pallas_full; one deficit)
+        or (bins, assignment) (pallas_asn; one deficit per species and,
+        when tiered, the rows the last tier could not hold)."""
+        if self._mirror_tables:
+            nbrs, rbins = bins
+            cellroll = (None if rbins is None
+                        else (self._roll_grid, rbins, self.engine))
+            pe, f, w = potmod.energy_forces_virial_mirror(
+                self.potential, self.species, pos, box, nbrs,
+                self.species_counts, cellroll=cellroll)
+            deficit = torch.zeros((), dtype=pos.dtype, device=pos.device)
+        elif self._asn:
             rbins, rasn = bins
             pe, f, w, deficit = potmod.energy_forces_virial_asn(
                 self.potential, self.species, pos, box,
@@ -434,7 +585,9 @@ class Simulation:
     def _step(self, st: MDState):
         vel = integrate.nve_halfkick(st.vel, st.force, self.masses, self.dt)
         pos = integrate.nve_drift(st.pos, vel, self.dt)
-        pe, force, virial, deficit = self._forces(pos, st.box, st.bins)
+        pe, force, virial, deficit = self._forces(
+            pos, st.box, (st.nbrs, st.bins) if self._mirror_tables
+            else st.bins)
         if self.integrator is not None:
             force = force + self.integrator.force(vel, self.masses, self.dt)
         vel = integrate.nve_halfkick(vel, force, self.masses, self.dt)
@@ -459,26 +612,43 @@ class Simulation:
 
         Returns (state, thermo [k, 6], max displacement, overflow, steps
         done). `overflow` names what this chunk's rebuild or steps
-        outgrew, with the size `run` grows it by: "roll" (a bin's
-        occupancy), "sections" (per-species lanes over the section),
-        "angular" (per-species neighbors over the cap) and "tier_rows"
-        (rows the last tier could not hold); empty when nothing did."""
+        outgrew, with the size `run` grows it by: "ghost" (periodic images
+        over the ghost capacity), "k_max" (a row of the neighbor matrix
+        over it), "mirror" (a slot without its mirror, or the angular
+        sub-list over its cap), "roll" (a bin's occupancy), "sections"
+        (per-species lanes over the section), "angular" (per-species
+        neighbors over the cap) and "tier_rows" (rows the last tier could
+        not hold); empty when nothing did."""
         box = state.box
         pos_w = nbops.wrap_positions(state.pos, box)
         bins = self._bins(pos_w, box)
         rbins, rasn = bins if self._asn else (bins, None)
         overflow = {}
-        roll_count = int(rbins.count_max)
-        if roll_count > self._roll_grid.cap:
-            overflow["roll"] = roll_count
+        if rbins is not None:
+            roll_count = int(rbins.count_max)
+            if roll_count > self._roll_grid.cap:
+                overflow["roll"] = roll_count
         if rasn is not None and float(rasn.ovf) > 0:
             overflow["sections"] = rasn.ovf_sec.cpu().numpy()
-        st = state.replace(pos=pos_w, bins=bins, pos_at_rebuild=pos_w)
+        nlist = nbrs = None
+        if self._mirror_tables:
+            nlist = self._build_nlist(pos_w, box)
+            nbrs = self._mirror(nlist, pos_w, box)
+            if int(nlist.ghosts.count) > nlist.ghosts.src.shape[0]:
+                overflow["ghost"] = True
+            if int(nlist.max_count) > nlist.idx.shape[1]:
+                overflow["k_max"] = True
+            if not bool(nbrs.ok):
+                overflow["mirror"] = True
+            # the mirror engine's caps are checked at the rebuild
+            if self._angular_overflow(pos_w, box, nlist):
+                overflow["angular"] = True
+        st = state.replace(pos=pos_w, bins=bins, pos_at_rebuild=pos_w,
+                           nlist=nlist, nbrs=nbrs)
         if overflow:
-            # atoms fell out of the grid or of the assignment: no step
-            # would be right
+            # atoms fell out of a capacity: no step would be right
             return st.replace(bins=None), None, 0.0, overflow, 0
-        half_skin = self.nbr.skin / 2.0
+        half_skin = self._skin_eff / 2.0
         rows, deficits = [], []
         n_done = 0
         disp = 0.0
@@ -494,10 +664,10 @@ class Simulation:
             # the worst deficit over the chunk's steps, per entry
             worst = torch.stack(deficits).max(0).values.cpu().numpy()
             n_sp = self.potential.spec.aev.num_species
-            if not self._asn:
+            if self._full:
                 if worst > 0:
                     overflow["angular"] = float(worst)
-            else:
+            elif self._asn:
                 if worst[:n_sp].max() > 0:
                     overflow["angular"] = worst[:n_sp]
                 if len(worst) > n_sp and worst[n_sp] > 0:
@@ -511,6 +681,10 @@ class Simulation:
     def _regrow(self, state: MDState, overflow: dict):
         """Grow exactly the capacities that `overflow` names, each by what
         was measured (never less than one rounding step, never down)."""
+        if "ghost" in overflow:
+            self.nbr = dataclasses.replace(
+                self.nbr, ghost_capacity=int(self.nbr.ghost_capacity * 1.5))
+            self.regrow_kinds["ghost"] += 1
         if "roll" in overflow:
             # to the measured occupancy (+2, rounded to 4): every extra
             # slot adds 27 window lanes to every kernel of the step
@@ -529,9 +703,19 @@ class Simulation:
                  if s < len(dv) and dv[s] > 0 else k)
                 for s, k in self._sections)
             self.regrow_kinds["sections"] += 1
-        if "angular" in overflow and not self._asn:
-            self._derive_angular_caps(state.pos, state.box, regrow=True)
-            self.regrow_kinds["angular_caps"] += 1
+        if not self._asn and any(k in overflow for k in ("k_max", "mirror",
+                                                         "angular")):
+            # re-measure the degrees at the chunk's input state: k_max,
+            # the sub-list's cap and the angular caps, each never down
+            if "k_max" in overflow:
+                # a clipped cell table also reports as k_max overflow
+                self._probe_cell_capacity(state.pos, state.box)
+                self.regrow_kinds["k_max"] += 1
+            self.regrow_kinds["mirror"] += "mirror" in overflow
+            self.regrow_kinds["angular_caps"] += "angular" in overflow
+            self._derive_angular_caps(state.pos, state.box,
+                                      regrow="angular" in overflow,
+                                      regrow_mirror="mirror" in overflow)
         elif "angular" in overflow or "tier_rows" in overflow:
             spec = self.potential.spec
             caps = spec.angular_caps
@@ -603,6 +787,9 @@ class Simulation:
     def positions_input_order(self, state: MDState) -> np.ndarray:
         """Positions permuted back to the caller's atom order."""
         return state.pos.detach().cpu().numpy()[self.inv_order]
+
+    def forces_input_order(self, state: MDState) -> np.ndarray:
+        return state.force.detach().cpu().numpy()[self.inv_order]
 
     def velocities_input_order(self, state: MDState) -> np.ndarray:
         return state.vel.detach().cpu().numpy()[self.inv_order]

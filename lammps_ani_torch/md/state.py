@@ -25,6 +25,11 @@ class MDState:
     virial: torch.Tensor  # [3, 3] kcal/mol
     pos_at_rebuild: torch.Tensor  # [n, 3] for the half-skin check
     bins: Optional[object] = None  # ops/cell_roll.RollBins of the rebuild
+    # mirror engine and hybrids: the rebuild's neighbor matrix
+    # (ops/neighbors.NeighborList) and its owner/shift/mirror form
+    # (ops/nbr_grad.MirrorNeighbors)
+    nlist: Optional[object] = None
+    nbrs: Optional[object] = None
 
     def replace(self, **kw) -> "MDState":
         return dataclasses.replace(self, **kw)

@@ -1,8 +1,13 @@
 """The ANI potential: AEV + per-species MLP ensemble + energy shifter
 (+ XTB repulsion).
 
-Port of lammps_ani_tpu/models/potential.py, two paths:
+Port of lammps_ani_tpu/models/potential.py, three paths:
 
+  * mirror (`atomic_energies_mirror`): the AEV over the neighbor matrix
+    and its mirror tables (ops/nbr_grad.py), plain PyTorch, the JAX
+    package's default engine; with `cellroll` its radial channel comes
+    from the roll grid instead (the `xla` and `pallas` hybrids);
+    `atomic_energies` is the same over a plain neighbor matrix;
   * roll (`atomic_energies_roll`): both AEV channels from the roll-grid
     kernels of ops/aev_roll.py over one fine bin grid (the JAX package's
     `pallas_full` engine); no repulsion term;
@@ -22,9 +27,13 @@ import dataclasses
 from typing import Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops import aev_asn, aev_roll
+from ..ops import cell_roll as crmod
+from ..ops import nbr_grad
+from ..ops import neighbors as nbops
 from ..ops.neighbors import Box
 from . import aev as aevmod
 from . import networks as netmod
@@ -40,9 +49,13 @@ class ANISpec:
     shifter: netmod.EnergyShifter
     repulsion: Optional[repmod.RepulsionSpec] = None
     symbols: tuple[str, ...] = ("H", "C", "N", "O", "S", "F", "Cl")
+    # generic angular path: compacted neighbors per atom
+    angular_capacity: int = 32
     # per-species angular-neighbor capacities (composition-derived by the
-    # engine; required by the roll angular kernels)
+    # engine; required by the roll angular kernels; the species-blocked
+    # AEV path of the mirror engine)
     angular_caps: Optional[tuple[int, ...]] = None
+    atom_chunk: Optional[int] = None  # angular block in row chunks
 
     @property
     def cutoff(self) -> float:
@@ -78,6 +91,166 @@ class ANIPotential(nn.Module):
     def with_spec(self, spec: ANISpec) -> "ANIPotential":
         """The same weights under another spec (e.g. new angular caps)."""
         return ANIPotential(spec, self.params)
+
+
+def _energies_from_neighbors(pot, species, diff, dist, species_j, nbr_mask,
+                             ghost_j, species_counts, local_mask,
+                             angular_inputs=None, radial_override=None):
+    """(diff, dist, species_j) -> [n] per-atom energies [Hartree]. The AEV
+    is recomputed in the backward (torch.utils.checkpoint, as the JAX
+    package's jax.checkpoint) instead of holding its [n, k, basis]
+    intermediates. `angular_inputs`: a separate angular sub-list (the
+    mirror path; `diff` may then be None)."""
+    spec = pot.spec
+
+    def aev_fn(d, dst, ang, rad):
+        return aevmod.compute_aev(
+            spec.aev, species, d, dst, species_j, nbr_mask,
+            angular_capacity=spec.angular_capacity,
+            angular_caps=spec.angular_caps, atom_chunk=spec.atom_chunk,
+            angular_inputs=ang, radial_override=rad)
+
+    args = (diff, dist, angular_inputs, radial_override)
+    aev = (torch.utils.checkpoint.checkpoint(aev_fn, *args,
+                                             use_reentrant=False)
+           if torch.is_grad_enabled() else aev_fn(*args))
+    if species_counts is not None:
+        atomic = netmod.atomic_energies_sorted(spec.net, pot.params,
+                                               species_counts, aev)
+    else:
+        atomic = netmod.atomic_energies_masked(spec.net, pot.params,
+                                               species, aev)
+    e = netmod.ensemble_energies(atomic) + spec.shifter(species,
+                                                        dtype=aev.dtype)
+    if spec.repulsion is not None:
+        e = e + repmod.repulsion_energies(
+            spec.repulsion, species, species_j, dist, nbr_mask,
+            ghost_center=~local_mask, ghost_j=ghost_j)
+    return torch.where(local_mask, e, 0.0)
+
+
+def atomic_energies_mirror(pot: ANIPotential, species: torch.Tensor,
+                           pos: torch.Tensor, box: Box, nbrs,
+                           species_counts: Optional[Sequence[int]] = None,
+                           local_mask: Optional[torch.Tensor] = None,
+                           cellroll=None) -> torch.Tensor:
+    """[n] per-atom energies over `nbrs` (ops/nbr_grad.MirrorNeighbors):
+    the radial channel and the repulsion term from the full list's
+    distances, the angular channel from the sub-list's displacements,
+    both with the mirror backward. `cellroll` = (RollGrid, RollBins,
+    impl): the radial channel from the roll grid instead, "xla"
+    (cell_roll.radial_aev_cellroll, plain PyTorch) or "pallas"
+    (aev_roll.radial_aev_roll at shell 1, the radial kernels); it has no
+    pair distances for the repulsion term."""
+    if local_mask is None:
+        local_mask = species >= 0
+    radial_override = None
+    dist = None
+    species_j = nbrs.species_j
+    nbr_mask = nbrs.mask
+    ghost_j = torch.any(nbrs.shift != 0, dim=-1)
+    if cellroll is not None:
+        if pot.spec.repulsion is not None:
+            raise ValueError("the cell-roll radial channel has no pair "
+                             "distances for the repulsion term")
+        grid, bins = cellroll[0], cellroll[1]
+        impl = cellroll[2] if len(cellroll) > 2 else "xla"
+        if impl == "pallas":
+            radial_override = aev_roll.radial_aev_roll(
+                pot.spec.aev, grid, bins, pos, box,
+                species_counts=species_counts)
+        else:
+            radial_override = crmod.radial_aev_cellroll(pot.spec.aev, grid,
+                                                        bins, pos, box)
+        radial_override = torch.where(local_mask[:, None], radial_override,
+                                      0.0)
+    else:
+        dist = nbr_grad.neighbor_dist(pos, box.h, nbrs.src,
+                                      nbrs.shift.to(pos.dtype), nbrs.mirror,
+                                      nbrs.mask)
+        if species_j is None:
+            species_j = torch.where(nbrs.mask, species[nbrs.src], -1)
+        nbr_mask = nbrs.mask & (species_j >= 0)
+
+    angular_inputs = None
+    diff = None
+    if nbrs.ang_src is not None:
+        a_diff, a_dist = nbr_grad.neighbor_displacements_mirror(
+            pos, box, nbrs.ang_src, nbrs.ang_shift, nbrs.ang_mirror,
+            nbrs.ang_mask)
+        a_species = (nbrs.ang_species if nbrs.ang_species is not None
+                     else torch.where(nbrs.ang_mask, species[nbrs.ang_src],
+                                      -1))
+        angular_inputs = (a_diff, a_dist, a_species,
+                          nbrs.ang_mask & (a_species >= 0))
+    else:
+        diff, dist = nbr_grad.neighbor_displacements_mirror(
+            pos, box, nbrs.src, nbrs.shift, nbrs.mirror, nbrs.mask)
+    return _energies_from_neighbors(
+        pot, species, diff, dist, species_j, nbr_mask, ghost_j,
+        species_counts, local_mask, angular_inputs=angular_inputs,
+        radial_override=radial_override)
+
+
+def atomic_energies(pot: ANIPotential, species: torch.Tensor,
+                    pos: torch.Tensor, box: Box, nlist,
+                    species_counts: Optional[Sequence[int]] = None,
+                    local_mask: Optional[torch.Tensor] = None):
+    """[n] per-atom energies [Hartree] over a plain neighbor matrix, ghosts
+    the periodic images of `nlist`; differentiable w.r.t. `pos` (through
+    the images, by plain autograd) and `box.h`."""
+    if local_mask is None:
+        local_mask = species >= 0
+    pos_ext = nbops.extended_positions(pos, box, nlist.ghosts)
+    species_ext = nbops.extended_species(species, nlist.ghosts)
+    idx, mask = nlist.idx, nlist.mask
+    diff = torch.where(mask[..., None], pos[:, None, :] - pos_ext[idx], 1.0)
+    dist = torch.linalg.norm(torch.where(mask[..., None], diff, 1.0), dim=-1)
+    dist = torch.where(mask, dist, 1e6)
+    species_j = species_ext[idx]
+    return _energies_from_neighbors(
+        pot, species, diff, dist, species_j, mask & (species_j >= 0),
+        idx >= pos.shape[0], species_counts, local_mask)
+
+
+def potential_energy(pot, species, pos, box, nlist, species_counts=None,
+                     local_mask=None) -> torch.Tensor:
+    """Scalar total energy [Hartree]."""
+    return atomic_energies(pot, species, pos, box, nlist, species_counts,
+                           local_mask).sum()
+
+
+def energy_forces(pot, species, pos, box, nlist, species_counts=None,
+                  local_mask=None):
+    """(E, F [n, 3]) [Hartree, Hartree/A]; the image terms reach their
+    owners through autograd."""
+    with torch.enable_grad():
+        pos_ = pos.detach().requires_grad_(True)
+        e = potential_energy(pot, species, pos_, box, nlist, species_counts,
+                             local_mask)
+        (dpos,) = torch.autograd.grad(e, (pos_,))
+    return e.detach(), -dpos
+
+
+def energy_forces_virial(pot, species, pos, box, nlist, species_counts=None,
+                         local_mask=None):
+    """(E, F, W): the virial W = -dE/d(strain) from the additive strain."""
+    energy, deps, dpos, _ = _strained(
+        pos, box, lambda p, b: (atomic_energies(
+            pot, species, p, b, nlist, species_counts, local_mask), None))
+    return energy, -dpos, -0.5 * (deps + deps.T)
+
+
+def energy_forces_virial_mirror(pot, species, pos, box, nbrs,
+                                species_counts=None, local_mask=None,
+                                cellroll=None):
+    """(E, F, W) over the mirror tables; the box cotangent of the custom
+    backward (dE/dh = -sum shift^T g) carries the virial."""
+    energy, deps, dpos, _ = _strained(
+        pos, box, lambda p, b: (atomic_energies_mirror(
+            pot, species, p, b, nbrs, species_counts, local_mask,
+            cellroll=cellroll), None))
+    return energy, -dpos, -0.5 * (deps + deps.T)
 
 
 def atomic_energies_roll(pot: ANIPotential, species: torch.Tensor,

@@ -104,7 +104,8 @@ def build_neighbor_matrix_cells(pos: torch.Tensor, box: nbops.Box,
                                 rlist: float, k_max: int,
                                 ghosts: nbops.Ghosts, *, grid: CellGrid,
                                 atom_chunk: int = 4096) -> nbops.NeighborList:
-    """Cell-list neighbor build; same output contract as the brute build."""
+    """Cell-list neighbor build; same output contract as the brute build
+    (pairs selected by the mirror-symmetric `pair_displacements`)."""
     n = pos.shape[0]
     dev = pos.device
     pos_ext = nbops.extended_positions(pos, box, ghosts)
@@ -129,7 +130,7 @@ def build_neighbor_matrix_cells(pos: torch.Tensor, box: nbops.Box,
         cand = torch.where(in_grid[..., None], table[nbr_flat], m)
         cand = cand.reshape(-1, n_cand)
         cand_safe = torch.clamp(cand, max=m - 1)
-        d = pos[idx_c][:, None, :] - pos_ext[cand_safe]
+        d = nbops.pair_displacements(pos, box, ghosts, idx_c, cand_safe)
         dist2 = torch.sum(d * d, dim=-1)
         mask = (cand < m) & (dist2 < rlist ** 2) & (cand != idx_c[:, None])
         degs.append(mask.sum(dim=1).max())

@@ -1,9 +1,11 @@
 """Periodic boundary conditions, ghost images and neighbor matrices.
 
-Port of lammps_ani_tpu/ops/neighbors.py. The engine's main path needs no
-neighbor matrix (the bin grid of ops/cell_roll.py is its neighbor
-structure); these builders serve the degree measure that sizes the
-per-species angular caps (md/simulation.Simulation._derive_angular_caps).
+Port of lammps_ani_tpu/ops/neighbors.py. The neighbor matrix is the
+mirror engine's neighbor structure (with ops/nbr_grad.py) and the degree
+measure that sizes every engine's capacities
+(md/simulation.Simulation._derive_angular_caps); the asn and roll engines
+step over the bin grid of ops/cell_roll.py instead. Pairs are selected by
+`pair_displacements`, which rounds a pair and its mirror alike.
 
 Box convention: LAMMPS triclinic. `h` is the 3x3 row-vector cell matrix
 [[lx,0,0],[xy,ly,0],[xz,yz,lz]]; cartesian = origin + frac @ h.
@@ -129,6 +131,28 @@ def extended_positions(pos: torch.Tensor, box: Box, ghosts: Ghosts):
     return torch.cat([pos, ghost_positions(pos, box, ghosts)], dim=0)
 
 
+def pair_displacements(pos: torch.Tensor, box: Box, ghosts: Ghosts,
+                       rows: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """[r, c, 3] pos[rows] - [pos; ghosts][cand], for neighbor selection,
+    as (pos_i - pos_owner) - S h: a pair and its mirror (the owner's row
+    and the copy of i with shift -S) round to exact negatives, so a cutoff
+    test selects both or neither. pos_i - (pos_owner + S h), the JAX
+    package's form, rounds the ghost first and can keep one side of a
+    pair at the cutoff in f32, leaving a slot without its mirror
+    (ops/nbr_grad.build_mirror). S h is summed elementwise in a fixed
+    order, so -S gives exactly -S h. Padding ghosts are not parked here:
+    mask them by `ghosts.mask`."""
+    n = pos.shape[0]
+    dev = pos.device
+    ext_src = torch.cat([torch.arange(n, device=dev),
+                         ghosts.src.to(torch.int64)])
+    sf = torch.cat([torch.zeros((n, 3), dtype=torch.int64, device=dev),
+                    ghosts.shift.to(torch.int64)]).to(pos.dtype)
+    h = box.h
+    shift_h = sf[:, 0:1] * h[0] + sf[:, 1:2] * h[1] + sf[:, 2:3] * h[2]
+    return (pos[rows][:, None, :] - pos[ext_src[cand]]) - shift_h[cand]
+
+
 def extended_species(species: torch.Tensor, ghosts: Ghosts) -> torch.Tensor:
     """[n + g] species; padding ghost slots = -1."""
     gs = torch.where(ghosts.mask, species[ghosts.src], -1)
@@ -165,15 +189,16 @@ def _closest_k(key: torch.Tensor, k_max: int):
 
 def build_neighbor_matrix_brute(pos: torch.Tensor, box: Box, cutoff: float,
                                 k_max: int, ghosts: Ghosts) -> NeighborList:
-    """O(n * (n+g)) dense build — simple and exact; for small systems."""
+    """O(n * (n+g)) dense build — simple and exact; for small systems.
+    Pairs are selected by `pair_displacements` (mirror-symmetric)."""
     n = pos.shape[0]
-    pos_ext = extended_positions(pos, box, ghosts)
-    m = pos_ext.shape[0]
-    d = pos[:, None, :] - pos_ext[None, :, :]
+    m = n + ghosts.src.shape[0]
+    ar_m = torch.arange(m, device=pos.device)
+    rows = torch.arange(n, device=pos.device)
+    d = pair_displacements(pos, box, ghosts, rows, ar_m[None, :].expand(n, m))
     dist2 = torch.sum(d * d, dim=-1)
     within = dist2 < cutoff ** 2
-    ar_n = torch.arange(n, device=pos.device)
-    not_self = ar_n[:, None] != torch.arange(m, device=pos.device)[None, :]
+    not_self = rows[:, None] != ar_m[None, :]
     ext_valid = torch.cat([torch.ones((n,), dtype=torch.bool,
                                       device=pos.device), ghosts.mask])
     mask = within & not_self & ext_valid[None, :]

@@ -514,7 +514,8 @@ def test_simulation_blocks_matches_packed():
             masses=data.masses_by_type[data.species],
             nbr=NeighborConfig(cutoff=5.1, skin=2.0, k_max=128,
                                ghost_capacity=4096, rebuild_every=2),
-            dt=0.05, dtype=torch.float64, device="cpu", pair_stage=stage)
+            dt=0.05, dtype=torch.float64, device="cpu", pair_stage=stage,
+            engine="pallas_asn")
         box = Box(h=torch.tensor(data.box_h), origin=torch.tensor(
             data.box_origin))
         state = sim.init_state(data.positions, box, temp=300.0, seed=1)

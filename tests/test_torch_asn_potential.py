@@ -252,11 +252,14 @@ def test_npz_carries_the_repulsion_term(tmp_path):
 
 
 def test_unported_asn_uses_raise(efv):
-    """What still raises around the asn path: the repulsion term on the
-    `pallas_full` engine (only the asn engine carries it), an engine name
-    the port does not know, a box too small for the asn engine's 3x3x3
-    grid of side Rcr + skin (the mirror engine that serves it is not
-    ported), and the roll path's energies with a repulsion spec."""
+    """What raises around the asn path, and what no longer does: the
+    repulsion term on the `pallas_full` engine (only the asn engine and
+    the mirror carry it) and an engine name the port does not know raise;
+    the default engine is the mirror, the `xla` hybrid is an engine; a box
+    too small for the asn engine's 3x3x3 grid of side Rcr + skin runs the
+    mirror engine, as the JAX package's does, and warns that the engine it
+    was asked for did not run; the roll path's energies
+    with a repulsion spec raise."""
     _, _, p = efv
     species = torch.tensor(p["species"])
     kw = dict(potential=p["pot"], species=p["species"],
@@ -266,13 +269,22 @@ def test_unported_asn_uses_raise(efv):
         tlat.Simulation(nbr=tlat.NeighborConfig(cutoff=5.1),
                         engine="pallas_full", **kw)
     with pytest.raises(ValueError, match="engine"):
-        tlat.Simulation(nbr=tlat.NeighborConfig(cutoff=5.1), engine="xla",
+        tlat.Simulation(nbr=tlat.NeighborConfig(cutoff=5.1), engine="roll",
                         **kw)
-    sim = tlat.Simulation(nbr=tlat.NeighborConfig(cutoff=5.1, skin=3.0), **kw)
+    assert tlat.Simulation(nbr=tlat.NeighborConfig(cutoff=5.1),
+                           **kw).engine == "mirror"
+    with pytest.warns(RuntimeWarning, match="'xla' cannot run"):
+        sim = tlat.Simulation(nbr=tlat.NeighborConfig(cutoff=5.1),
+                              engine="xla", **kw)
+    assert sim.engine == "mirror"  # repulsion: the mirror
+    sim = tlat.Simulation(nbr=tlat.NeighborConfig(cutoff=5.1, skin=3.0),
+                          engine="pallas_asn", **kw)
     assert sim.engine == "pallas_asn"
-    with pytest.raises(NotImplementedError, match="mirror engine"):
-        # 24 A box: no 3x3x3 grid of side 5.1 + 3.0
-        sim.init_state(p["pos"].numpy(), p["box"])
+    # 24 A box: no 3x3x3 grid of side 5.1 + 3.0
+    with pytest.warns(RuntimeWarning, match="'pallas_asn' cannot run"):
+        state = sim.init_state(p["pos"].numpy(), p["box"])
+    assert sim.engine == "mirror" and sim._roll_grid is None
+    assert bool(torch.isfinite(state.force).all())
     with pytest.raises(ValueError, match="repulsion"):
         tpotmod.atomic_energies_roll(p["pot"], species, p["pos"], p["box"],
                                      None, None, p["counts"])

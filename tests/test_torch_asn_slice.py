@@ -1,4 +1,4 @@
-"""The port's asn MD path (`Simulation`, default engine `pallas_asn`,
+"""The port's asn MD path (`Simulation(engine="pallas_asn")`,
 ANI-2x + XTB repulsion) vs the JAX package: trajectory, derived sizing,
 regrows.
 
@@ -75,10 +75,11 @@ def _jax_box(s):
 
 
 def _port_start(s, **nbr_kw):
-    """(sim, state) of the port's default engine at the start state."""
+    """(sim, state) of the port's asn engine at the start state."""
     sim = tlat.Simulation(potential=s["tpot"], species=s["species"],
                           masses=s["masses"], nbr=_nbr(tlat, **nbr_kw), dt=DT,
-                          dtype=torch.float64, device="cpu")
+                          dtype=torch.float64, device="cpu",
+                          engine="pallas_asn")
     return sim, sim.init_state(s["pos"], _port_box(s), vel=s["vel0"])
 
 
