@@ -13,11 +13,17 @@ It imports `chip_smoke` and `lammps_ani_torch` from the working directory
 (not from beside this file), builds that checkout's kernels, sets up the
 101,250-atom water box of chip_smoke's main path at its first rebuild (f32,
 ANI-2x + XTB repulsion, the sizing `Simulation` derives), and prints one
-JSON line: for each named kernel three rounds of 20 launches by CUDA events
-(ms per launch), and for each f32 kernel function of csrc/aev_asn.cu whose
-name contains one of the names, the count of SASS lines and of a few kinds
-of operation among them (`cuobjdump -sass`). A name must be a key of
-chip_smoke's `asn_calls` in that checkout.
+JSON line: for each named kernel that is a key of chip_smoke's `asn_calls`
+in that checkout, three rounds of 20 calls by CUDA events (ms per call; a
+packed kernel's call launches it once per occupancy tier, and the line
+gives the launches per call), and for each f32 kernel function of
+csrc/aev_asn.cu whose name contains one of the names (`asn_<name>_kernel`),
+the count of SASS lines and of a few kinds of operation among them
+(`cuobjdump -sass`; LDL and STL are local-memory loads and stores). A name
+without a call there (block_fwd, block_fwd_tri) gets the counts only.
+
+The README's port section shows how to run it on the card against the
+parent commit.
 """
 
 import json
@@ -72,10 +78,17 @@ def main(argv):
     box = c.make_box(data, torch.float32, "cuda")
     state = sim.init_state(data.positions, box)
     calls = c.asn_calls(c.asn_inputs(sim, state.pos, box))
+    timed = [name for name in names if name in calls]
+    launches = {}
+    for name in timed:
+        c.asn.reset_counts()
+        calls[name][0]()
+        launches[name] = c.asn.LAUNCHES[name]
     ms = {name: [c.time_ms(calls[name][0], reps=20, warm=2) for _ in range(3)]
-          for name in names}
+          for name in timed}
     print(json.dumps({"tree": tag, "card": c.nvidia_smi_line(),
                       "atoms": data.n_atoms, "ms": ms,
+                      "launches_per_call": launches,
                       "sass": sass_counts(names)}), flush=True)
     return 0
 

@@ -24,7 +24,10 @@ object per line; any failure raises and the script exits non-zero:
            decompact_chain, the radial ones in both column layouts) against
            their plain versions on the card at WATER30 x 6^3 with ANI-2x +
            XTB repulsion, sized by `Simulation`, in f64 and f32: integer
-           outputs exactly, floats within the limits below; the whole
+           outputs exactly, floats within the limits below; the packed
+           kernels also on rows with every slot parked (exact zeros) and
+           with one live slot per section, and their worst error as a
+           fraction of its limit; the whole
            backward (dpos, dh) of `aev_asn_fused`, `radial_aev_asn` and
            `angular_aev_asn` against autograd through the plain forwards
            (f64), two calls of each bit for bit (f64 and f32); the
@@ -67,11 +70,13 @@ object per line; any failure raises and the script exits non-zero:
            its plain version: error, ms, plain ms and the bound.
   asn_timing  at the main path's final state, after a fresh rebuild: each
            of the eight asn kernels' error, ms, plain ms, bound and launches
-           per MD step; rebuild, forward and force-evaluation ms (CUDA
-           events, three rounds); the energies against the plain versions
-           on the card; with repulsion off, the energies against the roll
-           engine's at the same positions (held in f64, reported in f32);
-           the MLP's forward and backward ms on the compact columns.
+           per MD step (the packed ones with the pair lanes of their tier
+           layouts beside the filled slot pairs); rebuild, forward and
+           force-evaluation ms (CUDA events, three rounds); the energies
+           against the plain versions on the card; with repulsion off, the
+           energies against the roll engine's at the same positions (held
+           in f64, reported in f32); the MLP's forward and backward ms on
+           the compact columns.
   asn_channels  the per-channel surface at the same state and sizing
            (f32, 101,250 atoms, tiered as the main path), its launch
            counts zeroed just before and read just after: `radial_aev_asn`
@@ -788,18 +793,16 @@ def device_time(prof, calls, group_keys):
 # The asn path (ops/aev_asn.py): kernel inputs, calls, bounds
 # ---------------------------------------------------------------------------
 
-# Operations per unit of work, counted as in OPS above:
+# Operations per unit of work, counted as in OPS above (every operation at
+# the fused multiply-add rate), except the packed pair kernels below:
 #   build_inv, per real candidate of a real center's 27-bin window:
 #     distance 8, keep test 1, species test 1;
 #   build_idx, per table lane: load and compare 2;
 #   step_fused, per assigned lane: gather and distance 10; per lane within
 #     Rcr: cutoff 5, 16 shifts x 6, section sum; per lane within the
 #     repulsion cutoff: 30; per kept lane within Rca: slot fields 20;
-#   packed_fwd, per slot pair of filled slots: as angular_fwd's pair, 165;
 #   radial_gamma, per assigned lane: 10 + 6 for gamma a / d; per lane within
 #     Rcr: cutoff and slope 7, 16 shifts x 10; per repulsion lane: 45;
-#   packed_bwd, per filled slot pair: as angular_bwd's pair, 340, and 10
-#     for the two owner-pass visits;
 #   chain_sum, per filled slot: 25; per assigned lane: gather, sum and the
 #     nine dh terms 24;
 #   wing, per assigned lane: 3 adds;
@@ -808,11 +811,27 @@ def device_time(prof, calls, group_keys):
 #   radial_bwd_asn: radial_gamma's terms, and per assigned lane 3 adds for
 #     fcen and the nine dh terms;
 #   decompact_chain: chain_sum's terms less the 3 adds of the radial part.
+# The packed pair kernels (and the per-block ones, which compute the same
+# pair terms), per slot pair of filled slots: fp32 instructions of a lane
+# ("fp32", an fma counts once) at PEAK_F32_INSTR and special-function
+# results ("sfu") at PEAK_SFU, the larger of the two:
+#   packed_fwd, fp32 272: cosine 6 (dot 3, clamp 2, x 0.95), sine 1, fc12
+#     and the clamped radial mean 5, 4 radial shifts x 6 (shift, square,
+#     scale, the exponent's log2 e, flush test and select), 8 angle bases
+#     x 3, 8 powers base^14.1 x 10 (square and its error 2, square and
+#     multiply to base^12 3, the error term 3, f log2 base 1, the product
+#     1), 32 columns x 4 (product, flush test, select, add) and fc12 e_j 4;
+#     sfu 21: the square root, 4 ex2 of the shifts, lg2 and ex2 of each
+#     power;
+#   packed_bwd, fp32 306: the forward's terms without the columns 140, the
+#     chain rule 156 (8 angle sections x 15: df1 4, df2 4, dbase 3, dcos 4;
+#     drmean 24, dfc12 4, fc12 e_j 4, c95 / sv 1, the clamp test 2, the
+#     scale of drmean 1), both slots' sums 10 (5 per arm); sfu 21.
 ASN_OPS = {"build_inv": {"lane": 10}, "build_idx": {"lane": 2},
            "step_fused": {"lane": 10, "rcr": 110, "rep": 30, "kept": 20},
-           "packed_fwd": {"pair": 165},
+           "packed_fwd": {"fp32": 272, "sfu": 21},
            "radial_gamma": {"lane": 16, "rcr": 167, "rep": 45},
-           "packed_bwd": {"pair": 350},
+           "packed_bwd": {"fp32": 306, "sfu": 21},
            "chain_sum": {"kept": 25, "lane": 24}, "wing": {"lane": 3},
            "radial_fwd_asn": {"lane": 10, "rcr": 110, "rep": 30},
            "compact_asn": {"lane": 10, "kept": 20},
@@ -1066,14 +1085,14 @@ def asn_bound(name, k, work):
                  + (ops["rcr"] + ops["rep"]) * work["rcr"])
     elif name == "packed_fwd":
         nbytes = n * (5 * atot + ncols) * f
-        n_ops = ops["pair"] * work["pairs"]
+        n_ops = None
     elif name == "radial_gamma":
         nbytes = base_in + n * kpad * 2 + n * srl1 * f + n * 3 * kpad * f
         n_ops = (ops["lane"] * work["keep"]
                  + (ops["rcr"] + ops["rep"]) * work["rcr"])
     elif name == "packed_bwd":
         nbytes = n * (10 * atot + ncols) * f
-        n_ops = ops["pair"] * work["pairs"]
+        n_ops = None
     elif name in ("chain_sum", "decompact_chain"):
         planes = 6 if name == "chain_sum" else 3
         nbytes = (n * kpad * 4 + n * 11 * atot * f + n * planes * kpad * f
@@ -1094,8 +1113,19 @@ def asn_bound(name, k, work):
     else:  # wing
         nbytes = n * 3 * kpad * f + n * wpad * 2 + n * 27 * 3 * f
         n_ops = ops["lane"] * work["keep"]
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (max(pair_ops_ms(name, work["pairs"])) if n_ops is None
+             else n_ops / PEAK_F32 * 1e3)
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+
+
+def pair_ops_ms(name, pairs):
+    """(fp32 ms, special-function ms) of the pair terms of `pairs` filled
+    slot pairs in a forward (a name with "fwd") or a backward pair kernel
+    (ASN_OPS)."""
+    ops = ASN_OPS["packed_fwd" if "fwd" in name else "packed_bwd"]
+    return (ops["fp32"] * pairs / PEAK_F32_INSTR * 1e3,
+            ops["sfu"] * pairs / PEAK_SFU * 1e3)
 
 
 def _to_cpu(bins, a):
@@ -1104,6 +1134,48 @@ def _to_cpu(bins, a):
                                for f in dataclasses.fields(crmod.RollBins)})
     return bins_c, asn.Assignment(idx=a.idx.cpu(), inv=a.inv.cpu(),
                                   ovf=a.ovf.cpu(), ovf_sec=a.ovf_sec.cpu())
+
+
+def packed_edge_cases(k):
+    """The packed kernels against their plain versions on two cases made
+    from each tier's rows: every slot parked (u = 0, d = 2 Rca + 10, fc =
+    0: the tier pad row), where both must give exact zeros, and one live
+    slot per section (each section's slots after its first parked), where
+    the backward's fc cotangents of the parked slots come from the closed
+    form and must be nonzero in some tier. Raises beyond TOL."""
+    aev, ao, atot = k["spec"].aev, k["a_offs"], k["atot"]
+    out, fc_nonzero = {}, 0
+    for i, (cat, caps_t, ga) in enumerate(k["packed"]):
+        pad = asn._tier_pad_row(atot, aev.angular_cutoff, cat.dtype,
+                                cat.device)
+        one = cat.clone().reshape(-1, 5, atot)
+        for off, a_s in ao.values():
+            one[:, :, off + 1:off + a_s] = pad.reshape(5, atot)[
+                :, off + 1:off + a_s]
+        cases = {"all_parked": pad.expand(cat.shape[0], -1).contiguous(),
+                 "one_live_slot": one.reshape(-1, 5 * atot).contiguous()}
+        for case, rows in cases.items():
+            got = [asn.packed_fwd(rows, aev, caps_t, ao),
+                   asn.packed_bwd(rows, ga, aev, caps_t, ao)]
+            ref = [asn.packed_fwd_plain(rows, aev, caps_t, ao),
+                   asn.packed_bwd_plain(rows, ga, aev, caps_t, ao)]
+            _sync(rows.device)
+            res = {name: asn_compare(name, k, [x], [y])
+                   for name, x, y in zip(("packed_fwd", "packed_bwd"), got,
+                                         ref)}
+            if case == "all_parked":
+                if got[0].any() or got[1].any():
+                    raise AssertionError(f"packed, tier {i}: all-parked rows "
+                                         "give nonzero outputs")
+            else:
+                fc = got[1].reshape(-1, 5, atot)[:, 4]
+                parked = rows.reshape(-1, 5, atot)[:, 4] == 0
+                res["parked_fc_nonzero"] = int((fc[parked] != 0).sum())
+                fc_nonzero += res["parked_fc_nonzero"]
+            out[f"tier{i}_{case}"] = res
+    if not fc_nonzero:
+        raise AssertionError("packed: no parked slot took an fc cotangent")
+    return out
 
 
 def phase_asn_kernels(device, rep=6):
@@ -1137,6 +1209,13 @@ def phase_asn_kernels(device, rep=6):
         del calls, full
         tag = str(dtype).replace("torch.", "")
         result[tag] = errs
+        result[f"packed_edge_cases_{tag}"] = packed_edge_cases(k)
+        # the packed kernels' worst error as a fraction of its limit
+        result[f"packed_err_over_limit_{tag}"] = {
+            name: max([errs[name]["worst_ratio"]] + [
+                c[name]["worst_ratio"] for c in
+                result[f"packed_edge_cases_{tag}"].values()])
+            for name in ("packed_fwd", "packed_bwd")}
         limits = (1e-9, 1e-8) if dtype == torch.float64 else (None, None)
         result[f"backward_{tag}"] = asn_backward_checks(sim, state, k,
                                                         *limits)
@@ -1425,6 +1504,18 @@ def mlp_ms(sim, reps=10):
     return f_ms, time_ms(fwd_bwd, reps=reps)
 
 
+def laid_out_pairs(k):
+    """(pair lanes of the tier layouts over every row handed to the packed
+    calls, over the rows of real atoms only)."""
+    part, total, real = k["part"], 0, 0
+    for i, (cat, caps_t, _) in enumerate(k["packed"]):
+        q = asn._packed_layout(k["spec"].aev, caps_t, k["a_offs"])[1]
+        total += cat.shape[0] * q
+        real += q * (k["n"] if part["tiers"] is None
+                     else int(part["valid"][i].sum()))
+    return total, real
+
+
 def asn_kernel_row(name, k, kern, plain_fn, work, launches, reps):
     """(the kernel's row of the `kernels` line, its timing entry): error
     against the plain version (raises beyond the limit), ms, the plain
@@ -1437,6 +1528,8 @@ def asn_kernel_row(name, k, kern, plain_fn, work, launches, reps):
     torch.cuda.empty_cache()
     timing = {**err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
               "bound_by": b_by}
+    if name in ("packed_fwd", "packed_bwd"):
+        timing["fp32_ms"], timing["sfu_ms"] = pair_ops_ms(name, work["pairs"])
     row = {"name": name, "route": "cuda", "source": ASN_SOURCE,
            "replaces": asn.REPLACES[name].split()[0], "launches": launches,
            "max_abs_err": err["max_abs_err"],
@@ -1461,11 +1554,17 @@ def phase_asn_timing(device, sim, state, launches, roll_sim, reps=10):
     work = asn_work(k)
     rows, timing = [], {}
     calls = asn_calls(k)
+    lanes_all, lanes_real = laid_out_pairs(k)
     for name in ASN_KERNELS:
         row, timing[name] = asn_kernel_row(name, k, *calls[name], work,
                                            launches[name], reps)
         timing[name]["launches_per_step"] = (launches[name]
                                              / launches["step_fused"])
+        if name in ("packed_fwd", "packed_bwd"):
+            # the pair lanes of the tier layouts against the filled pairs
+            row.update(pair_lanes_laid_out=lanes_all,
+                       pair_lanes_laid_out_real_rows=lanes_real,
+                       filled_pairs=work["pairs"])
         rows.append(row)
     del calls
     bins, a = k["bins"], k["a"]
@@ -1793,9 +1892,7 @@ def block_work(launches, rca, live_rows=None):
 
 
 def block_bound(name, nbytes, pairs):
-    n_ops = ASN_OPS["packed_fwd" if "fwd" in name else "packed_bwd"][
-        "pair"] * pairs
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, max(pair_ops_ms(name, pairs))
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
 

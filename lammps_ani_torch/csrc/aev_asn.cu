@@ -46,6 +46,7 @@
 //        -shared -Xcompiler -fPIC -o libaev_asn.so aev_asn.cu
 
 #include <cstdint>
+#include <type_traits>
 
 #include "aev_common.cuh"
 
@@ -743,30 +744,103 @@ __global__ void __launch_bounds__(kThreads) asn_radial_bwd_asn_kernel(
   block_dh_partial(dh, red, dh_part);
 }
 
-// Reduce-scatter of 32 column sums over the warp: after the step of width
-// w, acc[i] holds column i + (lane's bits >= w); at the end lane l holds
-// column l in acc[0]. nvcc does not unroll the inner loop to constant
-// indices, so acc sits in local memory (128 bytes in f32) in every kernel
-// that calls this; a width given as a template constant keeps it in
-// registers (PERF.md, section 6), left to a later change with the timing of
-// the packed kernels it moves.
+// ---------------------------------------------------------------------------
+// Slot-pair helpers of the angular pair stages (packed and per-block)
+// ---------------------------------------------------------------------------
+constexpr int kCross = 0, kFullBlock = 1, kTri = 2;
+
+// First pair of row j of an a x a strict upper triangle, row by row.
+__device__ __forceinline__ int tri_start(int j, int a) {
+  return j * (2 * a - j - 1) / 2;
+}
+
+// Slot pair (j, k) of pair index t: cross t = j a2 + k; full, the ordered
+// off-diagonal pairs row by row; tri, the upper triangle row by row.
+template <int MODE>
+__device__ __forceinline__ void block_pair(int t, int a1, int a2, int& j,
+                                           int& k) {
+  if (MODE == kCross) {
+    j = t / a2;
+    k = t - j * a2;
+  } else if (MODE == kFullBlock) {
+    j = t / (a1 - 1);
+    const int m = t - j * (a1 - 1);
+    k = m + (m >= j);
+  } else {
+    // counted from the end, the rows hold 1, 2, 3, ... pairs
+    const int r = a1 * (a1 - 1) / 2 - 1 - t;
+    int jr = (int)((sqrtf(8.0f * r + 1.0f) - 1.0f) * 0.5f);
+    while ((jr + 1) * (jr + 2) / 2 <= r) ++jr;
+    while (jr * (jr + 1) / 2 > r) --jr;
+    j = a1 - 2 - jr;
+    k = t - tri_start(j, a1) + j + 1;
+  }
+}
+
+// Pair index of (j, k) (for tri, j < k).
+template <int MODE>
+__device__ __forceinline__ int block_pair_index(int j, int k, int a1,
+                                                int a2) {
+  if (MODE == kCross) return j * a2 + k;
+  if (MODE == kFullBlock) return j * (a1 - 1) + (k < j ? k : k - 1);
+  return tri_start(j, a1) + k - j - 1;
+}
+
+// The partner `o` of pair t adds its terms to one slot's five sums: dcos
+// times the partner's unit vector, drmean / 2, dfc12 times its fc.
+template <typename T>
+__device__ __forceinline__ void add_partner(T (&g)[5], const T* pb, int q,
+                                            int t, const T* so, int ao,
+                                            int o) {
+  const T dc = pb[t];
+  g[0] += dc * so[o];
+  g[1] += dc * so[ao + o];
+  g[2] += dc * so[2 * ao + o];
+  g[3] += pb[q + t];
+  g[4] += pb[2 * q + t] * so[4 * ao + o];
+}
+
+// One step of width W of the reduce-scatter below: acc[i], i < W, takes
+// column i + (lane & W) summed over the two lanes that differ in bit W. W
+// is a template constant, so that every index of acc is known at compile
+// time and acc stays in registers (a loop-variant width put it in local
+// memory).
+template <int W, typename T>
+__device__ __forceinline__ void reduce_step(T (&acc)[kNAZ], int lane) {
+  const bool upper = (lane & W) != 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const T send = upper ? acc[i] : acc[i + W];
+    const T keep = upper ? acc[i + W] : acc[i];
+    acc[i] = keep + __shfl_xor_sync(kFull, send, W);
+  }
+}
+
+// Reduce-scatter of 32 column sums over the warp, 31 shuffles: at the end
+// lane l holds column l in acc[0]. The order of the additions is fixed.
 template <typename T>
 __device__ __forceinline__ void reduce_scatter32(T (&acc)[kNAZ], int lane) {
-#pragma unroll
-  for (int w = 16; w >= 1; w >>= 1) {
-    const bool upper = (lane & w) != 0;
-#pragma unroll
-    for (int i = 0; i < w; ++i) {
-      const T send = upper ? acc[i] : acc[i + w];
-      const T keep = upper ? acc[i + w] : acc[i];
-      acc[i] = keep + __shfl_xor_sync(kFull, send, w);
-    }
-  }
+  reduce_step<16>(acc, lane);
+  reduce_step<8>(acc, lane);
+  reduce_step<4>(acc, lane);
+  reduce_step<2>(acc, lane);
+  reduce_step<1>(acc, lane);
+}
+
+// a / b; with FAST in f32, by the special-function unit's reciprocal
+// (__fdividef, 2 ulp) instead of the IEEE division and its slow path.
+template <bool FAST, typename T>
+__device__ __forceinline__ T quot(T a, T b) {
+  if constexpr (FAST && std::is_same<T, float>::value)
+    return __fdividef(a, b);
+  else
+    return a / b;
 }
 
 // One pair's cotangent scalars for the column cotangents gb[32] (scale
 // included): dcos, drmean (0 where the radial mean was clamped), dfc12.
-template <typename T>
+// FAST_DIV: the f32 divisions by quot<true>.
+template <typename T, bool FAST_DIV = false>
 __device__ __forceinline__ void pair_cotangents(const AngConsts<T>& p,
                                                 const PairTerms<T>& pt,
                                                 const T (&gb)[kNAZ],
@@ -785,8 +859,9 @@ __device__ __forceinline__ void pair_cotangents(const AngConsts<T>& p,
       df1 += gjm * (pt.fc12 * pt.e[j]);
       df2[j] += gjm * pt.f1[m];
     }
-    const T dbase = df1 * (p.zeta / pt.base[m]) * pt.f1[m];
-    dcos += dbase * T(0.5) * (p.cos_m[m] - pt.c95 / pt.sv * p.sin_m[m]) *
+    const T dbase = df1 * quot<FAST_DIV>(p.zeta, pt.base[m]) * pt.f1[m];
+    dcos += dbase * T(0.5) *
+            (p.cos_m[m] - quot<FAST_DIV>(pt.c95, pt.sv) * p.sin_m[m]) *
             T(0.95);
   }
   drmean = T(0);
@@ -801,37 +876,190 @@ __device__ __forceinline__ void pair_cotangents(const AngConsts<T>& p,
 }
 
 // ---------------------------------------------------------------------------
-// Packed angular pairs — replaces aev_asn.py:1794 _packed_fwd_kernel.
+// Packed angular pairs — replaces aev_asn.py:1794 _packed_fwd_kernel and
+// aev_asn.py:1833 _packed_bwd_kernel.
 //
-// For each row (a center atom) and each species-pair block b, the sum over
-// the block's pair lanes t (same species: the strict upper triangle of
-// slot pairs; cross species: the rectangle; the lane -> (slot 1, slot 2)
-// table comes from the host) of
+// Rows: cat [rows, 5 atot], the packed slots' fields (ux, uy, uz, d, fc)
+// field after field. Block b pairs the slots of two arms, [off1, off1 +
+// a1) and [off2, off2 + a2), the first a_t slots of two sections at a
+// tier's caps (one species: the strict upper triangle of slot pairs;
+// cross species: the rectangle; each unordered pair once, at scale 2).
+// Forward: out [rows, n_blocks * 32], the sum over block b's pairs of
 //   2 fc1 fc2 exp(-eta (rmean - shf_a_j)^2) ((1 + cos(theta - shf_z_m))/2)^zeta
-// into column b*32 + j*8 + m. One launch per occupancy tier, each with the
-// tier's own table. Bound: operations (4 exps and 8 zeta powers, each an
-// exp and a log for zeta 14.1, per pair lane) against reading the 5 slot
-// fields and writing 32 columns per block (bytes). Design: one warp per
-// row stages its 5 x atot slot values in shared memory; each lane takes
-// every 32nd pair lane of a block and keeps the 32 column sums in
-// registers; a reduce-scatter of 31 shuffles leaves column l on lane l,
-// which writes it (coalesced). No atomics.
+// in column b*32 + j*8 + m. Backward: for the cotangent ga of those
+// columns, out [rows, 5 atot], each slot's cotangent sums of (ux, uy, uz,
+// d, fc) over both arms of every pair (the radial-mean term only where
+// d1 + d2 <= 2 (Rca + 1)).
+// Stage 2 fills a section's slots from its start and parks the rest (u =
+// 0, d = big = 2 Rca + 10, fc = 0, as the tier pad rows are), so an arm is
+// a live prefix of n <= a slots and parked slots after it. A pair with a
+// parked slot has fc12 = 0: it adds exactly 0 to the forward's columns
+// and to its live slot's cotangent sums, and gives its parked slot an fc
+// cotangent only, dfc12 fc_live, where dfc12 = C_b is the same for every
+// such pair of a block and row (its cosine is 0 and its radial mean is
+// clamped to Rca + 1). So both kernels find each arm's live prefix (one
+// past the last slot that is not parked, by ballot) and walk the live
+// pairs only, enumerated from their index (the triangle by a float square
+// root and an integer correction): the host lane table of the contract is
+// not read. A slot filled at distance <= 1e-6 has d = big too, but u != 0
+// unless the offset is exactly 0; it counts as live and its pairs are
+// computed (they give exact zeros as well). One launch per occupancy tier;
+// one warp per row stages the row's 5 atot fields in shared memory.
+//
+// Powers: base^zeta with zeta = 14.1 (ANI-2x) is most of a pair's
+// arithmetic. In f32 with a zeta that is not an integer it is
+// base^n 2^(f log2 base), n = floor(zeta), f = zeta - n (zeta_pow_split),
+// and the backward's chain rule divides by __fdividef; f64, and an integer
+// zeta, keep zeta_pow (aev_common.cuh) and the IEEE division.
+//
+// Bound (chip_smoke.py ASN_OPS): per filled pair, fp32 instructions (an
+// fma counts once) over the card's instruction rate and special-function
+// results (the 8 powers' lg2 and ex2, the 4 radial shifts' ex2, the
+// square root) over its special-function rate, against the bytes of the
+// rows. Design, forward: each lane takes every 32nd live pair of a block
+// and keeps the 32 column sums in registers; a reduce-scatter of 31
+// shuffles leaves column l on lane l, which writes it (coalesced).
+// Backward, per block: lane l loads cotangent column l once into shared
+// memory, where every lane reads the 32; pass 1 gives every live pair to a
+// lane, which leaves the pair's three scalars (dcos, drmean / 2, dfc12) in
+// shared memory, and one more lane computes C_b where a parked slot has a
+// live partner; pass 2 gives every slot of the block's arms to one lane: a
+// live slot walks its live partners in index order with a running pair
+// index (5 multiply-adds per partner; every lane of a block takes as many
+// steps), a parked slot takes C_b times the fc sum of the live slots it
+// pairs with (one warp sum per arm). Every slot is written by one lane and
+// every sum has a fixed order: no atomics, two calls agree bit for bit.
+// Slots in no arm of any block get 0. A row with every slot parked gives
+// zeros.
 // ---------------------------------------------------------------------------
 template <typename T>
 struct PackedParams : AngConsts<T> {
   int rows, atot, n_blocks;
-  int base[kMaxBlocks], q[kMaxBlocks];
   // the blocks' arms: packed slot offsets and widths, same-species flag
   int off1[kMaxBlocks], off2[kMaxBlocks], a1[kMaxBlocks], a2[kMaxBlocks];
   int same[kMaxBlocks];
-  int max_q;  // the largest block's pair count
+  int max_q;       // the largest block's pair count
+  int zeta_floor;  // floor(zeta)
   T pmin;
+  T zeta_frac;     // zeta - floor(zeta)
+  T big;           // a parked slot's d, 2 Rca + 10
 };
+
+// base^zeta of the 8 angle sections of one pair, f32, zeta not an
+// integer: base^n 2^(f log2 base), n = floor(zeta), f = zeta - n. The
+// fraction goes to the special-function unit (lg2, ex2), whose error f < 1
+// scales instead of zeta. The integer part is square and multiply on b2 =
+// base^2 = s + e, s the rounded square and e its exact error (an fma):
+// base^n = r s + (k e) r with r = s^(k-1) base^(n & 1), k = n >> 1, so the
+// rounding of b2, which the k-th power would multiply by k, does not enter.
+// The formula is 4.2e-7 relative of base^zeta at worst over base in
+// [0.025, 1] with exact lg2 and ex2 (tests/test_torch_packed_live.py);
+// expf(zeta logf(base)) is 3.6e-6 there.
+__device__ __forceinline__ void zeta_pow_split(const float (&b)[kNZ],
+                                               float (&f1)[kNZ], int n,
+                                               float frac) {
+  const int k = n >> 1;
+  float r[kNZ];
+#pragma unroll
+  for (int m = 0; m < kNZ; ++m) r[m] = (n & 1) ? b[m] : 1.0f;
+  if (k > 0) {
+    float s[kNZ], sq[kNZ];
+#pragma unroll
+    for (int m = 0; m < kNZ; ++m) {
+      s[m] = b[m] * b[m];
+      sq[m] = s[m];
+    }
+    // unrolled with an exit on the (uniform) bits left: as a plain loop,
+    // ptxas spilled four registers of the enclosing pair loop
+#pragma unroll
+    for (int bit = 0; bit < 7; ++bit) {
+      const int e = (k - 1) >> bit;
+      if (e == 0) break;
+      if (e & 1) {
+#pragma unroll
+        for (int m = 0; m < kNZ; ++m) r[m] *= sq[m];
+      }
+      if (e > 1) {
+#pragma unroll
+        for (int m = 0; m < kNZ; ++m) sq[m] *= sq[m];
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kNZ; ++m) {
+      const float err = fmaf(b[m], b[m], -s[m]);
+      r[m] = fmaf(float(k) * err, r[m], r[m] * s[m]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kNZ; ++m) f1[m] = r[m] * exp2f(frac * __log2f(b[m]));
+}
+
+// f1_m = base_m^zeta of pair terms from pair_terms_geom.
+template <typename T>
+__device__ __forceinline__ void packed_powers(const PackedParams<T>& p,
+                                              PairTerms<T>& pt) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (p.zeta_int <= 0) {
+      zeta_pow_split(pt.base, pt.f1, p.zeta_floor, p.zeta_frac);
+      return;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kNZ; ++m) pt.f1[m] = zeta_pow(pt.base[m], p);
+}
+
+// Pair terms of the staged slots i1, i2 of a row (s: [5][A]).
+template <typename T>
+__device__ __forceinline__ void packed_terms(const PackedParams<T>& p,
+                                             const T* s, int A, int i1,
+                                             int i2, PairTerms<T>& pt) {
+  pair_terms_geom<T>(p, s[i1], s[A + i1], s[2 * A + i1], s[i2], s[A + i2],
+                     s[2 * A + i2], s[3 * A + i1], s[3 * A + i2],
+                     s[4 * A + i1], s[4 * A + i2], pt);
+  packed_powers<T>(p, pt);
+}
+
+// One past the last slot of [off, off + a) that is not parked: the arm's
+// live prefix. Uniform over the warp; every lane calls it.
+template <typename T>
+__device__ __forceinline__ int live_len(const T* s, int A, int off, int a,
+                                        T big, int lane) {
+  int n = 0;
+  for (int c = 0; c < a; c += 32) {
+    const int i = off + c + lane;
+    const bool live = c + lane < a &&
+                      !(s[i] == T(0) && s[A + i] == T(0) &&
+                        s[2 * A + i] == T(0) && s[3 * A + i] == big &&
+                        s[4 * A + i] == T(0));
+    const unsigned bal = __ballot_sync(kFull, live);
+    if (bal) n = c + 32 - __clz(bal);
+  }
+  return n;
+}
+
+// Slot pair (j, k) of live pair t of a block with live prefixes n1, n2:
+// the triangle row by row for one species, else the rectangle.
+__device__ __forceinline__ void live_pair(int t, bool same, int n1, int n2,
+                                          int& j, int& k) {
+  if (same)
+    block_pair<kTri>(t, n1, n1, j, k);
+  else
+    block_pair<kCross>(t, n1, n2, j, k);
+}
+
+// Sum of fc over the slots [off, off + n) (the same on every lane).
+template <typename T>
+__device__ __forceinline__ T arm_fc_sum(const T* s, int A, int off, int n,
+                                        int lane) {
+  T v = T(0);
+  for (int c = 0; c < n; c += 32)
+    if (c + lane < n) v += s[4 * A + off + c + lane];
+  return warp_sum(v);
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) asn_packed_fwd_kernel(
-    const T* __restrict__ cat, const int* __restrict__ table,
-    T* __restrict__ out, PackedParams<T> p) {
+    const T* __restrict__ cat, T* __restrict__ out, PackedParams<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int A = p.atot;
@@ -843,23 +1071,26 @@ __global__ void __launch_bounds__(kThreads) asn_packed_fwd_kernel(
   __syncwarp();
   T* orow = out + (size_t)row * p.n_blocks * kNAZ;
   for (int b = 0; b < p.n_blocks; ++b) {
+    const bool same = p.same[b] != 0;
+    const int off1 = p.off1[b], off2 = p.off2[b];
+    const int n1 = live_len(s, A, off1, p.a1[b], p.big, lane);
+    const int n2 = same ? n1 : live_len(s, A, off2, p.a2[b], p.big, lane);
+    const int q = same ? n1 * (n1 - 1) / 2 : n1 * n2;
     T acc[kNAZ];
 #pragma unroll
     for (int i = 0; i < kNAZ; ++i) acc[i] = T(0);
-    const int end = p.base[b] + p.q[b];
-    for (int t = p.base[b] + lane; t < end; t += 32) {
-      const int i1 = table[3 * t], i2 = table[3 * t + 1];
+    for (int t = lane; t < q; t += 32) {
+      int j, k;
+      live_pair(t, same, n1, n2, j, k);
       PairTerms<T> pt;
-      pair_terms_core<T>(p, s[i1], s[A + i1], s[2 * A + i1], s[i2],
-                         s[A + i2], s[2 * A + i2], s[3 * A + i1],
-                         s[3 * A + i2], s[4 * A + i1], s[4 * A + i2], pt);
+      packed_terms<T>(p, s, A, off1 + j, off2 + k, pt);
 #pragma unroll
-      for (int j = 0; j < kNA; ++j) {
-        const T f2 = pt.fc12 * pt.e[j];
+      for (int jj = 0; jj < kNA; ++jj) {
+        const T f2 = pt.fc12 * pt.e[jj];
 #pragma unroll
         for (int m = 0; m < kNZ; ++m) {
           const T c = f2 * pt.f1[m];
-          acc[j * kNZ + m] += c > p.pmin ? c : T(0);
+          acc[jj * kNZ + m] += c > p.pmin ? c : T(0);
         }
       }
     }
@@ -868,38 +1099,18 @@ __global__ void __launch_bounds__(kThreads) asn_packed_fwd_kernel(
   }
 }
 
-// ---------------------------------------------------------------------------
-// Packed angular pairs, backward — replaces aev_asn.py:1833
-// _packed_bwd_kernel.
-//
-// For each row and the cotangent ga [rows, n_blocks * 32] of the forward's
-// columns: the per-slot cotangent sums of (ux, uy, uz, d, fc) over both
-// arms of every pair lane (each unordered pair once, at scale 2; the
-// radial-mean term only where d1 + d2 <= 2 (Rca + 1)), out [rows, 5 atot]
-// field after field. Dead slots (u = 0, d = 2 Rca + 10, fc = 0) get no u
-// or d cotangent (fc12 = 0 and base_m >= 0.025, so nothing divides by 0).
-// Bound: operations (the forward's pair terms plus the chain rule, about
-// 2x the forward) against reading the 5 slot fields and 32 columns per
-// block and writing 5 fields (bytes). Trouble: each pair adds to two
-// slots, and the lanes of a warp hit the same slot. Design: one warp per
-// row; per block, pass 1 gives every pair lane to a lane (every 32nd, as
-// the forward), which leaves the pair's three scalars (dcos, drmean / 2,
-// dfc12) in shared memory; pass 2 gives every slot to one lane, which
-// walks its partners in index order and adds their terms (5 multiply-adds
-// per partner). Each pair's expensive part is computed once, each slot is
-// written by one lane, and every sum has a fixed order: no atomics.
-// ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(kThreads) asn_packed_bwd_kernel(
-    const T* __restrict__ cat, const int* __restrict__ table,
-    const T* __restrict__ ga, T* __restrict__ out, PackedParams<T> p,
-    int warps) {
+    const T* __restrict__ cat, const T* __restrict__ ga, T* __restrict__ out,
+    PackedParams<T> p, int warps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int A = p.atot, Q = p.max_q;
-  T* s = reinterpret_cast<T*>(smem_raw) + (size_t)warp * (10 * A + 3 * Q);
-  T* o = s + 5 * A;   // the slots' sums, [5][A]
-  T* pb = o + 5 * A;  // the block's pair scalars, [3][Q]
+  T* s = reinterpret_cast<T*>(smem_raw) +
+         (size_t)warp * (10 * A + 3 * Q + kNAZ);
+  T* o = s + 5 * A;    // the slots' sums, [5][A]
+  T* pb = o + 5 * A;   // the block's pair scalars, [3][Q]
+  T* gsm = pb + 3 * Q; // the block's column cotangents, [32]
   const int row = blockIdx.x * warps + warp;
   if (row >= p.rows) return;
   const T* in = cat + (size_t)row * 5 * A;
@@ -910,60 +1121,101 @@ __global__ void __launch_bounds__(kThreads) asn_packed_bwd_kernel(
   __syncwarp();
   const T* g_row = ga + (size_t)row * p.n_blocks * kNAZ;
   for (int b = 0; b < p.n_blocks; ++b) {
-    T gb[kNAZ];
-#pragma unroll
-    for (int i = 0; i < kNAZ; ++i) gb[i] = T(2) * g_row[b * kNAZ + i];
-    const int* tb = table + 3 * p.base[b];
-    for (int t = lane; t < p.q[b]; t += 32) {
-      const int i1 = tb[3 * t], i2 = tb[3 * t + 1];
+    // the block's 32 column cotangents, one load a lane, read by every
+    // lane from shared memory (in registers they cost the kernel a third
+    // of its occupancy)
+    gsm[lane] = T(2) * g_row[b * kNAZ + lane];
+    __syncwarp();
+    const T(&gb)[kNAZ] = *reinterpret_cast<const T(*)[kNAZ]>(gsm);
+    const bool same = p.same[b] != 0;
+    const int off1 = p.off1[b], off2 = p.off2[b], a1 = p.a1[b], a2 = p.a2[b];
+    const int n1 = live_len(s, A, off1, a1, p.big, lane);
+    const int n2 = same ? n1 : live_len(s, A, off2, a2, p.big, lane);
+    const int q = same ? n1 * (n1 - 1) / 2 : n1 * n2;
+    // C_b is wanted where a parked slot has a live partner; it is pair q
+    // (q < max_q then: a parked slot leaves a pair of the full block out)
+    const bool want_cb = same ? (n1 < a1 && n1 > 0)
+                              : ((n1 < a1 && n2 > 0) || (n2 < a2 && n1 > 0));
+    const int q_all = q + (want_cb ? 1 : 0);
+    for (int t = lane; t < q_all; t += 32) {
+      // the parked pair: u = 0 and fc = 0 on both arms, d = big
+      T u1x = T(0), u1y = T(0), u1z = T(0), u2x = T(0), u2y = T(0),
+        u2z = T(0), d1 = p.big, d2 = p.big, fc1 = T(0), fc2 = T(0);
+      if (t < q) {
+        int j, k;
+        live_pair(t, same, n1, n2, j, k);
+        const int i1 = off1 + j, i2 = off2 + k;
+        u1x = s[i1];
+        u1y = s[A + i1];
+        u1z = s[2 * A + i1];
+        u2x = s[i2];
+        u2y = s[A + i2];
+        u2z = s[2 * A + i2];
+        d1 = s[3 * A + i1];
+        d2 = s[3 * A + i2];
+        fc1 = s[4 * A + i1];
+        fc2 = s[4 * A + i2];
+      }
       PairTerms<T> pt;
-      pair_terms_core<T>(p, s[i1], s[A + i1], s[2 * A + i1], s[i2],
-                         s[A + i2], s[2 * A + i2], s[3 * A + i1],
-                         s[3 * A + i2], s[4 * A + i1], s[4 * A + i2], pt);
+      pair_terms_geom<T>(p, u1x, u1y, u1z, u2x, u2y, u2z, d1, d2, fc1, fc2,
+                         pt);
+      packed_powers<T>(p, pt);
       T dcos, drmean, dfc12;
-      pair_cotangents<T>(p, pt, gb, dcos, drmean, dfc12);
+      pair_cotangents<T, true>(p, pt, gb, dcos, drmean, dfc12);
       pb[t] = dcos;
       pb[Q + t] = T(0.5) * drmean;
       pb[2 * Q + t] = dfc12;
     }
     __syncwarp();
-    const int off1 = p.off1[b], off2 = p.off2[b], a1 = p.a1[b], a2 = p.a2[b];
-    const bool same = p.same[b] != 0;
-    for (int sl = lane; sl < A; sl += 32) {
-      T gx = T(0), gy = T(0), gz = T(0), gd = T(0), gf = T(0);
-      // pair lane t with the partner slot `other`
-#define ASN_ADD_PARTNER(t, other)                                            \
-  {                                                                          \
-    const T dc = pb[(t)];                                                    \
-    gx += dc * s[(other)];                                                   \
-    gy += dc * s[A + (other)];                                               \
-    gz += dc * s[2 * A + (other)];                                           \
-    gd += pb[Q + (t)];                                                       \
-    gf += pb[2 * Q + (t)] * s[4 * A + (other)];                              \
-  }
-      if (sl >= off1 && sl < off1 + a1) {
-        const int j = sl - off1;
-        if (same) {
-          // strict upper triangle, row-major: (j, k), j < k, sits at
-          // j (2 a1 - j - 1) / 2 + k - j - 1
-          for (int k = 0; k < j; ++k)
-            ASN_ADD_PARTNER(k * (2 * a1 - k - 1) / 2 + j - k - 1, off1 + k)
-          for (int k = j + 1; k < a1; ++k)
-            ASN_ADD_PARTNER(j * (2 * a1 - j - 1) / 2 + k - j - 1, off1 + k)
-        } else {
-          for (int k = 0; k < a2; ++k) ASN_ADD_PARTNER(j * a2 + k, off2 + k)
+    // a parked slot's fc cotangent: C_b times the fc sum of the live slots
+    // of the other arm (its own for one species)
+    T c_fc1 = T(0), c_fc2 = T(0);
+    if (want_cb) {
+      const T c_b = pb[2 * Q + q];
+      c_fc1 = c_b * arm_fc_sum(s, A, off1, n1, lane);
+      c_fc2 = same ? c_fc1 : c_b * arm_fc_sum(s, A, off2, n2, lane);
+    }
+    // items: the live slots of arm 1, of arm 2 (cross), then the parked
+    // slots of arm 1, of arm 2. A live slot walks its live partners in
+    // index order, with a running pair index; every lane of a block's walk
+    // takes the same number of steps.
+    const int w1 = n1, w2 = same ? 0 : n2;
+    const int p1 = a1 - n1, p2 = same ? 0 : a2 - n2;
+    for (int it = lane; it < w1 + w2 + p1 + p2; it += 32) {
+      T g[5] = {T(0), T(0), T(0), T(0), T(0)};
+      int slot;
+      if (it < w1 + w2 && same) {
+        // pairs (k, j), k < j: index j - 1 at k = 0, then + n1 - 2 - k;
+        // pairs (j, k), k > j: consecutive from the row's start
+        const int j = it;
+        slot = off1 + j;
+        int t_lo = j - 1, t_hi = tri_start(j, n1);
+        for (int k = 0; k < n1; ++k) {
+          if (k == j) continue;
+          add_partner<T>(g, pb, Q, k < j ? t_lo : t_hi, s, A, off1 + k);
+          if (k < j)
+            t_lo += n1 - 2 - k;
+          else
+            ++t_hi;
         }
+      } else if (it < w1 + w2) {
+        // arm 1 slot i: pairs i n2 + k; arm 2 slot i: pairs j n2 + i
+        const bool arm1 = it < w1;
+        const int i = arm1 ? it : it - w1;
+        slot = (arm1 ? off1 : off2) + i;
+        const int po = arm1 ? off2 : off1, cnt = arm1 ? n2 : n1;
+        const int stride = arm1 ? 1 : n2;
+        int t = arm1 ? i * n2 : i;
+        for (int k = 0; k < cnt; ++k, t += stride)
+          add_partner<T>(g, pb, Q, t, s, A, po + k);
+      } else {
+        const int r = it - w1 - w2;
+        const bool arm1 = r < p1;
+        slot = arm1 ? off1 + n1 + r : off2 + n2 + (r - p1);
+        g[4] = arm1 ? c_fc2 : c_fc1;
       }
-      if (!same && sl >= off2 && sl < off2 + a2) {
-        const int k = sl - off2;
-        for (int j = 0; j < a1; ++j) ASN_ADD_PARTNER(j * a2 + k, off1 + j)
-      }
-#undef ASN_ADD_PARTNER
-      o[sl] += gx;
-      o[A + sl] += gy;
-      o[2 * A + sl] += gz;
-      o[3 * A + sl] += gd;
-      o[4 * A + sl] += gf;
+#pragma unroll
+      for (int f = 0; f < 5; ++f) o[f * A + slot] += g[f];
     }
     __syncwarp();
   }
@@ -1011,8 +1263,6 @@ __global__ void __launch_bounds__(kThreads) asn_packed_bwd_kernel(
 // order (arm 1, then arm 2). Fixed order, no atomics, so two calls agree
 // bit for bit; successive launches on one stream add into acc in turn.
 // ---------------------------------------------------------------------------
-constexpr int kCross = 0, kFullBlock = 1, kTri = 2;
-
 template <typename T>
 struct BlockParams : AngConsts<T> {
   int rows, atot;
@@ -1020,43 +1270,6 @@ struct BlockParams : AngConsts<T> {
   int same;                // one species: off2 = off1, a2 = a1
   int q;                   // pairs per row of the form launched
 };
-
-// First pair of row j of an a x a strict upper triangle, row by row.
-__device__ __forceinline__ int tri_start(int j, int a) {
-  return j * (2 * a - j - 1) / 2;
-}
-
-// Slot pair (j, k) of pair index t: cross t = j a2 + k; full, the ordered
-// off-diagonal pairs row by row; tri, the upper triangle row by row.
-template <int MODE>
-__device__ __forceinline__ void block_pair(int t, int a1, int a2, int& j,
-                                           int& k) {
-  if (MODE == kCross) {
-    j = t / a2;
-    k = t - j * a2;
-  } else if (MODE == kFullBlock) {
-    j = t / (a1 - 1);
-    const int m = t - j * (a1 - 1);
-    k = m + (m >= j);
-  } else {
-    // counted from the end, the rows hold 1, 2, 3, ... pairs
-    const int r = a1 * (a1 - 1) / 2 - 1 - t;
-    int jr = (int)((sqrtf(8.0f * r + 1.0f) - 1.0f) * 0.5f);
-    while ((jr + 1) * (jr + 2) / 2 <= r) ++jr;
-    while (jr * (jr + 1) / 2 > r) --jr;
-    j = a1 - 2 - jr;
-    k = t - tri_start(j, a1) + j + 1;
-  }
-}
-
-// Pair index of (j, k) (for tri, j < k).
-template <int MODE>
-__device__ __forceinline__ int block_pair_index(int j, int k, int a1,
-                                                int a2) {
-  if (MODE == kCross) return j * a2 + k;
-  if (MODE == kFullBlock) return j * (a1 - 1) + (k < j ? k : k - 1);
-  return tri_start(j, a1) + k - j - 1;
-}
 
 // The block's slots of one row into shared memory, [5][a1] then (cross)
 // [5][a2]; returns the slots staged.
@@ -1114,20 +1327,6 @@ __device__ __forceinline__ void block_fwd_row(const T* __restrict__ cat,
   }
   reduce_scatter32<T>(acc, lane);
   out[(size_t)row * kNAZ + lane] = (MODE == kFullBlock ? T(1) : T(2)) * acc[0];
-}
-
-// The partner `o` of pair t adds its terms to one slot's five sums: dcos
-// times the partner's unit vector, drmean / 2, dfc12 times its fc.
-template <typename T>
-__device__ __forceinline__ void add_partner(T (&g)[5], const T* pb, int q,
-                                            int t, const T* so, int ao,
-                                            int o) {
-  const T dc = pb[t];
-  g[0] += dc * so[o];
-  g[1] += dc * so[ao + o];
-  g[2] += dc * so[2 * ao + o];
-  g[3] += pb[q + t];
-  g[4] += pb[2 * q + t] * so[4 * ao + o];
 }
 
 template <typename T, int MODE>
@@ -1599,9 +1798,9 @@ int asn_radial_gamma(const int* ip, const double* fp, const void* pos,
   return (int)cudaGetLastError();
 }
 
-// ip: rows atot n_blocks zeta_int | base[28] q[28] off1[28] off2[28]
-//     a1[28] a2[28] same[28]
-// fp: rca eta zeta mu0 delta tiny cos_m[8] sin_m[8] pmin
+// ip: rows atot n_blocks zeta_int | off1[28] off2[28] a1[28] a2[28]
+//     same[28] | zeta_floor
+// fp: rca eta zeta mu0 delta tiny cos_m[8] sin_m[8] pmin zeta_frac big
 template <typename T>
 bool packed_params_from(const int* ip, const double* fp, PackedParams<T>& p) {
   p.rows = ip[0];
@@ -1613,20 +1812,21 @@ bool packed_params_from(const int* ip, const double* fp, PackedParams<T>& p) {
     return false;
   p.max_q = 0;
   for (int b = 0; b < kMaxBlocks; ++b) {
-    p.base[b] = ip[4 + b];
-    p.q[b] = ip[4 + kMaxBlocks + b];
-    p.off1[b] = ip[4 + 2 * kMaxBlocks + b];
-    p.off2[b] = ip[4 + 3 * kMaxBlocks + b];
-    p.a1[b] = ip[4 + 4 * kMaxBlocks + b];
-    p.a2[b] = ip[4 + 5 * kMaxBlocks + b];
-    p.same[b] = ip[4 + 6 * kMaxBlocks + b];
+    p.off1[b] = ip[4 + b];
+    p.off2[b] = ip[4 + kMaxBlocks + b];
+    p.a1[b] = ip[4 + 2 * kMaxBlocks + b];
+    p.a2[b] = ip[4 + 3 * kMaxBlocks + b];
+    p.same[b] = ip[4 + 4 * kMaxBlocks + b];
     if (b >= p.n_blocks) continue;
     const int q = p.same[b] ? p.a1[b] * (p.a1[b] - 1) / 2 : p.a1[b] * p.a2[b];
-    if (p.q[b] != q || p.off1[b] < 0 || p.off1[b] + p.a1[b] > p.atot ||
-        p.off2[b] < 0 || p.off2[b] + p.a2[b] > p.atot)
+    if (p.a1[b] < 1 || p.a2[b] < 1 || p.off1[b] < 0 ||
+        p.off1[b] + p.a1[b] > p.atot || p.off2[b] < 0 ||
+        p.off2[b] + p.a2[b] > p.atot || (p.same[b] && p.off2[b] != p.off1[b]))
       return false;
     if (q > p.max_q) p.max_q = q;
   }
+  p.zeta_floor = ip[4 + 5 * kMaxBlocks];
+  if (p.zeta_floor < 0) return false;
   p.rca = (T)fp[0];
   p.eta = (T)fp[1];
   p.zeta = (T)fp[2];
@@ -1638,9 +1838,13 @@ bool packed_params_from(const int* ip, const double* fp, PackedParams<T>& p) {
     p.sin_m[m] = (T)fp[6 + kNZ + m];
   }
   p.pmin = (T)fp[6 + 2 * kNZ];
+  p.zeta_frac = (T)fp[7 + 2 * kNZ];
+  p.big = (T)fp[8 + 2 * kNZ];
   return true;
 }
 
+// `table`: the host lane table of the contract; the kernels enumerate the
+// live pairs themselves and do not read it.
 template <typename T>
 int asn_packed_fwd(const int* ip, const double* fp, const void* cat,
                    const void* table, void* out, void* stream) {
@@ -1652,7 +1856,7 @@ int asn_packed_fwd(const int* ip, const double* fp, const void* cat,
   if (err != cudaSuccess) return (int)err;
   asn_packed_fwd_kernel<T><<<row_blocks(p.rows), kThreads, smem,
                              (cudaStream_t)stream>>>(
-      (const T*)cat, (const int*)table, (T*)out, p);
+      (const T*)cat, (T*)out, p);
   return (int)cudaGetLastError();
 }
 
@@ -1666,7 +1870,8 @@ int asn_packed_bwd(const int* ip, const double* fp, const void* cat,
   if (!packed_params_from(ip, fp, p)) return cudaErrorInvalidValue;
   if (p.rows == 0) return cudaSuccess;
   // as many warps (rows) per block as the shared memory holds
-  const size_t per_warp = sizeof(T) * (10 * (size_t)p.atot + 3 * p.max_q);
+  const size_t per_warp =
+      sizeof(T) * (10 * (size_t)p.atot + 3 * p.max_q + kNAZ);
   int warps = kWarpsPerBlock;
   while (warps > 1 && warps * per_warp > kMaxSmem) warps /= 2;
   const size_t smem = warps * per_warp;
@@ -1675,7 +1880,7 @@ int asn_packed_bwd(const int* ip, const double* fp, const void* cat,
   if (err != cudaSuccess) return (int)err;
   asn_packed_bwd_kernel<T><<<(p.rows + warps - 1) / warps, 32 * warps, smem,
                              (cudaStream_t)stream>>>(
-      (const T*)cat, (const int*)table, (const T*)ga, (T*)out, p, warps);
+      (const T*)cat, (const T*)ga, (T*)out, p, warps);
   return (int)cudaGetLastError();
 }
 

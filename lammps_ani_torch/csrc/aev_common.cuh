@@ -110,10 +110,11 @@ struct PairTerms {
   T e[kNA], base[kNZ], f1[kNZ];
 };
 
-// The pair-term body (aev_pallas.py `_pair_terms_core`): unit vectors u1,
-// u2, distances d1, d2 and cutoff values fc1, fc2 of the two arms.
+// The pair-term body (aev_pallas.py `_pair_terms_core`) up to the powers:
+// every term but f1_m, from the unit vectors u1, u2, distances d1, d2 and
+// cutoff values fc1, fc2 of the two arms.
 template <typename T>
-__device__ __forceinline__ void pair_terms_core(
+__device__ __forceinline__ void pair_terms_geom(
     const AngConsts<T>& p, T u1x, T u1y, T u1z, T u2x, T u2y, T u2z, T d1,
     T d2, T fc1, T fc2, PairTerms<T>& t) {
   T cq = u1x * u2x + u1y * u2y + u1z * u2z;
@@ -132,10 +133,18 @@ __device__ __forceinline__ void pair_terms_core(
     t.e[j] = arg > p.tiny ? m_exp(arg) : T(0);
   }
 #pragma unroll
-  for (int m = 0; m < kNZ; ++m) {
+  for (int m = 0; m < kNZ; ++m)
     t.base[m] = T(0.5) * (T(1) + t.c95 * p.cos_m[m] + t.sv * p.sin_m[m]);
-    t.f1[m] = zeta_pow(t.base[m], p);
-  }
+}
+
+// The whole pair-term body: pair_terms_geom and f1_m = base_m^zeta.
+template <typename T>
+__device__ __forceinline__ void pair_terms_core(
+    const AngConsts<T>& p, T u1x, T u1y, T u1z, T u2x, T u2y, T u2z, T d1,
+    T d2, T fc1, T fc2, PairTerms<T>& t) {
+  pair_terms_geom<T>(p, u1x, u1y, u1z, u2x, u2y, u2z, d1, d2, fc1, fc2, t);
+#pragma unroll
+  for (int m = 0; m < kNZ; ++m) t.f1[m] = zeta_pow(t.base[m], p);
 }
 
 constexpr int kRedThreads = 256;

@@ -1326,16 +1326,19 @@ def _packed_params(name, cat, spec, caps_t, a_offs):
         raise ValueError(f"{name}: {len(blocks)} blocks, cat {w5} wide")
     ip, fp = aev_roll._angular_params(spec, (), cat.dtype)
     pad = [0] * (_MAX_BLOCKS - len(blocks))
-    counts = [b[5] * (b[5] - 1) // 2 if b[7] else b[5] * b[6]
-              for b in blocks]
     ints = [rows, atot, len(blocks), ip[1]]
-    # base, pair count, arm offsets, arm widths, same-species flag
-    for col in ([b[8] for b in blocks], counts, [b[3] for b in blocks],
-                [b[4] for b in blocks], [b[5] for b in blocks],
-                [b[6] for b in blocks], [int(b[7]) for b in blocks]):
+    # arm offsets, arm widths, same-species flag
+    for col in ([b[3] for b in blocks], [b[4] for b in blocks],
+                [b[5] for b in blocks], [b[6] for b in blocks],
+                [int(b[7]) for b in blocks]):
         ints += col + pad
+    # the f32 split power base^floor(zeta) 2^(frac log2 base), and the d of
+    # a parked slot (the kernels walk the live prefix of each arm)
+    zeta = fp[2]
+    ints.append(math.floor(zeta))
     pmin = 1e-30 if cat.dtype == torch.float32 else 0.0
-    return (blocks, ints, fp + [pmin],
+    big = 2.0 * spec.angular_cutoff + 10.0
+    return (blocks, ints, fp + [pmin, zeta - math.floor(zeta), big],
             _lane_table(spec, caps_t, a_offs, cat.device))
 
 
