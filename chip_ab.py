@@ -20,7 +20,10 @@ gives the launches per call), and for each f32 kernel function of
 csrc/aev_asn.cu whose name contains one of the names (`asn_<name>_kernel`),
 the count of SASS lines and of a few kinds of operation among them
 (`cuobjdump -sass`; LDL and STL are local-memory loads and stores). A name
-without a call there (block_fwd, block_fwd_tri) gets the counts only.
+without a call there (block_fwd, block_fwd_tri) gets the counts only. Each
+call is the checkout's own wrapper on the same tensors: `wing` is
+`wing(gt, inv, idx)` where the wrapper takes idx (the kernel scatters over
+idx) and `wing(gt, inv)` in a checkout whose kernel gathers through inv.
 
 The README's port section shows how to run it on the card against the
 parent commit.

@@ -71,7 +71,10 @@ object per line; any failure raises and the script exits non-zero:
   asn_timing  at the main path's final state, after a fresh rebuild: each
            of the eight asn kernels' error, ms, plain ms, bound and launches
            per MD step (the packed ones with the pair lanes of their tier
-           layouts beside the filled slot pairs); rebuild, forward and
+           layouts beside the filled slot pairs); the wing kernel (a
+           scatter over idx) against its plain version (a gather through
+           inv) on the rebuild's tables with integer-valued lane
+           cotangents, bit for bit; rebuild, forward and
            force-evaluation ms (CUDA events, three rounds); the energies
            against the plain versions on the card; with repulsion off, the
            energies against the roll engine's at the same positions (held
@@ -794,27 +797,46 @@ def device_time(prof, calls, group_keys):
 # ---------------------------------------------------------------------------
 
 # Operations per unit of work, counted as in OPS above (every operation at
-# the fused multiply-add rate), except the packed pair kernels below:
+# the fused multiply-add rate), except the kernels given in two terms
+# below:
 #   build_inv, per real candidate of a real center's 27-bin window:
 #     distance 8, keep test 1, species test 1;
 #   build_idx, per table lane: load and compare 2;
-#   step_fused, per assigned lane: gather and distance 10; per lane within
-#     Rcr: cutoff 5, 16 shifts x 6, section sum; per lane within the
-#     repulsion cutoff: 30; per kept lane within Rca: slot fields 20;
 #   radial_gamma, per assigned lane: 10 + 6 for gamma a / d; per lane within
 #     Rcr: cutoff and slope 7, 16 shifts x 10; per repulsion lane: 45;
 #   chain_sum, per filled slot: 25; per assigned lane: gather, sum and the
 #     nine dh terms 24;
 #   wing, per assigned lane: 3 adds;
-#   radial_fwd_asn and compact_asn: step_fused's radial and stage-2 terms,
-#     each with the gather and distance;
 #   radial_bwd_asn: radial_gamma's terms, and per assigned lane 3 adds for
 #     fcen and the nine dh terms;
 #   decompact_chain: chain_sum's terms less the 3 adds of the radial part.
+# The two-term kernels count fp32 instructions of a lane ("fp32", an fma
+# counts once) at PEAK_F32_INSTR and special-function results ("sfu") at
+# PEAK_SFU, the larger of the two. The step forward (step_fused; its
+# radial part alone, radial_fwd_asn; its stage 2 alone, compact_asn), as
+# (fp32, sfu) per unit of work:
+#   per assigned compact lane ("keep"), (15, 1): the offset 3, the
+#     squared distance rounded per operation 5, the 1e-12 clamp 2, the
+#     square root's refinement 3 and its rsqrt, the Rcr and Rca tests 2;
+#   per lane within Rcr ("rcr"), (148, 17): the cutoff cosine (argument,
+#     0.5 c + 0.5, x 0.25: 3, one hardware cosine), x = d - mu0 1, 16
+#     shifts x 9 (shift, square and scale 2, flush test and select 2, the
+#     product with the cutoff 1, test and select against pmin 2, add 1)
+#     and 16 ex2;
+#   per lane within the repulsion cutoff ("rep"), (27, 5): r_b, r_b^1.5
+#     by a square root (4 and its rsqrt), the exponent and its scale 2 and
+#     an ex2, z / r_b (3 and a reciprocal), the core product 1, x = d / rc,
+#     its square and clamp, u and 1 - 1 / u 6 and a reciprocal, the
+#     envelope's exponent 1 and an ex2, the half product 2, the flush 3,
+#     the add 1;
+#   per lane with a packed slot ("kept"), (12, 3): 1 / d (3 and a
+#     reciprocal), the unit vector 3, the live and in-cutoff tests 3, the
+#     argument, fc and dfc 3, one hardware cosine and sine.
+# step_fused counts all four; radial_fwd_asn the first three;
+# compact_asn the first and the last.
 # The packed pair kernels (and the per-block ones, which compute the same
-# pair terms), per slot pair of filled slots: fp32 instructions of a lane
-# ("fp32", an fma counts once) at PEAK_F32_INSTR and special-function
-# results ("sfu") at PEAK_SFU, the larger of the two:
+# pair terms), per slot pair of filled slots ("pairs"), likewise in two
+# terms:
 #   packed_fwd, fp32 272: cosine 6 (dot 3, clamp 2, x 0.95), sine 1, fc12
 #     and the clamped radial mean 5, 4 radial shifts x 6 (shift, square,
 #     scale, the exponent's log2 e, flush test and select), 8 angle bases
@@ -827,16 +849,33 @@ def device_time(prof, calls, group_keys):
 #     chain rule 156 (8 angle sections x 15: df1 4, df2 4, dbase 3, dcos 4;
 #     drmean 24, dfc12 4, fc12 e_j 4, c95 / sv 1, the clamp test 2, the
 #     scale of drmean 1), both slots' sums 10 (5 per arm); sfu 21.
+STEP_OPS = {"keep": (15, 1), "rcr": (148, 17), "rep": (27, 5),
+            "kept": (12, 3)}
 ASN_OPS = {"build_inv": {"lane": 10}, "build_idx": {"lane": 2},
-           "step_fused": {"lane": 10, "rcr": 110, "rep": 30, "kept": 20},
-           "packed_fwd": {"fp32": 272, "sfu": 21},
+           "step_fused": STEP_OPS,
+           "packed_fwd": {"pairs": (272, 21)},
            "radial_gamma": {"lane": 16, "rcr": 167, "rep": 45},
-           "packed_bwd": {"fp32": 306, "sfu": 21},
+           "packed_bwd": {"pairs": (306, 21)},
            "chain_sum": {"kept": 25, "lane": 24}, "wing": {"lane": 3},
-           "radial_fwd_asn": {"lane": 10, "rcr": 110, "rep": 30},
-           "compact_asn": {"lane": 10, "kept": 20},
+           "radial_fwd_asn": {u: STEP_OPS[u] for u in ("keep", "rcr",
+                                                       "rep")},
+           "compact_asn": {u: STEP_OPS[u] for u in ("keep", "kept")},
            "radial_bwd_asn": {"lane": 28, "rcr": 167, "rep": 45},
            "decompact_chain": {"kept": 25, "lane": 21}}
+
+
+def two_term(name):
+    """Whether ASN_OPS counts `name` in two terms ((fp32, sfu) tuples)."""
+    return isinstance(next(iter(ASN_OPS[name].values())), tuple)
+
+
+def two_term_ms(name, work):
+    """(fp32 ms, special-function ms) of a two-term kernel on `work`: the
+    sum over its units u of ASN_OPS[name][u] x work[u]."""
+    units = ASN_OPS[name]
+    fp32 = sum(units[u][0] * work[u] for u in units)
+    sfu = sum(units[u][1] * work[u] for u in units)
+    return fp32 / PEAK_F32_INSTR * 1e3, sfu / PEAK_SFU * 1e3
 
 
 def asn_inputs(sim, pos, box, seed=0):
@@ -938,7 +977,7 @@ def asn_calls(k, compact_cols=True):
                      in k["packed"]]),
         "chain_sum": (lambda: asn.chain_sum(*chain),
                       lambda: asn.chain_sum_plain(*chain)),
-        "wing": (lambda: (asn.wing(k["gt"], inv),),
+        "wing": (lambda: (asn.wing(k["gt"], inv, idx),),
                  lambda: (asn.wing_plain(k["gt"], inv),)),
         "radial_fwd_asn": (lambda: (asn.radial_fwd_asn(*g, *rfwd),),
                            lambda: (asn.radial_fwd_asn_plain(*g, *rfwd),)),
@@ -1020,8 +1059,10 @@ def asn_compare(name, k, got, ref):
 
 def asn_work(k):
     """This input's data-dependent work: real (center, candidate) lanes of
-    the 27-bin windows; assigned compact lanes, and those within Rcr;
-    filled packed slots and filled slot pairs."""
+    the 27-bin windows; assigned compact lanes ("keep"), and
+    those within Rcr and within the repulsion cutoff (every species of the
+    model has a repulsion charge); filled packed slots ("kept") and filled
+    slot pairs."""
     sp_g, idx = k["sp_g"], k["a"].idx
     nc, cap = sp_g.shape
     kpad = idx.shape[-1]
@@ -1032,12 +1073,15 @@ def asn_work(k):
         window += torch.roll(occ, shifts=tuple(int(o) for o in off),
                              dims=(0, 1, 2))
     cp = asn._padded_candidates(k["ncells"], k["pos_g"], sp_g, k["h"], wpad)
-    keep = rcr = 0
+    rep = k["spec"].repulsion
+    keep = rcr = n_rep = 0
     for rs in asn._chunks(nc, cap * kpad * 24):
         _, _, _, valid, dist = asn._lane_geometry(
             cp[rs], k["pos_g"][rs], idx[rs].to(torch.int64), wpad)
         keep += int(valid.sum())
         rcr += int((valid & (dist <= k["spec"].aev.radial_cutoff)).sum())
+        if rep is not None:
+            n_rep += int((valid & (dist < rep.cutoff)).sum())
     real = (sp_g >= 0)[:, :, None]
     filled = (k["cmp"][:, :, 3] < k["spec"].aev.angular_cutoff + 1.0) & real
     counts = [filled[:, :, off:off + a_s].sum(-1).to(torch.float64)
@@ -1048,7 +1092,8 @@ def asn_work(k):
         for d in counts[i + 1:]:
             pairs += float((c * d).sum())
     return {"window": int((occ * window).sum()) - k["n"], "keep": keep,
-            "rcr": rcr, "kept": int(filled.sum()), "pairs": int(pairs)}
+            "rcr": rcr, "rep": n_rep, "kept": int(filled.sum()),
+            "pairs": int(pairs)}
 
 
 def asn_bound(name, k, work):
@@ -1060,17 +1105,20 @@ def asn_bound(name, k, work):
     and its cotangent (srl + 1); the packed slots (6 atot) and their
     cotangents (5 atot); each packed row's 5 atot fields and its columns;
     the lane cotangents gr and gt (3 kpad each); fcen (3) and dh (9); the
-    wing (27 x 3 per grid slot). The per-channel kernels move their fused
-    siblings' rows less what they leave out: radial_fwd_asn no slots and no
-    rank2, compact_asn no rad, radial_bwd_asn radial_gamma's rows with fcen
-    and dh, decompact_chain chain_sum's without gr. Operations: ASN_OPS on
+    wing (27 x 3 per grid slot). The wing reads gt of the assigned lanes
+    only (3 per "keep" lane: a dead lane's gt is 0 and adds nothing) and
+    its mapping as idx (kpad), the lesser of the two tables that encode
+    it. The per-channel kernels move their fused siblings' rows less what
+    they leave out: radial_fwd_asn no slots and no rank2, compact_asn no
+    rad, radial_bwd_asn radial_gamma's rows with fcen and dh,
+    decompact_chain chain_sum's without gr. Operations: ASN_OPS on
     `work`."""
     n, f = k["n"], k["pos_g"].element_size()
     cap = k["sp_g"].shape[1]
     wpad, kpad, atot = asn._round_lane(27 * cap), k["kpad"], k["atot"]
     srl1 = k["ga"].shape[-1]
     ncols = k["packed"][0][2].shape[1]
-    ops = ASN_OPS[name]
+    ops, n_ops = ASN_OPS[name], None
     base_in = n * (3 * f + 4) + 9 * f
     if name == "build_inv":
         nbytes = base_in + n * wpad * 2
@@ -1081,18 +1129,14 @@ def asn_bound(name, k, work):
     elif name == "step_fused":
         nbytes = (base_in + n * kpad * 2 + n * srl1 * f + n * 6 * atot * f
                   + n * kpad * 2)
-        n_ops = (ops["lane"] * work["keep"] + ops["kept"] * work["kept"]
-                 + (ops["rcr"] + ops["rep"]) * work["rcr"])
     elif name == "packed_fwd":
         nbytes = n * (5 * atot + ncols) * f
-        n_ops = None
     elif name == "radial_gamma":
         nbytes = base_in + n * kpad * 2 + n * srl1 * f + n * 3 * kpad * f
         n_ops = (ops["lane"] * work["keep"]
                  + (ops["rcr"] + ops["rep"]) * work["rcr"])
     elif name == "packed_bwd":
         nbytes = n * (10 * atot + ncols) * f
-        n_ops = None
     elif name in ("chain_sum", "decompact_chain"):
         planes = 6 if name == "chain_sum" else 3
         nbytes = (n * kpad * 4 + n * 11 * atot * f + n * planes * kpad * f
@@ -1100,32 +1144,20 @@ def asn_bound(name, k, work):
         n_ops = ops["kept"] * work["kept"] + ops["lane"] * work["keep"]
     elif name == "radial_fwd_asn":
         nbytes = base_in + n * kpad * 2 + n * srl1 * f
-        n_ops = (ops["lane"] * work["keep"]
-                 + (ops["rcr"] + ops["rep"]) * work["rcr"])
     elif name == "compact_asn":
         nbytes = base_in + n * kpad * 2 + n * 6 * atot * f + n * kpad * 2
-        n_ops = ops["lane"] * work["keep"] + ops["kept"] * work["kept"]
     elif name == "radial_bwd_asn":
         nbytes = (base_in + n * kpad * 2 + n * srl1 * f + n * 3 * kpad * f
                   + n * 3 * f + 9 * f)
         n_ops = (ops["lane"] * work["keep"]
                  + (ops["rcr"] + ops["rep"]) * work["rcr"])
-    else:  # wing
-        nbytes = n * 3 * kpad * f + n * wpad * 2 + n * 27 * 3 * f
+    else:  # wing: gt of the assigned lanes, the mapping as idx
+        nbytes = work["keep"] * 3 * f + n * kpad * 2 + n * 27 * 3 * f
         n_ops = ops["lane"] * work["keep"]
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = (max(pair_ops_ms(name, work["pairs"])) if n_ops is None
+    t_ops = (max(two_term_ms(name, work)) if two_term(name)
              else n_ops / PEAK_F32 * 1e3)
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
-
-
-def pair_ops_ms(name, pairs):
-    """(fp32 ms, special-function ms) of the pair terms of `pairs` filled
-    slot pairs in a forward (a name with "fwd") or a backward pair kernel
-    (ASN_OPS)."""
-    ops = ASN_OPS["packed_fwd" if "fwd" in name else "packed_bwd"]
-    return (ops["fp32"] * pairs / PEAK_F32_INSTR * 1e3,
-            ops["sfu"] * pairs / PEAK_SFU * 1e3)
 
 
 def _to_cpu(bins, a):
@@ -1528,8 +1560,8 @@ def asn_kernel_row(name, k, kern, plain_fn, work, launches, reps):
     torch.cuda.empty_cache()
     timing = {**err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
               "bound_by": b_by}
-    if name in ("packed_fwd", "packed_bwd"):
-        timing["fp32_ms"], timing["sfu_ms"] = pair_ops_ms(name, work["pairs"])
+    if two_term(name):
+        timing["fp32_ms"], timing["sfu_ms"] = two_term_ms(name, work)
     row = {"name": name, "route": "cuda", "source": ASN_SOURCE,
            "replaces": asn.REPLACES[name].split()[0], "launches": launches,
            "max_abs_err": err["max_abs_err"],
@@ -1537,6 +1569,34 @@ def asn_kernel_row(name, k, kern, plain_fn, work, launches, reps):
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": None}
     return row, timing
+
+
+def wing_integer_check(k, seed=7):
+    """The wing kernel against its plain version on the rebuild's tables
+    `k["a"]`, with integer-valued gt (|g| <= 64 on the live compact lanes,
+    0 on the dead ones, as chain_sum leaves them): the float sums of such
+    values are exact in any order, so any difference is a mapping error of
+    the scatter over idx against the gather through inv. Raises unless the
+    two are equal bit for bit."""
+    idx, inv, gt = k["a"].idx, k["a"].inv, k["gt"]
+    cap = idx.shape[1]
+    g = torch.Generator(device=gt.device).manual_seed(seed)
+    vals = torch.randint(-64, 65, gt.shape, generator=g,
+                         device=gt.device).to(gt.dtype)
+    live = (idx.to(torch.int32) < 27 * cap)[:, :, None, :]
+    gi = torch.where(live, vals, 0.0).contiguous()
+    got = asn.wing(gi, inv, idx)
+    ref = asn.wing_plain(gi, inv)
+    torch.cuda.synchronize()
+    bits = torch.int32 if gt.dtype == torch.float32 else torch.int64
+    n_diff = int((got.view(bits) != ref.view(bits)).sum())
+    out = {"dtype": str(gt.dtype).replace("torch.", ""),
+           "entries": ref.numel(), "bit_mismatches": n_diff,
+           "max_abs": float(ref.abs().max()),
+           "nonzero": int((ref != 0).sum())}
+    if n_diff or not out["nonzero"]:
+        raise AssertionError(f"wing on integer gt: {out}")
+    return out
 
 
 def phase_asn_timing(device, sim, state, launches, roll_sim, reps=10):
@@ -1567,6 +1627,7 @@ def phase_asn_timing(device, sim, state, launches, roll_sim, reps=10):
                        filled_pairs=work["pairs"])
         rows.append(row)
     del calls
+    wing_int = wing_integer_check(k)
     bins, a = k["bins"], k["a"]
     spec = sim.potential.spec
     a_state = (sim._roll_grid, bins, a, sim._sections, sim._tiers)
@@ -1604,7 +1665,8 @@ def phase_asn_timing(device, sim, state, launches, roll_sim, reps=10):
           "mlp_forward_backward_ms": mlp_fb,
           "energy": float(e.double().sum()),
           "energy_vs_plain": {"max_atom_err": e_err, "limit": e_lim},
-          "norep_vs_roll": vs_roll, "kernels": timing})
+          "norep_vs_roll": vs_roll, "wing_integer_check": wing_int,
+          "kernels": timing})
     if not (ovf <= 0 and dmax <= 0):
         raise AssertionError(f"asn path: overflow {ovf}, deficit {dmax}")
     if not e_err <= e_lim:
@@ -1892,7 +1954,9 @@ def block_work(launches, rca, live_rows=None):
 
 
 def block_bound(name, nbytes, pairs):
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, max(pair_ops_ms(name, pairs))
+    ops = "packed_fwd" if "fwd" in name else "packed_bwd"
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = max(two_term_ms(ops, {"pairs": pairs}))
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
 

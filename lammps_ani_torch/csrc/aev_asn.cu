@@ -27,10 +27,12 @@
 //     into a per-species int array set to -2^20 by the wrapper.
 //   * The backward's gathers (slot -> compact lane through rank2, compact
 //     lane -> window lane through inv) were 128-lane select-accumulate
-//     loops; here a gather is a load. Every floating-point sum is taken in
-//     a fixed order (no floating-point atomics), so two calls on the same
-//     inputs agree bit for bit; the box cotangent leaves as per-block
-//     partials and is summed by dh_reduce_kernel (aev_common.cuh).
+//     loops; here the first is a load, the second a scatter over idx in
+//     slot order through shared memory (the wing). Every floating-point
+//     sum is taken in a fixed order (no floating-point atomics), so two
+//     calls on the same inputs agree bit for bit; the box cotangent leaves
+//     as per-block partials and is summed by dh_reduce_kernel
+//     (aev_common.cuh).
 //
 // Distances: d2 = (dx dx + dy dy) + dz dz with each operation rounded on
 // its own (no fused multiply-add), dist = sqrt(max(d2, 1e-12)), as the
@@ -59,6 +61,7 @@ constexpr int kMaxBlocks = 28;     // species-pair blocks (7 species)
 constexpr int kDeadSlot = 127;     // rank2 of a lane without a packed slot
 constexpr int kFloor = -(1 << 20);
 constexpr unsigned kFull = 0xffffffffu;
+constexpr size_t kMaxSmem = 227 * 1024;  // a block's shared memory (H100)
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
@@ -97,35 +100,129 @@ __device__ __forceinline__ int window_slot(const Grid& g, int cell, int w,
 
 // Geometry of one compact lane of a center at (cx, cy, cz) in bin `cell`:
 // a = center - candidate for the window lane w the lane reads (through
-// idx); a dead lane (w == wpad) sits at dist 1e6 with a = 0. The forward
-// and the radial backward share it, so both see the same distances.
+// idx); a dead lane (w == wpad) sits at dist 1e6 with a = 0. The radial
+// backward takes it lane by lane; the step rows take lane_geometry_tab,
+// which finds the slot through a warp's window table. Both leave the
+// distance to lane_geom_at, so both see the same distances.
 template <typename T>
 struct LaneGeom {
   bool valid;
   T dx, dy, dz, dist;
 };
 
+// A dead lane: dist 1e6, a = 0.
+template <typename T>
+__device__ __forceinline__ LaneGeom<T> lane_dead() {
+  return LaneGeom<T>{false, T(0), T(0), T(0), T(1e6)};
+}
+
+// A live lane reading grid slot q with wrap shift (sx, sy, sz): the one
+// distance arithmetic of both ways of finding the slot.
+template <typename T>
+__device__ __forceinline__ LaneGeom<T> lane_geom_at(const T* pos, const T* h,
+                                                    int q, int sx, int sy,
+                                                    int sz, T cx, T cy,
+                                                    T cz) {
+  LaneGeom<T> r;
+  r.valid = true;
+  T px, py, pz;
+  candidate_pos(pos, q, h, sx, sy, sz, px, py, pz);
+  r.dx = cx - px;
+  r.dy = cy - py;
+  r.dz = cz - pz;
+  const T d2 = d2_rn(r.dx, r.dy, r.dz);
+  r.dist = m_sqrt(d2 > T(1e-12) ? d2 : T(1e-12));
+  return r;
+}
+
 template <typename T>
 __device__ __forceinline__ LaneGeom<T> lane_geometry(const Grid& g,
                                                      const T* pos, const T* h,
                                                      int cell, T cx, T cy,
                                                      T cz, int w, int wpad) {
-  LaneGeom<T> r;
-  r.valid = w >= 0 && w < wpad;
-  r.dx = r.dy = r.dz = T(0);
-  r.dist = T(1e6);
-  if (r.valid) {
-    int sx, sy, sz;
-    const int q = window_slot(g, cell, w, sx, sy, sz);
-    T px, py, pz;
-    candidate_pos(pos, q, h, sx, sy, sz, px, py, pz);
-    r.dx = cx - px;
-    r.dy = cy - py;
-    r.dz = cz - pz;
-    const T d2 = d2_rn(r.dx, r.dy, r.dz);
-    r.dist = m_sqrt(d2 > T(1e-12) ? d2 : T(1e-12));
+  if (!(w >= 0 && w < wpad)) return lane_dead<T>();
+  int sx, sy, sz;
+  const int q = window_slot(g, cell, w, sx, sy, sz);
+  return lane_geom_at(pos, h, q, sx, sy, sz, cx, cy, cz);
+}
+
+// The window of a row's bin, spread over a warp: lane o < 27 holds the
+// first grid slot of window offset o's bin (bin * cap) and the offset's
+// wrap shift, packed as (sx + 1) | (sy + 1) << 2 | (sz + 1) << 4. Built
+// once per row, it spares each compact lane the divisions and remainders
+// of window_slot: a lane divides w by cap once and reads its offset's
+// entry by a shuffle.
+struct WindowTab {
+  int base, shift;
+};
+
+__device__ __forceinline__ WindowTab window_tab(const Grid& g, int cell,
+                                                int lane) {
+  WindowTab t{0, 0};
+  if (lane < 27) {
+    int ox, oy, oz, sx, sy, sz;
+    offset_of(lane, 1, ox, oy, oz);
+    t.base = neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz) * g.cap;
+    t.shift = (sx + 1) | (sy + 1) << 2 | (sz + 1) << 4;
   }
-  return r;
+  return t;
+}
+
+// lane_geometry through the row's window table: the same slot and shift,
+// then the same lane_geom_at. Every lane of the warp calls it (the
+// shuffles); idx names window lanes below 27 cap, or wpad (dead).
+template <typename T>
+__device__ __forceinline__ LaneGeom<T> lane_geometry_tab(
+    const Grid& g, const WindowTab& tab, const T* pos, const T* h, T cx,
+    T cy, T cz, int w, int wpad) {
+  const bool valid = w >= 0 && w < wpad;
+  const int o = valid ? w / g.cap : 0;
+  const int base = __shfl_sync(kFull, tab.base, o & 31);
+  const int shift = __shfl_sync(kFull, tab.shift, o & 31);
+  if (!valid) return lane_dead<T>();
+  return lane_geom_at(pos, h, base + (w - o * g.cap), (shift & 3) - 1,
+                      (shift >> 2 & 3) - 1, (shift >> 4 & 3) - 1, cx, cy,
+                      cz);
+}
+
+// One step of width W of a reduce-scatter: acc[i], i < W, takes column
+// i + (lane & W) summed over the two lanes that differ in bit W. W is a
+// template constant, so that every index of acc is known at compile time
+// and acc stays in registers (a loop-variant width put it in local
+// memory).
+template <int W, typename T, int N>
+__device__ __forceinline__ void reduce_step(T (&acc)[N], int lane) {
+  static_assert(2 * W <= N, "reduce_step: width beyond the columns");
+  const bool upper = (lane & W) != 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const T send = upper ? acc[i] : acc[i + W];
+    const T keep = upper ? acc[i + W] : acc[i];
+    acc[i] = keep + __shfl_xor_sync(kFull, send, W);
+  }
+}
+
+// Reduce-scatter of 32 column sums over the warp, 31 shuffles: at the end
+// lane l holds column l in acc[0]. The order of the additions is fixed.
+template <typename T>
+__device__ __forceinline__ void reduce_scatter32(T (&acc)[32], int lane) {
+  reduce_step<16>(acc, lane);
+  reduce_step<8>(acc, lane);
+  reduce_step<4>(acc, lane);
+  reduce_step<2>(acc, lane);
+  reduce_step<1>(acc, lane);
+}
+
+// The same for 16 column sums, 16 shuffles: the four steps leave column
+// l & 15 summed over one half-warp on lane l, one more shuffle adds the
+// other half's. Lanes l and l + 16 end with column l, the same bits.
+template <typename T>
+__device__ __forceinline__ T reduce_scatter16(T (&acc)[16], int lane) {
+  reduce_step<8>(acc, lane);
+  reduce_step<4>(acc, lane);
+  reduce_step<2>(acc, lane);
+  reduce_step<1>(acc, lane);
+  return acc[0] + __shfl_xor_sync(kFull, acc[0], 16);
 }
 
 // Compact sections: species s holds lanes [off, off + k) of every row.
@@ -262,12 +359,20 @@ __global__ void __launch_bounds__(kThreads) asn_build_idx_kernel(
 // The part a kernel does not need is compiled out (`if constexpr`), so a
 // channel alone and the fused kernel execute the same expressions in the
 // same order on the same lanes and agree bit for bit.
-// Bound: writing rad, cmp and rank2 and reading idx (bytes) against 16
-// exps per in-cutoff lane (operations); see chip_smoke.py for the count.
+// Bound: writing rad, cmp and rank2 and reading idx (bytes) against the
+// fp32 instructions and special-function results of the lanes (chip_smoke
+// ASN_OPS: per assigned lane, per lane within Rcr, per repulsion lane, per
+// packed slot); at the MD state bytes bound it.
 // Design: one warp per row, 32 lanes at a time, section by section, so
 // the 16 radial accumulators of one section stay in registers (the
 // radial-only kernel keeps nothing else live, the stage-2 kernel none of
-// them); stage-2 ranks from one ballot per chunk; sums by warp shuffles.
+// them); the row's 27 window bins are found once (window_tab), not per
+// lane; f32 Gaussians are one ex2 each of an argument prescaled by log2 e;
+// stage-2 ranks come from one ballot per chunk; a section's 16 column
+// sums leave by one reduce-scatter over the warp (16 shuffles), the
+// repulsion sum by a warp sum. The lanes within the radial cutoff, and
+// the kept lanes' slots, are packed first and computed on full warps
+// (step_row).
 // ---------------------------------------------------------------------------
 template <typename T>
 struct StepParams {
@@ -278,6 +383,7 @@ struct StepParams {
   int a_s[kMaxS], a_off[kMaxS];  // stage-2 cap and packed offset (0: none)
   int col0[kMaxS];               // first radial column of each section
   T rc, eta, mu0, delta, pi_rc, dfc_rk, tiny_e, pmin;
+  T geta;  // the Gaussian's exponent scale: -eta, in f32 -eta log2(e)
   T rca, pi_rca, dfc_k, big;
   T rep_rc, kf, a2b, one_m, pi;
   T alpha[kMaxS], zeff[kMaxS];  // per section
@@ -351,6 +457,19 @@ __device__ __forceinline__ void section_rep(const StepParams<T>& p, int si,
   a_ij = m_sqrt(a_ij > T(1e-12) ? a_ij : T(1e-12));
 }
 
+// exp(-eta xk^2) from y = geta xk^2: f64 exp(y) (geta = -eta); f32 the
+// special-function unit's 2^y (geta = -eta log2 e; ex2.approx, 2 ulp),
+// one instruction where expf reduces its range first. The f32 argument
+// rounds as expf's would but for geta's one rounding
+// (tests/test_torch_step_arith.py); the 1e-30 flush below takes what ftz
+// would.
+__device__ __forceinline__ float gauss_of(float y) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(y));
+  return e;
+}
+__device__ __forceinline__ double gauss_of(double y) { return exp(y); }
+
 // One lane's radial terms, added to its section's NR accumulators
 // (aev_asn.py `_radial_cols_mxu`).
 template <typename T>
@@ -364,7 +483,7 @@ __device__ __forceinline__ void radial_cols_lane(const StepParams<T>& p,
     for (int kk = 0; kk < kMaxNR; ++kk) {
       if (kk < p.NR) {
         const T xk = x - T(kk) * p.delta;
-        T e = m_exp(-p.eta * xk * xk);
+        T e = gauss_of(p.geta * xk * xk);
         e = e > p.tiny_e ? e : T(0);
         const T t = pref * e;
         acc[kk] += t > p.pmin ? t : T(0);
@@ -375,61 +494,81 @@ __device__ __forceinline__ void radial_cols_lane(const StepParams<T>& p,
 
 // Stage 2 for one chunk of 32 lanes of a section with cap a_s at packed
 // offset a_off (aev_asn.py `_stage2_compact`): the lane's packed slot, or
-// kDeadSlot; a kept lane writes its six slot fields. `carry` counts the
-// section's in-Rca lanes so far. Every lane of the warp calls it.
+// kDeadSlot. A kept lane leaves its offset and distance at its rank in the
+// warp's slot buffer `sb` ([4][atot]: dx, dy, dz, dist), from which
+// stage2_store writes the section's slots. `carry` counts the section's
+// in-Rca lanes so far. Every lane of the warp calls it.
 template <typename T>
 __device__ __forceinline__ int stage2_lane(const StepParams<T>& p,
                                            const LaneGeom<T>& lg, int a_s,
                                            int a_off, unsigned below,
-                                           int& carry, T* crow) {
+                                           int& carry, T* sb) {
   const int A = p.atot;
-  const T dist = lg.dist;
   int r2 = kDeadSlot;
-  const bool m = lg.valid && dist <= p.rca;
+  const bool m = lg.valid && lg.dist <= p.rca;
   const unsigned bal = __ballot_sync(kFull, m);
   const int rank = carry + __popc(bal & below);
   if (m && rank < a_s) {
     r2 = a_off + rank;
-    const bool live = dist > T(1e-6);
-    const T d = live ? dist : p.big;
-    const T inv_d = T(1) / d;
-    const bool in = live && dist <= p.rca;
-    crow[r2] = lg.dx * inv_d;
-    crow[A + r2] = lg.dy * inv_d;
-    crow[2 * A + r2] = lg.dz * inv_d;
-    crow[3 * A + r2] = d;
-    crow[4 * A + r2] = in ? T(0.5) * m_cos(dist * p.pi_rca) + T(0.5) : T(0);
-    crow[5 * A + r2] = in ? p.dfc_k * m_sin(dist * p.pi_rca) : T(0);
+    sb[rank] = lg.dx;
+    sb[A + rank] = lg.dy;
+    sb[2 * A + rank] = lg.dz;
+    sb[3 * A + rank] = lg.dist;
   }
   carry += __popc(bal);
   return r2;
 }
 
-// The slots of a section that no lane filled: u = 0, d = big, fc = dfc = 0.
+// A section's a_s packed slots, slot t by lane t % 32 (the stores
+// coalesce): the first `carry` (at most a_s) from the kept lanes' offsets
+// and distances in `sb`, the six fields (ux, uy, uz, d, fc, dfc); the rest
+// parked: u = 0, d = big, fc = dfc = 0.
 template <typename T>
-__device__ __forceinline__ void stage2_park(const StepParams<T>& p, int a_s,
-                                            int a_off, int carry, int lane,
-                                            T* crow) {
+__device__ __forceinline__ void stage2_store(const StepParams<T>& p, int a_s,
+                                             int a_off, int carry, int lane,
+                                             const T* sb, T* crow) {
   const int A = p.atot;
   const int filled = carry < a_s ? carry : a_s;
-  for (int t = a_off + filled + lane; t < a_off + a_s; t += 32) {
-    crow[t] = T(0);
-    crow[A + t] = T(0);
-    crow[2 * A + t] = T(0);
-    crow[3 * A + t] = p.big;
-    crow[4 * A + t] = T(0);
-    crow[5 * A + t] = T(0);
+  for (int t = lane; t < a_s; t += 32) {
+    T ux = T(0), uy = T(0), uz = T(0), d = p.big, fc = T(0), dfc = T(0);
+    if (t < filled) {
+      const T dist = sb[3 * A + t];
+      const bool live = dist > T(1e-6);
+      d = live ? dist : p.big;
+      const T inv_d = T(1) / d;
+      const bool in = live && dist <= p.rca;
+      ux = sb[t] * inv_d;
+      uy = sb[A + t] * inv_d;
+      uz = sb[2 * A + t] * inv_d;
+      fc = in ? T(0.5) * m_cos(dist * p.pi_rca) + T(0.5) : T(0);
+      dfc = in ? p.dfc_k * m_sin(dist * p.pi_rca) : T(0);
+    }
+    T* o = crow + a_off + t;
+    o[0] = ux;
+    o[A] = uy;
+    o[2 * A] = uz;
+    o[3 * A] = d;
+    o[4 * A] = fc;
+    o[5 * A] = dfc;
   }
 }
 
 // One row of the step forward, by one warp. `red`: the block's shared
-// per-species deficit maxima (stage 2 only).
+// per-species deficit maxima (stage 2 only); `buf`: the warp's shared
+// memory, step_buf_len entries. The geometry and the stage-2 ranks run
+// over the section's lanes 32 at a time; the work that only some lanes
+// have runs after, on full warps: the lanes within the radial or
+// repulsion cutoff append their distances to `buf` by ballot (ascending
+// lane) and the 16 shifts then run over `buf` 32 at a time (about 30 of a
+// row's 100 assigned lanes are within Rcr, spread over five chunks); the
+// kept lanes leave their offsets at their slot ranks, and the section's
+// slots are then written 32 at a time, coalesced.
 template <typename T, bool RADIAL, bool STAGE2>
 __device__ __forceinline__ void step_row(
     const StepParams<T>& p, const T* __restrict__ pos,
     const int* __restrict__ sp, const T* __restrict__ hmat,
     const int16_t* __restrict__ idx, T* __restrict__ rad, T* __restrict__ cmp,
-    int16_t* __restrict__ rank2, int* red, int row, int lane) {
+    int16_t* __restrict__ rank2, int* red, T* buf, int row, int lane) {
   const Grid& g = p.g;
   T h[9];
   for (int i = 0; i < 9; ++i) h[i] = hmat[i];
@@ -438,12 +577,15 @@ __device__ __forceinline__ void step_row(
   const T cx = pos[row * 3], cy = pos[row * 3 + 1], cz = pos[row * 3 + 2];
   const unsigned below = (1u << lane) - 1u;
   const int A = p.atot;
+  const WindowTab tab = window_tab(g, cell, lane);
   T a_i = T(0), z_i = T(0);
   if constexpr (RADIAL) center_rep(p, csp, a_i, z_i);
   const int16_t* irow = idx + (size_t)row * p.kpad;
   int16_t* r2row = STAGE2 ? rank2 + (size_t)row * p.kpad : nullptr;
   T* crow = STAGE2 ? cmp + (size_t)row * 6 * A : nullptr;
   T* rrow = RADIAL ? rad + (size_t)row * (p.srl + 1) : nullptr;
+  T* dbuf = buf;                                // [kpad] radial distances
+  T* sb = buf + (RADIAL ? p.kpad : 0);          // [4][atot] kept slots
   T rep = T(0);
   unsigned claimed = 0;  // column blocks (of NR) that a section writes
   int k_total = 0;
@@ -453,40 +595,53 @@ __device__ __forceinline__ void step_row(
     k_total = end;
     T z_ij = T(0), a_ij = T(0);
     if constexpr (RADIAL) section_rep(p, si, a_i, z_i, a_ij, z_ij);
-    T acc[kMaxNR];
-#pragma unroll
-    for (int kk = 0; kk < kMaxNR; ++kk) acc[kk] = T(0);
-    int carry = 0;
+    const bool rep_on = RADIAL && p.has_rep && z_ij > T(0);
+    int carry = 0, n_in = 0;
     for (int base = off; base < end; base += 32) {
       const int k = base + lane;
       const bool in_sec = k < end;
       const int w = in_sec ? (int)irow[k] : p.wpad;
       const LaneGeom<T> lg =
-          lane_geometry(g, pos, h, cell, cx, cy, cz, w, p.wpad);
+          lane_geometry_tab(g, tab, pos, h, cx, cy, cz, w, p.wpad);
       if constexpr (RADIAL) {
-        radial_cols_lane(p, lg.valid, lg.dist, acc);
-        if (p.has_rep && lg.valid && z_ij > T(0) && lg.dist < p.rep_rc)
-          rep += rep_half(p, lg.dist, a_ij, z_ij);
+        const bool m = lg.valid && (lg.dist <= p.rc ||
+                                    (rep_on && lg.dist < p.rep_rc));
+        const unsigned bal = __ballot_sync(kFull, m);
+        if (m) dbuf[n_in + __popc(bal & below)] = lg.dist;
+        n_in += __popc(bal);
       }
       if constexpr (STAGE2) {
         int r2 = kDeadSlot;
-        if (a_s > 0) r2 = stage2_lane(p, lg, a_s, a_off, below, carry, crow);
+        if (a_s > 0) r2 = stage2_lane(p, lg, a_s, a_off, below, carry, sb);
         if (in_sec) r2row[k] = (int16_t)r2;
       }
     }
     if constexpr (RADIAL) {
-      // c0 is read once per section: indexing p.col0 inside this loop
-      // costs the fused kernel a fifth of its time (0.69 against 0.57 ms
-      // at 101,250 atoms on an H100)
-      for (int kk = 0; kk < p.NR; ++kk) {
-        const T s = warp_sum(acc[kk]);
-        if (lane == kk) rrow[c0 + kk] = s;
+      __syncwarp();
+      T acc[kMaxNR];
+#pragma unroll
+      for (int kk = 0; kk < kMaxNR; ++kk) acc[kk] = T(0);
+      for (int base = 0; base < n_in; base += 32) {
+        const bool in = base + lane < n_in;
+        const T dist = in ? dbuf[base + lane] : T(1e6);
+        radial_cols_lane(p, in, dist, acc);
+        if (rep_on && in && dist < p.rep_rc)
+          rep += rep_half(p, dist, a_ij, z_ij);
       }
+      __syncwarp();
+      // the NR column sums by one reduce-scatter (16 shuffles), lane kk
+      // storing column kk; c0 is read once per section: indexing p.col0 in
+      // a loop over the columns cost the fused kernel a fifth of its time
+      // (0.69 against 0.57 ms at 101,250 atoms on an H100)
+      const T s = reduce_scatter16(acc, lane);
+      if (lane < p.NR) rrow[c0 + lane] = s;
       if constexpr (!STAGE2) claimed |= 1u << (c0 / p.NR);
     }
     if constexpr (STAGE2) {
       if (a_s > 0) {
-        stage2_park(p, a_s, a_off, carry, lane, crow);
+        __syncwarp();
+        stage2_store(p, a_s, a_off, carry, lane, sb, crow);
+        __syncwarp();
         if (lane == 0) atomicMax(&red[p.sec.species[si]], carry - a_s);
       }
     }
@@ -506,6 +661,21 @@ __device__ __forceinline__ void step_row(
   }
 }
 
+// A step row's shared memory: kpad radial distances (a kernel with the
+// radial part), then 4 x atot kept-slot values (with stage 2).
+__host__ __device__ inline int step_buf_len(int kpad, int atot, bool radial,
+                                            bool stage2) {
+  return (radial ? kpad : 0) + (stage2 ? 4 * atot : 0);
+}
+
+// The calling warp's `len` entries of the block's dynamic shared memory
+// (kWarpsPerBlock x len of T: step_smem).
+template <typename T>
+__device__ __forceinline__ T* warp_buf(int len) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return reinterpret_cast<T*>(smem_raw) + (threadIdx.x >> 5) * len;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) asn_step_fused_kernel(
     const T* __restrict__ pos, const int* __restrict__ sp,
@@ -517,8 +687,10 @@ __global__ void __launch_bounds__(kThreads) asn_step_fused_kernel(
   __syncthreads();
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row < p.g.nx * p.g.ny * p.g.nz * p.g.cap)
-    step_row<T, true, true>(p, pos, sp, hmat, idx, rad, cmp, rank2, red, row,
-                            threadIdx.x & 31);
+    step_row<T, true, true>(
+        p, pos, sp, hmat, idx, rad, cmp, rank2, red,
+        warp_buf<T>(step_buf_len(p.kpad, p.atot, true, true)), row,
+        threadIdx.x & 31);
   flush_species_max(red, deficit);
 }
 
@@ -529,8 +701,10 @@ __global__ void __launch_bounds__(kThreads) asn_radial_fwd_asn_kernel(
     T* __restrict__ rad, StepParams<T> p) {
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row < p.g.nx * p.g.ny * p.g.nz * p.g.cap)
-    step_row<T, true, false>(p, pos, sp, hmat, idx, rad, nullptr, nullptr,
-                             nullptr, row, threadIdx.x & 31);
+    step_row<T, true, false>(
+        p, pos, sp, hmat, idx, rad, nullptr, nullptr, nullptr,
+        warp_buf<T>(step_buf_len(p.kpad, p.atot, true, false)), row,
+        threadIdx.x & 31);
 }
 
 template <typename T>
@@ -544,8 +718,10 @@ __global__ void __launch_bounds__(kThreads) asn_compact_asn_kernel(
   __syncthreads();
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row < p.g.nx * p.g.ny * p.g.nz * p.g.cap)
-    step_row<T, false, true>(p, pos, sp, hmat, idx, nullptr, cmp, rank2, red,
-                             row, threadIdx.x & 31);
+    step_row<T, false, true>(
+        p, pos, sp, hmat, idx, nullptr, cmp, rank2, red,
+        warp_buf<T>(step_buf_len(p.kpad, p.atot, false, true)), row,
+        threadIdx.x & 31);
   flush_species_max(red, deficit);
 }
 
@@ -798,33 +974,6 @@ __device__ __forceinline__ void add_partner(T (&g)[5], const T* pb, int q,
   g[2] += dc * so[2 * ao + o];
   g[3] += pb[q + t];
   g[4] += pb[2 * q + t] * so[4 * ao + o];
-}
-
-// One step of width W of the reduce-scatter below: acc[i], i < W, takes
-// column i + (lane & W) summed over the two lanes that differ in bit W. W
-// is a template constant, so that every index of acc is known at compile
-// time and acc stays in registers (a loop-variant width put it in local
-// memory).
-template <int W, typename T>
-__device__ __forceinline__ void reduce_step(T (&acc)[kNAZ], int lane) {
-  const bool upper = (lane & W) != 0;
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const T send = upper ? acc[i] : acc[i + W];
-    const T keep = upper ? acc[i + W] : acc[i];
-    acc[i] = keep + __shfl_xor_sync(kFull, send, W);
-  }
-}
-
-// Reduce-scatter of 32 column sums over the warp, 31 shuffles: at the end
-// lane l holds column l in acc[0]. The order of the additions is fixed.
-template <typename T>
-__device__ __forceinline__ void reduce_scatter32(T (&acc)[kNAZ], int lane) {
-  reduce_step<16>(acc, lane);
-  reduce_step<8>(acc, lane);
-  reduce_step<4>(acc, lane);
-  reduce_step<2>(acc, lane);
-  reduce_step<1>(acc, lane);
 }
 
 // a / b; with FAST in f32, by the special-function unit's reciprocal
@@ -1559,48 +1708,119 @@ __global__ void __launch_bounds__(kThreads) asn_decompact_chain_kernel(
 // Neighbor-role force on the window lanes — replaces aev_asn.py:2083
 // _wing_kernel.
 //
-// wing[bin, w, c] = -sum over the bin's slots of gt[slot, c, inv[slot, w]]
-// for the 27 cap window lanes w; a lane no section keeps has inv =
-// kpad - 1, a compact lane where gt is always 0. The fold to the owner
-// bins stays aev_roll._fold_wing. Bound: reading inv [NC, cap, wpad]
-// int16 and gt (bytes). Design: the gather form, not a scatter: a block
-// serves 256 window lanes of one bin, a thread one lane; slot after slot
-// (in order: a fixed sum), the slot's 3 x kpad values of gt are staged in
-// shared memory and every thread reads the one its inv names; the reads
-// of inv coalesce over w.
+// wing[bin, w, c] = -sum over the bin's slots, in ascending order, of
+// gt[slot, c, k] over the compact lanes k that read window lane w
+// (idx[slot, k] == w; a dead lane has idx == wpad), for the 27 cap window
+// lanes w. The TPU kernel gathers the same sum through inv, -sum over
+// slots of gt[slot, c, inv[slot, w]], where a lane no section keeps names
+// compact lane kpad - 1, whose gt is always 0. Where build_inv reported no
+// overflow, inv and idx are inverses on the live lanes, so the scatter
+// adds the gather's addends in the gather's order less its exact zeros
+// (x + 0 is x, and +0 + +-0 is +0): the two agree bit for bit. Where a
+// section overflowed, build_inv ranks lanes past the section's k_s, inv
+// names one compact lane from two window lanes and idx keeps one of them,
+// so the two differ; the MD engine takes no step at such a rebuild
+// (Simulation._chunk returns before stepping and regrows the sections).
+// Bound: reading gt and idx and writing the wing (bytes). inv is not read.
+// Design: one block per bin. Its idx rows come into shared memory by
+// cp.async, then the 16-byte groups of its gt rows that hold a live lane
+// (the other groups are never read), then, slot after slot with a barrier
+// between slots, each thread adds gt[slot, c, k] into the shared
+// accumulator [w][c] of window lane w = idx[slot, k]. idx names each
+// window lane at most once in a slot (build_idx writes one compact lane
+// per window lane), so the adds of a slot never collide and every
+// accumulator takes its addends in ascending slot order; a slot without a
+// live lane is skipped. The negated sums leave coalesced. Where a bin's
+// rows do not fit one block's shared memory (f64, wide kpad), they come
+// `batch` slots at a time.
 // ---------------------------------------------------------------------------
+// The wing's launch, chosen on an H100 at the 101,250-atom box (cap 36):
+// 256 threads and 12 slots a batch took 0.142-0.144 ms a call, 9 slots
+// 0.139-0.142, a bin's 36 slots at once (3 blocks an SM) 0.173, 128
+// threads 0.147-0.149, 384 threads 0.154-0.156.
 constexpr int kWingThreads = 256;
+constexpr int kWingBatch = 12;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Shared memory of one wing block: the accumulators [27 cap][3], then
+// `batch` slots' idx rows, gt rows and live flags (16-byte aligned parts).
+struct WingSmem {
+  size_t idx_off, gt_off, flag_off, total;
+};
+
+__host__ __device__ inline size_t up16(size_t b) { return (b + 15) / 16 * 16; }
+
+template <typename T>
+__host__ __device__ inline WingSmem wing_smem(int cap, int kpad, int batch) {
+  WingSmem m;
+  m.idx_off = up16(sizeof(T) * 3 * 27 * (size_t)cap);
+  m.gt_off = m.idx_off + up16(2 * (size_t)batch * kpad);
+  m.flag_off = m.gt_off + sizeof(T) * 3 * (size_t)batch * kpad;
+  m.total = m.flag_off + sizeof(int) * (size_t)batch;
+  return m;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kWingThreads) asn_wing_kernel(
-    const T* __restrict__ gt, const int16_t* __restrict__ inv,
-    T* __restrict__ wing, int cap, int wpad, int kpad) {
+    const T* __restrict__ gt, const int16_t* __restrict__ idx,
+    T* __restrict__ wing, int cap, int kpad, int batch) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);  // [3][kpad]
-  const int bin = blockIdx.x;
-  const int w = blockIdx.y * kWingThreads + threadIdx.x;
-  const int W = 27 * cap;
-  T ax = T(0), ay = T(0), az = T(0);
-  for (int slot = 0; slot < cap; ++slot) {
-    const size_t row = (size_t)bin * cap + slot;
+  const WingSmem m = wing_smem<T>(cap, kpad, batch);
+  T* acc = reinterpret_cast<T*>(smem_raw);                      // [W][3]
+  int16_t* sidx = reinterpret_cast<int16_t*>(smem_raw + m.idx_off);
+  T* sgt = reinterpret_cast<T*>(smem_raw + m.gt_off);           // [b][3][kpad]
+  int* live = reinterpret_cast<int*>(smem_raw + m.flag_off);    // [b]
+  constexpr int kVec = 16 / sizeof(T);  // gt lanes per 16-byte copy
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int W = 27 * cap, bin = blockIdx.x;
+  const int gpr = 3 * kpad / kVec;  // 16-byte groups per gt row
+  for (int i = tid; i < 3 * W; i += nt) acc[i] = T(0);
+  for (int s0 = 0; s0 < cap; s0 += batch) {
+    const int nb = cap - s0 < batch ? cap - s0 : batch;
+    const size_t row0 = (size_t)bin * cap + s0;
+    const int16_t* gidx = idx + row0 * kpad;
+    for (int i = tid; i < nb * kpad / 8; i += nt)
+      cp_async16(sidx + 8 * i, gidx + 8 * i);
+    for (int i = tid; i < nb; i += nt) live[i] = 0;
+    cp_async_wait_all();
     __syncthreads();
-    for (int i = threadIdx.x; i < 3 * kpad; i += kWingThreads)
-      s[i] = gt[row * 3 * kpad + i];
+    const T* ggt = gt + row0 * 3 * kpad;
+    for (int i = tid; i < nb * gpr; i += nt) {
+      const int s = i / gpr, k0 = (i - s * gpr) * kVec % kpad;
+      bool any = false;
+#pragma unroll
+      for (int v = 0; v < kVec; ++v)
+        any |= (unsigned)sidx[s * kpad + k0 + v] < (unsigned)W;
+      if (any) {
+        cp_async16(sgt + (size_t)kVec * i, ggt + (size_t)kVec * i);
+        live[s] = 1;
+      }
+    }
+    cp_async_wait_all();
     __syncthreads();
-    if (w < W) {
-      int iv = inv[row * wpad + w];
-      if (iv < 0 || iv >= kpad) iv = kpad - 1;
-      ax += s[iv];
-      ay += s[kpad + iv];
-      az += s[2 * kpad + iv];
+    for (int s = 0; s < nb; ++s) {
+      if (!live[s]) continue;  // the same for every thread of the block
+      for (int i = tid; i < 3 * kpad; i += nt) {
+        const int c = i / kpad, k = i - c * kpad;
+        const int w = sidx[s * kpad + k];
+        if ((unsigned)w < (unsigned)W)
+          acc[3 * w + c] += sgt[((size_t)s * 3 + c) * kpad + k];
+      }
+      __syncthreads();
     }
   }
-  if (w < W) {
-    T* o = wing + ((size_t)bin * W + w) * 3;
-    o[0] = -ax;
-    o[1] = -ay;
-    o[2] = -az;
-  }
+  // every add is behind a barrier here: the last live slot's, or phase 2's
+  T* out = wing + (size_t)bin * 3 * W;
+  for (int i = tid; i < 3 * W; i += nt) out[i] = -acc[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -1662,6 +1882,13 @@ int asn_build_idx(const int* ip, const double*, const void* inv, void* idx,
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory of a step kernel: each warp's buffer.
+template <typename T>
+size_t step_smem(const StepParams<T>& p, bool radial, bool stage2) {
+  return sizeof(T) * kWarpsPerBlock *
+         (size_t)step_buf_len(p.kpad, p.atot, radial, stage2);
+}
+
 // ip: nx ny nz cap wpad kpad NR atot srl has_rep env kf15 | sections |
 //     a_s[8] a_off[8] col0[8] | n_part (the kernels with dh only)
 // fp: rc eta mu0 delta tiny_e pmin rca big rep_rc kf alpha[8] zeff[8]
@@ -1699,6 +1926,9 @@ bool step_params_from(const int* ip, const double* fp, StepParams<T>& p) {
   p.delta = (T)fp[3];
   p.tiny_e = (T)fp[4];
   p.pmin = (T)fp[5];
+  p.geta = std::is_same<T, float>::value
+               ? (T)(-fp[1] * 1.4426950408889634)  // -eta log2(e)
+               : (T)(-fp[1]);
   p.pi_rc = (T)(kPi / rc);
   p.dfc_rk = (T)(-0.5 * kPi / rc);
   p.rca = (T)rca;
@@ -1721,7 +1951,10 @@ int asn_step_fused(const int* ip, const double* fp, const void* pos,
   if (!step_params_from(ip, fp, p) || p.srl != p.sec.n * p.NR)
     return cudaErrorInvalidValue;
   const int nrows = p.g.nx * p.g.ny * p.g.nz * p.g.cap;
-  asn_step_fused_kernel<T><<<row_blocks(nrows), kThreads, 0,
+  const size_t smem = step_smem(p, true, true);
+  cudaError_t err = set_smem(asn_step_fused_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  asn_step_fused_kernel<T><<<row_blocks(nrows), kThreads, smem,
                              (cudaStream_t)stream>>>(
       (const T*)pos, (const int*)sp, (const T*)h, (const int16_t*)idx,
       (T*)rad, (T*)cmp, (int16_t*)rank2, (int*)deficit, p);
@@ -1736,7 +1969,10 @@ int asn_radial_fwd_asn(const int* ip, const double* fp, const void* pos,
   StepParams<T> p;
   if (!step_params_from(ip, fp, p)) return cudaErrorInvalidValue;
   const int nrows = p.g.nx * p.g.ny * p.g.nz * p.g.cap;
-  asn_radial_fwd_asn_kernel<T><<<row_blocks(nrows), kThreads, 0,
+  const size_t smem = step_smem(p, true, false);
+  cudaError_t err = set_smem(asn_radial_fwd_asn_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  asn_radial_fwd_asn_kernel<T><<<row_blocks(nrows), kThreads, smem,
                                  (cudaStream_t)stream>>>(
       (const T*)pos, (const int*)sp, (const T*)h, (const int16_t*)idx,
       (T*)rad, p);
@@ -1751,7 +1987,10 @@ int asn_compact_asn(const int* ip, const double* fp, const void* pos,
   StepParams<T> p;
   if (!step_params_from(ip, fp, p)) return cudaErrorInvalidValue;
   const int nrows = p.g.nx * p.g.ny * p.g.nz * p.g.cap;
-  asn_compact_asn_kernel<T><<<row_blocks(nrows), kThreads, 0,
+  const size_t smem = step_smem(p, false, true);
+  cudaError_t err = set_smem(asn_compact_asn_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  asn_compact_asn_kernel<T><<<row_blocks(nrows), kThreads, smem,
                               (cudaStream_t)stream>>>(
       (const T*)pos, (const int*)sp, (const T*)h, (const int16_t*)idx,
       (T*)cmp, (int16_t*)rank2, (int*)deficit, p);
@@ -1859,8 +2098,6 @@ int asn_packed_fwd(const int* ip, const double* fp, const void* cat,
       (const T*)cat, (T*)out, p);
   return (int)cudaGetLastError();
 }
-
-constexpr size_t kMaxSmem = 227 * 1024;
 
 template <typename T>
 int asn_packed_bwd(const int* ip, const double* fp, const void* cat,
@@ -2008,17 +2245,22 @@ int asn_decompact_chain(const int* ip, const double* fp, const void* rank2,
 
 // ip: nc cap wpad kpad
 template <typename T>
-int asn_wing(const int* ip, const double*, const void* gt, const void* inv,
+int asn_wing(const int* ip, const double*, const void* gt, const void* idx,
              void* wing, void* stream) {
   const int nc = ip[0], cap = ip[1], wpad = ip[2], kpad = ip[3];
-  const size_t smem = sizeof(T) * 3 * (size_t)kpad;
-  if (nc < 1 || cap < 1 || wpad < 27 * cap || kpad < 1 || smem > kMaxSmem)
+  if (nc < 1 || cap < 1 || wpad < 27 * cap || wpad >= 32768 || kpad < 32 ||
+      kpad % 32)
     return cudaErrorInvalidValue;
+  // kWingBatch slots at a time, fewer where they do not fit
+  int batch = cap < kWingBatch ? cap : kWingBatch;
+  while (batch > 1 && wing_smem<T>(cap, kpad, batch).total > kMaxSmem)
+    --batch;
+  const size_t smem = wing_smem<T>(cap, kpad, batch).total;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(asn_wing_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 blocks(nc, (27 * cap + kWingThreads - 1) / kWingThreads);
-  asn_wing_kernel<T><<<blocks, kWingThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)gt, (const int16_t*)inv, (T*)wing, cap, wpad, kpad);
+  asn_wing_kernel<T><<<nc, kWingThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)gt, (const int16_t*)idx, (T*)wing, cap, kpad, batch);
   return (int)cudaGetLastError();
 }
 
@@ -2089,9 +2331,9 @@ int asn_wing(const int* ip, const double*, const void* gt, const void* inv,
                                   dh_part, dh, stream);                       \
   }                                                                           \
   extern "C" int asn_wing_##SUF(const int* ip, const double* fp,             \
-                                const void* gt, const void* inv, void* wing, \
+                                const void* gt, const void* idx, void* wing, \
                                 void* stream) {                               \
-    return asn_wing<T>(ip, fp, gt, inv, wing, stream);                       \
+    return asn_wing<T>(ip, fp, gt, idx, wing, stream);                       \
   }                                                                           \
   extern "C" int asn_block_fwd_##SUF(const int* ip, const double* fp,        \
                                      const void* cat, void* out,             \

@@ -32,8 +32,9 @@ side >= Rcr + skin) serves both AEV channels:
     the packed slots on the tier rows the forward gathered (`packed_bwd`
     or the per-block backwards), chains the slots back to the compact
     lanes through `rank2` and adds the radial part, with the center force
-    and the box cotangent (`chain_sum`), and gathers the neighbor-role
-    force onto the window lanes through `inv` (`wing`);
+    and the box cotangent (`chain_sum`), and sums the neighbor-role force
+    onto the window lanes (`wing`: the kernel scatters over `idx`, the
+    plain version gathers through `inv`);
     `aev_roll._fold_wing` rolls the window slabs back to their owner
     bins.
 
@@ -1538,18 +1539,26 @@ def chain_sum(rank2, idx, cmp, gsum, gr, ncells, spec):
     return gt, fcen, dh
 
 
-def wing(gt, inv):
-    """wing [NC, 27 cap, 3] (replaces aev_asn._wing_kernel)."""
-    if not _route("wing", gt, inv):
+def wing(gt, inv, idx):
+    """wing [NC, 27 cap, 3] (replaces aev_asn._wing_kernel). The kernel
+    scatters gt over `idx` and does not read `inv`; the plain version
+    gathers through `inv` (the TPU kernel's form). The two agree bit for
+    bit where build_inv reported no overflow (csrc/aev_asn.cu)."""
+    if not _route("wing", gt, inv, idx):
         return wing_plain(gt, inv)
     nc, cap, _, kpad = gt.shape
-    if (gt.shape[2] != 3 or inv.dim() != 3 or inv.shape[:2] != (nc, cap)
-            or inv.dtype != torch.int16 or inv.shape[2] < 27 * cap):
+    if (gt.shape[2] != 3 or idx.shape != (nc, cap, kpad)
+            or idx.dtype != torch.int16 or inv.dim() != 3
+            or inv.shape[:2] != (nc, cap) or inv.dtype != torch.int16
+            or inv.shape[2] < 27 * cap
+            or gt.data_ptr() % 16 or idx.data_ptr() % 16):
         raise ValueError(f"wing: gt {tuple(gt.shape)}, inv "
-                         f"{tuple(inv.shape)} {inv.dtype}")
+                         f"{tuple(inv.shape)} {inv.dtype}, idx "
+                         f"{tuple(idx.shape)} {idx.dtype} (gt and idx "
+                         "16-byte aligned)")
     out = torch.empty((nc, 27 * cap, 3), dtype=gt.dtype, device=gt.device)
     _launch("wing", f"asn_wing_{_suffix('wing', gt.dtype)}",
-            [nc, cap, inv.shape[2], kpad], [0.0], gt, inv, out)
+            [nc, cap, inv.shape[2], kpad], [0.0], gt, idx, out)
     return out
 
 
@@ -1892,7 +1901,7 @@ def _backward(static, pos, h, inv_bins, csp_grid, cell, slot, idx, inv, cmp,
                               g_ang, part, ops, n_all, pair_stage)
     gt, fcen, dh = ops["chain"](rank2, idx, cmp, gsum, gr, ncells, spec)
     del gr
-    wing_g = ops["wing"](gt, inv)
+    wing_g = ops["wing"](gt, inv, idx)
     return aev_roll._fold_wing(ncells, 1, fcen, wing_g)[cell, slot], dh
 
 
@@ -1945,7 +1954,7 @@ def _radial_backward(static, pos, h, inv_bins, csp_grid, cell, slot, idx,
     ga = _cotangent_grid_rows(inv_bins, g_rad, g_rep, cell.shape[0])
     g, fcen, dh = ops["radial_bwd"](pos_g, sp_g, h, idx, ga, ncells, spec,
                                     sections, rep, compact_cols)
-    wing_g = ops["wing"](g, inv)
+    wing_g = ops["wing"](g, inv, idx)
     return aev_roll._fold_wing(ncells, 1, fcen, wing_g)[cell, slot], dh
 
 
@@ -2021,7 +2030,7 @@ def _angular_backward(static, inv_bins, cell, slot, idx, inv, cmp, rank2,
                               g_ang.contiguous(), part, ops, cell.shape[0],
                               pair_stage)
     gt, fcen, dh = ops["decompact"](rank2, idx, cmp, gsum, ncells, spec)
-    wing_g = ops["wing"](gt, inv)
+    wing_g = ops["wing"](gt, inv, idx)
     return aev_roll._fold_wing(ncells, 1, fcen, wing_g)[cell, slot], dh
 
 
