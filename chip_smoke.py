@@ -27,7 +27,10 @@ object per line; any failure raises and the script exits non-zero:
            outputs exactly, floats within the limits below; the packed
            kernels also on rows with every slot parked (exact zeros) and
            with one live slot per section, and their worst error as a
-           fraction of its limit; the whole
+           fraction of its limit; radial_gamma and chain_sum exactly 0 on
+           the rows with no atom and on the dead lanes, and the dh of
+           chain_sum, decompact_chain and radial_bwd_asn exactly 0 from
+           cotangents on interior bins' rows only; the whole
            backward (dpos, dh) of `aev_asn_fused`, `radial_aev_asn` and
            `angular_aev_asn` against autograd through the plain forwards
            (f64), two calls of each bit for bit (f64 and f32); the
@@ -802,14 +805,7 @@ def device_time(prof, calls, group_keys):
 #   build_inv, per real candidate of a real center's 27-bin window:
 #     distance 8, keep test 1, species test 1;
 #   build_idx, per table lane: load and compare 2;
-#   radial_gamma, per assigned lane: 10 + 6 for gamma a / d; per lane within
-#     Rcr: cutoff and slope 7, 16 shifts x 10; per repulsion lane: 45;
-#   chain_sum, per filled slot: 25; per assigned lane: gather, sum and the
-#     nine dh terms 24;
-#   wing, per assigned lane: 3 adds;
-#   radial_bwd_asn: radial_gamma's terms, and per assigned lane 3 adds for
-#     fcen and the nine dh terms;
-#   decompact_chain: chain_sum's terms less the 3 adds of the radial part.
+#   wing, per assigned lane: 3 adds.
 # The two-term kernels count fp32 instructions of a lane ("fp32", an fma
 # counts once) at PEAK_F32_INSTR and special-function results ("sfu") at
 # PEAK_SFU, the larger of the two. The step forward (step_fused; its
@@ -834,6 +830,32 @@ def device_time(prof, calls, group_keys):
 #     argument, fc and dfc 3, one hardware cosine and sine.
 # step_fused counts all four; radial_fwd_asn the first three;
 # compact_asn the first and the last.
+# The radial backward (radial_gamma; radial_bwd_asn with its sums):
+#   per assigned lane ("keep"), (19, 2): the step's geometry (15, 1), then
+#     gamma / d by the reciprocal (1 and a reciprocal) and its three
+#     products with a 3;
+#   per lane within Rcr ("rcr"), (166, 18): the cutoff's argument 1, fc 1,
+#     dfc 1, the hardware cosine and sine with their argument scales 2,
+#     x = d - mu0 1, 16 shifts x 10 (shift 1, the exponent's square and
+#     scale 2, flush test and select 2, 2 eta xk 1, dfc - (2 eta xk) fc 1,
+#     0.25 e 1, its product 1, the weighted add 1) and 16 ex2;
+#   per lane within the repulsion cutoff ("rep"), (38, 7): r_b 1, r_b^1.5
+#     by a square root (4 and its rsqrt), z / r_b 1, the core's exponent
+#     (3 and an ex2) and product 1, dcore 6, x = d / rc 1, the envelope:
+#     x^2, clamp, u, 1 / u, 1 - 1 / u 6, its exponent (2 and an ex2), denv
+#     5; the half sum 4, the weighted add 1, the three cutoff tests 3; the
+#     reciprocals of r_b, rc, u and rc u^2 (4);
+#   radial_bwd_asn, per assigned lane, also the center force's 3 adds
+#     ("keep", (22, 2)), and per assigned lane of a bin on the grid's faces
+#     ("keep_face") the nine dh terms (9, 0); an interior bin's shifts are
+#     all 0 and its rows add none.
+# The slot chain (chain_sum; decompact_chain without the radial part):
+#   per filled slot ("kept"), (17, 1): 1 / d (1 and a reciprocal), the
+#     live test 1, gu . u 3, g_cd 2 and its select 1, the vector 6, the
+#     gather's add at its lane 3 (decompact_chain (14, 1): its gather adds
+#     to 0);
+#   per assigned lane ("keep"), (3, 0): the center force;
+#   per assigned lane of a face bin ("keep_face"), (9, 0): dh.
 # The packed pair kernels (and the per-block ones, which compute the same
 # pair terms), per slot pair of filled slots ("pairs"), likewise in two
 # terms:
@@ -851,17 +873,22 @@ def device_time(prof, calls, group_keys):
 #     scale of drmean 1), both slots' sums 10 (5 per arm); sfu 21.
 STEP_OPS = {"keep": (15, 1), "rcr": (148, 17), "rep": (27, 5),
             "kept": (12, 3)}
+GAMMA_OPS = {"keep": (19, 2), "rcr": (166, 18), "rep": (38, 7)}
 ASN_OPS = {"build_inv": {"lane": 10}, "build_idx": {"lane": 2},
            "step_fused": STEP_OPS,
            "packed_fwd": {"pairs": (272, 21)},
-           "radial_gamma": {"lane": 16, "rcr": 167, "rep": 45},
+           "radial_gamma": GAMMA_OPS,
            "packed_bwd": {"pairs": (306, 21)},
-           "chain_sum": {"kept": 25, "lane": 24}, "wing": {"lane": 3},
+           "chain_sum": {"kept": (17, 1), "keep": (3, 0),
+                         "keep_face": (9, 0)},
+           "wing": {"lane": 3},
            "radial_fwd_asn": {u: STEP_OPS[u] for u in ("keep", "rcr",
                                                        "rep")},
            "compact_asn": {u: STEP_OPS[u] for u in ("keep", "kept")},
-           "radial_bwd_asn": {"lane": 28, "rcr": 167, "rep": 45},
-           "decompact_chain": {"kept": 25, "lane": 21}}
+           "radial_bwd_asn": {**GAMMA_OPS, "keep": (22, 2),
+                              "keep_face": (9, 0)},
+           "decompact_chain": {"kept": (14, 1), "keep": (3, 0),
+                               "keep_face": (9, 0)}}
 
 
 def two_term(name):
@@ -1059,10 +1086,11 @@ def asn_compare(name, k, got, ref):
 
 def asn_work(k):
     """This input's data-dependent work: real (center, candidate) lanes of
-    the 27-bin windows; assigned compact lanes ("keep"), and
-    those within Rcr and within the repulsion cutoff (every species of the
-    model has a repulsion charge); filled packed slots ("kept") and filled
-    slot pairs."""
+    the 27-bin windows; assigned compact lanes ("keep"), those of the rows
+    of bins on the grid's faces ("keep_face"), and those within Rcr and
+    within the repulsion cutoff (every species of the model has a
+    repulsion charge); filled packed slots ("kept") and filled slot
+    pairs."""
     sp_g, idx = k["sp_g"], k["a"].idx
     nc, cap = sp_g.shape
     kpad = idx.shape[-1]
@@ -1074,11 +1102,13 @@ def asn_work(k):
                              dims=(0, 1, 2))
     cp = asn._padded_candidates(k["ncells"], k["pos_g"], sp_g, k["h"], wpad)
     rep = k["spec"].repulsion
-    keep = rcr = n_rep = 0
+    face = ~interior_bins(k["ncells"], sp_g.device)
+    keep = keep_face = rcr = n_rep = 0
     for rs in asn._chunks(nc, cap * kpad * 24):
         _, _, _, valid, dist = asn._lane_geometry(
             cp[rs], k["pos_g"][rs], idx[rs].to(torch.int64), wpad)
         keep += int(valid.sum())
+        keep_face += int((valid & face[rs, None, None]).sum())
         rcr += int((valid & (dist <= k["spec"].aev.radial_cutoff)).sum())
         if rep is not None:
             n_rep += int((valid & (dist < rep.cutoff)).sum())
@@ -1092,8 +1122,17 @@ def asn_work(k):
         for d in counts[i + 1:]:
             pairs += float((c * d).sum())
     return {"window": int((occ * window).sum()) - k["n"], "keep": keep,
-            "rcr": rcr, "rep": n_rep, "kept": int(filled.sum()),
-            "pairs": int(pairs)}
+            "keep_face": keep_face, "rcr": rcr, "rep": n_rep,
+            "kept": int(filled.sum()), "pairs": int(pairs)}
+
+
+def interior_bins(ncells, device):
+    """[NC] bool: bins whose 27-bin window stays inside the grid (every
+    wrap shift 0), in the grid's bin order (x outermost)."""
+    ax = [(torch.arange(m, device=device) > 0) & (torch.arange(
+        m, device=device) < m - 1) for m in ncells]
+    return (ax[0][:, None, None] & ax[1][None, :, None]
+            & ax[2][None, None, :]).reshape(-1)
 
 
 def asn_bound(name, k, work):
@@ -1105,10 +1144,11 @@ def asn_bound(name, k, work):
     and its cotangent (srl + 1); the packed slots (6 atot) and their
     cotangents (5 atot); each packed row's 5 atot fields and its columns;
     the lane cotangents gr and gt (3 kpad each); fcen (3) and dh (9); the
-    wing (27 x 3 per grid slot). The wing reads gt of the assigned lanes
-    only (3 per "keep" lane: a dead lane's gt is 0 and adds nothing) and
-    its mapping as idx (kpad), the lesser of the two tables that encode
-    it. The per-channel kernels move their fused siblings' rows less what
+    wing (27 x 3 per grid slot). The wing reads gt, and chain_sum gr, of
+    the assigned lanes only (3 per "keep" lane: a dead lane's cotangent is
+    0 and adds nothing); the wing reads its mapping as idx (kpad), the
+    lesser of the two tables that encode it; the chains read 5 of the 6
+    slot planes (ux, uy, uz, d, dfc; not fc). The per-channel kernels move their fused siblings' rows less what
     they leave out: radial_fwd_asn no slots and no rank2, compact_asn no
     rad, radial_bwd_asn radial_gamma's rows with fcen and dh,
     decompact_chain chain_sum's without gr. Operations: ASN_OPS on
@@ -1133,15 +1173,12 @@ def asn_bound(name, k, work):
         nbytes = n * (5 * atot + ncols) * f
     elif name == "radial_gamma":
         nbytes = base_in + n * kpad * 2 + n * srl1 * f + n * 3 * kpad * f
-        n_ops = (ops["lane"] * work["keep"]
-                 + (ops["rcr"] + ops["rep"]) * work["rcr"])
     elif name == "packed_bwd":
         nbytes = n * (10 * atot + ncols) * f
     elif name in ("chain_sum", "decompact_chain"):
-        planes = 6 if name == "chain_sum" else 3
-        nbytes = (n * kpad * 4 + n * 11 * atot * f + n * planes * kpad * f
+        gr = work["keep"] * 3 * f if name == "chain_sum" else 0
+        nbytes = (n * kpad * 4 + n * 10 * atot * f + gr + n * 3 * kpad * f
                   + n * 3 * f + 9 * f)
-        n_ops = ops["kept"] * work["kept"] + ops["lane"] * work["keep"]
     elif name == "radial_fwd_asn":
         nbytes = base_in + n * kpad * 2 + n * srl1 * f
     elif name == "compact_asn":
@@ -1149,8 +1186,6 @@ def asn_bound(name, k, work):
     elif name == "radial_bwd_asn":
         nbytes = (base_in + n * kpad * 2 + n * srl1 * f + n * 3 * kpad * f
                   + n * 3 * f + 9 * f)
-        n_ops = (ops["lane"] * work["keep"]
-                 + (ops["rcr"] + ops["rep"]) * work["rcr"])
     else:  # wing: gt of the assigned lanes, the mapping as idx
         nbytes = work["keep"] * 3 * f + n * kpad * 2 + n * 27 * 3 * f
         n_ops = ops["lane"] * work["keep"]
@@ -1210,10 +1245,59 @@ def packed_edge_cases(k):
     return out
 
 
+def zero_row_checks(k):
+    """radial_gamma and chain_sum, kernels and plain versions, on `k`'s
+    inputs: exact zeros on every lane of a row with no atom and on every
+    dead lane; and the box cotangent of chain_sum (kernel and plain),
+    decompact_chain and radial_bwd_asn with their cotangents kept on the
+    rows of interior bins only (every wrap shift 0) and zeroed elsewhere:
+    exactly 0, where those rows' lane cotangents are not all 0. Raises
+    otherwise."""
+    sp_g, idx, aev = k["sp_g"], k["a"].idx, k["spec"].aev
+    cap = sp_g.shape[1]
+    empty = (sp_g < 0)[:, :, None, None]
+    dead = (idx.to(torch.int32) >= 27 * cap)[:, :, None, :]
+    interior = interior_bins(k["ncells"], idx.device)
+    out = {"empty_rows": int(empty.sum()), "dead_lanes": int(dead.sum()),
+           "interior_rows": int(interior.sum()) * cap}
+    calls = asn_calls(k)
+    for name in ("radial_gamma", "chain_sum"):
+        for which, fn in zip(("kernel", "plain"), calls[name]):
+            x = fn()[0]
+            out[f"{name}_{which}_nonzero"] = int(
+                ((x != 0) & (empty | dead)).sum())
+
+    def inner(t):
+        m = interior.reshape((-1,) + (1,) * (t.dim() - 1))
+        return torch.where(m, t, 0.0).contiguous()
+
+    chain = (k["rank2"], idx, k["cmp"], inner(k["gsum"]))
+    gt, _, dh_chain = asn.chain_sum(*chain, inner(k["gr"]), k["ncells"], aev)
+    dhs = {"chain_sum": dh_chain,
+           "chain_sum_plain": asn.chain_sum_plain(
+               *chain, inner(k["gr"]), k["ncells"], aev)[2],
+           "decompact_chain": asn.decompact_chain(*chain, k["ncells"],
+                                                  aev)[2],
+           "radial_bwd_asn": asn.radial_bwd_asn(
+               k["pos_g"], sp_g, k["h"], idx, inner(k["ga"]), k["ncells"],
+               aev, k["sections"], k["spec"].repulsion)[2]}
+    _sync(idx.device)
+    out["interior_gt_nonzero"] = int((gt != 0).sum())
+    out.update({f"{name}_dh_nonzero": int((dh != 0).sum())
+                for name, dh in dhs.items()})
+    bad = {key: v for key, v in out.items()
+           if (key.endswith("_nonzero") and key != "interior_gt_nonzero"
+               and v) or (not key.endswith("_nonzero") and not v)}
+    if bad or not out["interior_gt_nonzero"]:
+        raise AssertionError(f"zero rows, dead lanes, interior dh: {out}")
+    return out
+
+
 def phase_asn_kernels(device, rep=6):
     """The twelve asn kernels against their plain versions at WATER30 x
     rep^3 (f64 and f32; the radial per-channel kernels in both column
-    layouts); the backwards of the three entry points against autograd
+    layouts); the zero rows and interior dh (`zero_row_checks`); the
+    backwards of the three entry points against autograd
     through the plain forwards (f64), two calls bit for bit (f64 and f32);
     the per-channel forwards against the fused forward bit for bit, their
     summed gradients against the fused gradient; `n_out` on the card
@@ -1242,6 +1326,7 @@ def phase_asn_kernels(device, rep=6):
         tag = str(dtype).replace("torch.", "")
         result[tag] = errs
         result[f"packed_edge_cases_{tag}"] = packed_edge_cases(k)
+        result[f"zero_rows_{tag}"] = zero_row_checks(k)
         # the packed kernels' worst error as a fraction of its limit
         result[f"packed_err_over_limit_{tag}"] = {
             name: max([errs[name]["worst_ratio"]] + [

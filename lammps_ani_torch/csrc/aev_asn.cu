@@ -100,10 +100,10 @@ __device__ __forceinline__ int window_slot(const Grid& g, int cell, int w,
 
 // Geometry of one compact lane of a center at (cx, cy, cz) in bin `cell`:
 // a = center - candidate for the window lane w the lane reads (through
-// idx); a dead lane (w == wpad) sits at dist 1e6 with a = 0. The radial
-// backward takes it lane by lane; the step rows take lane_geometry_tab,
-// which finds the slot through a warp's window table. Both leave the
-// distance to lane_geom_at, so both see the same distances.
+// idx); a dead lane (w == wpad) sits at dist 1e6 with a = 0. The step rows
+// and the radial backward find the slot through a warp's window table
+// (lane_geometry_tab) and leave the distance to lane_geom_at, so all see
+// the same distances.
 template <typename T>
 struct LaneGeom {
   bool valid;
@@ -135,17 +135,6 @@ __device__ __forceinline__ LaneGeom<T> lane_geom_at(const T* pos, const T* h,
   return r;
 }
 
-template <typename T>
-__device__ __forceinline__ LaneGeom<T> lane_geometry(const Grid& g,
-                                                     const T* pos, const T* h,
-                                                     int cell, T cx, T cy,
-                                                     T cz, int w, int wpad) {
-  if (!(w >= 0 && w < wpad)) return lane_dead<T>();
-  int sx, sy, sz;
-  const int q = window_slot(g, cell, w, sx, sy, sz);
-  return lane_geom_at(pos, h, q, sx, sy, sz, cx, cy, cz);
-}
-
 // The window of a row's bin, spread over a warp: lane o < 27 holds the
 // first grid slot of window offset o's bin (bin * cap) and the offset's
 // wrap shift, packed as (sx + 1) | (sy + 1) << 2 | (sz + 1) << 4. Built
@@ -168,8 +157,9 @@ __device__ __forceinline__ WindowTab window_tab(const Grid& g, int cell,
   return t;
 }
 
-// lane_geometry through the row's window table: the same slot and shift,
-// then the same lane_geom_at. Every lane of the warp calls it (the
+// The geometry of the compact lane that reads window lane w: its grid slot
+// and wrap shift from the row's window table (window_slot's, without its
+// divisions), then lane_geom_at. Every lane of the warp calls it (the
 // shuffles); idx names window lanes below 27 cap, or wpad (dead).
 template <typename T>
 __device__ __forceinline__ LaneGeom<T> lane_geometry_tab(
@@ -184,6 +174,93 @@ __device__ __forceinline__ LaneGeom<T> lane_geometry_tab(
                       (shift >> 2 & 3) - 1, (shift >> 4 & 3) - 1, cx, cy,
                       cz);
 }
+
+// Whether every window offset of bin `cell` stays inside the grid, so
+// that every wrap shift of its window is 0: the bin's rows add nothing to
+// the box cotangent (on the 16^3 grid of a 101,250-atom box, the 14^3
+// interior bins).
+__device__ __forceinline__ bool bin_interior(const Grid& g, int cell) {
+  const int iz = cell % g.nz;
+  const int iy = (cell / g.nz) % g.ny;
+  const int ix = cell / (g.ny * g.nz);
+  return ix > 0 && ix < g.nx - 1 && iy > 0 && iy < g.ny - 1 && iz > 0 &&
+         iz < g.nz - 1;
+}
+
+// The packed wrap shift of window lane w from the row's table; a dead lane
+// (w >= 27 cap) reads the center offset's (13), S = 0. Every lane of the
+// warp calls it (the shuffle).
+__device__ __forceinline__ int lane_shift(const Grid& g, const WindowTab& tab,
+                                          int w) {
+  const int o = (w >= 0 && w < 27 * g.cap) ? w / g.cap : 13;
+  return __shfl_sync(kFull, tab.shift, o);
+}
+
+// Box cotangent of one lane cotangent g (aev_asn.py `_dh_from_compact`
+// :595): dh[m][c] -= S_m g_c, S the packed shift of lane_shift.
+template <typename T>
+__device__ __forceinline__ void dh_add(int shift, T gx, T gy, T gz,
+                                       T (&dh)[9]) {
+  const T sv[3] = {T((shift & 3) - 1), T((shift >> 2 & 3) - 1),
+                   T((shift >> 4 & 3) - 1)};
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    dh[m * 3] -= sv[m] * gx;
+    dh[m * 3 + 1] -= sv[m] * gy;
+    dh[m * 3 + 2] -= sv[m] * gz;
+  }
+}
+
+// Four consecutive values at p, in one access where the type allows: 16
+// bytes for float, two of 16 for double, 8 for int16 (p aligned to that).
+__device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void ld4(const double* p, double (&v)[4]) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+__device__ __forceinline__ void ld4(const int16_t* p, int (&v)[4]) {
+  const short4 t = *reinterpret_cast<const short4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st4(double* p, const double (&v)[4]) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
+// a / b; with FAST in f32, by the special-function unit's reciprocal
+// (__fdividef, 2 ulp) instead of the IEEE division and its slow path.
+template <bool FAST, typename T>
+__device__ __forceinline__ T quot(T a, T b) {
+  if constexpr (FAST && std::is_same<T, float>::value)
+    return __fdividef(a, b);
+  else
+    return a / b;
+}
+
+// cos and sin of an argument in [0, pi]: in f32 the special-function
+// unit's (__cosf, __sinf: absolute error 2^-21.4 on [-pi, pi]), which
+// keeps cosf's and sinf's slow paths (and their local memory) out of a
+// kernel; f64 as before.
+__device__ __forceinline__ float cos_0pi(float x) { return __cosf(x); }
+__device__ __forceinline__ double cos_0pi(double x) { return cos(x); }
+__device__ __forceinline__ float sin_0pi(float x) { return __sinf(x); }
+__device__ __forceinline__ double sin_0pi(double x) { return sin(x); }
 
 // One step of width W of a reduce-scatter: acc[i], i < W, takes column
 // i + (lane & W) summed over the two lanes that differ in bit W. W is a
@@ -410,25 +487,29 @@ __device__ __forceinline__ T rep_half(const StepParams<T>& p, T dist, T a_ij,
   return (e > p.pmin || e < -p.pmin) ? e : T(0);
 }
 
-// d rep_half / d dist (aev_asn.py `_rep_pair`, the second value).
+// d rep_half / d dist (aev_asn.py `_rep_pair`, the second value), for
+// dist < rep_rc; the radial backward's. f32 divides by quot<true> and
+// takes the hardware cosine and sine (pi x lies in [0, pi)); f64 computes
+// what the forward's arithmetic would.
 template <typename T>
 __device__ __forceinline__ T rep_half_grad(const StepParams<T>& p, T dist,
                                            T a_ij, T z_ij) {
   const T r_b = dist * p.a2b;
   const T r_kf = p.kf15 ? r_b * m_sqrt(r_b) : m_exp(p.kf * m_log(r_b));
-  const T core = z_ij / r_b * m_exp(-a_ij * r_kf);
-  const T dcore = core * (T(-1) / r_b - a_ij * p.kf * r_kf / r_b);
-  const T x = dist / p.rep_rc;
+  const T core = quot<true>(z_ij, r_b) * m_exp(-a_ij * r_kf);
+  const T dcore = core * (quot<true>(T(-1), r_b) -
+                          quot<true>(a_ij * p.kf * r_kf, r_b));
+  const T x = quot<true>(dist, p.rep_rc);
   T env = T(1), denv = T(0);
   if (p.env == 0) {
     T x2 = x * x;
     x2 = x2 < T(0) ? T(0) : (x2 > p.one_m ? p.one_m : x2);
     const T u = T(1) - x2;
-    env = m_exp(T(1) - T(1) / u);
-    denv = env * (T(-2) * x / (p.rep_rc * u * u));
+    env = m_exp(T(1) - quot<true>(T(1), u));
+    denv = env * quot<true>(T(-2) * x, p.rep_rc * u * u);
   } else if (p.env == 1) {
-    env = T(0.5) * m_cos(p.pi * x) + T(0.5);
-    denv = (T(-0.5) * p.pi / p.rep_rc) * m_sin(p.pi * x);
+    env = T(0.5) * cos_0pi(p.pi * x) + T(0.5);
+    denv = quot<true>(T(-0.5) * p.pi, p.rep_rc) * sin_0pi(p.pi * x);
   }
   return T(0.5) * (dcore * p.a2b * env + core * denv);
 }
@@ -726,39 +807,20 @@ __global__ void __launch_bounds__(kThreads) asn_compact_asn_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Box cotangent of lane cotangents (aev_asn.py `_dh_from_compact` :595),
-// shared by the radial backward and the two chains.
+// Box cotangent and center force of the lane cotangents, shared by the
+// radial backward and the two chains.
 //
-// dh[m][c] -= S_m g_c for a compact lane reading window lane w of a center
-// in bin `cell`: S is the wrap shift of the window offset w / cap, from
-// the bin's coordinates (no table); a dead lane (w == wpad, offset >= 27)
-// carries none. A thread keeps nine partial sums; the block adds them by
-// warp shuffles, then over its warps in warp order, into one partial per
-// block; dh_reduce_kernel (aev_common.cuh) adds the partials in a fixed
-// order.
+// dh[m][c] -= S_m g_c for a compact lane reading window lane w (dh_add;
+// S from the row's window table, lane_shift; a row of an interior bin has
+// S = 0 on every lane and skips them). A thread keeps nine partial sums;
+// the block adds them by warp shuffles, then over its warps in warp order,
+// into one partial per block; dh_reduce_kernel (aev_common.cuh) adds the
+// partials in a fixed order.
 // ---------------------------------------------------------------------------
-template <typename T>
-__device__ __forceinline__ void dh_from_lane(const Grid& g, int cell, int w,
-                                             T gx, T gy, T gz, T (&dh)[9]) {
-  const int o = w >= 0 ? w / g.cap : 27;
-  if (o < 27) {
-    int ox, oy, oz, sx, sy, sz;
-    offset_of(o, 1, ox, oy, oz);
-    neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz);
-    const T sv[3] = {T(sx), T(sy), T(sz)};
-#pragma unroll
-    for (int m = 0; m < 3; ++m) {
-      dh[m * 3] -= sv[m] * gx;
-      dh[m * 3 + 1] -= sv[m] * gy;
-      dh[m * 3 + 2] -= sv[m] * gz;
-    }
-  }
-}
 
 // Every thread of the block calls it (it synchronizes the block).
 template <typename T>
-__device__ __forceinline__ void block_dh_partial(T (&dh)[9],
-                                                 T (*red)[9],
+__device__ __forceinline__ void block_dh_partial(T (&dh)[9], T (*red)[9],
                                                  T* __restrict__ dh_part) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -789,6 +851,17 @@ __device__ __forceinline__ void store_fcen(T fx, T fy, T fz,
   }
 }
 
+// Zeros over a row's three kpad planes, four lanes a thread.
+template <typename T>
+__device__ __forceinline__ void zero_planes(T* out, int kpad, int lane) {
+  const T zero[4] = {T(0), T(0), T(0), T(0)};
+  for (int k0 = 4 * lane; k0 < kpad; k0 += 128) {
+    st4(out + k0, zero);
+    st4(out + kpad + k0, zero);
+    st4(out + 2 * kpad + k0, zero);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Radial and repulsion backward on the compact lanes: one body
 // (aev_asn.py `_radial_gamma_core` :776), two kernels.
@@ -797,90 +870,206 @@ __device__ __forceinline__ void store_fcen(T fx, T fy, T fz,
 //   gamma = sum_kk ga[row, col0[si] + kk] 0.25 e_kk (dfc - 2 eta x_kk fc)
 //           + ga[row, srl] d(rep_half)/dd
 // for lane k of section si: the derivative of the forward's rad with
-// respect to a = center - candidate. The geometry is recomputed through
-// idx with the forward's own device functions (lane_geometry, the cutoff
-// and basis expressions, rep_half_grad beside rep_half). Dead lanes and
-// the lanes above the sections give exactly 0.
+// respect to a = center - candidate. Dead lanes and the lanes above the
+// sections give exactly 0, and so does every lane of a row with no atom
+// (sp < 0; build_inv keeps no lane of an empty slot).
 //   asn_radial_gamma_kernel    g alone — replaces aev_asn.py:850
 //                              _radial_gamma_only_kernel;
 //   asn_radial_bwd_asn_kernel  g, the center force fcen[row] (the sum over
 //                              the row's lanes) and the box cotangent dh —
 //                              replaces aev_asn.py:816
 //                              _radial_bwd_asn_kernel.
-// Bound: writing the three [NC, cap, kpad] planes (bytes); 16 exps per
-// in-cutoff lane. Design: one warp per row, section by section, 32 lanes
-// at a time, as the forward; the row's srl + 1 cotangents sit in shared
-// memory; each lane owns its outputs; the sums of the second kernel are
-// compiled out of the first.
+// Bound: writing the three [NC, cap, kpad] planes (bytes) against the fp32
+// instructions and special-function results of the lanes (chip_smoke
+// ASN_OPS: per assigned lane, per lane within Rcr, per repulsion lane);
+// bytes bound it at the MD state.
+// Design: one warp per row, three passes through the warp's shared memory.
+// Pass 1 finds the row's 27 window bins once (window_tab), takes every
+// compact lane's geometry through them (lane_geometry_tab, the step
+// forward's), keeps (dx, dy, dz, dist) at the lane's index and appends the
+// lanes within Rcr or the repulsion cutoff to a packed list by ballot, in
+// ascending lane order (about 30 of a row's 81 assigned lanes at the MD
+// state). Pass 2 runs the 16 shifts and the repulsion slope over the
+// packed list on full warps (f32: the forward's ex2 Gaussians, gauss_of,
+// and the hardware cosine and sine) and leaves each lane's gamma at its
+// index. The f32 Gaussians are the forward's own, but fc and dfc are not:
+// step_row keeps the accurate cosine, so they differ from the forward's fc
+// by the hardware cosine's error (within the f32 gate; f64 is unchanged).
+// Pass 3 writes the planes four lanes a thread in 16-byte stores, gamma /
+// d by quot<true>. One thread computes a lane's gamma, so the packing
+// order does not change it; f64 evaluates the plain expressions in their
+// order. A row with no atom writes its zeros and reads nothing else: this
+// equals the plain version only where such a row has no live lane in idx
+// (build_idx gives it none).
 // ---------------------------------------------------------------------------
+
+// A row's shared memory, in bytes: dx, dy, dz, dist and gamma of its kpad
+// lanes, its srl + 1 cotangents (rounded up to 4) and the packed list
+// (kpad ints); each part a multiple of 16 bytes (kpad % 32 == 0).
+__host__ __device__ inline size_t gamma_warp_bytes(int kpad, int srl,
+                                                   size_t tsize) {
+  return (5 * (size_t)kpad + (size_t)((srl + 4) & ~3)) * tsize +
+         4 * (size_t)kpad;
+}
+
 template <typename T, bool SUMS>
 __device__ __forceinline__ void radial_gamma_row(
     const StepParams<T>& p, const T* __restrict__ pos,
     const int* __restrict__ sp, const T* __restrict__ hmat,
-    const int16_t* __restrict__ idx, const T* __restrict__ ga, T* gas,
-    T* __restrict__ gr, int row, int lane, T& fx, T& fy, T& fz,
-    T (&dh)[9]) {
+    const int16_t* __restrict__ idx, const T* __restrict__ ga,
+    unsigned char* buf, T* __restrict__ gr, int row, int lane, T& fx, T& fy,
+    T& fz, T (&dh)[9]) {
   const Grid& g = p.g;
+  const int kpad = p.kpad;
+  T* out = gr + (size_t)row * 3 * kpad;
+  const int csp = sp[row];
+  if (csp < 0) {
+    zero_planes(out, kpad, lane);
+    return;
+  }
+  T* sdx = reinterpret_cast<T*>(buf);
+  T* sdy = sdx + kpad;
+  T* sdz = sdy + kpad;
+  T* sdist = sdz + kpad;
+  T* sgam = sdist + kpad;
+  T* gas = sgam + kpad;
+  int* plist = reinterpret_cast<int*>(gas + ((p.srl + 4) & ~3));
   T h[9];
   for (int i = 0; i < 9; ++i) h[i] = hmat[i];
   const int cell = row / g.cap;
-  const int csp = sp[row];
   const T cx = pos[row * 3], cy = pos[row * 3 + 1], cz = pos[row * 3 + 2];
   const T* garow = ga + (size_t)row * (p.srl + 1);
   for (int i = lane; i <= p.srl; i += 32) gas[i] = garow[i];
-  __syncwarp();
-  const T g_rep = gas[p.srl];
+  const WindowTab tab = window_tab(g, cell, lane);
   T a_i, z_i;
   center_rep(p, csp, a_i, z_i);
-  const int16_t* irow = idx + (size_t)row * p.kpad;
-  T* out = gr + (size_t)row * 3 * p.kpad;
+  // lane s < sec.n: section s's repulsion pair parameters and first column
+  T a_sec = T(0), z_sec = T(0);
+  int c0_sec = 0, k_total = 0;
+#pragma unroll
+  for (int s = 0; s < kMaxS; ++s) {
+    if (s < p.sec.n) {
+      k_total = p.sec.off[s] + p.sec.k[s];
+      if (s == lane) {
+        section_rep(p, s, a_i, z_i, a_sec, z_sec);
+        c0_sec = p.col0[s];
+      }
+    }
+  }
+  const int16_t* irow = idx + (size_t)row * kpad;
+  const unsigned below = (1u << lane) - 1u;
+
+  // pass 1: geometry; the packed list of the lanes within a cutoff
+  int n_in = 0;
+  for (int base = 0; base < k_total; base += 32) {
+    const int k = base + lane;
+    const bool in_sec = k < k_total;
+    const int w = in_sec ? (int)irow[k] : p.wpad;
+    const LaneGeom<T> lg =
+        lane_geometry_tab(g, tab, pos, h, cx, cy, cz, w, p.wpad);
+    int si = 0;
+#pragma unroll
+    for (int s = 1; s < kMaxS; ++s)
+      if (s < p.sec.n && k >= p.sec.off[s]) si = s;
+    const T z_ij = __shfl_sync(kFull, z_sec, si);
+    const bool m = lg.valid && (lg.dist <= p.rc ||
+                                (p.has_rep && z_ij > T(0) &&
+                                 lg.dist < p.rep_rc));
+    if (in_sec) {
+      sdx[k] = lg.dx;
+      sdy[k] = lg.dy;
+      sdz[k] = lg.dz;
+      sdist[k] = lg.dist;
+      sgam[k] = T(0);
+    }
+    const unsigned bal = __ballot_sync(kFull, m);
+    if (m) plist[n_in + __popc(bal & below)] = k | si << 16;
+    n_in += __popc(bal);
+  }
+  __syncwarp();
+
+  // pass 2: gamma of the packed lanes, 32 at a time
+  const T g_rep = gas[p.srl];
   const T two_eta = T(2) * p.eta;
-  int k_total = 0;
-  for (int si = 0; si < p.sec.n; ++si) {
-    const int off = p.sec.off[si], end = off + p.sec.k[si];
-    k_total = end;
-    T z_ij, a_ij;
-    section_rep(p, si, a_i, z_i, a_ij, z_ij);
-    const T* gsec = gas + p.col0[si];
-    for (int k = off + lane; k < end; k += 32) {
-      const int w = (int)irow[k];
-      const LaneGeom<T> lg =
-          lane_geometry(g, pos, h, cell, cx, cy, cz, w, p.wpad);
-      const T dist = lg.dist;
+  for (int base = 0; base < n_in; base += 32) {
+    const int j = base + lane;
+    const int ent = j < n_in ? plist[j] : 0;
+    const int k = ent & 0xffff, si = ent >> 16;
+    const int c0 = __shfl_sync(kFull, c0_sec, si);
+    const T a_ij = __shfl_sync(kFull, a_sec, si);
+    const T z_ij = __shfl_sync(kFull, z_sec, si);
+    if (j < n_in) {
+      const T dist = sdist[k];
       T gamma = T(0);
-      if (lg.valid && dist <= p.rc) {
-        const T fc = T(0.5) * m_cos(dist * p.pi_rc) + T(0.5);
-        const T dfc = p.dfc_rk * m_sin(dist * p.pi_rc);
+      if (dist <= p.rc) {
+        const T arg = dist * p.pi_rc;
+        const T fc = T(0.5) * cos_0pi(arg) + T(0.5);
+        const T dfc = p.dfc_rk * sin_0pi(arg);
         const T x = dist - p.mu0;
+        const T* gsec = gas + c0;
 #pragma unroll
         for (int kk = 0; kk < kMaxNR; ++kk) {
           if (kk < p.NR) {
             const T xk = x - T(kk) * p.delta;
-            T e = m_exp(-p.eta * xk * xk);
+            T e = gauss_of(p.geta * xk * xk);
             e = e > p.tiny_e ? e : T(0);
             gamma += gsec[kk] * (T(0.25) * e * (dfc - two_eta * xk * fc));
           }
         }
       }
-      if (p.has_rep && lg.valid && z_ij > T(0) && dist < p.rep_rc)
+      if (p.has_rep && z_ij > T(0) && dist < p.rep_rc)
         gamma += g_rep * rep_half_grad(p, dist, a_ij, z_ij);
-      const T gd = gamma / dist;
-      const T gx = gd * lg.dx, gy = gd * lg.dy, gz = gd * lg.dz;
-      out[k] = gx;
-      out[p.kpad + k] = gy;
-      out[2 * p.kpad + k] = gz;
-      if constexpr (SUMS) {
-        fx += gx;
-        fy += gy;
-        fz += gz;
-        dh_from_lane(g, cell, w, gx, gy, gz, dh);
-      }
+      sgam[k] = gamma;
     }
   }
-  for (int k = k_total + lane; k < p.kpad; k += 32) {
-    out[k] = T(0);
-    out[p.kpad + k] = T(0);
-    out[2 * p.kpad + k] = T(0);
+  __syncwarp();
+
+  // pass 3: the planes, four lanes a thread
+  const bool interior = SUMS && bin_interior(g, cell);
+  for (int base = 0; base < kpad; base += 128) {
+    const int k0 = base + 4 * lane;
+    const bool in = k0 < kpad;
+    // 16-byte shared loads (a lane's four values at a time; lanes at or
+    // above k_total are never written and never used)
+    T ax[4] = {}, ay[4] = {}, az[4] = {}, d[4] = {}, gam[4] = {};
+    if (in) {
+      ld4(sdx + k0, ax);
+      ld4(sdy + k0, ay);
+      ld4(sdz + k0, az);
+      ld4(sdist + k0, d);
+      ld4(sgam + k0, gam);
+    }
+    T gx[4], gy[4], gz[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      gx[j] = gy[j] = gz[j] = T(0);
+      if (k0 + j < k_total) {
+        const T gd = quot<true>(gam[j], d[j]);
+        gx[j] = gd * ax[j];
+        gy[j] = gd * ay[j];
+        gz[j] = gd * az[j];
+      }
+    }
+    if (in) {
+      st4(out + k0, gx);
+      st4(out + kpad + k0, gy);
+      st4(out + 2 * kpad + k0, gz);
+    }
+    if constexpr (SUMS) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        fx += gx[j];
+        fy += gy[j];
+        fz += gz[j];
+      }
+      if (!interior) {
+        int w[4] = {p.wpad, p.wpad, p.wpad, p.wpad};
+        if (in) ld4(irow + k0, w);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          dh_add(lane_shift(g, tab, w[j]), gx[j], gy[j], gz[j], dh);
+      }
+    }
   }
 }
 
@@ -889,13 +1078,15 @@ __global__ void __launch_bounds__(kThreads) asn_radial_gamma_kernel(
     const T* __restrict__ pos, const int* __restrict__ sp,
     const T* __restrict__ hmat, const int16_t* __restrict__ idx,
     const T* __restrict__ ga, T* __restrict__ gr, StepParams<T> p) {
-  __shared__ T gas[kWarpsPerBlock][kMaxS * kMaxNR + 1];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row = blockIdx.x * kWarpsPerBlock + warp;
   if (row >= p.g.nx * p.g.ny * p.g.nz * p.g.cap) return;
   T fx = T(0), fy = T(0), fz = T(0), dh[9];
-  radial_gamma_row<T, false>(p, pos, sp, hmat, idx, ga, gas[warp], gr, row,
-                             lane, fx, fy, fz, dh);
+  radial_gamma_row<T, false>(
+      p, pos, sp, hmat, idx, ga,
+      smem_raw + warp * gamma_warp_bytes(p.kpad, p.srl, sizeof(T)), gr, row,
+      lane, fx, fy, fz, dh);
 }
 
 template <typename T>
@@ -904,7 +1095,7 @@ __global__ void __launch_bounds__(kThreads) asn_radial_bwd_asn_kernel(
     const T* __restrict__ hmat, const int16_t* __restrict__ idx,
     const T* __restrict__ ga, T* __restrict__ gr, T* __restrict__ fcen,
     T* __restrict__ dh_part, StepParams<T> p) {
-  __shared__ T gas[kWarpsPerBlock][kMaxS * kMaxNR + 1];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T red[kWarpsPerBlock][9];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row = blockIdx.x * kWarpsPerBlock + warp;
@@ -913,8 +1104,10 @@ __global__ void __launch_bounds__(kThreads) asn_radial_bwd_asn_kernel(
   for (int i = 0; i < 9; ++i) dh[i] = T(0);
   if (row < p.g.nx * p.g.ny * p.g.nz * p.g.cap) {
     T fx = T(0), fy = T(0), fz = T(0);
-    radial_gamma_row<T, true>(p, pos, sp, hmat, idx, ga, gas[warp], gr, row,
-                              lane, fx, fy, fz, dh);
+    radial_gamma_row<T, true>(
+        p, pos, sp, hmat, idx, ga,
+        smem_raw + warp * gamma_warp_bytes(p.kpad, p.srl, sizeof(T)), gr,
+        row, lane, fx, fy, fz, dh);
     store_fcen(fx, fy, fz, fcen, row, lane);
   }
   block_dh_partial(dh, red, dh_part);
@@ -974,16 +1167,6 @@ __device__ __forceinline__ void add_partner(T (&g)[5], const T* pb, int q,
   g[2] += dc * so[2 * ao + o];
   g[3] += pb[q + t];
   g[4] += pb[2 * q + t] * so[4 * ao + o];
-}
-
-// a / b; with FAST in f32, by the special-function unit's reciprocal
-// (__fdividef, 2 ulp) instead of the IEEE division and its slow path.
-template <bool FAST, typename T>
-__device__ __forceinline__ T quot(T a, T b) {
-  if constexpr (FAST && std::is_same<T, float>::value)
-    return __fdividef(a, b);
-  else
-    return a / b;
 }
 
 // One pair's cotangent scalars for the column cotangents gb[32] (scale
@@ -1601,7 +1784,7 @@ __global__ void __launch_bounds__(kThreads) asn_block_bwd_tri_kernel(
 // fc) become vector cotangents (slots with d < Rca + 5 only:
 // g_cd = gd + gfc dfc - (gu . u) / d, g = gu / d + g_cd u); compact lane k
 // takes the vector of its slot rank2[k] (no slot: 0): gt [row][3][kpad].
-// fcen[row] = the sum over lanes; dh as dh_from_lane above.
+// fcen[row] = the sum over lanes; dh as block_dh_partial above.
 //   asn_chain_sum_kernel        adds the radial part gr[., k] to every lane
 //                               first — replaces aev_asn.py:2047
 //                               _chain_sum_kernel;
@@ -1609,10 +1792,20 @@ __global__ void __launch_bounds__(kThreads) asn_block_bwd_tri_kernel(
 //                               nor passed) — replaces aev_asn.py:2013
 //                               _decompact_chain_kernel.
 // Bound: writing gt (and reading gr), three [NC, cap, kpad] planes each
-// (bytes). Design: one warp per row; the slot vectors sit in shared
-// memory, the gather through rank2 is a shared-memory load; fcen is a warp
-// shuffle sum, dh one partial per block (block_dh_partial).
+// (bytes). Design: one warp per row. It reads the row's idx first, four
+// lanes a thread in 8-byte loads: a row with no live lane (every row
+// without an atom) writes zeros and reads nothing else. That equals the
+// plain chain only where gr is 0 on a dead lane (radial_gamma writes it
+// so) and no dead lane has a slot (compact_asn's rank2). Otherwise the
+// slot vectors go to shared memory (f32: 1 / d by quot<true>), and each
+// thread takes four consecutive compact lanes of each 128: rank2 and idx
+// in one 8-byte load each, gr in three 16-byte loads, the gather through
+// rank2 from shared memory, gt in three 16-byte stores (kpad 128: one pass
+// a row). fcen is a warp shuffle sum; a row of an interior bin adds
+// nothing to dh, any other takes its lanes' shifts from the row's window
+// table.
 // ---------------------------------------------------------------------------
+
 template <typename T, bool ADD_RADIAL>
 __device__ __forceinline__ void chain_row(
     const int16_t* __restrict__ rank2, const int16_t* __restrict__ idx,
@@ -1620,48 +1813,82 @@ __device__ __forceinline__ void chain_row(
     const T* __restrict__ gr, T* __restrict__ gt, T* __restrict__ fcen, T* v,
     const Grid& g, int kpad, int A, T d_live, int row, int lane,
     T (&dh)[9]) {
-  const int cell = row / g.cap;
+  const int W = 27 * g.cap;  // idx >= W: a dead lane
+  const int16_t* irow = idx + (size_t)row * kpad;
+  T* orow = gt + (size_t)row * 3 * kpad;
+  bool live = false;
+  for (int k0 = 4 * lane; k0 < kpad; k0 += 128) {
+    int w[4];
+    ld4(irow + k0, w);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) live |= w[j] < W;
+  }
+  if (!__any_sync(kFull, live)) {
+    zero_planes(orow, kpad, lane);
+    if (lane < 3) fcen[(size_t)row * 3 + lane] = T(0);
+    return;
+  }
   const T* c = cmp + (size_t)row * 6 * A;
   const T* gs = gsum + (size_t)row * 5 * A;
   for (int a = lane; a < A; a += 32) {
     const T ux = c[a], uy = c[A + a], uz = c[2 * A + a];
     const T d = c[3 * A + a], dfc = c[5 * A + a];
     const T gux = gs[a], guy = gs[A + a], guz = gs[2 * A + a];
-    const bool live = d < d_live;
-    const T inv_d = live ? T(1) / d : T(0);
+    const bool slot_live = d < d_live;
+    const T inv_d = slot_live ? quot<true>(T(1), d) : T(0);
     const T dot = gux * ux + guy * uy + guz * uz;
     const T g_cd =
-        live ? gs[3 * A + a] + gs[4 * A + a] * dfc - dot * inv_d : T(0);
+        slot_live ? gs[3 * A + a] + gs[4 * A + a] * dfc - dot * inv_d : T(0);
     v[a] = gux * inv_d + g_cd * ux;
     v[(kDeadSlot + 1) + a] = guy * inv_d + g_cd * uy;
     v[2 * (kDeadSlot + 1) + a] = guz * inv_d + g_cd * uz;
   }
   __syncwarp();
+  const int cell = row / g.cap;
+  const bool interior = bin_interior(g, cell);
+  WindowTab tab{0, 0};
+  if (!interior) tab = window_tab(g, cell, lane);
   const int16_t* r2row = rank2 + (size_t)row * kpad;
-  const int16_t* irow = idx + (size_t)row * kpad;
   const T* grow = ADD_RADIAL ? gr + (size_t)row * 3 * kpad : nullptr;
-  T* orow = gt + (size_t)row * 3 * kpad;
   T fx = T(0), fy = T(0), fz = T(0);
-  for (int k = lane; k < kpad; k += 32) {
-    const int r = r2row[k], w = irow[k];
-    T gx = T(0), gy = T(0), gz = T(0);
-    if constexpr (ADD_RADIAL) {
-      gx = grow[k];
-      gy = grow[kpad + k];
-      gz = grow[2 * kpad + k];
+  for (int base = 0; base < kpad; base += 128) {
+    const int k0 = base + 4 * lane;
+    const bool in = k0 < kpad;
+    int r[4] = {kDeadSlot, kDeadSlot, kDeadSlot, kDeadSlot};
+    int w[4] = {W, W, W, W};
+    T gx[4] = {T(0), T(0), T(0), T(0)};
+    T gy[4] = {T(0), T(0), T(0), T(0)};
+    T gz[4] = {T(0), T(0), T(0), T(0)};
+    if (in) {
+      ld4(r2row + k0, r);
+      if (!interior) ld4(irow + k0, w);
+      if constexpr (ADD_RADIAL) {
+        ld4(grow + k0, gx);
+        ld4(grow + kpad + k0, gy);
+        ld4(grow + 2 * kpad + k0, gz);
+      }
     }
-    if (r >= 0 && r < A) {
-      gx += v[r];
-      gy += v[(kDeadSlot + 1) + r];
-      gz += v[2 * (kDeadSlot + 1) + r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (r[j] >= 0 && r[j] < A) {
+        gx[j] += v[r[j]];
+        gy[j] += v[(kDeadSlot + 1) + r[j]];
+        gz[j] += v[2 * (kDeadSlot + 1) + r[j]];
+      }
+      fx += gx[j];
+      fy += gy[j];
+      fz += gz[j];
     }
-    orow[k] = gx;
-    orow[kpad + k] = gy;
-    orow[2 * kpad + k] = gz;
-    fx += gx;
-    fy += gy;
-    fz += gz;
-    dh_from_lane(g, cell, w, gx, gy, gz, dh);
+    if (in) {
+      st4(orow + k0, gx);
+      st4(orow + kpad + k0, gy);
+      st4(orow + 2 * kpad + k0, gz);
+    }
+    if (!interior) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dh_add(lane_shift(g, tab, w[j]), gx[j], gy[j], gz[j], dh);
+    }
   }
   store_fcen(fx, fy, fz, fcen, row, lane);
 }
@@ -1999,6 +2226,12 @@ int asn_compact_asn(const int* ip, const double* fp, const void* pos,
 
 constexpr int kStepInts = 12 + kSecInts + 3 * kMaxS;
 
+// The radial backward's dynamic shared memory: gamma_warp_bytes per warp.
+template <typename T>
+size_t gamma_smem(const StepParams<T>& p) {
+  return kWarpsPerBlock * gamma_warp_bytes(p.kpad, p.srl, sizeof(T));
+}
+
 // ip: as asn_step_fused, then n_part (one dh partial per block); fp: as
 // asn_step_fused
 template <typename T>
@@ -2011,11 +2244,15 @@ int asn_radial_bwd_asn(const int* ip, const double* fp, const void* pos,
   const int nrows = p.g.nx * p.g.ny * p.g.nz * p.g.cap;
   const int n_part = ip[kStepInts];
   if (n_part != row_blocks(nrows)) return cudaErrorInvalidValue;
+  const size_t smem = gamma_smem(p);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(asn_radial_bwd_asn_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  asn_radial_bwd_asn_kernel<T><<<n_part, kThreads, 0, st>>>(
+  asn_radial_bwd_asn_kernel<T><<<n_part, kThreads, smem, st>>>(
       (const T*)pos, (const int*)sp, (const T*)h, (const int16_t*)idx,
       (const T*)ga, (T*)gr, (T*)fcen, (T*)dh_part, p);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dh_reduce_kernel<T><<<1, kRedThreads, 0, st>>>((const T*)dh_part, n_part,
                                                  (T*)dh);
@@ -2030,7 +2267,11 @@ int asn_radial_gamma(const int* ip, const double* fp, const void* pos,
   StepParams<T> p;
   if (!step_params_from(ip, fp, p)) return cudaErrorInvalidValue;
   const int nrows = p.g.nx * p.g.ny * p.g.nz * p.g.cap;
-  asn_radial_gamma_kernel<T><<<row_blocks(nrows), kThreads, 0,
+  const size_t smem = gamma_smem(p);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(asn_radial_gamma_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  asn_radial_gamma_kernel<T><<<row_blocks(nrows), kThreads, smem,
                                (cudaStream_t)stream>>>(
       (const T*)pos, (const int*)sp, (const T*)h, (const int16_t*)idx,
       (const T*)ga, (T*)gr, p);

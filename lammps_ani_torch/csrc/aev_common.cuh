@@ -2,7 +2,8 @@
 // math overloads for float and double, the roll-bin window geometry
 // (neighbor bin, wrap shift, shifted candidate position), the angular
 // pair-term body, which the angular kernels evaluate per slot pair, and
-// the fixed-order sum of the backwards' per-block box-cotangent partials.
+// the fixed-order sum of the backwards' per-block box-cotangent partials
+// (dh_reduce_kernel).
 //
 // Included by each .cu file (each builds into its own library); everything
 // here lives in an anonymous namespace.
@@ -147,24 +148,48 @@ __device__ __forceinline__ void pair_terms_core(
   for (int m = 0; m < kNZ; ++m) t.f1[m] = zeta_pow(t.base[m], p);
 }
 
-constexpr int kRedThreads = 256;
+constexpr int kRedThreads = 512;
+constexpr int kRedRows = 4;  // partial rows a thread loads at once
 
-// dh[i] = sum over blocks of dh_part[:, i], fixed order (one block).
+// dh[i] = sum over rows r of dh_part[r, i], in a fixed order, by one block
+// in one coalesced pass: thread t adds rows t, t + kRedThreads, ... into
+// nine running sums (kRedRows rows' loads in flight), the warps add their
+// threads' sums by shuffles, and thread i < 9 adds the warps' sums in warp
+// order. Two calls on the same partials agree bit for bit.
 template <typename T>
-__global__ void dh_reduce_kernel(const T* __restrict__ dh_part, int n,
-                                 T* __restrict__ dh) {
-  __shared__ T red[kRedThreads];
-  for (int i = 0; i < 9; ++i) {
-    T s = T(0);
-    for (int r = threadIdx.x; r < n; r += blockDim.x) s += dh_part[r * 9 + i];
-    red[threadIdx.x] = s;
-    __syncthreads();
-    for (int half = blockDim.x / 2; half > 0; half /= 2) {
-      if (threadIdx.x < half) red[threadIdx.x] += red[threadIdx.x + half];
-      __syncthreads();
+__global__ void __launch_bounds__(kRedThreads) dh_reduce_kernel(
+    const T* __restrict__ dh_part, int n, T* __restrict__ dh) {
+  __shared__ T red[kRedThreads / 32][9];
+  T acc[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) acc[i] = T(0);
+  for (int r0 = threadIdx.x; r0 < n; r0 += kRedRows * kRedThreads) {
+    T v[kRedRows][9];
+#pragma unroll
+    for (int b = 0; b < kRedRows; ++b) {
+      const int r = r0 + b * kRedThreads;
+#pragma unroll
+      for (int i = 0; i < 9; ++i)
+        v[b][i] = r < n ? dh_part[(size_t)r * 9 + i] : T(0);
     }
-    if (threadIdx.x == 0) dh[i] = red[0];
-    __syncthreads();
+#pragma unroll
+    for (int b = 0; b < kRedRows; ++b)
+#pragma unroll
+      for (int i = 0; i < 9; ++i) acc[i] += v[b][i];
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    T s = acc[i];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) red[warp][i] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < 9) {
+    T s = T(0);
+    for (int w = 0; w < kRedThreads / 32; ++w) s += red[w][threadIdx.x];
+    dh[threadIdx.x] = s;
   }
 }
 

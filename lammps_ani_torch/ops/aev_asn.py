@@ -1364,7 +1364,10 @@ def _check_ga(name, ga, shape, dtype):
 
 
 def radial_gamma(pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep):
-    """gr [NC, cap, 3, kpad] (replaces aev_asn._radial_gamma_only_kernel)."""
+    """gr [NC, cap, 3, kpad] (replaces aev_asn._radial_gamma_only_kernel).
+    The kernel writes zeros on a row with no atom (sp_g < 0) without
+    reading its lanes: it equals `radial_gamma_plain` where such a row keeps
+    no live lane in `idx`, as `build_idx` makes it."""
     if not _route("radial_gamma", pos_g, sp_g, h, idx, ga):
         return radial_gamma_plain(pos_g, sp_g, h, idx, ga, ncells, spec,
                                   sections, rep)
@@ -1502,6 +1505,15 @@ def _dh_buffers(nc, cap, dtype, dev):
             torch.empty((3, 3), dtype=dtype, device=dev))
 
 
+def _check_aligned(name, **tensors):
+    """Raise unless every named tensor starts on a 16-byte boundary: the
+    kernels read and write four lanes at once."""
+    bad = [k for k, t in tensors.items() if t.data_ptr() % 16]
+    if bad:
+        raise ValueError(f"{name}: {', '.join(bad)} not 16-byte aligned "
+                         "(the kernel reads four lanes at once)")
+
+
 def _check_chain(name, rank2, idx, cmp, gsum, ncells, gr=None):
     nc, cap, kpad = idx.shape
     atot = cmp.shape[-1]
@@ -1520,10 +1532,16 @@ def _check_chain(name, rank2, idx, cmp, gsum, ncells, gr=None):
             f"{tuple(gsum.shape)} {gsum.dtype}"
             + ("" if gr is None else f", gr {tuple(gr.shape)} {gr.dtype}")
             + f" do not fit ncells {tuple(ncells)}")
+    _check_aligned(name, rank2=rank2, idx=idx,
+                   **({} if gr is None else {"gr": gr}))
 
 
 def chain_sum(rank2, idx, cmp, gsum, gr, ncells, spec):
-    """(gt, fcen, dh) (replaces aev_asn._chain_sum_kernel)."""
+    """(gt, fcen, dh) (replaces aev_asn._chain_sum_kernel). The kernel
+    writes zeros on a row with no live lane in `idx` without reading gr:
+    it equals `chain_sum_plain` where gr is 0 on dead lanes (as
+    `radial_gamma` writes it) and no dead lane has a slot in `rank2` (as
+    `compact_asn` writes it)."""
     if not _route("chain_sum", rank2, idx, cmp, gsum, gr):
         return chain_sum_plain(rank2, idx, cmp, gsum, gr, ncells, spec)
     _check_chain("chain_sum", rank2, idx, cmp, gsum, ncells, gr)
@@ -1550,12 +1568,11 @@ def wing(gt, inv, idx):
     if (gt.shape[2] != 3 or idx.shape != (nc, cap, kpad)
             or idx.dtype != torch.int16 or inv.dim() != 3
             or inv.shape[:2] != (nc, cap) or inv.dtype != torch.int16
-            or inv.shape[2] < 27 * cap
-            or gt.data_ptr() % 16 or idx.data_ptr() % 16):
+            or inv.shape[2] < 27 * cap):
         raise ValueError(f"wing: gt {tuple(gt.shape)}, inv "
                          f"{tuple(inv.shape)} {inv.dtype}, idx "
-                         f"{tuple(idx.shape)} {idx.dtype} (gt and idx "
-                         "16-byte aligned)")
+                         f"{tuple(idx.shape)} {idx.dtype}")
+    _check_aligned("wing", gt=gt, idx=idx)
     out = torch.empty((nc, 27 * cap, 3), dtype=gt.dtype, device=gt.device)
     _launch("wing", f"asn_wing_{_suffix('wing', gt.dtype)}",
             [nc, cap, inv.shape[2], kpad], [0.0], gt, idx, out)
@@ -1605,12 +1622,14 @@ def compact_asn(pos_g, sp_g, h, idx, ncells, spec, sections, caps):
 
 def radial_bwd_asn(pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep,
                    compact_cols=True):
-    """(g, fcen, dh) (replaces aev_asn._radial_bwd_asn_kernel)."""
+    """(g, fcen, dh) (replaces aev_asn._radial_bwd_asn_kernel). Rows with
+    no atom as in `radial_gamma`."""
     if not _route("radial_bwd_asn", pos_g, sp_g, h, idx, ga):
         return radial_bwd_asn_plain(pos_g, sp_g, h, idx, ga, ncells, spec,
                                     sections, rep, compact_cols)
     _check_grid("radial_bwd_asn", ncells, pos_g, sp_g, h)
     _check_idx("radial_bwd_asn", idx, sp_g)
+    _check_aligned("radial_bwd_asn", idx=idx)
     nc, cap = sp_g.shape
     kpad = idx.shape[-1]
     dev, dtype = pos_g.device, pos_g.dtype
@@ -1627,7 +1646,9 @@ def radial_bwd_asn(pos_g, sp_g, h, idx, ga, ncells, spec, sections, rep,
 
 
 def decompact_chain(rank2, idx, cmp, gsum, ncells, spec):
-    """(gt, fcen, dh) (replaces aev_asn._decompact_chain_kernel)."""
+    """(gt, fcen, dh) (replaces aev_asn._decompact_chain_kernel). Equals
+    `decompact_chain_plain` where no dead lane has a slot in `rank2`, as
+    `compact_asn` writes it (see `chain_sum`)."""
     if not _route("decompact_chain", rank2, idx, cmp, gsum):
         return decompact_chain_plain(rank2, idx, cmp, gsum, ncells, spec)
     _check_chain("decompact_chain", rank2, idx, cmp, gsum, ncells)
