@@ -1,5 +1,6 @@
-"""Time named asn kernels of the checkout in the working directory, on one
-CUDA card, and count the SASS lines nvcc emitted for them.
+"""Time named asn and roll kernels of the checkout in the working
+directory, on one CUDA card, and count the SASS lines nvcc emitted for
+them.
 
 Two builds of one kernel can be told apart only inside one process sequence
 on one card: run this script once per checkout, in turns, from one shell
@@ -10,20 +11,24 @@ command, with each checkout's root as the working directory:
     done
 
 It imports `chip_smoke` and `lammps_ani_torch` from the working directory
-(not from beside this file), builds that checkout's kernels, sets up the
-101,250-atom water box of chip_smoke's main path at its first rebuild (f32,
-ANI-2x + XTB repulsion, the sizing `Simulation` derives), and prints one
-JSON line: for each named kernel that is a key of chip_smoke's `asn_calls`
-in that checkout, three rounds of 20 calls by CUDA events (ms per call; a
-packed kernel's call launches it once per occupancy tier, and the line
-gives the launches per call), and for each f32 kernel function of
-csrc/aev_asn.cu whose name contains one of the names (`asn_<name>_kernel`),
-the count of SASS lines and of a few kinds of operation among them
-(`cuobjdump -sass`; LDL and STL are local-memory loads and stores). A name
-without a call there (block_fwd, block_fwd_tri) gets the counts only. Each
-call is the checkout's own wrapper on the same tensors: `wing` is
-`wing(gt, inv, idx)` where the wrapper takes idx (the kernel scatters over
-idx) and `wing(gt, inv)` in a checkout whose kernel gathers through inv.
+(not from beside this file), builds that checkout's kernels, and prints
+one JSON line. An asn name (a key of chip_smoke's `asn_calls` in that
+checkout) is timed on the 101,250-atom water box of chip_smoke's main path
+at its first rebuild (f32, ANI-2x + XTB repulsion, the sizing `Simulation`
+derives); a roll name (radial_fwd, radial_bwd, angular_fwd, angular_bwd:
+chip_smoke's `kernel_calls`) on the same tile under the roll engine
+(pallas_full, no repulsion, f32) at its first rebuild, with chip_smoke's
+seeded cotangents. Each timed name gets three rounds of 20 calls by CUDA
+events (ms per call; a packed kernel's call launches it once per occupancy
+tier, and the line gives the launches per call). Each f32 kernel function
+whose name carries one of the names (`asn_<name>_kernel` in
+csrc/aev_asn.cu, `<name>_kernel` in csrc/aev_roll.cu) gets the count of
+its SASS lines and of a few kinds of operation among them (`cuobjdump
+-sass`; LDL and STL are local-memory loads and stores). A name without a
+call (block_fwd, block_fwd_tri) gets the counts only. Each call is the
+checkout's own wrapper on the same tensors: `wing` is `wing(gt, inv, idx)`
+where the wrapper takes idx (the kernel scatters over idx) and
+`wing(gt, inv)` in a checkout whose kernel gathers through inv.
 
 The README's port section shows how to run it on the card against the
 parent commit.
@@ -41,26 +46,29 @@ KINDS = ("LDL", "STL", "LDG", "STG", "MUFU", "SHFL", "BRA")
 
 def sass_counts(names):
     """{function: {"n": SASS lines, kind: count}} of the f32 kernels of
-    the freshly built aev_asn library that carry one of `names`."""
+    the freshly built aev_asn and aev_roll libraries that carry one of
+    `names` (`asn_<name>_kernel`, `<name>_kernel`)."""
     from lammps_ani_torch.ops import _build
 
-    lib = str(_build._target("aev_asn.cu"))
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    out, cur = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            hit = [n for n in names if f"asn_{n}_kernelIf" in fn]
-            cur = hit[0] if hit else None
-            if cur:
-                out[cur] = dict.fromkeys(("n",) + KINDS, 0)
-        elif cur and "/*" in line and ";" in line:
-            out[cur]["n"] += 1
-            for kind in KINDS:
-                if f" {kind}" in line or f"{kind}." in line:
-                    out[cur][kind] += 1
+    out = {}
+    for source, prefix in (("aev_asn.cu", "asn_"), ("aev_roll.cu", "")):
+        lib = str(_build._target(source))
+        sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        cur = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                hit = [n for n in names if f"{prefix}{n}_kernelIf" in fn]
+                cur = hit[0] if hit else None
+                if cur:
+                    out[cur] = dict.fromkeys(("n",) + KINDS, 0)
+            elif cur and "/*" in line and ";" in line:
+                out[cur]["n"] += 1
+                for kind in KINDS:
+                    if f" {kind}" in line or f"{kind}." in line:
+                        out[cur][kind] += 1
     return out
 
 
@@ -77,16 +85,27 @@ def main(argv):
     tag, names = argv[1], argv[2:]
     c._build.build_all()
     data = c.water_box(15)
-    sim = c.make_sim(data, torch.float32, "cuda")
-    box = c.make_box(data, torch.float32, "cuda")
-    state = sim.init_state(data.positions, box)
-    calls = c.asn_calls(c.asn_inputs(sim, state.pos, box))
+    calls, counts = {}, {}
+    if any(name not in c.KERNELS for name in names):
+        sim = c.make_sim(data, torch.float32, "cuda")
+        box = c.make_box(data, torch.float32, "cuda")
+        state = sim.init_state(data.positions, box)
+        calls.update(c.asn_calls(c.asn_inputs(sim, state.pos, box)))
+        counts.update(dict.fromkeys(calls, c.asn.LAUNCHES))
+    if any(name in c.KERNELS for name in names):
+        sim = c.make_sim(data, torch.float32, "cuda", engine="pallas_full")
+        state = sim.init_state(data.positions,
+                               c.make_box(data, torch.float32, "cuda"))
+        roll = c.kernel_calls(c.kernel_inputs(sim, state))
+        calls.update(roll)
+        counts.update(dict.fromkeys(roll, c.ar.LAUNCHES))
     timed = [name for name in names if name in calls]
     launches = {}
     for name in timed:
         c.asn.reset_counts()
+        c.ar.reset_counts()
         calls[name][0]()
-        launches[name] = c.asn.LAUNCHES[name]
+        launches[name] = counts[name][name]
     ms = {name: [c.time_ms(calls[name][0], reps=20, warm=2) for _ in range(3)]
           for name in timed}
     print(json.dumps({"tree": tag, "card": c.nvidia_smi_line(),

@@ -12,9 +12,9 @@ object per line; any failure raises and the script exits non-zero:
   build    nvcc builds lammps_ani_torch/csrc/aev_roll.cu, aev_asn.cu and
            probes.cu for sm_90a, all at once; ptxas's registers per kernel.
   kernels  each of the four roll kernels against its plain PyTorch version
-           on the card, WATER30 x 6^3 (6,480 atoms), in f64 and f32; the
-           kernels' backwards against autograd through the plain forwards
-           (f64).
+           on the card, WATER30 x 6^3 (6,480 atoms), in f64 and f32; two
+           calls of angular_bwd bit for bit (f64 and f32); the kernels'
+           backwards against autograd through the plain forwards (f64).
   potential  E, F, W of the roll engine on the card against the plain path
            on the CPU, WATER30 x 4^3 (1,920 atoms), f64.
   asn_kernels  the twelve asn kernels (csrc/aev_asn.cu: assignment build
@@ -27,7 +27,9 @@ object per line; any failure raises and the script exits non-zero:
            outputs exactly, floats within the limits below; the packed
            kernels also on rows with every slot parked (exact zeros) and
            with one live slot per section, and their worst error as a
-           fraction of its limit; radial_gamma and chain_sum exactly 0 on
+           fraction of its limit; build_inv equal to its plain version
+           on the grid's rows with no atom (1,296), every entry there
+           kpad - 1; radial_gamma and chain_sum exactly 0 on
            the rows with no atom and on the dead lanes, and the dh of
            chain_sum, decompact_chain and radial_bwd_asn exactly 0 from
            cotangents on interior bins' rows only; the whole
@@ -70,7 +72,9 @@ object per line; any failure raises and the script exits non-zero:
            chunks, its launch counts zeroed just before: its ms/step
            beside the asn engine's, and the roll kernels' inputs.
   timing   each roll kernel at the roll run's final state (f32) against
-           its plain version: error, ms, plain ms and the bound.
+           its plain version: error, ms, plain ms and the bound (two
+           terms for angular_bwd); two calls of angular_bwd there bit for
+           bit.
   asn_timing  at the main path's final state, after a fresh rebuild: each
            of the eight asn kernels' error, ms, plain ms, bound and launches
            per MD step (the packed ones with the pair lanes of their tier
@@ -200,19 +204,31 @@ PEAK_F32 = 67e12
 PEAK_F32_INSTR = PEAK_F32 / 2
 PEAK_SFU = PEAK_F32 / 16
 
-# Operations each kernel needs per unit of work, counting every add,
-# multiply, compare and transcendental as one (a lower bound):
+# Operations each roll kernel needs per unit of work. radial_fwd,
+# radial_bwd and angular_fwd count every add, multiply, compare and
+# transcendental as one, at the fused multiply-add rate (a lower bound):
 #   radial fwd, per in-cutoff pair: distance 9, cutoff 5, 16 shifts x 6;
 #   radial bwd, per pair: distance 9, cutoff and slope 7, 16 x 10, chain 9;
-#   angular, per in-cutoff neighbor (compaction): distance 9, unit
-#     vector 4, cutoff 5 (fwd); + 7 for the chain to the lanes (bwd);
-#   angular fwd, per slot pair: cosine 8, radial mean 4, 4 e_j x 4,
-#     8 angle terms x 8, 32 channels x 2 accumulation, fc12 products 5;
-#   angular bwd, per slot pair: the forward terms (100) + chain rule
-#     (8 angles x 24, 4 e_j x 8, slot cotangents 14).
+#   angular fwd, per in-cutoff neighbor (compaction): distance 9, unit
+#     vector 4, cutoff 5; per slot pair: cosine 8, radial mean 4, 4 e_j x
+#     4, 8 angle terms x 8, 32 channels x 2 accumulation, fc12 products 5.
+# angular_bwd counts in two terms, as the asn pair kernels (ASN_OPS
+# below): fp32 instructions of a lane (an fma counts once) at
+# PEAK_F32_INSTR and special-function results at PEAK_SFU, the larger of
+# the two, as (fp32, sfu) per unit of work:
+#   per real candidate of a real center's 27-bin window ("window"), (8,
+#     1): the offset 3, the squared distance 3 (a product and two fmas),
+#     the 1e-12 clamp 1, the Rca test 1, and the square root;
+#   per kept neighbour ("nbr"), (34, 4): the slot (1 / d 5 and a
+#     reciprocal, the unit vector 3, the live test 1, fc and dfc with their
+#     argument 4 and the hardware cosine and sine), then its chain (1 / d 4
+#     and a reciprocal, gu . u 3, g_cd 3, the vector 6, fcen 3, the wing's
+#     add 3);
+#   per slot pair ("pair"), (306, 21): packed_bwd's terms (ASN_OPS).
 OPS = {"radial_fwd": {"pair": 110}, "radial_bwd": {"pair": 185},
        "angular_fwd": {"nbr": 18, "pair": 165},
-       "angular_bwd": {"nbr": 25, "pair": 340}}
+       "angular_bwd": {"window": (8, 1), "nbr": (34, 4),
+                       "pair": (306, 21)}}
 
 # Limits of a kernel's error against its plain version: |err| <= atol +
 # rtol * scale, where scale is the output's largest magnitude, or for the
@@ -374,8 +390,9 @@ def compare(name, k, got, ref):
 
 
 def work_counts(k):
-    """This input's data-dependent work: in-cutoff radial pairs, in-Rca
-    angular neighbors kept by the caps, and angular slot pairs."""
+    """This input's data-dependent work: in-cutoff radial pairs, real
+    (center, candidate) lanes of the 27-bin windows, in-Rca angular
+    neighbors kept by the caps, and angular slot pairs."""
     spec = k["spec"]
     nc, cap = k["sp_g"].shape
     cp, cs = ar._candidates(k["ncells"], k["pos_g"], k["sp_g"], k["h"],
@@ -404,13 +421,33 @@ def work_counts(k):
             pairs_a += float((a * (a - 1) / 2).sum())
             for b in n_s[i + 1:]:
                 pairs_a += float((a * b).sum())
-    return {"radial_pairs": pairs_r, "angular_nbrs": int(nbrs_a),
-            "angular_pairs": int(pairs_a)}
+    occ = (k["sp_g"] >= 0).sum(1).reshape(k["ncells"]).to(torch.float64)
+    window = torch.zeros_like(occ)
+    for off in ar._shell_offsets(1):
+        window += torch.roll(occ, shifts=tuple(int(o) for o in off),
+                             dims=(0, 1, 2))
+    return {"radial_pairs": pairs_r,
+            "window_lanes": int((occ * window).sum() - occ.sum()),
+            "angular_nbrs": int(nbrs_a), "angular_pairs": int(pairs_a)}
+
+
+# OPS units -> work_counts keys
+ROLL_UNITS = {"window": "window_lanes", "nbr": "angular_nbrs",
+              "pair": "angular_pairs"}
+
+
+def roll_two_term_ms(name, work):
+    """(fp32 ms, special-function ms) of a two-term roll kernel."""
+    units = OPS[name]
+    fp32 = sum(units[u][0] * work[ROLL_UNITS[u]] for u in units)
+    sfu = sum(units[u][1] * work[ROLL_UNITS[u]] for u in units)
+    return fp32 / PEAK_F32_INSTR * 1e3, sfu / PEAK_SFU * 1e3
 
 
 def bound(name, k, work):
     """(bound_ms, bound_by): the larger of the bytes the function must move
-    over HBM's rate and its operations over the f32 peak. The bytes are
+    over HBM's rate and its operations (OPS: at the f32 peak, or in two
+    terms for angular_bwd). The bytes are
     the real atoms' rows, each read or written once: positions, species
     and the box in; the AEV out (forward); the AEV cotangent in, dpos and
     dh out (backward). The grid's empty slots and the wing slabs are the
@@ -425,12 +462,14 @@ def bound(name, k, work):
     else:
         nbytes += n * width * fsize + n * 3 * fsize + 9 * fsize
     ops = OPS[name]
-    if name.startswith("radial"):
-        n_ops = ops["pair"] * work["radial_pairs"]
+    if name == "angular_bwd":
+        t_ops = max(roll_two_term_ms(name, work))
+    elif name.startswith("radial"):
+        t_ops = ops["pair"] * work["radial_pairs"] / PEAK_F32 * 1e3
     else:
-        n_ops = (ops["nbr"] * work["angular_nbrs"]
-                 + ops["pair"] * work["angular_pairs"])
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+        t_ops = (ops["nbr"] * work["angular_nbrs"]
+                 + ops["pair"] * work["angular_pairs"]) / PEAK_F32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
 
@@ -467,9 +506,31 @@ def phase_build():
           "ptxas": names})
 
 
+def same_bits(a, b):
+    """Whether two tuples of float tensors agree bit for bit."""
+    def bits(x):
+        return x.view(torch.int64 if x.dtype == torch.float64
+                      else torch.int32)
+    return all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+
+def angular_bwd_twice(k):
+    """Two calls of the angular_bwd kernel on `k`: {output: bit
+    mismatches}; raises unless fcen, wing and dh agree bit for bit."""
+    kern = kernel_calls(k)["angular_bwd"][0]
+    first, second = kern(), kern()
+    _sync(k["pos_g"].device)
+    out = {lab: 0 if same_bits((x,), (y,)) else int((x != y).sum())
+           for lab, x, y in zip(("fcen", "wing", "dh"), first, second)}
+    if any(out.values()):
+        raise AssertionError(f"angular_bwd, two calls: {out}")
+    return out
+
+
 def phase_kernels_small(device, rep=6):
-    """Kernels vs plain versions at WATER30 x rep^3, f64 and f32, and the
-    kernels' backwards vs autograd through the plain forwards (f64)."""
+    """Kernels vs plain versions at WATER30 x rep^3, f64 and f32, two
+    calls of angular_bwd bit for bit, and the kernels' backwards vs
+    autograd through the plain forwards (f64)."""
     data = water_box(rep)
     result = {}
     for dtype in (torch.float64, torch.float32):
@@ -484,6 +545,7 @@ def phase_kernels_small(device, rep=6):
             errs[name] = compare(name, k, got, ref)
             if errs[name]["worst_ratio"] > 1.0:
                 raise AssertionError(f"{name} {dtype}: {errs[name]}")
+        errs["angular_bwd_twice_bit_mismatches"] = angular_bwd_twice(k)
         result[str(dtype).replace("torch.", "")] = errs
         if dtype == torch.float64:
             result["autograd_f64"] = autograd_check(sim, state)
@@ -744,6 +806,9 @@ def phase_timing(sim, state, launches, work_start):
         ms = time_ms(kern, reps=10, warm=2)
         plain_ms = time_ms(plain, reps=2, warm=1)
         torch.cuda.empty_cache()
+        if name == "angular_bwd":
+            twice = angular_bwd_twice(k)
+            fp32_ms, sfu_ms = roll_two_term_ms(name, work)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": ar.REPLACES[name].split()[0],
@@ -754,6 +819,8 @@ def phase_timing(sim, state, launches, work_start):
     emit({"phase": "timing", "ncells": list(k["ncells"]),
           "cap": int(k["sp_g"].shape[1]),
           "atoms": int((k["sp_g"] >= 0).sum()), "work": work,
+          "angular_bwd_twice_bit_mismatches": twice,
+          "angular_bwd_fp32_ms": fp32_ms, "angular_bwd_sfu_ms": sfu_ms,
           "work_change_over_timed_window": {
               key: work[key] / work_start[key] - 1.0 for key in work},
           "outputs": {r["name"]: r for r in rows}})
@@ -799,16 +866,18 @@ def device_time(prof, calls, group_keys):
 # The asn path (ops/aev_asn.py): kernel inputs, calls, bounds
 # ---------------------------------------------------------------------------
 
-# Operations per unit of work, counted as in OPS above (every operation at
-# the fused multiply-add rate), except the kernels given in two terms
-# below:
-#   build_inv, per real candidate of a real center's 27-bin window:
-#     distance 8, keep test 1, species test 1;
+# Operations per unit of work. build_idx and wing count every operation at
+# the fused multiply-add rate:
 #   build_idx, per table lane: load and compare 2;
 #   wing, per assigned lane: 3 adds.
-# The two-term kernels count fp32 instructions of a lane ("fp32", an fma
+# The other kernels count fp32 instructions of a lane ("fp32", an fma
 # counts once) at PEAK_F32_INSTR and special-function results ("sfu") at
-# PEAK_SFU, the larger of the two. The step forward (step_fused; its
+# PEAK_SFU, the larger of the two, as (fp32, sfu) per unit of work:
+#   build_inv, per real candidate of a real center's 27-bin window
+#     ("window"), (9, 0): the offset 3, the squared distance rounded per
+#     operation 5, the keep test 1 (the species and rank arithmetic is
+#     integer).
+# The step forward (step_fused; its
 # radial part alone, radial_fwd_asn; its stage 2 alone, compact_asn), as
 # (fp32, sfu) per unit of work:
 #   per assigned compact lane ("keep"), (15, 1): the offset 3, the
@@ -874,7 +943,7 @@ def device_time(prof, calls, group_keys):
 STEP_OPS = {"keep": (15, 1), "rcr": (148, 17), "rep": (27, 5),
             "kept": (12, 3)}
 GAMMA_OPS = {"keep": (19, 2), "rcr": (166, 18), "rep": (38, 7)}
-ASN_OPS = {"build_inv": {"lane": 10}, "build_idx": {"lane": 2},
+ASN_OPS = {"build_inv": {"window": (9, 0)}, "build_idx": {"lane": 2},
            "step_fused": STEP_OPS,
            "packed_fwd": {"pairs": (272, 21)},
            "radial_gamma": GAMMA_OPS,
@@ -1162,7 +1231,6 @@ def asn_bound(name, k, work):
     base_in = n * (3 * f + 4) + 9 * f
     if name == "build_inv":
         nbytes = base_in + n * wpad * 2
-        n_ops = ops["lane"] * work["window"]
     elif name == "build_idx":
         nbytes = n * (wpad + kpad) * 2
         n_ops = ops["lane"] * n * (wpad + kpad)
@@ -1293,10 +1361,32 @@ def zero_row_checks(k):
     return out
 
 
+def build_inv_empty_rows(k):
+    """build_inv, kernel and plain version, on `k`'s grid: the two tables
+    and overflows equal, and every entry of each row with no atom kpad - 1
+    (the kernel fills such a row without a scan). Raises otherwise."""
+    calls = asn_calls(k)["build_inv"]
+    (inv, ovf), (inv_p, ovf_p) = calls[0](), calls[1]()
+    _sync(inv.device)
+    empty = k["sp_g"] < 0
+    out = {"empty_rows": int(empty.sum()),
+           "inv_mismatches": int((inv != inv_p).sum()),
+           "ovf_mismatches": int((ovf != ovf_p).sum()),
+           "empty_row_entries_not_dead": int(
+               (inv[empty] != k["kpad"] - 1).sum()),
+           "plain_empty_row_entries_not_dead": int(
+               (inv_p[empty] != k["kpad"] - 1).sum())}
+    if not out["empty_rows"] or any(v for key, v in out.items()
+                                    if key != "empty_rows"):
+        raise AssertionError(f"build_inv on a grid with empty rows: {out}")
+    return out
+
+
 def phase_asn_kernels(device, rep=6):
     """The twelve asn kernels against their plain versions at WATER30 x
     rep^3 (f64 and f32; the radial per-channel kernels in both column
-    layouts); the zero rows and interior dh (`zero_row_checks`); the
+    layouts); the zero rows and interior dh (`zero_row_checks`); build_inv
+    on the grid's empty rows (`build_inv_empty_rows`); the
     backwards of the three entry points against autograd
     through the plain forwards (f64), two calls bit for bit (f64 and f32);
     the per-channel forwards against the fused forward bit for bit, their
@@ -1327,6 +1417,7 @@ def phase_asn_kernels(device, rep=6):
         result[tag] = errs
         result[f"packed_edge_cases_{tag}"] = packed_edge_cases(k)
         result[f"zero_rows_{tag}"] = zero_row_checks(k)
+        result[f"build_inv_empty_rows_{tag}"] = build_inv_empty_rows(k)
         # the packed kernels' worst error as a fraction of its limit
         result[f"packed_err_over_limit_{tag}"] = {
             name: max([errs[name]["worst_ratio"]] + [

@@ -60,7 +60,6 @@ constexpr int kMaxNR = 16;         // radial shifts per species (ANI: 16)
 constexpr int kMaxBlocks = 28;     // species-pair blocks (7 species)
 constexpr int kDeadSlot = 127;     // rank2 of a lane without a packed slot
 constexpr int kFloor = -(1 << 20);
-constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kMaxSmem = 227 * 1024;  // a block's shared memory (H100)
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
@@ -79,23 +78,6 @@ __device__ __forceinline__ double add_rn(double a, double b) {
 template <typename T>
 __device__ __forceinline__ T d2_rn(T dx, T dy, T dz) {
   return add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz));
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// Window lane w (= offset o * cap + slot b of the 27-bin window) of bin
-// `cell`: the grid slot it reads and its wrap shift.
-__device__ __forceinline__ int window_slot(const Grid& g, int cell, int w,
-                                           int& sx, int& sy, int& sz) {
-  const int o = w / g.cap, b = w - o * g.cap;
-  int ox, oy, oz;
-  offset_of(o, 1, ox, oy, oz);
-  return neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz) * g.cap + b;
 }
 
 // Geometry of one compact lane of a center at (cx, cy, cz) in bin `cell`:
@@ -139,8 +121,8 @@ __device__ __forceinline__ LaneGeom<T> lane_geom_at(const T* pos, const T* h,
 // first grid slot of window offset o's bin (bin * cap) and the offset's
 // wrap shift, packed as (sx + 1) | (sy + 1) << 2 | (sz + 1) << 4. Built
 // once per row, it spares each compact lane the divisions and remainders
-// of window_slot: a lane divides w by cap once and reads its offset's
-// entry by a shuffle.
+// of finding its offset's bin: a lane divides w by cap once and reads its
+// offset's entry by a shuffle.
 struct WindowTab {
   int base, shift;
 };
@@ -158,8 +140,7 @@ __device__ __forceinline__ WindowTab window_tab(const Grid& g, int cell,
 }
 
 // The geometry of the compact lane that reads window lane w: its grid slot
-// and wrap shift from the row's window table (window_slot's, without its
-// divisions), then lane_geom_at. Every lane of the warp calls it (the
+// and wrap shift from the row's window table, then lane_geom_at. Every lane of the warp calls it (the
 // shuffles); idx names window lanes below 27 cap, or wpad (dead).
 template <typename T>
 __device__ __forceinline__ LaneGeom<T> lane_geometry_tab(
@@ -243,25 +224,6 @@ __device__ __forceinline__ void st4(double* p, const double (&v)[4]) {
   reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
 }
 
-// a / b; with FAST in f32, by the special-function unit's reciprocal
-// (__fdividef, 2 ulp) instead of the IEEE division and its slow path.
-template <bool FAST, typename T>
-__device__ __forceinline__ T quot(T a, T b) {
-  if constexpr (FAST && std::is_same<T, float>::value)
-    return __fdividef(a, b);
-  else
-    return a / b;
-}
-
-// cos and sin of an argument in [0, pi]: in f32 the special-function
-// unit's (__cosf, __sinf: absolute error 2^-21.4 on [-pi, pi]), which
-// keeps cosf's and sinf's slow paths (and their local memory) out of a
-// kernel; f64 as before.
-__device__ __forceinline__ float cos_0pi(float x) { return __cosf(x); }
-__device__ __forceinline__ double cos_0pi(double x) { return cos(x); }
-__device__ __forceinline__ float sin_0pi(float x) { return __sinf(x); }
-__device__ __forceinline__ double sin_0pi(double x) { return sin(x); }
-
 // One step of width W of a reduce-scatter: acc[i], i < W, takes column
 // i + (lane & W) summed over the two lanes that differ in bit W. W is a
 // template constant, so that every index of acc is known at compile time
@@ -322,61 +284,130 @@ __device__ __forceinline__ void flush_species_max(int* red, int* out) {
 // species s within the keep radius, self excluded, ascending w), or
 // kpad - 1 for a lane kept by no section; ovf[s] = max over rows of
 // (count_s - k_s). Bound: its least work is writing the [NC, cap, wpad]
-// int16 table (bytes); the window tests are ~5 operations per lane.
-// Design: one warp per row scans the window 32 lanes at a time; a lane
-// reads its candidate's species first and its position only if the
-// species can be kept; ranks come from one ballot and popcount per
-// section, the carry of each section stays in a register.
+// int16 table of the real rows (bytes); the window tests are 9 fp32
+// instructions per (row, real window lane).
+// Design: one block per bin. The block stages the bin's 27-bin window once
+// in shared memory (stage_window: each offset's bin and wrap shift found
+// once, the shifted position and the species), so the cap rows of the bin
+// share its gathers and shift products, then compacts it in place, in lane
+// order, to the lanes whose species a section keeps (a block scan of
+// ballots): the empty slots and the other species, a third of the window,
+// are never tested. Its warps take the rows in turn. A row with no atom is filled
+// with kpad - 1 by 16-byte stores and no scan. Otherwise the warp reads the
+// compacted window 32 lanes at a time (one 16-byte shared load a lane:
+// position, species and window lane); ranks come from one ballot and
+// popcount per section, each section's carry in a register, so the answer
+// is the one integer table whatever the order of the warps. The kept lanes
+// are scattered into a per-warp int16 row of kpad - 1 in shared memory,
+// which is written out in 16-byte stores. The per-species maxima go
+// through shared memory (integer atomicMax), then one atomicMax per
+// species to ovf.
 // ---------------------------------------------------------------------------
+constexpr int kInvWarps = 4;  // build_inv: warps per block (one bin)
+
+// Dynamic shared memory of build_inv: the window, then each warp's row.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) asn_build_inv_kernel(
+size_t inv_smem(int cap, int wpad) {
+  return sizeof(WinLane<T>) * 27 * (size_t)cap +
+         sizeof(int16_t) * (size_t)kInvWarps * wpad;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kInvWarps) asn_build_inv_kernel(
     const T* __restrict__ pos, const int* __restrict__ sp,
     const T* __restrict__ hmat, int16_t* __restrict__ inv,
     int* __restrict__ ovf, Grid g, int wpad, int kpad, Sections sec,
     T keep_r2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int2 tab[27];
   __shared__ int red[kMaxS];
+  __shared__ int wtot[kInvWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cell = blockIdx.x, cap = g.cap, W = 27 * cap;
+  WinLane<T>* win = reinterpret_cast<WinLane<T>*>(smem_raw);
+  // the window compacted in place: sp holds the species | window lane << 4
+  WinLane<T>* kept = win;
+  int16_t* buf = reinterpret_cast<int16_t*>(win + W) + warp * wpad;
   if (threadIdx.x < kMaxS) red[threadIdx.x] = kFloor;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int nrows = g.nx * g.ny * g.nz * g.cap;
-  if (row < nrows) {
-    T h[9];
-    for (int i = 0; i < 9; ++i) h[i] = hmat[i];
-    const int cell = row / g.cap, a = row - cell * g.cap;
-    const int csp = sp[row];
+  unsigned keep = 0;
+#pragma unroll
+  for (int si = 0; si < kMaxS; ++si)
+    if (si < sec.n) keep |= 1u << sec.species[si];
+  T h[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) h[i] = hmat[i];
+  stage_window(pos, sp, h, g, cell, keep, win, tab);
+  // compaction in lane order, blockDim lanes at a time, in place: a tile's
+  // lanes are all read before the barrier, and land below the next tile
+  const unsigned below = (1u << lane) - 1u;
+  int n_kept = 0;
+  for (int base = 0; base < W; base += 32 * kInvWarps) {
+    const int w = base + threadIdx.x;
+    WinLane<T> c;
+    bool k = false;
+    if (w < W) {
+      c = win[w];
+      k = c.sp >= 0;
+    }
+    const unsigned bal = __ballot_sync(kFull, k);
+    if (lane == 0) wtot[warp] = __popc(bal);
+    __syncthreads();
+    int at = n_kept + __popc(bal & below), total = 0;
+#pragma unroll
+    for (int v = 0; v < kInvWarps; ++v) {
+      if (v < warp) at += wtot[v];
+      total += wtot[v];
+    }
+    if (k) {
+      c.sp |= w << 4;
+      kept[at] = c;
+    }
+    n_kept += total;
+    __syncthreads();
+  }
+  const int16_t dead = (int16_t)(kpad - 1);
+  const unsigned dead2 = (unsigned)(uint16_t)dead * 0x10001u;
+  const int4 dead16 = make_int4(dead2, dead2, dead2, dead2);
+  int4* b16 = reinterpret_cast<int4*>(buf);
+  for (int a = warp; a < cap; a += kInvWarps) {
+    const int row = cell * cap + a;
+    int4* out = reinterpret_cast<int4*>(inv + (size_t)row * wpad);
+    if (sp[row] < 0) {
+      // no atom: every lane kpad - 1; counts 0, as the scan would give
+      for (int i = lane; i < wpad / 8; i += 32) out[i] = dead16;
+      if (lane < sec.n) atomicMax(&red[sec.species[lane]], -sec.k[lane]);
+      continue;
+    }
+    for (int i = lane; i < wpad / 8; i += 32) b16[i] = dead16;
+    __syncwarp();
     const T cx = pos[row * 3], cy = pos[row * 3 + 1], cz = pos[row * 3 + 2];
-    const int W = 27 * g.cap, self_lane = 13 * g.cap + a;
-    const unsigned below = (1u << lane) - 1u;
+    const int self_lane = 13 * cap + a;
     int carry[kMaxS];
 #pragma unroll
     for (int si = 0; si < kMaxS; ++si) carry[si] = 0;
-    int16_t* out = inv + (size_t)row * wpad;
-    for (int base = 0; base < wpad; base += 32) {
-      const int w = base + lane;
-      int sw = -1;
-      if (csp >= 0 && w < W && w != self_lane) {
-        int sx, sy, sz;
-        const int q = window_slot(g, cell, w, sx, sy, sz);
-        sw = sp[q];
-        if (sw >= 0) {
-          T px, py, pz;
-          candidate_pos(pos, q, h, sx, sy, sz, px, py, pz);
-          if (!(d2_rn(cx - px, cy - py, cz - pz) <= keep_r2)) sw = -1;
-        }
+    for (int base = 0; base < n_kept; base += 32) {
+      const int i = base + lane;
+      int sw = -1, w = 0;
+      if (i < n_kept) {
+        const WinLane<T> c = kept[i];
+        w = c.sp >> 4;
+        if (w != self_lane && d2_rn(cx - c.x, cy - c.y, cz - c.z) <= keep_r2)
+          sw = c.sp & 15;
       }
-      int v = kpad - 1;
+      int v = -1;
 #pragma unroll
       for (int si = 0; si < kMaxS; ++si) {
-        if (si < sec.n) {
-          const bool m = sw == sec.species[si];
-          const unsigned bal = __ballot_sync(kFull, m);
-          if (m) v = sec.off[si] + carry[si] + __popc(bal & below);
-          carry[si] += __popc(bal);
-        }
+        if (si >= sec.n) break;
+        const bool m = sw == sec.species[si];
+        const unsigned bal = __ballot_sync(kFull, m);
+        if (m) v = sec.off[si] + carry[si] + __popc(bal & below);
+        carry[si] += __popc(bal);
       }
-      out[w] = (int16_t)v;
+      if (v >= 0) buf[w] = (int16_t)v;
     }
+    __syncwarp();
+    for (int i = lane; i < wpad / 8; i += 32) out[i] = b16[i];
+    __syncwarp();
     if (lane == 0) {
 #pragma unroll
       for (int si = 0; si < kMaxS; ++si)
@@ -1114,100 +1145,6 @@ __global__ void __launch_bounds__(kThreads) asn_radial_bwd_asn_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Slot-pair helpers of the angular pair stages (packed and per-block)
-// ---------------------------------------------------------------------------
-constexpr int kCross = 0, kFullBlock = 1, kTri = 2;
-
-// First pair of row j of an a x a strict upper triangle, row by row.
-__device__ __forceinline__ int tri_start(int j, int a) {
-  return j * (2 * a - j - 1) / 2;
-}
-
-// Slot pair (j, k) of pair index t: cross t = j a2 + k; full, the ordered
-// off-diagonal pairs row by row; tri, the upper triangle row by row.
-template <int MODE>
-__device__ __forceinline__ void block_pair(int t, int a1, int a2, int& j,
-                                           int& k) {
-  if (MODE == kCross) {
-    j = t / a2;
-    k = t - j * a2;
-  } else if (MODE == kFullBlock) {
-    j = t / (a1 - 1);
-    const int m = t - j * (a1 - 1);
-    k = m + (m >= j);
-  } else {
-    // counted from the end, the rows hold 1, 2, 3, ... pairs
-    const int r = a1 * (a1 - 1) / 2 - 1 - t;
-    int jr = (int)((sqrtf(8.0f * r + 1.0f) - 1.0f) * 0.5f);
-    while ((jr + 1) * (jr + 2) / 2 <= r) ++jr;
-    while (jr * (jr + 1) / 2 > r) --jr;
-    j = a1 - 2 - jr;
-    k = t - tri_start(j, a1) + j + 1;
-  }
-}
-
-// Pair index of (j, k) (for tri, j < k).
-template <int MODE>
-__device__ __forceinline__ int block_pair_index(int j, int k, int a1,
-                                                int a2) {
-  if (MODE == kCross) return j * a2 + k;
-  if (MODE == kFullBlock) return j * (a1 - 1) + (k < j ? k : k - 1);
-  return tri_start(j, a1) + k - j - 1;
-}
-
-// The partner `o` of pair t adds its terms to one slot's five sums: dcos
-// times the partner's unit vector, drmean / 2, dfc12 times its fc.
-template <typename T>
-__device__ __forceinline__ void add_partner(T (&g)[5], const T* pb, int q,
-                                            int t, const T* so, int ao,
-                                            int o) {
-  const T dc = pb[t];
-  g[0] += dc * so[o];
-  g[1] += dc * so[ao + o];
-  g[2] += dc * so[2 * ao + o];
-  g[3] += pb[q + t];
-  g[4] += pb[2 * q + t] * so[4 * ao + o];
-}
-
-// One pair's cotangent scalars for the column cotangents gb[32] (scale
-// included): dcos, drmean (0 where the radial mean was clamped), dfc12.
-// FAST_DIV: the f32 divisions by quot<true>.
-template <typename T, bool FAST_DIV = false>
-__device__ __forceinline__ void pair_cotangents(const AngConsts<T>& p,
-                                                const PairTerms<T>& pt,
-                                                const T (&gb)[kNAZ],
-                                                T& dcos, T& drmean,
-                                                T& dfc12) {
-  T df2[kNA];
-#pragma unroll
-  for (int j = 0; j < kNA; ++j) df2[j] = T(0);
-  dcos = T(0);
-#pragma unroll
-  for (int m = 0; m < kNZ; ++m) {
-    T df1 = T(0);
-#pragma unroll
-    for (int j = 0; j < kNA; ++j) {
-      const T gjm = gb[j * kNZ + m];
-      df1 += gjm * (pt.fc12 * pt.e[j]);
-      df2[j] += gjm * pt.f1[m];
-    }
-    const T dbase = df1 * quot<FAST_DIV>(p.zeta, pt.base[m]) * pt.f1[m];
-    dcos += dbase * T(0.5) *
-            (p.cos_m[m] - quot<FAST_DIV>(pt.c95, pt.sv) * p.sin_m[m]) *
-            T(0.95);
-  }
-  drmean = T(0);
-  dfc12 = T(0);
-#pragma unroll
-  for (int j = 0; j < kNA; ++j) {
-    drmean += df2[j] * pt.fc12 * pt.e[j] * (-(T(2) * p.eta)) *
-              (pt.x2 - T(j) * p.delta);
-    dfc12 += df2[j] * pt.e[j];
-  }
-  if (!(pt.dsum <= T(2) * (p.rca + T(1)))) drmean = T(0);
-}
-
-// ---------------------------------------------------------------------------
 // Packed angular pairs — replaces aev_asn.py:1794 _packed_fwd_kernel and
 // aev_asn.py:1833 _packed_bwd_kernel.
 //
@@ -1277,69 +1214,6 @@ struct PackedParams : AngConsts<T> {
   T big;           // a parked slot's d, 2 Rca + 10
 };
 
-// base^zeta of the 8 angle sections of one pair, f32, zeta not an
-// integer: base^n 2^(f log2 base), n = floor(zeta), f = zeta - n. The
-// fraction goes to the special-function unit (lg2, ex2), whose error f < 1
-// scales instead of zeta. The integer part is square and multiply on b2 =
-// base^2 = s + e, s the rounded square and e its exact error (an fma):
-// base^n = r s + (k e) r with r = s^(k-1) base^(n & 1), k = n >> 1, so the
-// rounding of b2, which the k-th power would multiply by k, does not enter.
-// The formula is 4.2e-7 relative of base^zeta at worst over base in
-// [0.025, 1] with exact lg2 and ex2 (tests/test_torch_packed_live.py);
-// expf(zeta logf(base)) is 3.6e-6 there.
-__device__ __forceinline__ void zeta_pow_split(const float (&b)[kNZ],
-                                               float (&f1)[kNZ], int n,
-                                               float frac) {
-  const int k = n >> 1;
-  float r[kNZ];
-#pragma unroll
-  for (int m = 0; m < kNZ; ++m) r[m] = (n & 1) ? b[m] : 1.0f;
-  if (k > 0) {
-    float s[kNZ], sq[kNZ];
-#pragma unroll
-    for (int m = 0; m < kNZ; ++m) {
-      s[m] = b[m] * b[m];
-      sq[m] = s[m];
-    }
-    // unrolled with an exit on the (uniform) bits left: as a plain loop,
-    // ptxas spilled four registers of the enclosing pair loop
-#pragma unroll
-    for (int bit = 0; bit < 7; ++bit) {
-      const int e = (k - 1) >> bit;
-      if (e == 0) break;
-      if (e & 1) {
-#pragma unroll
-        for (int m = 0; m < kNZ; ++m) r[m] *= sq[m];
-      }
-      if (e > 1) {
-#pragma unroll
-        for (int m = 0; m < kNZ; ++m) sq[m] *= sq[m];
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < kNZ; ++m) {
-      const float err = fmaf(b[m], b[m], -s[m]);
-      r[m] = fmaf(float(k) * err, r[m], r[m] * s[m]);
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < kNZ; ++m) f1[m] = r[m] * exp2f(frac * __log2f(b[m]));
-}
-
-// f1_m = base_m^zeta of pair terms from pair_terms_geom.
-template <typename T>
-__device__ __forceinline__ void packed_powers(const PackedParams<T>& p,
-                                              PairTerms<T>& pt) {
-  if constexpr (std::is_same<T, float>::value) {
-    if (p.zeta_int <= 0) {
-      zeta_pow_split(pt.base, pt.f1, p.zeta_floor, p.zeta_frac);
-      return;
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < kNZ; ++m) pt.f1[m] = zeta_pow(pt.base[m], p);
-}
-
 // Pair terms of the staged slots i1, i2 of a row (s: [5][A]).
 template <typename T>
 __device__ __forceinline__ void packed_terms(const PackedParams<T>& p,
@@ -1348,7 +1222,7 @@ __device__ __forceinline__ void packed_terms(const PackedParams<T>& p,
   pair_terms_geom<T>(p, s[i1], s[A + i1], s[2 * A + i1], s[i2], s[A + i2],
                      s[2 * A + i2], s[3 * A + i1], s[3 * A + i2],
                      s[4 * A + i1], s[4 * A + i2], pt);
-  packed_powers<T>(p, pt);
+  pair_powers<T>(p, pt);
 }
 
 // One past the last slot of [off, off + a) that is not parked: the arm's
@@ -1491,7 +1365,7 @@ __global__ void __launch_bounds__(kThreads) asn_packed_bwd_kernel(
       PairTerms<T> pt;
       pair_terms_geom<T>(p, u1x, u1y, u1z, u2x, u2y, u2z, d1, d2, fc1, fc2,
                          pt);
-      packed_powers<T>(p, pt);
+      pair_powers<T>(p, pt);
       T dcos, drmean, dfc12;
       pair_cotangents<T, true>(p, pt, gb, dcos, drmean, dfc12);
       pb[t] = dcos;
@@ -2089,8 +1963,11 @@ int asn_build_inv(const int* ip, const double* fp, const void* pos,
   Sections sec;
   if (!sections_from(ip + 6, sec) || !grid_ok(g, wpad, kpad))
     return cudaErrorInvalidValue;
-  const int nrows = g.nx * g.ny * g.nz * g.cap;
-  asn_build_inv_kernel<T><<<row_blocks(nrows), kThreads, 0,
+  const size_t smem = inv_smem<T>(g.cap, wpad);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(asn_build_inv_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  asn_build_inv_kernel<T><<<g.nx * g.ny * g.nz, 32 * kInvWarps, smem,
                             (cudaStream_t)stream>>>(
       (const T*)pos, (const int*)sp, (const T*)h, (int16_t*)inv, (int*)ovf, g,
       wpad, kpad, sec, (T)fp[0]);

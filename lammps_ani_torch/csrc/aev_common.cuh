@@ -1,9 +1,10 @@
 // Device helpers shared by the AEV kernels of aev_roll.cu and aev_asn.cu:
 // math overloads for float and double, the roll-bin window geometry
-// (neighbor bin, wrap shift, shifted candidate position), the angular
-// pair-term body, which the angular kernels evaluate per slot pair, and
-// the fixed-order sum of the backwards' per-block box-cotangent partials
-// (dh_reduce_kernel).
+// (neighbor bin, wrap shift, shifted candidate position, the 27-bin window
+// staged in shared memory), the angular pair-term body, which the angular
+// kernels evaluate per slot pair, with its powers and its chain rule, the
+// slot-pair enumeration of the pair stages, and the fixed-order sum of the
+// backwards' per-block box-cotangent partials (dh_reduce_kernel).
 //
 // Included by each .cu file (each builds into its own library); everything
 // here lives in an anonymous namespace.
@@ -12,6 +13,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kNA = 4;      // angular radial shifts (ANI: 4)
@@ -19,6 +22,7 @@ constexpr int kNZ = 8;      // angular angle sections (ANI: 8)
 constexpr int kNAZ = kNA * kNZ;
 constexpr int kMaxS = 8;    // species
 constexpr double kPi = 3.14159265358979323846;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float m_exp(float x) { return expf(x); }
 __device__ __forceinline__ double m_exp(double x) { return exp(x); }
@@ -30,6 +34,32 @@ __device__ __forceinline__ float m_sin(float x) { return sinf(x); }
 __device__ __forceinline__ double m_sin(double x) { return sin(x); }
 __device__ __forceinline__ float m_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double m_sqrt(double x) { return sqrt(x); }
+
+// a / b; with FAST in f32, by the special-function unit's reciprocal
+// (__fdividef, 2 ulp) instead of the IEEE division and its slow path.
+template <bool FAST, typename T>
+__device__ __forceinline__ T quot(T a, T b) {
+  if constexpr (FAST && std::is_same<T, float>::value)
+    return __fdividef(a, b);
+  else
+    return a / b;
+}
+
+// cos and sin of an argument in [0, pi]: in f32 the special-function
+// unit's (__cosf, __sinf: absolute error 2^-21.4 on [-pi, pi]), which
+// keeps cosf's and sinf's slow paths (and their local memory) out of a
+// kernel; f64 as before.
+__device__ __forceinline__ float cos_0pi(float x) { return __cosf(x); }
+__device__ __forceinline__ double cos_0pi(double x) { return cos(x); }
+__device__ __forceinline__ float sin_0pi(float x) { return __sinf(x); }
+__device__ __forceinline__ double sin_0pi(double x) { return sin(x); }
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
 
 struct Grid {
   int nx, ny, nz, cap;
@@ -73,6 +103,50 @@ __device__ __forceinline__ void candidate_pos(const T* pos, int slot,
   if (sx) { px += sx * h[0]; py += sx * h[1]; pz += sx * h[2]; }
   if (sy) { px += sy * h[3]; py += sy * h[4]; pz += sy * h[5]; }
   if (sz) { px += sz * h[6]; py += sz * h[7]; pz += sz * h[8]; }
+}
+
+// A window lane staged in shared memory: the shifted candidate position
+// and the species (-1: an empty slot, or a species the kernel keeps no lane
+// of). 16 bytes in f32 (one 16-byte load), 32 in f64.
+template <typename T>
+struct alignas(16) WinLane {
+  T x, y, z;
+  int sp;
+};
+
+// Stage the 27-bin window of bin `cell` in shared memory, win[w] for w <
+// 27 cap (w = offset o * cap + slot b): the first 27 threads find each
+// offset's bin and wrap shift once (tab: first grid slot, packed shift
+// (sx + 1) | (sy + 1) << 2 | (sz + 1) << 4), then the block stages the
+// lanes. Positions by candidate_pos, so every distance to them has the
+// bits it has from the grid; species outside the bit mask `keep` as -1.
+// Every thread calls it; it ends with a barrier.
+template <typename T>
+__device__ __forceinline__ void stage_window(const T* __restrict__ pos,
+                             const int* __restrict__ sp, const T* h,
+                             const Grid& g, int cell, unsigned keep,
+                             WinLane<T>* win, int2* tab) {
+  if (threadIdx.x < 27) {
+    int ox, oy, oz, sx, sy, sz;
+    offset_of(threadIdx.x, 1, ox, oy, oz);
+    const int base = neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz) * g.cap;
+    tab[threadIdx.x] = make_int2(base, (sx + 1) | (sy + 1) << 2 |
+                                           (sz + 1) << 4);
+  }
+  __syncthreads();
+  const int W = 27 * g.cap;
+  for (int w = threadIdx.x; w < W; w += blockDim.x) {
+    const int o = w / g.cap;
+    const int2 t = tab[o];
+    const int q = t.x + (w - o * g.cap);
+    const int s = sp[q];
+    WinLane<T> v;
+    candidate_pos(pos, q, h, (t.y & 3) - 1, (t.y >> 2 & 3) - 1,
+                  (t.y >> 4 & 3) - 1, v.x, v.y, v.z);
+    v.sp = (s >= 0 && (keep >> s & 1u)) ? s : -1;
+    win[w] = v;
+  }
+  __syncthreads();
 }
 
 template <typename T>
@@ -146,6 +220,163 @@ __device__ __forceinline__ void pair_terms_core(
   pair_terms_geom<T>(p, u1x, u1y, u1z, u2x, u2y, u2z, d1, d2, fc1, fc2, t);
 #pragma unroll
   for (int m = 0; m < kNZ; ++m) t.f1[m] = zeta_pow(t.base[m], p);
+}
+
+// base^zeta of the 8 angle sections of one pair, f32, zeta not an
+// integer: base^n 2^(f log2 base), n = floor(zeta), f = zeta - n. The
+// fraction goes to the special-function unit (lg2, ex2), whose error f < 1
+// scales instead of zeta. The integer part is square and multiply on b2 =
+// base^2 = s + e, s the rounded square and e its exact error (an fma):
+// base^n = r s + (k e) r with r = s^(k-1) base^(n & 1), k = n >> 1, so the
+// rounding of b2, which the k-th power would multiply by k, does not enter.
+// The formula is 4.2e-7 relative of base^zeta at worst over base in
+// [0.025, 1] with exact lg2 and ex2 (tests/test_torch_packed_live.py);
+// expf(zeta logf(base)) is 3.6e-6 there.
+__device__ __forceinline__ void zeta_pow_split(const float (&b)[kNZ],
+                                               float (&f1)[kNZ], int n,
+                                               float frac) {
+  const int k = n >> 1;
+  float r[kNZ];
+#pragma unroll
+  for (int m = 0; m < kNZ; ++m) r[m] = (n & 1) ? b[m] : 1.0f;
+  if (k > 0) {
+    float s[kNZ], sq[kNZ];
+#pragma unroll
+    for (int m = 0; m < kNZ; ++m) {
+      s[m] = b[m] * b[m];
+      sq[m] = s[m];
+    }
+    // unrolled with an exit on the (uniform) bits left: as a plain loop,
+    // ptxas spilled four registers of the enclosing pair loop
+#pragma unroll
+    for (int bit = 0; bit < 7; ++bit) {
+      const int e = (k - 1) >> bit;
+      if (e == 0) break;
+      if (e & 1) {
+#pragma unroll
+        for (int m = 0; m < kNZ; ++m) r[m] *= sq[m];
+      }
+      if (e > 1) {
+#pragma unroll
+        for (int m = 0; m < kNZ; ++m) sq[m] *= sq[m];
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kNZ; ++m) {
+      const float err = fmaf(b[m], b[m], -s[m]);
+      r[m] = fmaf(float(k) * err, r[m], r[m] * s[m]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kNZ; ++m) f1[m] = r[m] * exp2f(frac * __log2f(b[m]));
+}
+
+// f1_m = base_m^zeta of pair terms from pair_terms_geom; P carries
+// zeta_int, zeta_floor and zeta_frac (PackedParams, AngParams).
+template <typename T, typename P>
+__device__ __forceinline__ void pair_powers(const P& p, PairTerms<T>& pt) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (p.zeta_int <= 0) {
+      zeta_pow_split(pt.base, pt.f1, p.zeta_floor, p.zeta_frac);
+      return;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kNZ; ++m) pt.f1[m] = zeta_pow(pt.base[m], p);
+}
+
+// ---------------------------------------------------------------------------
+// Slot-pair helpers of the angular pair stages (packed and per-block)
+// ---------------------------------------------------------------------------
+constexpr int kCross = 0, kFullBlock = 1, kTri = 2;
+
+// First pair of row j of an a x a strict upper triangle, row by row.
+__device__ __forceinline__ int tri_start(int j, int a) {
+  return j * (2 * a - j - 1) / 2;
+}
+
+// Slot pair (j, k) of pair index t: cross t = j a2 + k; full, the ordered
+// off-diagonal pairs row by row; tri, the upper triangle row by row.
+template <int MODE>
+__device__ __forceinline__ void block_pair(int t, int a1, int a2, int& j,
+                                           int& k) {
+  if (MODE == kCross) {
+    j = t / a2;
+    k = t - j * a2;
+  } else if (MODE == kFullBlock) {
+    j = t / (a1 - 1);
+    const int m = t - j * (a1 - 1);
+    k = m + (m >= j);
+  } else {
+    // counted from the end, the rows hold 1, 2, 3, ... pairs
+    const int r = a1 * (a1 - 1) / 2 - 1 - t;
+    int jr = (int)((sqrtf(8.0f * r + 1.0f) - 1.0f) * 0.5f);
+    while ((jr + 1) * (jr + 2) / 2 <= r) ++jr;
+    while (jr * (jr + 1) / 2 > r) --jr;
+    j = a1 - 2 - jr;
+    k = t - tri_start(j, a1) + j + 1;
+  }
+}
+
+// Pair index of (j, k) (for tri, j < k).
+template <int MODE>
+__device__ __forceinline__ int block_pair_index(int j, int k, int a1,
+                                                int a2) {
+  if (MODE == kCross) return j * a2 + k;
+  if (MODE == kFullBlock) return j * (a1 - 1) + (k < j ? k : k - 1);
+  return tri_start(j, a1) + k - j - 1;
+}
+
+// The partner `o` of pair t adds its terms to one slot's five sums: dcos
+// times the partner's unit vector, drmean / 2, dfc12 times its fc.
+template <typename T>
+__device__ __forceinline__ void add_partner(T (&g)[5], const T* pb, int q,
+                                            int t, const T* so, int ao,
+                                            int o) {
+  const T dc = pb[t];
+  g[0] += dc * so[o];
+  g[1] += dc * so[ao + o];
+  g[2] += dc * so[2 * ao + o];
+  g[3] += pb[q + t];
+  g[4] += pb[2 * q + t] * so[4 * ao + o];
+}
+
+// One pair's cotangent scalars for the column cotangents gb[32] (scale
+// included): dcos, drmean (0 where the radial mean was clamped), dfc12.
+// FAST_DIV: the f32 divisions by quot<true>.
+template <typename T, bool FAST_DIV = false>
+__device__ __forceinline__ void pair_cotangents(const AngConsts<T>& p,
+                                                const PairTerms<T>& pt,
+                                                const T (&gb)[kNAZ],
+                                                T& dcos, T& drmean,
+                                                T& dfc12) {
+  T df2[kNA];
+#pragma unroll
+  for (int j = 0; j < kNA; ++j) df2[j] = T(0);
+  dcos = T(0);
+#pragma unroll
+  for (int m = 0; m < kNZ; ++m) {
+    T df1 = T(0);
+#pragma unroll
+    for (int j = 0; j < kNA; ++j) {
+      const T gjm = gb[j * kNZ + m];
+      df1 += gjm * (pt.fc12 * pt.e[j]);
+      df2[j] += gjm * pt.f1[m];
+    }
+    const T dbase = df1 * quot<FAST_DIV>(p.zeta, pt.base[m]) * pt.f1[m];
+    dcos += dbase * T(0.5) *
+            (p.cos_m[m] - quot<FAST_DIV>(pt.c95, pt.sv) * p.sin_m[m]) *
+            T(0.95);
+  }
+  drmean = T(0);
+  dfc12 = T(0);
+#pragma unroll
+  for (int j = 0; j < kNA; ++j) {
+    drmean += df2[j] * pt.fc12 * pt.e[j] * (-(T(2) * p.eta)) *
+              (pt.x2 - T(j) * p.delta);
+    dfc12 += df2[j] * pt.e[j];
+  }
+  if (!(pt.dsum <= T(2) * (p.rca + T(1)))) drmean = T(0);
 }
 
 constexpr int kRedThreads = 512;

@@ -276,18 +276,23 @@ struct AngParams : AngConsts<T> {
   T pi_rca, big;
   int S, atot;
   int caps[kMaxS], slot0[kMaxS];
+  int zeta_floor;  // floor(zeta), for the f32 split power (pair_powers)
+  T zeta_frac;     // zeta - floor(zeta)
+  int npres, pres[kMaxS];  // the species with caps > 0, ascending
 };
 
-// Shared memory of the angular kernels:
+// Shared memory of the angular forward (the backward has its own layout,
+// bwd_smem):
 //   window  wpos [W][3] (shifted), wsp [W]           (W = 27 cap)
 //   slots   field-major [nf][atot][cap] of T, lane [atot][cap] of int
+//   tail    [3 W + 9 cap] of T, of which the forward uses one int
 template <typename T>
 struct AngSmem {
   T* wpos;
   int* wsp;
-  T* slot;   // fields: 0 ux 1 uy 2 uz 3 d 4 fc 5 dfc (+ 6..10 cotangents)
+  T* slot;   // fields: 0 ux 1 uy 2 uz 3 d 4 fc 5 dfc
   int* lane;
-  T* tail;   // what follows (wing accumulators, reductions)
+  T* tail;   // what follows (the deficit's reduction)
   int atot, cap;
   __device__ T& f(int field, int q, int a) {
     return slot[(field * atot + q) * cap + a];
@@ -467,145 +472,342 @@ __global__ void angular_fwd_kernel(const T* __restrict__ pos,
 // [NC, cap, AL] to per-slot cotangents of (u, d, fc), maps those back to
 // the window lanes they were compacted from, and emits fcen (center
 // role), wing (neighbor role, folded by torch rolls) and dh partials.
-// Bound: its least work is reading the [NC, cap, 896] cotangent
-// (bytes). As written it is bound by operations and latency, as the
-// forward, plus the chain rule (about 2x the forward's arithmetic per
-// pair). Design: as the forward; the slot
-// cotangents accumulate in shared memory owned by their center's thread;
-// the wing of the 27 cap window lanes accumulates in shared memory by
-// atomicAdd (several centers share a lane), then one pass writes it with
-// the dh partial sum.
+// Bound (chip_smoke.py OPS): per slot pair, fp32 instructions over the
+// card's instruction rate and special-function results (the split power's
+// lg2 and ex2, the 4 shifts' ex2, the square root) over its rate, as the
+// asn packed backward; beside them the window tests and the per-neighbour
+// chain, and the bytes of the cotangent.
+// Design: one block per bin, `warps` warps (the host picks the count that
+// keeps the most warps resident per SM in the shared memory each needs).
+// The block stages the bin's 27-bin window once (stage_window); each warp
+// then takes the bin's centers one at a time from a shared counter:
+//   * compaction by ballot: the warp reads the window 32 lanes at a time,
+//     one distance per lane, and ranks each species' in-Rca lanes by
+//     popcount with a carry per species, so the first caps[s] of species
+//     s land in its slots in ascending lane order, as compact_center
+//     (angular_fwd) puts them; the slots (u, d, fc, dfc, window lane) go
+//     to the warp's shared scratch (fc and dfc by the hardware cosine and
+//     sine in f32: the argument lies in [0, pi]);
+//   * per species-pair block, as asn_packed_bwd_kernel: pass 1 gives each
+//     slot pair to one lane, which leaves the pair's dcos, drmean / 2 and
+//     dfc12 in shared memory (f32: the split power and the fast divisions);
+//     pass 2 gives each slot to one lane, which walks its partners in
+//     index order and adds to the slot's five sums: no atomics;
+//   * one lane a slot chains the sums to the slot's lane cotangent; fcen
+//     is their warp sum (a fixed tree); the center's slots and lanes are
+//     kept in shared memory, by center.
+// Then the window's storage becomes the wing: each warp owns a range of
+// window lanes and adds the kept slots that fall in it, center after
+// center (a center's slots name distinct lanes), so every wing entry is a
+// sum in center order and two calls agree bit for bit. The block writes
+// the wing, and the bin's dh partial from per-offset wing sums (0 for an
+// interior bin: every shift is 0); dh_reduce_kernel sums the partials.
 // ---------------------------------------------------------------------------
+constexpr int kBwdMaxWarps = 8;
+
+// Per-warp scratch of angular_bwd, in T: the center's slots field after
+// field, [6][A] (ux uy uz d fc, in the packed kernels' order, which
+// add_partner reads, then dfc), their five cotangent sums [5][A], one
+// block's pair scalars [3][Q] and its 32 column cotangents; then the
+// slots' window lanes, int [A]. Rounded to 16 bytes.
 template <typename T>
-__global__ void angular_bwd_kernel(const T* __restrict__ pos,
-                                   const int* __restrict__ sp,
-                                   const T* __restrict__ hmat,
-                                   const T* __restrict__ ga,
-                                   T* __restrict__ fcen, T* __restrict__ wing,
-                                   T* __restrict__ dh_part, Grid g,
-                                   AngParams<T> p) {
+__host__ __device__ size_t bwd_warp_bytes(int A, int Q) {
+  const size_t b = sizeof(T) * (11 * (size_t)A + 3 * (size_t)Q + kNAZ) +
+                   sizeof(int) * (size_t)A;
+  return (b + 15) & ~(size_t)15;
+}
+
+// Dynamic shared memory of angular_bwd: the window (later the wing), the
+// centers' slot cotangents and lanes [cap][A], the centers' species [cap],
+// then each warp's scratch.
+template <typename T>
+__host__ __device__ size_t bwd_warps_off(int cap, int A) {
+  return sizeof(WinLane<T>) * 27 * (size_t)cap +
+         sizeof(WinLane<T>) * (size_t)cap * A +
+         ((sizeof(int) * (size_t)cap + 15) & ~(size_t)15);
+}
+
+template <typename T>
+size_t bwd_smem(int cap, int A, int Q, int warps) {
+  return bwd_warps_off<T>(cap, A) + (size_t)warps * bwd_warp_bytes<T>(A, Q);
+}
+
+// c[i] for a loop-variant i: selections over the unrolled entries, so that
+// c stays in registers (an index unknown at compile time would put it in
+// local memory).
+__device__ __forceinline__ int pick(const int (&c)[kMaxS], int i) {
+  int v = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxS; ++k)
+    if (k == i) v = c[k];
+  return v;
+}
+
+// One center of angular_bwd, on one warp: its fcen, and its kept slots'
+// lane cotangents and window lanes in res[0, A) (lane -1: no lane).
+template <typename T>
+__device__ __forceinline__ void bwd_center(
+    const AngParams<T>& p, const Grid& g, const int* csp,
+    const T* __restrict__ ga, T* __restrict__ fcen, const WinLane<T>* win,
+    WinLane<T>* res, unsigned char* scratch, int cell, int a, int Q,
+    int lane) {
+  const int cap = g.cap, W = 27 * cap, A = p.atot;
+  T* s = reinterpret_cast<T*>(scratch);
+  T* o = s + 6 * A;
+  T* pb = o + 5 * A;
+  T* gsm = pb + 3 * Q;
+  int* slane = reinterpret_cast<int*>(gsm + kNAZ);
+  const int me = cell * cap + a;
+  if (csp[a] < 0) {
+    for (int q = lane; q < A; q += 32) res[q].sp = -1;
+    if (lane < 3) fcen[(size_t)me * 3 + lane] = T(0);
+    return;
+  }
+  for (int q = lane; q < A; q += 32) {
+    slane[q] = -1;
+#pragma unroll
+    for (int f = 0; f < 5; ++f) o[f * A + q] = T(0);
+  }
+  // the center's position: its own window lane (offset 13, no shift)
+  const WinLane<T> ctr = win[13 * cap + a];
+  const T cx = ctr.x, cy = ctr.y, cz = ctr.z;
+  const int self_lane = 13 * cap + a;
+  const unsigned below = (1u << lane) - 1u;
+  int carry[kMaxS];  // by position in p.pres
+#pragma unroll
+  for (int pi = 0; pi < kMaxS; ++pi) carry[pi] = 0;
+  // compaction: the first caps[s] in-Rca lanes of species s, ascending
+  __syncwarp();
+  for (int base = 0; base < W; base += 32) {
+    const int w = base + lane;
+    int ws = -1;
+    T dx = T(0), dy = T(0), dz = T(0), d = T(0);
+    if (w < W && w != self_lane) {
+      const WinLane<T> c = win[w];
+      if (c.sp >= 0) {
+        dx = cx - c.x;
+        dy = cy - c.y;
+        dz = cz - c.z;
+        d = pair_dist(dx, dy, dz);
+        if (d <= p.rca) ws = c.sp;
+      }
+    }
+    int q = -1;  // the slot this lane fills, if any
+#pragma unroll
+    for (int pi = 0; pi < kMaxS; ++pi) {
+      if (pi >= p.npres) break;
+      const int si = p.pres[pi];
+      const bool m = ws == si;
+      const unsigned bal = __ballot_sync(kFull, m);
+      const int r = carry[pi] + __popc(bal & below);
+      if (m && r < p.caps[si]) q = p.slot0[si] + r;
+      carry[pi] += __popc(bal);
+    }
+    if (q >= 0) {
+      const bool valid = d > T(1e-6);
+      const T d_safe = valid ? d : p.big;
+      const T inv = T(1) / d_safe;
+      s[q] = dx * inv;
+      s[A + q] = dy * inv;
+      s[2 * A + q] = dz * inv;
+      s[3 * A + q] = d_safe;
+      s[4 * A + q] = valid ? T(0.5) * cos_0pi(d * p.pi_rca) + T(0.5) : T(0);
+      s[5 * A + q] =
+          valid ? (T(-0.5) * p.pi_rca) * sin_0pi(d * p.pi_rca) : T(0);
+      slane[q] = valid ? w : -1;
+    }
+  }
+  __syncwarp();
+  const int AL = p.S * (p.S + 1) / 2 * kNAZ;
+  const T(&gb)[kNAZ] = *reinterpret_cast<const T(*)[kNAZ]>(gsm);
+  for (int p1 = 0; p1 < p.npres; ++p1) {
+    for (int p2 = p1; p2 < p.npres; ++p2) {
+      const int s1 = p.pres[p1], s2 = p.pres[p2];
+      const bool same = s1 == s2;
+      const int n1 = min(pick(carry, p1), p.caps[s1]);
+      const int n2 = min(pick(carry, p2), p.caps[s2]);
+      const int q = same ? n1 * (n1 - 1) / 2 : n1 * n2;
+      if (q == 0) continue;
+      const int off1 = p.slot0[s1], off2 = p.slot0[s2];
+      // the block's column cotangents, each unordered pair once: scale 2
+      gsm[lane] =
+          T(2) * ga[(size_t)me * AL + triu_index(s1, s2, p.S) * kNAZ + lane];
+      __syncwarp();
+      // pass 1: each pair's three scalars
+      for (int t = lane; t < q; t += 32) {
+        int j, k;
+        if (same)
+          block_pair<kTri>(t, n1, n1, j, k);
+        else
+          block_pair<kCross>(t, n1, n2, j, k);
+        const int i1 = off1 + j, i2 = off2 + k;
+        PairTerms<T> pt;
+        pair_terms_geom<T>(p, s[i1], s[A + i1], s[2 * A + i1], s[i2],
+                           s[A + i2], s[2 * A + i2], s[3 * A + i1],
+                           s[3 * A + i2], s[4 * A + i1], s[4 * A + i2], pt);
+        pair_powers<T>(p, pt);
+        T dcos, drmean, dfc12;
+        pair_cotangents<T, true>(p, pt, gb, dcos, drmean, dfc12);
+        pb[t] = dcos;
+        pb[Q + t] = T(0.5) * drmean;
+        pb[2 * Q + t] = dfc12;
+      }
+      __syncwarp();
+      // pass 2: each slot walks its partners in index order
+      const int w1 = n1, w2 = same ? 0 : n2;
+      for (int it = lane; it < w1 + w2; it += 32) {
+        T gs[5] = {T(0), T(0), T(0), T(0), T(0)};
+        int slot;
+        if (same) {
+          // pairs (k, j), k < j: index j - 1 at k = 0, then + n1 - 2 - k;
+          // pairs (j, k), k > j: consecutive from the row's start
+          const int j = it;
+          slot = off1 + j;
+          int t_lo = j - 1, t_hi = tri_start(j, n1);
+          for (int k = 0; k < n1; ++k) {
+            if (k == j) continue;
+            add_partner<T>(gs, pb, Q, k < j ? t_lo : t_hi, s, A, off1 + k);
+            if (k < j)
+              t_lo += n1 - 2 - k;
+            else
+              ++t_hi;
+          }
+        } else {
+          // arm 1 slot i: pairs i n2 + k; arm 2 slot i: pairs j n2 + i
+          const bool arm1 = it < w1;
+          const int i = arm1 ? it : it - w1;
+          slot = (arm1 ? off1 : off2) + i;
+          const int po = arm1 ? off2 : off1, cnt = arm1 ? n2 : n1;
+          const int stride = arm1 ? 1 : n2;
+          int t = arm1 ? i * n2 : i;
+          for (int k = 0; k < cnt; ++k, t += stride)
+            add_partner<T>(gs, pb, Q, t, s, A, po + k);
+        }
+#pragma unroll
+        for (int f = 0; f < 5; ++f) o[f * A + slot] += gs[f];
+      }
+      __syncwarp();
+    }
+  }
+  // slot cotangents -> lane cotangents; fcen their sum
+  T fx = T(0), fy = T(0), fz = T(0);
+  for (int q = lane; q < A; q += 32) {
+    WinLane<T> r;
+    r.x = r.y = r.z = T(0);
+    r.sp = slane[q];
+    if (r.sp >= 0) {
+      const T inv = T(1) / s[3 * A + q];
+      const T ux = s[q], uy = s[A + q], uz = s[2 * A + q];
+      const T gux = o[q], guy = o[A + q], guz = o[2 * A + q];
+      const T gu_dot_u = gux * ux + guy * uy + guz * uz;
+      const T g_cd = o[3 * A + q] + o[4 * A + q] * s[5 * A + q] -
+                     gu_dot_u * inv;
+      r.x = gux * inv + g_cd * ux;
+      r.y = guy * inv + g_cd * uy;
+      r.z = guz * inv + g_cd * uz;
+      fx += r.x;
+      fy += r.y;
+      fz += r.z;
+    }
+    res[q] = r;
+  }
+  fx = warp_sum(fx);
+  fy = warp_sum(fy);
+  fz = warp_sum(fz);
+  if (lane == 0) {
+    fcen[(size_t)me * 3] = fx;
+    fcen[(size_t)me * 3 + 1] = fy;
+    fcen[(size_t)me * 3 + 2] = fz;
+  }
+  __syncwarp();  // the scratch is the next center's
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kBwdMaxWarps) angular_bwd_kernel(
+    const T* __restrict__ pos, const int* __restrict__ sp,
+    const T* __restrict__ hmat, const T* __restrict__ ga,
+    T* __restrict__ fcen, T* __restrict__ wing, T* __restrict__ dh_part,
+    Grid g, AngParams<T> p, int Q) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int cell = blockIdx.x, cap = g.cap, a = threadIdx.x;
-  const int W = 27 * cap;
-  AngSmem<T> sm = ang_smem<T>(smem_raw, W, p.atot, cap, 11);
-  T* wing_s = sm.tail;          // [W][3]
-  T* red = sm.tail + 3 * W;     // [9][cap]
+  __shared__ int2 tab[27];
+  __shared__ T osum[27][3];
+  __shared__ int next;
+  const int cell = blockIdx.x, cap = g.cap, W = 27 * cap, A = p.atot;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  WinLane<T>* win = reinterpret_cast<WinLane<T>*>(smem_raw);
+  WinLane<T>* res = win + W;
+  int* csp = reinterpret_cast<int*>(res + cap * A);
+  unsigned char* scratch = smem_raw + bwd_warps_off<T>(cap, A) +
+                           warp * bwd_warp_bytes<T>(A, Q);
+  if (threadIdx.x == 0) next = 0;
+  for (int i = threadIdx.x; i < cap; i += blockDim.x)
+    csp[i] = sp[cell * cap + i];
+  unsigned keep = 0;
+#pragma unroll
+  for (int pi = 0; pi < kMaxS; ++pi)
+    if (pi < p.npres) keep |= 1u << p.pres[pi];
   T h[9];
+#pragma unroll
   for (int i = 0; i < 9; ++i) h[i] = hmat[i];
-  load_window(pos, sp, h, g, cell, sm);
+  stage_window(pos, sp, h, g, cell, keep, win, tab);
+  for (;;) {
+    int a = 0;
+    if (lane == 0) a = atomicAdd(&next, 1);
+    a = __shfl_sync(kFull, a, 0);
+    if (a >= cap) break;
+    bwd_center(p, g, csp, ga, fcen, win, res + a * A, scratch, cell, a, Q,
+               lane);
+  }
+  __syncthreads();
+  // the window is done with: its storage becomes the wing, [W][3]
+  T* wing_s = reinterpret_cast<T*>(smem_raw);
   for (int i = threadIdx.x; i < 3 * W; i += blockDim.x) wing_s[i] = T(0);
   __syncthreads();
-  const int me = cell * cap + a;
-  const int AL = p.S * (p.S + 1) / 2 * kNAZ;
-  int n_filled[kMaxS];
-  for (int s = 0; s < kMaxS; ++s) n_filled[s] = 0;
-  T fx = T(0), fy = T(0), fz = T(0);
-  if (sp[me] >= 0) {
-    compact_center(p, sm, a, pos[me * 3], pos[me * 3 + 1], pos[me * 3 + 2],
-                   n_filled);
-    for (int q = 0; q < p.atot; ++q)
-      for (int f = 6; f < 11; ++f) sm.f(f, q, a) = T(0);
-    const T two_eta = T(2) * p.eta;
-    const T rlim = T(2) * (p.rca + T(1));
-    for (int s1 = 0; s1 < p.S; ++s1) {
-      if (p.caps[s1] == 0) continue;
-      for (int s2 = s1; s2 < p.S; ++s2) {
-        if (p.caps[s2] == 0) continue;
-        const T* g_row = ga + (size_t)me * AL +
-                         triu_index(s1, s2, p.S) * kNAZ;
-        T gb[kNAZ];
-#pragma unroll
-        for (int i = 0; i < kNAZ; ++i) gb[i] = T(2) * g_row[i];
-        const bool same = s1 == s2;
-        for (int i = 0; i < n_filled[s1]; ++i) {
-          const int q1 = p.slot0[s1] + i;
-          for (int j = same ? i + 1 : 0; j < n_filled[s2]; ++j) {
-            const int q2 = p.slot0[s2] + j;
-            PairTerms<T> t;
-            pair_terms(p, sm, q1, q2, a, t);
-            T df2[kNA];
-#pragma unroll
-            for (int jj = 0; jj < kNA; ++jj) df2[jj] = T(0);
-            T dcos = T(0);
-#pragma unroll
-            for (int m = 0; m < kNZ; ++m) {
-              T df1 = T(0);
-#pragma unroll
-              for (int jj = 0; jj < kNA; ++jj) {
-                const T gjm = gb[jj * kNZ + m];
-                df1 += gjm * (t.fc12 * t.e[jj]);
-                df2[jj] += gjm * t.f1[m];
-              }
-              const T dbase = df1 * (p.zeta / t.base[m]) * t.f1[m];
-              dcos += dbase * T(0.5) *
-                      (p.cos_m[m] - t.c95 / t.sv * p.sin_m[m]) * T(0.95);
-            }
-            T drmean = T(0), dfc12 = T(0);
-#pragma unroll
-            for (int jj = 0; jj < kNA; ++jj) {
-              drmean += df2[jj] * t.fc12 * t.e[jj] * (-two_eta) *
-                        (t.x2 - T(jj) * p.delta);
-              dfc12 += df2[jj] * t.e[jj];
-            }
-            if (!(t.dsum <= rlim)) drmean = T(0);
-            const T fc1 = sm.f(4, q1, a), fc2 = sm.f(4, q2, a);
-            for (int c = 0; c < 3; ++c) {
-              const T u1 = sm.f(c, q1, a), u2 = sm.f(c, q2, a);
-              sm.f(6 + c, q1, a) += dcos * u2;
-              sm.f(6 + c, q2, a) += dcos * u1;
-            }
-            sm.f(9, q1, a) += T(0.5) * drmean;
-            sm.f(9, q2, a) += T(0.5) * drmean;
-            sm.f(10, q1, a) += dfc12 * fc2;
-            sm.f(10, q2, a) += dfc12 * fc1;
-          }
-        }
+  const int per = (W + nw - 1) / nw, lo = warp * per, hi = min(W, lo + per);
+  for (int c = 0; c < cap; ++c) {
+    for (int q = lane; q < A; q += 32) {
+      const WinLane<T> r = res[c * A + q];
+      if (r.sp >= lo && r.sp < hi) {
+        wing_s[3 * r.sp] -= r.x;
+        wing_s[3 * r.sp + 1] -= r.y;
+        wing_s[3 * r.sp + 2] -= r.z;
       }
     }
-    // slot cotangents -> window lanes
-    for (int s = 0; s < p.S; ++s) {
-      for (int i = 0; i < n_filled[s]; ++i) {
-        const int q = p.slot0[s] + i;
-        const int w = sm.lane[q * cap + a];
-        if (w < 0) continue;  // slot of a coincident pair: masked
-        const T inv = T(1) / sm.f(3, q, a);
-        const T ux = sm.f(0, q, a), uy = sm.f(1, q, a), uz = sm.f(2, q, a);
-        const T gux = sm.f(6, q, a), guy = sm.f(7, q, a), guz = sm.f(8, q, a);
-        const T gu_dot_u = gux * ux + guy * uy + guz * uz;
-        const T g_cd = sm.f(9, q, a) + sm.f(10, q, a) * sm.f(5, q, a) -
-                       gu_dot_u * inv;
-        const T gx = gux * inv + g_cd * ux;
-        const T gy = guy * inv + g_cd * uy;
-        const T gz = guz * inv + g_cd * uz;
-        fx += gx;
-        fy += gy;
-        fz += gz;
-        atomicAdd(&wing_s[w * 3], -gx);
-        atomicAdd(&wing_s[w * 3 + 1], -gy);
-        atomicAdd(&wing_s[w * 3 + 2], -gz);
-      }
-    }
+    __syncwarp();
   }
-  fcen[(size_t)me * 3] = fx;
-  fcen[(size_t)me * 3 + 1] = fy;
-  fcen[(size_t)me * 3 + 2] = fz;
   __syncthreads();
-  T dh[9];
-  for (int i = 0; i < 9; ++i) dh[i] = T(0);
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    const int o = w / cap;
-    int ox, oy, oz, sx, sy, sz;
-    offset_of(o, 1, ox, oy, oz);
-    neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz);
-    const T sv[3] = {T(sx), T(sy), T(sz)};
-    T* wp = wing + ((size_t)cell * W + w) * 3;
+  T* out = wing + (size_t)cell * 3 * W;
+  for (int i = threadIdx.x; i < 3 * W; i += blockDim.x) out[i] = wing_s[i];
+  // dh[m][c] = sum over offsets of S_m (sum of the offset's wing_c)
+  const int iz = cell % g.nz, iy = (cell / g.nz) % g.ny;
+  const int ix = cell / (g.ny * g.nz);
+  if (ix > 0 && ix < g.nx - 1 && iy > 0 && iy < g.ny - 1 && iz > 0 &&
+      iz < g.nz - 1) {
+    if (threadIdx.x < 9) dh_part[(size_t)cell * 9 + threadIdx.x] = T(0);
+    return;
+  }
+  for (int off = warp; off < 27; off += nw) {
+    T v[3] = {T(0), T(0), T(0)};
+    for (int b = lane; b < cap; b += 32)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) v[c] += wing_s[3 * (off * cap + b) + c];
+#pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const T v = wing_s[w * 3 + c];
-      wp[c] = v;
-      for (int m = 0; m < 3; ++m) dh[m * 3 + c] += sv[m] * v;
+      v[c] = warp_sum(v[c]);
+      if (lane == 0) osum[off][c] = v[c];
     }
   }
-  block_sum9(red, dh, dh_part + (size_t)cell * 9);
+  __syncthreads();
+  if (threadIdx.x < 9) {
+    const int m = threadIdx.x / 3, c = threadIdx.x % 3;
+    T acc = T(0);
+    for (int off = 0; off < 27; ++off) {
+      const int sm = (tab[off].y >> (2 * m) & 3) - 1;
+      if (sm) acc += T(sm) * osum[off][c];
+    }
+    dh_part[(size_t)cell * 9 + threadIdx.x] = acc;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -685,10 +887,18 @@ bool ang_params(const int* ip, const double* fp, AngParams<T>& p) {
   }
   p.pi_rca = (T)(kPi / fp[0]);
   p.big = (T)(2.0 * fp[0] + 10.0);
+  const double zf = floor(fp[2]);
+  p.zeta_floor = (int)zf;
+  p.zeta_frac = (T)(fp[2] - zf);
+  p.npres = 0;
+  for (int s = 0; s < kMaxS; ++s) {
+    p.pres[s] = 0;
+    if (p.caps[s] > 0) p.pres[p.npres++] = s;
+  }
   return true;
 }
 
-// Dynamic shared memory of the angular kernels (see AngSmem).
+// Dynamic shared memory of the angular forward (see AngSmem).
 template <typename T>
 size_t ang_smem_bytes(int cap, int atot, int nf) {
   const size_t W = 27 * (size_t)cap;
@@ -720,16 +930,42 @@ int angular_bwd(const int* ip, const double* fp, const void* pos,
                 void* wing, void* dh_part, void* dh, void* stream) {
   const Grid g = grid_from(ip);
   AngParams<T> p;
-  if (!ang_params(ip, fp, p) || g.cap < 1 || g.cap > 1024)
+  if (!ang_params(ip, fp, p) || g.cap < 1 || g.cap > 1024 || p.atot < 1 ||
+      p.zeta_floor < 0)
     return cudaErrorInvalidValue;
-  const size_t smem = ang_smem_bytes<T>(g.cap, p.atot, 11);
+  // the largest species-pair block's slot pairs
+  int Q = 1;
+  for (int s1 = 0; s1 < p.S; ++s1)
+    for (int s2 = s1; s2 < p.S; ++s2) {
+      const int q = s1 == s2 ? p.caps[s1] * (p.caps[s1] - 1) / 2
+                             : p.caps[s1] * p.caps[s2];
+      if (q > Q) Q = q;
+    }
+  // the warp count whose shared memory lets the most warps reside on an
+  // SM (228 KB, 1 KB reserved a block; at most 32 blocks and 64 warps; ties:
+  // more warps a block)
+  constexpr size_t kSmPerSm = 228 * 1024, kPerBlock = 1024;
+  int warps = 0, best = 0;
+  for (int nw = 1; nw <= kBwdMaxWarps; ++nw) {
+    const size_t smem = bwd_smem<T>(g.cap, p.atot, Q, nw);
+    if (smem > kSmPerSm - kPerBlock) break;
+    const int blocks = min((int)(kSmPerSm / (smem + kPerBlock)),
+                           min(32, 64 / nw));
+    const int resident = nw * blocks;
+    if (resident >= best) {
+      best = resident;
+      warps = nw;
+    }
+  }
+  if (warps == 0) return cudaErrorInvalidValue;
+  const size_t smem = bwd_smem<T>(g.cap, p.atot, Q, warps);
   cudaError_t err = set_smem(angular_bwd_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
   const int nc = g.nx * g.ny * g.nz;
   cudaStream_t st = (cudaStream_t)stream;
-  angular_bwd_kernel<T><<<nc, g.cap, smem, st>>>(
+  angular_bwd_kernel<T><<<nc, 32 * warps, smem, st>>>(
       (const T*)pos, (const int*)sp, (const T*)h, (const T*)ga, (T*)fcen,
-      (T*)wing, (T*)dh_part, g, p);
+      (T*)wing, (T*)dh_part, g, p, Q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dh_reduce_kernel<T><<<1, kRedThreads, 0, st>>>((const T*)dh_part, nc,
