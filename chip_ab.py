@@ -28,12 +28,16 @@ its SASS lines and of a few kinds of operation among them (`cuobjdump
 call (block_fwd, block_fwd_tri) gets the counts only. Each call is the
 checkout's own wrapper on the same tensors: `wing` is `wing(gt, inv, idx)`
 where the wrapper takes idx (the kernel scatters over idx) and
-`wing(gt, inv)` in a checkout whose kernel gathers through inv.
+`wing(gt, inv)` in a checkout whose kernel gathers through inv. Each
+timed name also gets a digest of its first call's outputs (sha256 of their
+bytes), so two checkouts whose kernels give the same bits show the same
+digest.
 
 The README's port section shows how to run it on the card against the
 parent commit.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -72,6 +76,15 @@ def sass_counts(names):
     return out
 
 
+def digest(out) -> str:
+    """sha256 (16 hex digits) of the bytes of a call's output tensors."""
+    h = hashlib.sha256()
+    for t in (out if isinstance(out, (tuple, list)) else (out,)):
+        if isinstance(t, torch.Tensor):
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def main(argv):
     if len(argv) < 3:
         print(__doc__, file=sys.stderr)
@@ -100,17 +113,17 @@ def main(argv):
         calls.update(roll)
         counts.update(dict.fromkeys(roll, c.ar.LAUNCHES))
     timed = [name for name in names if name in calls]
-    launches = {}
+    launches, digests = {}, {}
     for name in timed:
         c.asn.reset_counts()
         c.ar.reset_counts()
-        calls[name][0]()
+        digests[name] = digest(calls[name][0]())
         launches[name] = counts[name][name]
     ms = {name: [c.time_ms(calls[name][0], reps=20, warm=2) for _ in range(3)]
           for name in timed}
     print(json.dumps({"tree": tag, "card": c.nvidia_smi_line(),
                       "atoms": data.n_atoms, "ms": ms,
-                      "launches_per_call": launches,
+                      "launches_per_call": launches, "digest": digests,
                       "sass": sass_counts(names)}), flush=True)
     return 0
 

@@ -13,8 +13,13 @@ object per line; any failure raises and the script exits non-zero:
            probes.cu for sm_90a, all at once; ptxas's registers per kernel.
   kernels  each of the four roll kernels against its plain PyTorch version
            on the card, WATER30 x 6^3 (6,480 atoms), in f64 and f32; two
-           calls of angular_bwd bit for bit (f64 and f32); the kernels'
-           backwards against autograd through the plain forwards (f64).
+           calls of angular_fwd, radial_bwd and angular_bwd bit for bit
+           (f64 and f32); angular_fwd at caps below the measured degree
+           (output and deficit against the plain version's); radial_bwd's
+           dh exactly 0 from cotangents on the rows of the bins whose
+           shell-2 window is unshifted; radial_bwd at shell 1 (the pallas
+           hybrid's window); the kernels' backwards against autograd
+           through the plain forwards (f64).
   potential  E, F, W of the roll engine on the card against the plain path
            on the CPU, WATER30 x 4^3 (1,920 atoms), f64.
   asn_kernels  the twelve asn kernels (csrc/aev_asn.cu: assignment build
@@ -72,9 +77,10 @@ object per line; any failure raises and the script exits non-zero:
            chunks, its launch counts zeroed just before: its ms/step
            beside the asn engine's, and the roll kernels' inputs.
   timing   each roll kernel at the roll run's final state (f32) against
-           its plain version: error, ms, plain ms and the bound (two
-           terms for angular_bwd); two calls of angular_bwd there bit for
-           bit.
+           its plain version: error, ms, plain ms, the bound (two terms
+           but for radial_fwd) and the layout floor of the padded output
+           or wing slab; two calls of angular_fwd, radial_bwd and
+           angular_bwd there bit for bit.
   asn_timing  at the main path's final state, after a fresh rebuild: each
            of the eight asn kernels' error, ms, plain ms, bound and launches
            per MD step (the packed ones with the pair lanes of their tier
@@ -204,29 +210,34 @@ PEAK_F32 = 67e12
 PEAK_F32_INSTR = PEAK_F32 / 2
 PEAK_SFU = PEAK_F32 / 16
 
-# Operations each roll kernel needs per unit of work. radial_fwd,
-# radial_bwd and angular_fwd count every add, multiply, compare and
-# transcendental as one, at the fused multiply-add rate (a lower bound):
-#   radial fwd, per in-cutoff pair: distance 9, cutoff 5, 16 shifts x 6;
-#   radial bwd, per pair: distance 9, cutoff and slope 7, 16 x 10, chain 9;
-#   angular fwd, per in-cutoff neighbor (compaction): distance 9, unit
-#     vector 4, cutoff 5; per slot pair: cosine 8, radial mean 4, 4 e_j x
-#     4, 8 angle terms x 8, 32 channels x 2 accumulation, fc12 products 5.
-# angular_bwd counts in two terms, as the asn pair kernels (ASN_OPS
-# below): fp32 instructions of a lane (an fma counts once) at
-# PEAK_F32_INSTR and special-function results at PEAK_SFU, the larger of
-# the two, as (fp32, sfu) per unit of work:
+# Operations each roll kernel needs per unit of work. radial_fwd counts
+# every add, multiply, compare and transcendental as one, at the fused
+# multiply-add rate (a lower bound): per in-cutoff pair, distance 9,
+# cutoff 5, 16 shifts x 6. The other three count in two terms, as the asn
+# pair kernels (ASN_OPS below): fp32 instructions of a lane (an fma counts
+# once) at PEAK_F32_INSTR and special-function results at PEAK_SFU, the
+# larger of the two, as (fp32, sfu) per unit of work:
 #   per real candidate of a real center's 27-bin window ("window"), (8,
 #     1): the offset 3, the squared distance 3 (a product and two fmas),
 #     the 1e-12 clamp 1, the Rca test 1, and the square root;
-#   per kept neighbour ("nbr"), (34, 4): the slot (1 / d 5 and a
-#     reciprocal, the unit vector 3, the live test 1, fc and dfc with their
-#     argument 4 and the hardware cosine and sine), then its chain (1 / d 4
-#     and a reciprocal, gu . u 3, g_cd 3, the vector 6, fcen 3, the wing's
-#     add 3);
-#   per slot pair ("pair"), (306, 21): packed_bwd's terms (ASN_OPS).
-OPS = {"radial_fwd": {"pair": 110}, "radial_bwd": {"pair": 185},
-       "angular_fwd": {"nbr": 18, "pair": 165},
+#   per real candidate of a real center's shell-s radial window
+#     ("window2"), (8, 1): the same test against Rcr;
+#   angular_fwd per kept neighbour ("nbr"), (11, 2): the slot (1 / d 5 and
+#     a reciprocal, the unit vector 3, the live test 1, fc with its
+#     argument 2 and the hardware cosine);
+#   angular_bwd per kept neighbour, (34, 4): the slot (as the forward's,
+#     with dfc: 13 and the sine), then its chain (1 / d 4 and a reciprocal,
+#     gu . u 3, g_cd 3, the vector 6, fcen 3, the wing's add 3);
+#   per slot pair ("pair"): packed_fwd's (272, 21) forward and
+#     packed_bwd's (306, 21) backward (ASN_OPS);
+#   radial_bwd per in-cutoff pair ("rpair"), (142, 19): the cutoff's
+#     argument, fc and dfc 3 with the hardware cosine and sine, x 1, per
+#     shift (16) xk 1, geta xk^2 2, its ex2, the slope and its product
+#     with the cotangent 5, then gamma / d 1 and a reciprocal, g 3, fcen 3,
+#     the wing's add 3.
+OPS = {"radial_fwd": {"pair": 110},
+       "radial_bwd": {"window2": (8, 1), "rpair": (142, 19)},
+       "angular_fwd": {"window": (8, 1), "nbr": (11, 2), "pair": (272, 21)},
        "angular_bwd": {"window": (8, 1), "nbr": (34, 4),
                        "pair": (306, 21)}}
 
@@ -391,8 +402,9 @@ def compare(name, k, got, ref):
 
 def work_counts(k):
     """This input's data-dependent work: in-cutoff radial pairs, real
-    (center, candidate) lanes of the 27-bin windows, in-Rca angular
-    neighbors kept by the caps, and angular slot pairs."""
+    (center, candidate) lanes of the 27-bin windows and of the radial
+    shell-s windows, in-Rca angular neighbors kept by the caps, and angular
+    slot pairs."""
     spec = k["spec"]
     nc, cap = k["sp_g"].shape
     cp, cs = ar._candidates(k["ncells"], k["pos_g"], k["sp_g"], k["h"],
@@ -422,18 +434,23 @@ def work_counts(k):
             for b in n_s[i + 1:]:
                 pairs_a += float((a * b).sum())
     occ = (k["sp_g"] >= 0).sum(1).reshape(k["ncells"]).to(torch.float64)
-    window = torch.zeros_like(occ)
-    for off in ar._shell_offsets(1):
-        window += torch.roll(occ, shifts=tuple(int(o) for o in off),
-                             dims=(0, 1, 2))
-    return {"radial_pairs": pairs_r,
-            "window_lanes": int((occ * window).sum() - occ.sum()),
+
+    def lanes(shell):
+        window = torch.zeros_like(occ)
+        for off in ar._shell_offsets(shell):
+            window += torch.roll(occ, shifts=tuple(int(o) for o in off),
+                                 dims=(0, 1, 2))
+        return int((occ * window).sum() - occ.sum())
+
+    return {"radial_pairs": pairs_r, "window_lanes": lanes(1),
+            "window2_lanes": lanes(k["shell"]),
             "angular_nbrs": int(nbrs_a), "angular_pairs": int(pairs_a)}
 
 
 # OPS units -> work_counts keys
-ROLL_UNITS = {"window": "window_lanes", "nbr": "angular_nbrs",
-              "pair": "angular_pairs"}
+ROLL_UNITS = {"window": "window_lanes", "window2": "window2_lanes",
+              "nbr": "angular_nbrs", "pair": "angular_pairs",
+              "rpair": "radial_pairs"}
 
 
 def roll_two_term_ms(name, work):
@@ -444,10 +461,27 @@ def roll_two_term_ms(name, work):
     return fp32 / PEAK_F32_INSTR * 1e3, sfu / PEAK_SFU * 1e3
 
 
+def layout_floor_ms(name, k):
+    """The bytes of the padded output (angular_fwd) or wing slab (the
+    backwards) that the kernel's contract fixes, over HBM's rate (ms);
+    None for radial_fwd, whose padded output is no larger than its
+    bound's."""
+    nc, cap = k["sp_g"].shape
+    fsize = k["pos_g"].element_size()
+    if name == "angular_fwd":
+        nbytes = nc * cap * k["spec"].angular_length * fsize
+    elif name.endswith("_bwd"):
+        shell = k["shell"] if name.startswith("radial") else 1
+        nbytes = nc * (2 * shell + 1) ** 3 * cap * 3 * fsize
+    else:
+        return None
+    return nbytes / PEAK_BYTES * 1e3
+
+
 def bound(name, k, work):
     """(bound_ms, bound_by): the larger of the bytes the function must move
-    over HBM's rate and its operations (OPS: at the f32 peak, or in two
-    terms for angular_bwd). The bytes are
+    over HBM's rate and its operations (OPS: at the f32 peak for
+    radial_fwd, in two terms for the others). The bytes are
     the real atoms' rows, each read or written once: positions, species
     and the box in; the AEV out (forward); the AEV cotangent in, dpos and
     dh out (backward). The grid's empty slots and the wing slabs are the
@@ -461,14 +495,10 @@ def bound(name, k, work):
         nbytes += n * width * fsize + (4 if name == "angular_fwd" else 0)
     else:
         nbytes += n * width * fsize + n * 3 * fsize + 9 * fsize
-    ops = OPS[name]
-    if name == "angular_bwd":
-        t_ops = max(roll_two_term_ms(name, work))
-    elif name.startswith("radial"):
-        t_ops = ops["pair"] * work["radial_pairs"] / PEAK_F32 * 1e3
+    if name == "radial_fwd":
+        t_ops = OPS[name]["pair"] * work["radial_pairs"] / PEAK_F32 * 1e3
     else:
-        t_ops = (ops["nbr"] * work["angular_nbrs"]
-                 + ops["pair"] * work["angular_pairs"]) / PEAK_F32 * 1e3
+        t_ops = max(roll_two_term_ms(name, work))
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
@@ -514,23 +544,67 @@ def same_bits(a, b):
     return all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
 
 
-def angular_bwd_twice(k):
-    """Two calls of the angular_bwd kernel on `k`: {output: bit
-    mismatches}; raises unless fcen, wing and dh agree bit for bit."""
-    kern = kernel_calls(k)["angular_bwd"][0]
+# the roll kernels whose two calls must agree bit for bit, and the labels
+# of their outputs
+TWICE = {"angular_fwd": ("aev", "deficit"),
+         "radial_bwd": ("fcen", "wing", "dh"),
+         "angular_bwd": ("fcen", "wing", "dh")}
+
+
+def kernel_twice(k, name):
+    """Two calls of a roll kernel on `k`: {output: bit mismatches}; raises
+    unless every output agrees bit for bit."""
+    kern = kernel_calls(k)[name][0]
     first, second = kern(), kern()
     _sync(k["pos_g"].device)
     out = {lab: 0 if same_bits((x,), (y,)) else int((x != y).sum())
-           for lab, x, y in zip(("fcen", "wing", "dh"), first, second)}
+           for lab, x, y in zip(TWICE[name], first, second)}
     if any(out.values()):
-        raise AssertionError(f"angular_bwd, two calls: {out}")
+        raise AssertionError(f"{name}, two calls: {out}")
     return out
 
 
+def angular_fwd_truncating(k):
+    """angular_fwd at caps below the measured degree (half of each cap):
+    the output against the plain version's within the limit, the deficit
+    equal and > 0."""
+    caps = tuple(c // 2 for c in k["caps"])
+    kt = dict(k, caps=caps)
+    kern, plain = kernel_calls(kt)["angular_fwd"]
+    got, ref = kern(), plain()
+    _sync(k["pos_g"].device)
+    err = compare("angular_fwd", kt, got, ref)  # raises on another deficit
+    if err["worst_ratio"] > 1.0 or float(got[1]) <= 0:
+        raise AssertionError(f"angular_fwd at caps {caps}: {err}, deficit "
+                             f"{float(got[1])}")
+    return {"caps": list(caps), "deficit": float(got[1]),
+            "worst_ratio": err["worst_ratio"]}
+
+
+def radial_bwd_interior_dh(k):
+    """radial_bwd with the cotangent on the rows of the bins whose
+    shell-s window is unshifted: dh exactly 0 (kernel and plain
+    version); {"bins": interior bins, "dh_max": 0.0}."""
+    interior = interior_bins(k["ncells"], k["pos_g"].device, k["shell"])
+    if not bool(interior.any()):
+        raise AssertionError(f"no interior bin at {k['ncells']}")
+    ga = torch.where(interior[:, None, None], k["ga_r"], 0.0)
+    a = (k["pos_g"], k["sp_g"], k["h"], k["ncells"], k["shell"], k["spec"],
+         k["present_r"], ga)
+    dh_k, dh_p = ar.radial_bwd(*a)[2], ar.radial_bwd_plain(*a)[2]
+    _sync(k["pos_g"].device)
+    if bool((dh_k != 0).any()) or bool((dh_p != 0).any()):
+        raise AssertionError(f"radial_bwd, interior-only cotangent: dh "
+                             f"{dh_k.tolist()} (plain {dh_p.tolist()})")
+    return {"bins": int(interior.sum()), "dh_max": float(dh_k.abs().max())}
+
+
 def phase_kernels_small(device, rep=6):
-    """Kernels vs plain versions at WATER30 x rep^3, f64 and f32, two
-    calls of angular_bwd bit for bit, and the kernels' backwards vs
-    autograd through the plain forwards (f64)."""
+    """Kernels vs plain versions at WATER30 x rep^3, f64 and f32 (and
+    radial_bwd at shell 1), two calls of angular_fwd, radial_bwd and
+    angular_bwd bit for bit, angular_fwd at truncating caps, radial_bwd's dh
+    from interior-only cotangents, and the kernels' backwards vs autograd
+    through the plain forwards (f64)."""
     data = water_box(rep)
     result = {}
     for dtype in (torch.float64, torch.float32):
@@ -538,14 +612,21 @@ def phase_kernels_small(device, rep=6):
         state = sim.init_state(data.positions, make_box(data, dtype, device))
         k = kernel_inputs(sim, state)
         errs = {}
-        for name, (kern, plain) in kernel_calls(k).items():
-            got = kern()
-            ref = plain()
-            _sync(device)
-            errs[name] = compare(name, k, got, ref)
-            if errs[name]["worst_ratio"] > 1.0:
-                raise AssertionError(f"{name} {dtype}: {errs[name]}")
-        errs["angular_bwd_twice_bit_mismatches"] = angular_bwd_twice(k)
+        for kk, tag in ((k, ""), (dict(k, shell=1), "_shell1")):
+            for name, (kern, plain) in kernel_calls(kk).items():
+                if tag and name != "radial_bwd":
+                    continue
+                got = kern()
+                ref = plain()
+                _sync(device)
+                errs[name + tag] = compare(name, kk, got, ref)
+                if errs[name + tag]["worst_ratio"] > 1.0:
+                    raise AssertionError(f"{name}{tag} {dtype}: "
+                                         f"{errs[name + tag]}")
+        errs["twice_bit_mismatches"] = {name: kernel_twice(k, name)
+                                        for name in TWICE}
+        errs["angular_fwd_truncating"] = angular_fwd_truncating(k)
+        errs["radial_bwd_interior_dh"] = radial_bwd_interior_dh(k)
         result[str(dtype).replace("torch.", "")] = errs
         if dtype == torch.float64:
             result["autograd_f64"] = autograd_check(sim, state)
@@ -794,7 +875,7 @@ def phase_timing(sim, state, launches, work_start):
     version, its time and the plain version's, and its bound."""
     k = kernel_inputs(sim, state)
     work = work_counts(k)
-    rows = []
+    rows, twice, terms = [], {}, {}
     for name, (kern, plain) in kernel_calls(k).items():
         got, ref = kern(), plain()
         _sync(k["pos_g"].device)
@@ -806,21 +887,22 @@ def phase_timing(sim, state, launches, work_start):
         ms = time_ms(kern, reps=10, warm=2)
         plain_ms = time_ms(plain, reps=2, warm=1)
         torch.cuda.empty_cache()
-        if name == "angular_bwd":
-            twice = angular_bwd_twice(k)
-            fp32_ms, sfu_ms = roll_two_term_ms(name, work)
+        if name in TWICE:
+            twice[name] = kernel_twice(k, name)
+        if name != "radial_fwd":
+            terms[name] = dict(zip(("fp32_ms", "sfu_ms"),
+                                   roll_two_term_ms(name, work)))
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": ar.REPLACES[name].split()[0],
             "launches": launches[name], "max_abs_err": err["max_abs_err"],
             "err_over_limit": err["worst_ratio"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None})
+            "library_ms": None, "layout_floor_ms": layout_floor_ms(name, k)})
     emit({"phase": "timing", "ncells": list(k["ncells"]),
           "cap": int(k["sp_g"].shape[1]),
           "atoms": int((k["sp_g"] >= 0).sum()), "work": work,
-          "angular_bwd_twice_bit_mismatches": twice,
-          "angular_bwd_fp32_ms": fp32_ms, "angular_bwd_sfu_ms": sfu_ms,
+          "twice_bit_mismatches": twice, "two_term_ms": terms,
           "work_change_over_timed_window": {
               key: work[key] / work_start[key] - 1.0 for key in work},
           "outputs": {r["name"]: r for r in rows}})
@@ -1195,11 +1277,12 @@ def asn_work(k):
             "kept": int(filled.sum()), "pairs": int(pairs)}
 
 
-def interior_bins(ncells, device):
-    """[NC] bool: bins whose 27-bin window stays inside the grid (every
-    wrap shift 0), in the grid's bin order (x outermost)."""
-    ax = [(torch.arange(m, device=device) > 0) & (torch.arange(
-        m, device=device) < m - 1) for m in ncells]
+def interior_bins(ncells, device, shell=1):
+    """[NC] bool: bins whose shell-`shell` window (27 bins at shell 1)
+    stays inside the grid (every wrap shift 0), in the grid's bin order (x
+    outermost)."""
+    ax = [(torch.arange(m, device=device) >= shell) & (torch.arange(
+        m, device=device) < m - shell) for m in ncells]
     return (ax[0][:, None, None] & ax[1][None, :, None]
             & ax[2][None, None, :]).reshape(-1)
 

@@ -224,34 +224,6 @@ __device__ __forceinline__ void st4(double* p, const double (&v)[4]) {
   reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
 }
 
-// One step of width W of a reduce-scatter: acc[i], i < W, takes column
-// i + (lane & W) summed over the two lanes that differ in bit W. W is a
-// template constant, so that every index of acc is known at compile time
-// and acc stays in registers (a loop-variant width put it in local
-// memory).
-template <int W, typename T, int N>
-__device__ __forceinline__ void reduce_step(T (&acc)[N], int lane) {
-  static_assert(2 * W <= N, "reduce_step: width beyond the columns");
-  const bool upper = (lane & W) != 0;
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const T send = upper ? acc[i] : acc[i + W];
-    const T keep = upper ? acc[i + W] : acc[i];
-    acc[i] = keep + __shfl_xor_sync(kFull, send, W);
-  }
-}
-
-// Reduce-scatter of 32 column sums over the warp, 31 shuffles: at the end
-// lane l holds column l in acc[0]. The order of the additions is fixed.
-template <typename T>
-__device__ __forceinline__ void reduce_scatter32(T (&acc)[32], int lane) {
-  reduce_step<16>(acc, lane);
-  reduce_step<8>(acc, lane);
-  reduce_step<4>(acc, lane);
-  reduce_step<2>(acc, lane);
-  reduce_step<1>(acc, lane);
-}
-
 // The same for 16 column sums, 16 shuffles: the four steps leave column
 // l & 15 summed over one half-warp on lane l, one more shuffle adds the
 // other half's. Lanes l and l + 16 end with column l, the same bits.
@@ -568,19 +540,6 @@ __device__ __forceinline__ void section_rep(const StepParams<T>& p, int si,
   a_ij = p.alpha[si] * a_i;
   a_ij = m_sqrt(a_ij > T(1e-12) ? a_ij : T(1e-12));
 }
-
-// exp(-eta xk^2) from y = geta xk^2: f64 exp(y) (geta = -eta); f32 the
-// special-function unit's 2^y (geta = -eta log2 e; ex2.approx, 2 ulp),
-// one instruction where expf reduces its range first. The f32 argument
-// rounds as expf's would but for geta's one rounding
-// (tests/test_torch_step_arith.py); the 1e-30 flush below takes what ftz
-// would.
-__device__ __forceinline__ float gauss_of(float y) {
-  float e;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(y));
-  return e;
-}
-__device__ __forceinline__ double gauss_of(double y) { return exp(y); }
 
 // One lane's radial terms, added to its section's NR accumulators
 // (aev_asn.py `_radial_cols_mxu`).

@@ -1,9 +1,10 @@
 // Device helpers shared by the AEV kernels of aev_roll.cu and aev_asn.cu:
-// math overloads for float and double, the roll-bin window geometry
-// (neighbor bin, wrap shift, shifted candidate position, the 27-bin window
-// staged in shared memory), the angular pair-term body, which the angular
-// kernels evaluate per slot pair, with its powers and its chain rule, the
-// slot-pair enumeration of the pair stages, and the fixed-order sum of the
+// math overloads for float and double, the f32 Gaussian by ex2, the roll-bin
+// window geometry (neighbor bin, wrap shift, shifted candidate position, the
+// 27-bin window staged in shared memory), the angular pair-term body, which
+// the angular kernels evaluate per slot pair, with its powers and its chain
+// rule, the slot-pair enumeration of the pair stages, the warp
+// reduce-scatter of 32 column sums, and the fixed-order sum of the
 // backwards' per-block box-cotangent partials (dh_reduce_kernel).
 //
 // Included by each .cu file (each builds into its own library); everything
@@ -53,6 +54,18 @@ __device__ __forceinline__ float cos_0pi(float x) { return __cosf(x); }
 __device__ __forceinline__ double cos_0pi(double x) { return cos(x); }
 __device__ __forceinline__ float sin_0pi(float x) { return __sinf(x); }
 __device__ __forceinline__ double sin_0pi(double x) { return sin(x); }
+
+// exp(-eta xk^2) from y = geta xk^2: f64 exp(y) (geta = -eta); f32 the
+// special-function unit's 2^y (geta = -eta log2 e; ex2.approx, 2 ulp),
+// one instruction where expf reduces its range first. The f32 argument
+// rounds as expf's would but for geta's one rounding
+// (tests/test_torch_step_arith.py); results below 2^-126 flush to 0.
+__device__ __forceinline__ float gauss_of(float y) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(y));
+  return e;
+}
+__device__ __forceinline__ double gauss_of(double y) { return exp(y); }
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -187,10 +200,12 @@ struct PairTerms {
 
 // The pair-term body (aev_pallas.py `_pair_terms_core`) up to the powers:
 // every term but f1_m, from the unit vectors u1, u2, distances d1, d2 and
-// cutoff values fc1, fc2 of the two arms.
-template <typename T>
+// cutoff values fc1, fc2 of the two arms. EX2 (f32 only; P carries geta =
+// -eta log2 e and tiny2 = tiny log2 e): the four radial Gaussians by
+// gauss_of(geta xj^2), kept where geta xj^2 > tiny2, instead of expf.
+template <typename T, bool EX2 = false, typename P = AngConsts<T>>
 __device__ __forceinline__ void pair_terms_geom(
-    const AngConsts<T>& p, T u1x, T u1y, T u1z, T u2x, T u2y, T u2z, T d1,
+    const P& p, T u1x, T u1y, T u1z, T u2x, T u2y, T u2z, T d1,
     T d2, T fc1, T fc2, PairTerms<T>& t) {
   T cq = u1x * u2x + u1y * u2y + u1z * u2z;
   cq = cq < T(-1) ? T(-1) : (cq > T(1) ? T(1) : cq);
@@ -204,8 +219,13 @@ __device__ __forceinline__ void pair_terms_geom(
 #pragma unroll
   for (int j = 0; j < kNA; ++j) {
     const T xj = t.x2 - T(j) * p.delta;
-    const T arg = -p.eta * (xj * xj);
-    t.e[j] = arg > p.tiny ? m_exp(arg) : T(0);
+    if constexpr (EX2 && std::is_same<T, float>::value) {
+      const T y = p.geta * (xj * xj);
+      t.e[j] = y > p.tiny2 ? gauss_of(y) : T(0);
+    } else {
+      const T arg = -p.eta * (xj * xj);
+      t.e[j] = arg > p.tiny ? m_exp(arg) : T(0);
+    }
   }
 #pragma unroll
   for (int m = 0; m < kNZ; ++m)
@@ -377,6 +397,34 @@ __device__ __forceinline__ void pair_cotangents(const AngConsts<T>& p,
     dfc12 += df2[j] * pt.e[j];
   }
   if (!(pt.dsum <= T(2) * (p.rca + T(1)))) drmean = T(0);
+}
+
+// One step of width W of a reduce-scatter: acc[i], i < W, takes column
+// i + (lane & W) summed over the two lanes that differ in bit W. W is a
+// template constant, so that every index of acc is known at compile time
+// and acc stays in registers (a loop-variant width put it in local
+// memory).
+template <int W, typename T, int N>
+__device__ __forceinline__ void reduce_step(T (&acc)[N], int lane) {
+  static_assert(2 * W <= N, "reduce_step: width beyond the columns");
+  const bool upper = (lane & W) != 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const T send = upper ? acc[i] : acc[i + W];
+    const T keep = upper ? acc[i + W] : acc[i];
+    acc[i] = keep + __shfl_xor_sync(kFull, send, W);
+  }
+}
+
+// Reduce-scatter of 32 column sums over the warp, 31 shuffles: at the end
+// lane l holds column l in acc[0]. The order of the additions is fixed.
+template <typename T>
+__device__ __forceinline__ void reduce_scatter32(T (&acc)[32], int lane) {
+  reduce_step<16>(acc, lane);
+  reduce_step<8>(acc, lane);
+  reduce_step<4>(acc, lane);
+  reduce_step<2>(acc, lane);
+  reduce_step<1>(acc, lane);
 }
 
 constexpr int kRedThreads = 512;

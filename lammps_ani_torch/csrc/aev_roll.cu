@@ -10,14 +10,15 @@
 //     candidate groups sized for 16 MB of VMEM. Here a block serves one
 //     bin and computes each candidate's bin, periodic wrap S and shifted
 //     position p + S h itself from the [NC, cap] grid: nothing is
-//     materialized, and the window is read through L1/L2 (or staged once
-//     in shared memory for the 27-bin angular window).
+//     materialized, and the window is read through L1/L2 (radial_fwd) or
+//     staged once in shared memory (the other three).
 //   * The TPU grid runs in order, so its kernels carry sums across grid
 //     steps (fcen over candidate groups, dh over the whole grid, the
 //     deficit as a running max). Blocks here run in any order: fcen and
-//     wing are complete within a block, dh is written as per-block
-//     partials and summed in a fixed order by a second one-block kernel
-//     (deterministic), and the deficit is an integer atomicMax.
+//     wing are complete within a block, every sum in a fixed order (no
+//     floating-point atomics: two calls agree bit for bit), dh is written
+//     as per-block partials and summed in a fixed order by a second
+//     one-block kernel, and the deficit is an integer atomicMax.
 //   * Dead lanes: empty slots carry species -1 and are skipped; self is
 //     excluded by lane index (lane == self_off * cap + slot); pairs count
 //     at dist <= cutoff with dist = sqrt(max(d2, 1e-12)), as on the TPU.
@@ -35,20 +36,6 @@
 namespace {
 
 constexpr int kMaxNR = 16;  // radial shifts per species (ANI: 16)
-
-// Fixed-order tree sum of vals[blockDim][9] into out[9] (thread 0 writes).
-template <typename T>
-__device__ void block_sum9(T* red, const T (&v)[9], T* out) {
-  const int t = threadIdx.x, n = blockDim.x;
-  for (int i = 0; i < 9; ++i) red[i * n + t] = v[i];
-  __syncthreads();
-  for (int i = t; i < 9; i += n) {
-    T s = 0;
-    for (int k = 0; k < n; ++k) s += red[i * n + k];
-    out[i] = s;
-  }
-  __syncthreads();
-}
 
 // ---------------------------------------------------------------------------
 // Radial forward — replaces aev_pallas.py:260 _radial_fwd_kernel.
@@ -125,146 +112,399 @@ __global__ void radial_fwd_kernel(const T* __restrict__ pos,
   }
 }
 
-// gamma u for one (center, candidate) pair of the radial backward:
-// gamma = sum_k ga[s_b*NR + k] 0.25 e_k (dfc - 2 eta x_k fc).
-template <typename T>
-__device__ __forceinline__ bool radial_pair_grad(
-    T dx, T dy, T dz, const T* __restrict__ ga_row, int NR, T rc, T eta,
-    T mu0, T delta, T pi_rc, T& gx, T& gy, T& gz) {
-  const T d = pair_dist(dx, dy, dz);
-  if (!(d <= rc)) return false;
-  const T fc = T(0.5) * m_cos(d * pi_rc) + T(0.5);
-  const T dfc = (T(-0.5) * pi_rc) * m_sin(d * pi_rc);
-  const T x = d - mu0;
-  T gamma = T(0);
-  for (int k = 0; k < NR; ++k) {
-    const T xk = x - T(k) * delta;
-    const T db = T(0.25) * m_exp(-eta * xk * xk) *
-                 (dfc - (T(2) * eta) * xk * fc);
-    gamma += db * ga_row[k];
-  }
-  const T inv_d = T(1) / d;
-  gx = gamma * dx * inv_d;
-  gy = gamma * dy * inv_d;
-  gz = gamma * dz * inv_d;
-  return true;
-}
-
 // ---------------------------------------------------------------------------
 // Radial backward — replaces aev_pallas.py:299 _radial_bwd_kernel.
 //
-// For the cotangent ga [NC, cap, S*NR]: per pair gamma u (u = center -
-// candidate over d); fcen[cell, a] = sum_lanes gamma u (center role),
-// wing[cell, lane] = -sum_centers gamma u (neighbor role, folded back to
-// the owner bins by torch rolls), dh partial = sum_lanes S^T wing.
-// Bound: its least work is reading ga and writing the wing slabs
-// [NC, n_off cap, 3] (bytes). As written it is bound by operations, as
-// the forward (window tests; 16 exps per in-cutoff pair). Design: phase
-// A gives each center cap x G threads over its lanes (fcen, fixed-order
-// partial sums); phase B gives each lane one thread over the bin's
-// centers (wing and dh, no atomics). Each in-cutoff pair is evaluated
-// twice — the price of writing both roles without atomics.
+// For the cotangent ga [NC, cap, S*NR]: per pair (center a, window lane w
+// of a present species within Rcr, self excluded)
+//   gamma = sum_k ga[a, s_w*NR + k] 0.25 e_k (dfc - 2 eta x_k fc)
+// and g = gamma (center - candidate) / d; fcen[cell, a] = sum_w g (center
+// role), wing[cell, w] = -sum_a g (neighbor role, folded back to the owner
+// bins by torch rolls), dh partial = sum_w S_w^T wing_w.
+// Bound (chip_smoke.py OPS): fp32 instructions and special-function
+// results per real candidate of a real center's window (the distance test)
+// and per in-cutoff pair (16 Gaussians, the cutoff's cosine and sine, the
+// chain), against the bytes of ga in and dpos out; the contract's wing slab
+// [NC, n_off cap, 3] (the layout floor) is ten times those bytes.
+// Design: one block per bin, in one pass per x-plane of the window (P =
+// (2 shell + 1)^2 offsets; a whole window's lanes and wing need 112 KB in
+// f32 at cap 32 and do not fit beside the scratch in f64, a plane 22 KB).
+// Per plane the block stages the plane's lanes of present species,
+// compacted in lane order (a block scan of ballots), and zeroes the
+// plane's wing in shared memory. The bin's real centers go in rounds, one
+// a warp, in slot order: the warp tests the compacted lanes 32 at a time
+// (a squared distance a lane, the square root only where it may lie within
+// Rcr) and packs the in-cutoff ones by ballot onto full warps (at most 63
+// waiting), where each lane takes one pair: f32 ex2
+// Gaussians (gauss_of) and the hardware cosine and sine (the argument lies
+// in [0, pi]), gamma / d by quot<true>. Each pair is evaluated once: its g
+// goes to the center's fcen sums (registers, a warp sum, added to the
+// center's shared fcen plane after plane) and, with its lane, to the warp's
+// store. Then each warp owns a range of the plane's lanes and adds the
+// stores in warp order, which is center order: every wing entry is a sum
+// in center order, at any warp count, and two calls agree bit for bit. A
+// round in which a center found more pairs than its warp's store holds is
+// run again center after center, each warp adding its pairs straight to
+// the wing: the same values in the same order. The plane's wing leaves in
+// 16-byte stores, and its per-offset sums stay for dh (an interior bin,
+// every shift 0, writes 0 without them); dh_reduce_kernel sums the bins'
+// partials.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void radial_bwd_kernel(const T* __restrict__ pos,
-                                  const int* __restrict__ sp,
-                                  const T* __restrict__ hmat,
-                                  const T* __restrict__ ga,
-                                  T* __restrict__ fcen, T* __restrict__ wing,
-                                  T* __restrict__ dh_part, Grid g, int shell,
-                                  int S, int NR, unsigned present, T rc,
-                                  T eta, T mu0, T delta, T pi_rc) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* red = reinterpret_cast<T*>(smem_raw);  // max(G*cap*3, blockDim*9)
-  const int cell = blockIdx.x, cap = g.cap;
-  const int G = blockDim.x / cap;
-  const int ns = 2 * shell + 1, n_off = ns * ns * ns;
-  const int self_off = (n_off - 1) / 2;
-  const int SR = S * NR;
-  T h[9];
-  for (int i = 0; i < 9; ++i) h[i] = hmat[i];
+constexpr int kRbMaxWarps = 8;
+constexpr int kRbPack = 64;    // a warp's in-cutoff lanes waiting (< 2 groups)
+constexpr int kRbStore = 128;  // a warp's stored pairs (the center's plane)
 
-  // phase A: center role
-  {
-    const int a = threadIdx.x % cap, grp = threadIdx.x / cap;
-    const int me = cell * cap + a;
-    const int csp = sp[me];
-    const T cx = pos[me * 3], cy = pos[me * 3 + 1], cz = pos[me * 3 + 2];
-    const T* ga_row = ga + (size_t)me * SR;
-    T fx = T(0), fy = T(0), fz = T(0);
-    if (csp >= 0) {
-      for (int o = 0; o < n_off; ++o) {
-        int ox, oy, oz, sx, sy, sz;
-        offset_of(o, shell, ox, oy, oz);
-        const int nb = neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz);
-        for (int b = grp; b < cap; b += G) {
-          const int q = nb * cap + b;
-          const int bs = sp[q];
-          if (bs < 0 || !((present >> bs) & 1u) || (o == self_off && b == a))
-            continue;
-          T px, py, pz, gx, gy, gz;
-          candidate_pos(pos, q, h, sx, sy, sz, px, py, pz);
-          if (radial_pair_grad(cx - px, cy - py, cz - pz, ga_row + bs * NR,
-                               NR, rc, eta, mu0, delta, pi_rc, gx, gy, gz)) {
-            fx += gx;
-            fy += gy;
-            fz += gz;
+template <typename T>
+struct RbParams {
+  int shell, S, NR, K;
+  unsigned present;
+  // rc2_hi: the least float above rc^2 (1 + 2^-20): a lane with d2 above it
+  // has sqrt(max(d2, 1e-12)) > rc, so only the others take the square root
+  T rc, rc2_hi, mu0, delta, pi_rc, dfc_rk, geta, two_eta;
+};
+
+__host__ __device__ inline unsigned al16(size_t b) {
+  return (unsigned)((b + 15) & ~(size_t)15);
+}
+
+// Dynamic shared memory of radial_bwd, byte offsets: the plane's kept lanes
+// WinLane [P cap] (species | window lane << 4), its wing T [3 P cap], the
+// centers' fcen sums T [3 cap], the per-offset wing sums T [3 n_off], the
+// real centers int [cap]; then each warp's scratch: the center's cotangent
+// row T [S NR], the packed lanes' entries int [kRbPack] (plane lane << 4 |
+// species) and values T [4][kRbPack] (dx, dy, dz, d), and the stored pairs
+// WinLane [K] (g, plane lane).
+struct RbLayout {
+  unsigned wing, fcen, osum, ctr, warps, ent, pk, store, warp_bytes;
+};
+
+template <typename T>
+__host__ __device__ RbLayout rb_layout(int cap, int shell, int SR, int K) {
+  const int ns = 2 * shell + 1, P = ns * ns, n_off = P * ns;
+  RbLayout L;
+  L.wing = al16(sizeof(WinLane<T>) * (size_t)P * cap);
+  L.fcen = L.wing + al16(sizeof(T) * 3 * (size_t)P * cap);
+  L.osum = L.fcen + al16(sizeof(T) * 3 * (size_t)cap);
+  L.ctr = L.osum + al16(sizeof(T) * 3 * (size_t)n_off);
+  L.warps = L.ctr + al16(sizeof(int) * (size_t)cap);
+  L.ent = al16(sizeof(T) * (size_t)SR);
+  L.pk = L.ent + al16(sizeof(int) * kRbPack);
+  L.store = L.pk + al16(sizeof(T) * 4 * kRbPack);
+  L.warp_bytes = L.store + (unsigned)(sizeof(WinLane<T>) * (size_t)K);
+  return L;
+}
+
+template <typename T>
+__device__ __forceinline__ WinLane<T>* rb_store(unsigned char* raw,
+                                                const RbLayout& L, int warp) {
+  return reinterpret_cast<WinLane<T>*>(raw + L.warps + warp * L.warp_bytes +
+                                       L.store);
+}
+
+// Center `me` of the bin (its window lane self_lane) against the plane's
+// n_kept compacted lanes (plane lanes from w0), on one warp: its pairs
+// within Rcr in ascending lane order, packed by ballot onto full warps,
+// one pair a lane: g = gamma (center - candidate) / d, added to the lane's
+// fcen sums and either stored in the warp's store (while fewer than K) or,
+// `direct`, subtracted from the plane's wing at its lane (a center's pairs
+// name distinct lanes). Returns the pair count.
+template <typename T>
+__device__ __forceinline__ int rb_center(
+    const RbParams<T>& p, const T* __restrict__ pos,
+    const T* __restrict__ ga, const WinLane<T>* kept, int n_kept, int w0,
+    unsigned char* scratch, const RbLayout& L, T* wing_s, int me,
+    int self_lane, bool direct, int lane, T& fx, T& fy, T& fz) {
+  T* gas = reinterpret_cast<T*>(scratch);
+  int* ent = reinterpret_cast<int*>(scratch + L.ent);
+  T* pk = reinterpret_cast<T*>(scratch + L.pk);  // [4][kRbPack]
+  WinLane<T>* store = reinterpret_cast<WinLane<T>*>(scratch + L.store);
+  const int SR = p.S * p.NR;
+  for (int i = lane; i < SR; i += 32) gas[i] = ga[(size_t)me * SR + i];
+  const T cx = pos[me * 3], cy = pos[me * 3 + 1], cz = pos[me * 3 + 2];
+  const unsigned below = (1u << lane) - 1u;
+  fx = fy = fz = T(0);
+  int npk = 0, n_all = 0;
+  __syncwarp();
+  for (int base = 0; base < n_kept; base += 32) {
+    const int i = base + lane;
+    bool m = false;
+    T dx = T(0), dy = T(0), dz = T(0), d = T(0);
+    int e = 0;
+    if (i < n_kept) {
+      const WinLane<T> c = kept[i];
+      const int wl = c.sp >> 4;
+      dx = cx - c.x;
+      dy = cy - c.y;
+      dz = cz - c.z;
+      const T d2 = dx * dx + dy * dy + dz * dz;
+      if (wl != self_lane && d2 <= p.rc2_hi) {
+        d = m_sqrt(d2 > T(1e-12) ? d2 : T(1e-12));
+        m = d <= p.rc;
+        e = (wl - w0) << 4 | (c.sp & 15);
+      }
+    }
+    const unsigned bal = __ballot_sync(kFull, m);
+    if (m) {
+      const int j = npk + __popc(bal & below);
+      ent[j] = e;
+      pk[j] = dx;
+      pk[kRbPack + j] = dy;
+      pk[2 * kRbPack + j] = dz;
+      pk[3 * kRbPack + j] = d;
+    }
+    npk += __popc(bal);
+    // full groups of 32, and at the last chunk what is left
+    const bool last = base + 32 >= n_kept;
+    while (npk >= 32 || (last && npk > 0)) {
+      const int n = npk < 32 ? npk : 32;
+      __syncwarp();
+      if (lane < n) {
+        const int en = ent[lane];
+        const int lw = en >> 4;
+        const T dd = pk[3 * kRbPack + lane];
+        const T arg = dd * p.pi_rc;
+        const T fc = T(0.5) * cos_0pi(arg) + T(0.5);
+        const T dfc = p.dfc_rk * sin_0pi(arg);
+        const T x = dd - p.mu0;
+        const T* gsec = gas + (en & 15) * p.NR;
+        T gamma = T(0);
+#pragma unroll
+        for (int k = 0; k < kMaxNR; ++k) {
+          if (k < p.NR) {
+            const T xk = x - T(k) * p.delta;
+            const T g = gauss_of(p.geta * xk * xk);
+            gamma += gsec[k] * (T(0.25) * g * (dfc - p.two_eta * xk * fc));
+          }
+        }
+        const T gd = quot<true>(gamma, dd);
+        const T gx = gd * pk[lane], gy = gd * pk[kRbPack + lane];
+        const T gz = gd * pk[2 * kRbPack + lane];
+        fx += gx;
+        fy += gy;
+        fz += gz;
+        if (direct) {
+          wing_s[3 * lw] -= gx;
+          wing_s[3 * lw + 1] -= gy;
+          wing_s[3 * lw + 2] -= gz;
+        } else if (n_all + lane < p.K) {
+          WinLane<T> r;
+          r.x = gx;
+          r.y = gy;
+          r.z = gz;
+          r.sp = lw;
+          store[n_all + lane] = r;
+        }
+      }
+      n_all += n;
+      npk -= n;
+      // the waiting rest (fewer than 32) moves down to the front
+      __syncwarp();
+      int e2 = 0;
+      T v0 = T(0), v1 = T(0), v2 = T(0), v3 = T(0);
+      if (lane < npk) {
+        e2 = ent[32 + lane];
+        v0 = pk[32 + lane];
+        v1 = pk[kRbPack + 32 + lane];
+        v2 = pk[2 * kRbPack + 32 + lane];
+        v3 = pk[3 * kRbPack + 32 + lane];
+      }
+      __syncwarp();
+      if (lane < npk) {
+        ent[lane] = e2;
+        pk[lane] = v0;
+        pk[kRbPack + lane] = v1;
+        pk[2 * kRbPack + lane] = v2;
+        pk[3 * kRbPack + lane] = v3;
+      }
+    }
+  }
+  __syncwarp();
+  return n_all;
+}
+
+// n values from shared src to device dst, in 16-byte stores where both
+// allow it (the same on every thread of the block).
+template <typename T>
+__device__ __forceinline__ void copy_out(T* __restrict__ dst, const T* src,
+                                         int n) {
+  constexpr int V = 16 / sizeof(T);
+  if ((reinterpret_cast<size_t>(dst) & 15) == 0 && n % V == 0) {
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    int4* d4 = reinterpret_cast<int4*>(dst);
+    for (int i = threadIdx.x; i < n / V; i += blockDim.x) d4[i] = s4[i];
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kRbMaxWarps) radial_bwd_kernel(
+    const T* __restrict__ pos, const int* __restrict__ sp,
+    const T* __restrict__ hmat, const T* __restrict__ ga,
+    T* __restrict__ fcen, T* __restrict__ wing, T* __restrict__ dh_part,
+    Grid g, RbParams<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int2 tab[125];
+  __shared__ int wtot[kRbMaxWarps], cnt[kRbMaxWarps];
+  __shared__ int n_ctr_s;
+  const int cell = blockIdx.x, cap = g.cap;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int ns = 2 * p.shell + 1, P = ns * ns, n_off = P * ns;
+  const int PL = P * cap, self_lane = (n_off - 1) / 2 * cap;
+  const RbLayout L = rb_layout<T>(cap, p.shell, p.S * p.NR, p.K);
+  WinLane<T>* kept = reinterpret_cast<WinLane<T>*>(smem_raw);
+  T* wing_s = reinterpret_cast<T*>(smem_raw + L.wing);
+  T* fcen_s = reinterpret_cast<T*>(smem_raw + L.fcen);
+  T* osum = reinterpret_cast<T*>(smem_raw + L.osum);
+  int* ctr = reinterpret_cast<int*>(smem_raw + L.ctr);
+  unsigned char* scratch = smem_raw + L.warps + warp * L.warp_bytes;
+  const unsigned below = (1u << lane) - 1u;
+  // each offset's first grid slot and packed wrap shift, once
+  for (int o = threadIdx.x; o < n_off; o += blockDim.x) {
+    int ox, oy, oz, sx, sy, sz;
+    offset_of(o, p.shell, ox, oy, oz);
+    const int base = neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz) * cap;
+    tab[o] = make_int2(base, (sx + 1) | (sy + 1) << 2 | (sz + 1) << 4);
+  }
+  for (int i = threadIdx.x; i < 3 * cap; i += blockDim.x) fcen_s[i] = T(0);
+  // the bin's real centers, in slot order
+  if (warp == 0) {
+    int n = 0;
+    for (int b0 = 0; b0 < cap; b0 += 32) {
+      const bool r = b0 + lane < cap && sp[cell * cap + b0 + lane] >= 0;
+      const unsigned bal = __ballot_sync(kFull, r);
+      if (r) ctr[n + __popc(bal & below)] = b0 + lane;
+      n += __popc(bal);
+    }
+    if (lane == 0) n_ctr_s = n;
+  }
+  T h[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) h[i] = hmat[i];
+  const int iz = cell % g.nz, iy = (cell / g.nz) % g.ny;
+  const int ix = cell / (g.ny * g.nz);
+  const int sh = p.shell;
+  const bool interior = ix >= sh && ix < g.nx - sh && iy >= sh &&
+                        iy < g.ny - sh && iz >= sh && iz < g.nz - sh;
+  __syncthreads();
+  const int n_ctr = n_ctr_s;
+  for (int plane = 0; plane < ns; ++plane) {
+    const int o0 = plane * P, w0 = o0 * cap;
+    for (int i = threadIdx.x; i < 3 * PL; i += blockDim.x) wing_s[i] = T(0);
+    // the plane's lanes of present species, compacted in lane order
+    int n_kept = 0;
+    for (int base = 0; base < PL; base += blockDim.x) {
+      const int lw = base + threadIdx.x;
+      WinLane<T> c;
+      bool k = false;
+      if (lw < PL) {
+        const int oo = lw / cap;
+        const int2 t = tab[o0 + oo];
+        const int q = t.x + (lw - oo * cap);
+        const int s = sp[q];
+        if (s >= 0 && (p.present >> s & 1u)) {
+          candidate_pos(pos, q, h, (t.y & 3) - 1, (t.y >> 2 & 3) - 1,
+                        (t.y >> 4 & 3) - 1, c.x, c.y, c.z);
+          c.sp = s | (w0 + lw) << 4;
+          k = true;
+        }
+      }
+      const unsigned bal = __ballot_sync(kFull, k);
+      if (lane == 0) wtot[warp] = __popc(bal);
+      __syncthreads();
+      int at = n_kept + __popc(bal & below), total = 0;
+      for (int v = 0; v < nw; ++v) {
+        if (v < warp) at += wtot[v];
+        total += wtot[v];
+      }
+      if (k) kept[at] = c;
+      n_kept += total;
+      __syncthreads();
+    }
+    // the real centers in rounds of nw, one a warp, in slot order. Step
+    // -1: every warp its center, into its store; if a store overflowed,
+    // steps 0, 1, ...: warp v alone, adding its pairs to the wing itself
+    for (int r0 = 0; r0 < n_ctr; r0 += nw) {
+      const int ci = r0 + warp;
+      bool over = false;
+      for (int step = -1; step < nw; ++step) {
+        if (step >= 0 && !over) break;
+        if (ci < n_ctr && (step < 0 || step == warp)) {
+          const int a = ctr[ci];
+          T fx, fy, fz;
+          const int found = rb_center(p, pos, ga, kept, n_kept, w0, scratch,
+                                      L, wing_s, cell * cap + a,
+                                      self_lane + a, step >= 0, lane, fx,
+                                      fy, fz);
+          if (step < 0) {
+            fx = warp_sum(fx);
+            fy = warp_sum(fy);
+            fz = warp_sum(fz);
+            if (lane == 0) {
+              fcen_s[3 * a] += fx;
+              fcen_s[3 * a + 1] += fy;
+              fcen_s[3 * a + 2] += fz;
+              cnt[warp] = found;
+            }
+          }
+        } else if (step < 0 && lane == 0) {
+          cnt[warp] = 0;
+        }
+        __syncthreads();
+        if (step < 0) {
+          for (int v = 0; v < nw; ++v) over |= cnt[v] > p.K;
+          if (!over) {
+            // each warp owns a range of the plane's lanes and adds the
+            // stores in warp order (center order)
+            const int per = (PL + nw - 1) / nw, lo = warp * per;
+            const int hi = min(PL, lo + per);
+            for (int v = 0; v < nw; ++v) {
+              const WinLane<T>* st = rb_store<T>(smem_raw, L, v);
+              for (int q = lane; q < cnt[v]; q += 32) {
+                const WinLane<T> e = st[q];
+                if (e.sp >= lo && e.sp < hi) {
+                  wing_s[3 * e.sp] -= e.x;
+                  wing_s[3 * e.sp + 1] -= e.y;
+                  wing_s[3 * e.sp + 2] -= e.z;
+                }
+              }
+              __syncwarp();
+            }
+            __syncthreads();
           }
         }
       }
     }
-    red[(grp * cap + a) * 3 + 0] = fx;
-    red[(grp * cap + a) * 3 + 1] = fy;
-    red[(grp * cap + a) * 3 + 2] = fz;
-    __syncthreads();
-    for (int i = threadIdx.x; i < cap * 3; i += blockDim.x) {
-      const int aa = i / 3, c = i % 3;
-      T sum = T(0);
-      for (int gg = 0; gg < G; ++gg) sum += red[(gg * cap + aa) * 3 + c];
-      fcen[((size_t)cell * cap + aa) * 3 + c] = sum;
-    }
-    __syncthreads();
-  }
-
-  // phase B: neighbor role (wing) and the box cotangent
-  T dh[9];
-  for (int i = 0; i < 9; ++i) dh[i] = T(0);
-  const int W = n_off * cap;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    const int o = w / cap, b = w % cap;
-    int ox, oy, oz, sx, sy, sz;
-    offset_of(o, shell, ox, oy, oz);
-    const int nb = neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz);
-    const int q = nb * cap + b;
-    const int bs = sp[q];
-    T wx = T(0), wy = T(0), wz = T(0);
-    if (bs >= 0 && ((present >> bs) & 1u)) {
-      T px, py, pz;
-      candidate_pos(pos, q, h, sx, sy, sz, px, py, pz);
-      for (int a = 0; a < cap; ++a) {
-        const int me = cell * cap + a;
-        if (sp[me] < 0 || (o == self_off && b == a)) continue;
-        T gx, gy, gz;
-        if (radial_pair_grad(pos[me * 3] - px, pos[me * 3 + 1] - py,
-                             pos[me * 3 + 2] - pz,
-                             ga + (size_t)me * SR + bs * NR, NR, rc, eta,
-                             mu0, delta, pi_rc, gx, gy, gz)) {
-          wx -= gx;
-          wy -= gy;
-          wz -= gz;
+    copy_out(wing + ((size_t)cell * n_off * cap + w0) * 3, wing_s, 3 * PL);
+    if (!interior) {
+      for (int oo = warp; oo < P; oo += nw) {
+        T v[3] = {T(0), T(0), T(0)};
+        for (int b = lane; b < cap; b += 32)
+#pragma unroll
+          for (int c = 0; c < 3; ++c) v[c] += wing_s[3 * (oo * cap + b) + c];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          v[c] = warp_sum(v[c]);
+          if (lane == 0) osum[3 * (o0 + oo) + c] = v[c];
         }
       }
     }
-    T* wp = wing + ((size_t)cell * W + w) * 3;
-    wp[0] = wx;
-    wp[1] = wy;
-    wp[2] = wz;
-    const T sv[3] = {T(sx), T(sy), T(sz)};
-    const T wv[3] = {wx, wy, wz};
-    for (int m = 0; m < 3; ++m)
-      for (int c = 0; c < 3; ++c) dh[m * 3 + c] += sv[m] * wv[c];
+    __syncthreads();  // the wing and the kept lanes are the next plane's
   }
-  block_sum9(red, dh, dh_part + (size_t)cell * 9);
+  copy_out(fcen + (size_t)cell * cap * 3, fcen_s, 3 * cap);
+  if (threadIdx.x < 9) {
+    // dh[m][c] = sum over offsets of S_m (sum of the offset's wing_c)
+    const int m = threadIdx.x / 3, c = threadIdx.x % 3;
+    T acc = T(0);
+    if (!interior) {
+      for (int o = 0; o < n_off; ++o) {
+        const int sm = (tab[o].y >> (2 * m) & 3) - 1;
+        if (sm) acc += T(sm) * osum[3 * o + c];
+      }
+    }
+    dh_part[(size_t)cell * 9 + threadIdx.x] = acc;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -274,114 +514,133 @@ __global__ void radial_bwd_kernel(const T* __restrict__ pos,
 template <typename T>
 struct AngParams : AngConsts<T> {
   T pi_rca, big;
+  T geta, tiny2;  // -eta log2 e and tiny log2 e (the f32 ex2 Gaussians)
   int S, atot;
   int caps[kMaxS], slot0[kMaxS];
   int zeta_floor;  // floor(zeta), for the f32 split power (pair_powers)
   T zeta_frac;     // zeta - floor(zeta)
   int npres, pres[kMaxS];  // the species with caps > 0, ascending
+  int pidx[kMaxS];         // species -> its place in pres, or -1
 };
 
-// Shared memory of the angular forward (the backward has its own layout,
-// bwd_smem):
-//   window  wpos [W][3] (shifted), wsp [W]           (W = 27 cap)
-//   slots   field-major [nf][atot][cap] of T, lane [atot][cap] of int
-//   tail    [3 W + 9 cap] of T, of which the forward uses one int
-template <typename T>
-struct AngSmem {
-  T* wpos;
-  int* wsp;
-  T* slot;   // fields: 0 ux 1 uy 2 uz 3 d 4 fc 5 dfc
-  int* lane;
-  T* tail;   // what follows (the deficit's reduction)
-  int atot, cap;
-  __device__ T& f(int field, int q, int a) {
-    return slot[(field * atot + q) * cap + a];
-  }
-};
+constexpr int kDeficitFloor = -(1 << 20);
 
-template <typename T>
-__device__ AngSmem<T> ang_smem(unsigned char* raw, int W, int atot, int cap,
-                               int nf) {
-  AngSmem<T> s;
-  s.atot = atot;
-  s.cap = cap;
-  s.wpos = reinterpret_cast<T*>(raw);
-  s.slot = s.wpos + 3 * W;
-  s.tail = s.slot + (size_t)nf * atot * cap;
-  s.wsp = reinterpret_cast<int*>(s.tail + 3 * W + 9 * cap);
-  s.lane = s.wsp + W;
-  return s;
+// c[i] for a loop-variant i: selections over the unrolled entries, so that
+// c stays in registers (an index unknown at compile time would put it in
+// local memory).
+__device__ __forceinline__ int pick(const int (&c)[kMaxS], int i) {
+  int v = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxS; ++k)
+    if (k == i) v = c[k];
+  return v;
 }
 
-// Stage the bin's 27-bin window (shifted positions, species) in shared.
+// Compact the staged window win[0, W) in place, in lane order, to its
+// lanes of a kept species, each as species | window lane << 4 in sp, by a
+// block scan of ballots (wtot: an int a warp); returns how many, the same
+// on every thread. A tile's lanes are all read before its barrier and land
+// at or below where they were. Every thread calls it; it ends with a
+// barrier.
 template <typename T>
-__device__ void load_window(const T* __restrict__ pos,
-                            const int* __restrict__ sp, const T* h,
-                            const Grid& g, int cell, AngSmem<T>& sm) {
-  const int W = 27 * g.cap;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    const int o = w / g.cap, b = w % g.cap;
-    int ox, oy, oz, sx, sy, sz;
-    offset_of(o, 1, ox, oy, oz);
-    const int q = neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz) * g.cap + b;
-    T px, py, pz;
-    candidate_pos(pos, q, h, sx, sy, sz, px, py, pz);
-    sm.wpos[w * 3] = px;
-    sm.wpos[w * 3 + 1] = py;
-    sm.wpos[w * 3 + 2] = pz;
-    sm.wsp[w] = sp[q];
-  }
-}
-
-// Compact center a's in-Rca lanes into per-species slots, ascending lane
-// order, the first caps[s] of species s; fills n_filled[s] and returns
-// the worst count - cap over species with caps > 0.
-template <typename T>
-__device__ int compact_center(const AngParams<T>& p, AngSmem<T>& sm, int a,
-                              T cx, T cy, T cz, int (&n_filled)[kMaxS]) {
-  const int cap = sm.cap, W = 27 * cap, self_lane = 13 * cap + a;
-  int deficit = -(1 << 20);
-  for (int s = 0; s < p.S; ++s) {
-    n_filled[s] = 0;
-    if (p.caps[s] == 0) continue;
-    int count = 0;
-    for (int w = 0; w < W; ++w) {
-      if (sm.wsp[w] != s || w == self_lane) continue;
-      const T dx = cx - sm.wpos[w * 3], dy = cy - sm.wpos[w * 3 + 1],
-              dz = cz - sm.wpos[w * 3 + 2];
-      const T d = pair_dist(dx, dy, dz);
-      if (!(d <= p.rca)) continue;
-      if (count < p.caps[s]) {
-        const int q = p.slot0[s] + count;
-        const bool valid = d > T(1e-6);
-        const T d_safe = valid ? d : p.big;
-        const T inv = T(1) / d_safe;
-        sm.f(0, q, a) = dx * inv;
-        sm.f(1, q, a) = dy * inv;
-        sm.f(2, q, a) = dz * inv;
-        sm.f(3, q, a) = d_safe;
-        sm.f(4, q, a) = valid ? T(0.5) * m_cos(d * p.pi_rca) + T(0.5) : T(0);
-        sm.f(5, q, a) = valid ? (T(-0.5) * p.pi_rca) * m_sin(d * p.pi_rca)
-                              : T(0);
-        sm.lane[q * cap + a] = valid ? w : -1;
-      }
-      ++count;
+__device__ __forceinline__ int compact_window(WinLane<T>* win, int W,
+                                              int* wtot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int n_kept = 0;
+  for (int base = 0; base < W; base += blockDim.x) {
+    const int w = base + threadIdx.x;
+    WinLane<T> c;
+    bool k = false;
+    if (w < W) {
+      c = win[w];
+      k = c.sp >= 0;
     }
-    n_filled[s] = count < p.caps[s] ? count : p.caps[s];
-    deficit = max(deficit, count - p.caps[s]);
+    const unsigned bal = __ballot_sync(kFull, k);
+    if (lane == 0) wtot[warp] = __popc(bal);
+    __syncthreads();
+    int at = n_kept + __popc(bal & below), total = 0;
+    for (int v = 0; v < nw; ++v) {
+      if (v < warp) at += wtot[v];
+      total += wtot[v];
+    }
+    if (k) {
+      c.sp |= w << 4;
+      win[at] = c;
+    }
+    n_kept += total;
+    __syncthreads();
   }
-  return deficit;
+  return n_kept;
 }
 
-// Pair terms of slots q1, q2 of center a (aev_common.cuh pair_terms_core).
-template <typename T>
-__device__ __forceinline__ void pair_terms(const AngParams<T>& p,
-                                           AngSmem<T>& sm, int q1, int q2,
-                                           int a, PairTerms<T>& t) {
-  pair_terms_core<T>(p, sm.f(0, q1, a), sm.f(1, q1, a), sm.f(2, q1, a),
-                     sm.f(0, q2, a), sm.f(1, q2, a), sm.f(2, q2, a),
-                     sm.f(3, q1, a), sm.f(3, q2, a), sm.f(4, q1, a),
-                     sm.f(4, q2, a), t);
+// The compaction of center a at (cx, cy, cz) on one warp (angular_fwd and
+// angular_bwd, so that both keep the same neighbours): the warp reads the
+// bin's window, compacted to its n_kept lanes of present species
+// (compact_window), 32 lanes at a time, one distance a lane, and ranks each
+// present species' in-Rca lanes by popcount with a carry per species, so
+// the first caps[s] of species s land in its slots in ascending window lane
+// order (the plain version's and the TPU kernel's order). Slot q gets u, d
+// (2 Rca + 10 where d <= 1e-6) and fc at s[f A + q], f = 0..4 (the packed
+// kernels' field order); with LANES also dfc at f = 5 and its window lane
+// in slane[q] (-1: filled at d <= 1e-6). fc and dfc by the hardware cosine
+// and sine in f32 (the argument lies in [0, pi]). carry[pi] ends as the
+// count of in-Rca lanes of species p.pres[pi], kept or not.
+template <typename T, bool LANES>
+__device__ __forceinline__ void compact_slots(const AngParams<T>& p,
+                                              const WinLane<T>* win,
+                                              int n_kept, int cap, int a,
+                                              T cx, T cy, T cz, int lane,
+                                              T* s, int* slane,
+                                              int (&carry)[kMaxS]) {
+  const int A = p.atot;
+  const int self_lane = 13 * cap + a;
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int pi = 0; pi < kMaxS; ++pi) carry[pi] = 0;
+  for (int base = 0; base < n_kept; base += 32) {
+    const int i = base + lane;
+    int ws = -1, w = 0;
+    T dx = T(0), dy = T(0), dz = T(0), d = T(0);
+    if (i < n_kept) {
+      const WinLane<T> c = win[i];
+      w = c.sp >> 4;
+      if (w != self_lane) {
+        dx = cx - c.x;
+        dy = cy - c.y;
+        dz = cz - c.z;
+        d = pair_dist(dx, dy, dz);
+        if (d <= p.rca) ws = c.sp & 15;
+      }
+    }
+    int q = -1;  // the slot this lane fills, if any
+#pragma unroll
+    for (int pi = 0; pi < kMaxS; ++pi) {
+      if (pi >= p.npres) break;
+      const int si = p.pres[pi];
+      const bool m = ws == si;
+      const unsigned bal = __ballot_sync(kFull, m);
+      const int r = carry[pi] + __popc(bal & below);
+      if (m && r < p.caps[si]) q = p.slot0[si] + r;
+      carry[pi] += __popc(bal);
+    }
+    if (q >= 0) {
+      const bool valid = d > T(1e-6);
+      const T d_safe = valid ? d : p.big;
+      const T inv = T(1) / d_safe;
+      s[q] = dx * inv;
+      s[A + q] = dy * inv;
+      s[2 * A + q] = dz * inv;
+      s[3 * A + q] = d_safe;
+      s[4 * A + q] = valid ? T(0.5) * cos_0pi(d * p.pi_rca) + T(0.5) : T(0);
+      if constexpr (LANES) {
+        s[5 * A + q] =
+            valid ? (T(-0.5) * p.pi_rca) * sin_0pi(d * p.pi_rca) : T(0);
+        slane[q] = valid ? w : -1;
+      }
+    }
+  }
 }
 
 __device__ __forceinline__ int triu_index(int s1, int s2, int S) {
@@ -397,72 +656,128 @@ __device__ __forceinline__ int triu_index(int s1, int s2, int S) {
 // species-pair block (torchani triu order) sum over unordered slot pairs
 //   2 fc1 fc2 exp(-eta (rmean - shf_a_j)^2) ((1 + cos(theta - shf_z_m))/2)^zeta
 // into channels ch0 + j*8 + m. Also the worst per-species cap deficit.
-// Bound: its least work is writing the [NC, cap, 896] output (bytes);
-// per slot pair it needs 4 exps and 8 zeta powers (exp + log each, zeta
-// 14.1 is not an integer). As written it is bound by operations and
-// latency: one thread per center, so a block holds only cap threads.
-// Design: one block per bin, one thread per center; the 27-bin window is
-// staged once in shared memory and every center scans it from there;
-// slots live in shared memory (field-major, so neighbouring threads touch
-// neighbouring words); the 32 channels of a block accumulate in
-// registers.
+// Bound (chip_smoke.py OPS): fp32 instructions and special-function
+// results per real candidate of a real center's window, per kept neighbour
+// and per slot pair (packed_fwd's), against the bytes of the real rows'
+// output; the contract's padded [NC, cap, 896] output (the layout floor)
+// is three times those bytes at the roll grid's occupancy.
+// Design: one block per bin, kAfWarps warps. The block stages the bin's
+// 27-bin window once (stage_window) and compacts it to its lanes of present
+// species (compact_window: the empty slots, about two thirds of a roll
+// window, are never tested); each warp takes the bin's centers one at a
+// time from a shared counter, compacts by ballot (compact_slots, the
+// backward's own) into its shared slots (u, d, fc), and walks each present
+// species-pair block's live slot pairs only, spread over the lanes as
+// asn_packed_fwd_kernel does: the f32 split power (pair_powers) and ex2
+// Gaussians, the 32 channel sums in registers, a reduce-scatter of 31
+// shuffles in a fixed order, lane l writing channel l. The warp writes
+// every entry of the center's row, zeros in absent blocks and on a row
+// with no atom, so the wrapper allocates the output without zeroing it.
+// The deficit: integer atomicMax into shared memory, then one per block.
 // ---------------------------------------------------------------------------
+constexpr int kAfWarps = 8;
+
 template <typename T>
-__global__ void angular_fwd_kernel(const T* __restrict__ pos,
-                                   const int* __restrict__ sp,
-                                   const T* __restrict__ hmat,
-                                   T* __restrict__ out,
-                                   int* __restrict__ deficit_out, Grid g,
-                                   AngParams<T> p) {
+size_t af_smem(int cap, int A, int warps) {
+  return sizeof(WinLane<T>) * 27 * (size_t)cap +
+         sizeof(T) * 5 * (size_t)A * warps;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kAfWarps) angular_fwd_kernel(
+    const T* __restrict__ pos, const int* __restrict__ sp,
+    const T* __restrict__ hmat, T* __restrict__ out,
+    int* __restrict__ deficit_out, Grid g, AngParams<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int cell = blockIdx.x, cap = g.cap, a = threadIdx.x;
-  AngSmem<T> sm = ang_smem<T>(smem_raw, 27 * cap, p.atot, cap, 6);
+  __shared__ int2 tab[27];
+  __shared__ int next, red, wtot[kAfWarps];
+  const int cell = blockIdx.x, cap = g.cap, A = p.atot;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  WinLane<T>* win = reinterpret_cast<WinLane<T>*>(smem_raw);
+  T* s = reinterpret_cast<T*>(win + 27 * cap) + (size_t)warp * 5 * A;
+  if (threadIdx.x == 0) {
+    next = 0;
+    red = kDeficitFloor;
+  }
+  unsigned keep = 0;
+#pragma unroll
+  for (int pi = 0; pi < kMaxS; ++pi)
+    if (pi < p.npres) keep |= 1u << p.pres[pi];
   T h[9];
+#pragma unroll
   for (int i = 0; i < 9; ++i) h[i] = hmat[i];
-  load_window(pos, sp, h, g, cell, sm);
-  __syncthreads();
-  const int me = cell * cap + a;
+  stage_window(pos, sp, h, g, cell, keep, win, tab);
+  const int n_kept = compact_window(win, 27 * cap, wtot);
   const int AL = p.S * (p.S + 1) / 2 * kNAZ;
-  int n_filled[kMaxS];
-  int deficit = -(1 << 20);
-  if (sp[me] >= 0) {
-    deficit = compact_center(p, sm, a, pos[me * 3], pos[me * 3 + 1],
-                             pos[me * 3 + 2], n_filled);
-  } else {
-    for (int s = 0; s < kMaxS; ++s) n_filled[s] = 0;
-  }
-  for (int s1 = 0; s1 < p.S; ++s1) {
-    if (p.caps[s1] == 0) continue;
-    for (int s2 = s1; s2 < p.S; ++s2) {
-      if (p.caps[s2] == 0) continue;
-      T acc[kNAZ];
+  for (;;) {
+    int a = 0;
+    if (lane == 0) a = atomicAdd(&next, 1);
+    a = __shfl_sync(kFull, a, 0);
+    if (a >= cap) break;
+    const int me = cell * cap + a;
+    T* orow = out + (size_t)me * AL;
+    const bool real = sp[me] >= 0;
+    int carry[kMaxS];
+    if (real) {
+      compact_slots<T, false>(p, win, n_kept, cap, a, pos[me * 3],
+                              pos[me * 3 + 1], pos[me * 3 + 2], lane, s,
+                              nullptr, carry);
+      if (lane == 0) {
+        int dmax = kDeficitFloor;
 #pragma unroll
-      for (int i = 0; i < kNAZ; ++i) acc[i] = T(0);
-      const bool same = s1 == s2;
-      for (int i = 0; i < n_filled[s1]; ++i) {
-        const int q1 = p.slot0[s1] + i;
-        for (int j = same ? i + 1 : 0; j < n_filled[s2]; ++j) {
-          PairTerms<T> t;
-          pair_terms(p, sm, q1, p.slot0[s2] + j, a, t);
-#pragma unroll
-          for (int jj = 0; jj < kNA; ++jj) {
-            const T f2 = t.fc12 * t.e[jj];
-#pragma unroll
-            for (int m = 0; m < kNZ; ++m) acc[jj * kNZ + m] += f2 * t.f1[m];
-          }
-        }
+        for (int pi = 0; pi < kMaxS; ++pi)
+          if (pi < p.npres) dmax = max(dmax, carry[pi] - p.caps[p.pres[pi]]);
+        atomicMax(&red, dmax);
       }
-      T* o = out + (size_t)me * AL + triu_index(s1, s2, p.S) * kNAZ;
+    } else {
 #pragma unroll
-      for (int i = 0; i < kNAZ; ++i) o[i] = T(2) * acc[i];
+      for (int pi = 0; pi < kMaxS; ++pi) carry[pi] = 0;
     }
+    __syncwarp();
+    int b = 0;
+    for (int s1 = 0; s1 < p.S; ++s1) {
+      for (int s2 = s1; s2 < p.S; ++s2, ++b) {
+        const int p1 = p.pidx[s1], p2 = p.pidx[s2];
+        const bool same = s1 == s2;
+        const int n1 = p1 < 0 ? 0 : min(pick(carry, p1), p.caps[s1]);
+        const int n2 = p2 < 0 ? 0 : min(pick(carry, p2), p.caps[s2]);
+        const int q = same ? n1 * (n1 - 1) / 2 : n1 * n2;
+        T v = T(0);
+        if (q > 0) {
+          const int off1 = p.slot0[s1], off2 = p.slot0[s2];
+          T acc[kNAZ];
+#pragma unroll
+          for (int i = 0; i < kNAZ; ++i) acc[i] = T(0);
+          for (int t = lane; t < q; t += 32) {
+            int j, k;
+            if (same)
+              block_pair<kTri>(t, n1, n1, j, k);
+            else
+              block_pair<kCross>(t, n1, n2, j, k);
+            const int i1 = off1 + j, i2 = off2 + k;
+            PairTerms<T> pt;
+            pair_terms_geom<T, true, AngParams<T>>(
+                p, s[i1], s[A + i1], s[2 * A + i1], s[i2], s[A + i2],
+                s[2 * A + i2], s[3 * A + i1], s[3 * A + i2], s[4 * A + i1],
+                s[4 * A + i2], pt);
+            pair_powers<T>(p, pt);
+#pragma unroll
+            for (int jj = 0; jj < kNA; ++jj) {
+              const T f2 = pt.fc12 * pt.e[jj];
+#pragma unroll
+              for (int m = 0; m < kNZ; ++m) acc[jj * kNZ + m] += f2 * pt.f1[m];
+            }
+          }
+          reduce_scatter32<T>(acc, lane);
+          v = T(2) * acc[0];
+        }
+        orow[b * kNAZ + lane] = v;
+      }
+    }
+    __syncwarp();  // the slots are the next center's
   }
-  int* red = reinterpret_cast<int*>(sm.tail);
-  if (a == 0) red[0] = -(1 << 20);
   __syncthreads();
-  atomicMax(red, deficit);
-  __syncthreads();
-  if (a == 0) atomicMax(deficit_out, red[0]);
+  if (threadIdx.x == 0) atomicMax(deficit_out, red);
 }
 
 // ---------------------------------------------------------------------------
@@ -479,15 +794,13 @@ __global__ void angular_fwd_kernel(const T* __restrict__ pos,
 // chain, and the bytes of the cotangent.
 // Design: one block per bin, `warps` warps (the host picks the count that
 // keeps the most warps resident per SM in the shared memory each needs).
-// The block stages the bin's 27-bin window once (stage_window); each warp
-// then takes the bin's centers one at a time from a shared counter:
-//   * compaction by ballot: the warp reads the window 32 lanes at a time,
-//     one distance per lane, and ranks each species' in-Rca lanes by
-//     popcount with a carry per species, so the first caps[s] of species
-//     s land in its slots in ascending lane order, as compact_center
-//     (angular_fwd) puts them; the slots (u, d, fc, dfc, window lane) go
-//     to the warp's shared scratch (fc and dfc by the hardware cosine and
-//     sine in f32: the argument lies in [0, pi]);
+// The block stages the bin's 27-bin window once (stage_window) and compacts
+// it to its lanes of present species (compact_window); each warp then
+// takes the bin's centers one at a time from a shared counter:
+//   * compaction by ballot (compact_slots, the forward's own, so both
+//     truncate the same neighbours): the first caps[s] in-Rca lanes of
+//     species s in ascending lane order; the slots (u, d, fc, dfc, window
+//     lane) go to the warp's shared scratch;
 //   * per species-pair block, as asn_packed_bwd_kernel: pass 1 gives each
 //     slot pair to one lane, which leaves the pair's dcos, drmean / 2 and
 //     dfc12 in shared memory (f32: the split power and the fast divisions);
@@ -532,26 +845,15 @@ size_t bwd_smem(int cap, int A, int Q, int warps) {
   return bwd_warps_off<T>(cap, A) + (size_t)warps * bwd_warp_bytes<T>(A, Q);
 }
 
-// c[i] for a loop-variant i: selections over the unrolled entries, so that
-// c stays in registers (an index unknown at compile time would put it in
-// local memory).
-__device__ __forceinline__ int pick(const int (&c)[kMaxS], int i) {
-  int v = 0;
-#pragma unroll
-  for (int k = 0; k < kMaxS; ++k)
-    if (k == i) v = c[k];
-  return v;
-}
-
 // One center of angular_bwd, on one warp: its fcen, and its kept slots'
 // lane cotangents and window lanes in res[0, A) (lane -1: no lane).
 template <typename T>
 __device__ __forceinline__ void bwd_center(
     const AngParams<T>& p, const Grid& g, const int* csp,
-    const T* __restrict__ ga, T* __restrict__ fcen, const WinLane<T>* win,
-    WinLane<T>* res, unsigned char* scratch, int cell, int a, int Q,
-    int lane) {
-  const int cap = g.cap, W = 27 * cap, A = p.atot;
+    const T* __restrict__ pos, const T* __restrict__ ga,
+    T* __restrict__ fcen, const WinLane<T>* win, int n_kept, WinLane<T>* res,
+    unsigned char* scratch, int cell, int a, int Q, int lane) {
+  const int cap = g.cap, A = p.atot;
   T* s = reinterpret_cast<T*>(scratch);
   T* o = s + 6 * A;
   T* pb = o + 5 * A;
@@ -568,55 +870,12 @@ __device__ __forceinline__ void bwd_center(
 #pragma unroll
     for (int f = 0; f < 5; ++f) o[f * A + q] = T(0);
   }
-  // the center's position: its own window lane (offset 13, no shift)
-  const WinLane<T> ctr = win[13 * cap + a];
-  const T cx = ctr.x, cy = ctr.y, cz = ctr.z;
-  const int self_lane = 13 * cap + a;
-  const unsigned below = (1u << lane) - 1u;
   int carry[kMaxS];  // by position in p.pres
-#pragma unroll
-  for (int pi = 0; pi < kMaxS; ++pi) carry[pi] = 0;
   // compaction: the first caps[s] in-Rca lanes of species s, ascending
   __syncwarp();
-  for (int base = 0; base < W; base += 32) {
-    const int w = base + lane;
-    int ws = -1;
-    T dx = T(0), dy = T(0), dz = T(0), d = T(0);
-    if (w < W && w != self_lane) {
-      const WinLane<T> c = win[w];
-      if (c.sp >= 0) {
-        dx = cx - c.x;
-        dy = cy - c.y;
-        dz = cz - c.z;
-        d = pair_dist(dx, dy, dz);
-        if (d <= p.rca) ws = c.sp;
-      }
-    }
-    int q = -1;  // the slot this lane fills, if any
-#pragma unroll
-    for (int pi = 0; pi < kMaxS; ++pi) {
-      if (pi >= p.npres) break;
-      const int si = p.pres[pi];
-      const bool m = ws == si;
-      const unsigned bal = __ballot_sync(kFull, m);
-      const int r = carry[pi] + __popc(bal & below);
-      if (m && r < p.caps[si]) q = p.slot0[si] + r;
-      carry[pi] += __popc(bal);
-    }
-    if (q >= 0) {
-      const bool valid = d > T(1e-6);
-      const T d_safe = valid ? d : p.big;
-      const T inv = T(1) / d_safe;
-      s[q] = dx * inv;
-      s[A + q] = dy * inv;
-      s[2 * A + q] = dz * inv;
-      s[3 * A + q] = d_safe;
-      s[4 * A + q] = valid ? T(0.5) * cos_0pi(d * p.pi_rca) + T(0.5) : T(0);
-      s[5 * A + q] =
-          valid ? (T(-0.5) * p.pi_rca) * sin_0pi(d * p.pi_rca) : T(0);
-      slane[q] = valid ? w : -1;
-    }
-  }
+  compact_slots<T, true>(p, win, n_kept, cap, a, pos[me * 3],
+                         pos[me * 3 + 1], pos[me * 3 + 2], lane, s, slane,
+                         carry);
   __syncwarp();
   const int AL = p.S * (p.S + 1) / 2 * kNAZ;
   const T(&gb)[kNAZ] = *reinterpret_cast<const T(*)[kNAZ]>(gsm);
@@ -731,7 +990,7 @@ __global__ void __launch_bounds__(32 * kBwdMaxWarps) angular_bwd_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int2 tab[27];
   __shared__ T osum[27][3];
-  __shared__ int next;
+  __shared__ int next, wtot[kBwdMaxWarps];
   const int cell = blockIdx.x, cap = g.cap, W = 27 * cap, A = p.atot;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
@@ -751,13 +1010,14 @@ __global__ void __launch_bounds__(32 * kBwdMaxWarps) angular_bwd_kernel(
 #pragma unroll
   for (int i = 0; i < 9; ++i) h[i] = hmat[i];
   stage_window(pos, sp, h, g, cell, keep, win, tab);
+  const int n_kept = compact_window(win, W, wtot);
   for (;;) {
     int a = 0;
     if (lane == 0) a = atomicAdd(&next, 1);
     a = __shfl_sync(kFull, a, 0);
     if (a >= cap) break;
-    bwd_center(p, g, csp, ga, fcen, win, res + a * A, scratch, cell, a, Q,
-               lane);
+    bwd_center(p, g, csp, pos, ga, fcen, win, n_kept, res + a * A, scratch,
+               cell, a, Q, lane);
   }
   __syncthreads();
   // the window is done with: its storage becomes the wing, [W][3]
@@ -822,6 +1082,28 @@ int radial_groups(int cap) {
   return g < 1 ? 1 : g;
 }
 
+// The warp count in [1, max_warps] whose shared memory (smem_of(warps)
+// bytes a block) lets the most warps reside on an SM (228 KB, 1 KB reserved
+// a block; at most 32 blocks and 64 warps; ties: more warps a block); 0 if
+// not even one warp fits.
+template <typename F>
+int best_warps(int max_warps, F smem_of) {
+  constexpr size_t kSmPerSm = 228 * 1024, kPerBlock = 1024;
+  int warps = 0, best = 0;
+  for (int nw = 1; nw <= max_warps; ++nw) {
+    const size_t smem = smem_of(nw);
+    if (smem > kSmPerSm - kPerBlock) break;
+    const int blocks =
+        min((int)(kSmPerSm / (smem + kPerBlock)), min(32, 64 / nw));
+    const int resident = nw * blocks;
+    if (resident >= best) {
+      best = resident;
+      warps = nw;
+    }
+  }
+  return warps;
+}
+
 template <typename T>
 int radial_fwd(const int* ip, const double* fp, const void* pos,
                const void* sp, const void* h, void* out, void* stream) {
@@ -844,20 +1126,39 @@ int radial_bwd(const int* ip, const double* fp, const void* pos,
                const void* sp, const void* h, const void* ga, void* fcen,
                void* wing, void* dh_part, void* dh, void* stream) {
   const Grid g = grid_from(ip);
-  const int shell = ip[4], S = ip[5], NR = ip[6];
-  const unsigned present = (unsigned)ip[7];
-  if (NR > kMaxNR || g.cap < 1 || g.cap > 256) return cudaErrorInvalidValue;
-  const int G = radial_groups(g.cap);
-  const int threads = G * g.cap;
-  const int n_red = G * g.cap * 3 > threads * 9 ? G * g.cap * 3 : threads * 9;
-  const size_t smem = sizeof(T) * n_red;
+  RbParams<T> p;
+  p.shell = ip[4];
+  p.S = ip[5];
+  p.NR = ip[6];
+  p.present = (unsigned)ip[7];
+  p.K = kRbStore;
+  if (p.NR > kMaxNR || p.S > kMaxS || p.shell < 1 || p.shell > 2 ||
+      g.cap < 1 || g.cap > 256)
+    return cudaErrorInvalidValue;
+  const double rc = fp[0], eta = fp[1];
+  const bool f32 = std::is_same<T, float>::value;
+  p.rc = (T)rc;
+  const double rcw = (double)p.rc;
+  p.rc2_hi = (T)(rcw * rcw * (1.0 + 1.0 / 1048576.0));
+  p.mu0 = (T)fp[2];
+  p.delta = (T)fp[3];
+  p.pi_rc = (T)(kPi / rc);
+  p.dfc_rk = (T)(-0.5 * kPi / rc);
+  p.geta = (T)(f32 ? -eta * 1.4426950408889634 : -eta);
+  p.two_eta = T(2) * (T)eta;
+  const RbLayout L = rb_layout<T>(g.cap, p.shell, p.S * p.NR, p.K);
+  const int warps = best_warps(
+      kRbMaxWarps, [&](int nw) { return L.warps + nw * L.warp_bytes; });
+  if (warps == 0) return cudaErrorInvalidValue;
+  const size_t smem = L.warps + warps * L.warp_bytes;
+  cudaError_t err = set_smem(radial_bwd_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
   const int nc = g.nx * g.ny * g.nz;
   cudaStream_t st = (cudaStream_t)stream;
-  radial_bwd_kernel<T><<<nc, threads, smem, st>>>(
+  radial_bwd_kernel<T><<<nc, 32 * warps, smem, st>>>(
       (const T*)pos, (const int*)sp, (const T*)h, (const T*)ga, (T*)fcen,
-      (T*)wing, (T*)dh_part, g, shell, S, NR, present, (T)fp[0], (T)fp[1],
-      (T)fp[2], (T)fp[3], (T)(kPi / fp[0]));
-  cudaError_t err = cudaGetLastError();
+      (T*)wing, (T*)dh_part, g, p);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dh_reduce_kernel<T><<<1, kRedThreads, 0, st>>>((const T*)dh_part, nc,
                                                  (T*)dh);
@@ -887,23 +1188,24 @@ bool ang_params(const int* ip, const double* fp, AngParams<T>& p) {
   }
   p.pi_rca = (T)(kPi / fp[0]);
   p.big = (T)(2.0 * fp[0] + 10.0);
+  constexpr double kLog2e = 1.4426950408889634;
+  p.geta = (T)(-fp[1] * kLog2e);
+  p.tiny2 = (T)(fp[5] * kLog2e);
   const double zf = floor(fp[2]);
   p.zeta_floor = (int)zf;
   p.zeta_frac = (T)(fp[2] - zf);
   p.npres = 0;
   for (int s = 0; s < kMaxS; ++s) {
     p.pres[s] = 0;
-    if (p.caps[s] > 0) p.pres[p.npres++] = s;
+    p.pidx[s] = -1;
+  }
+  for (int s = 0; s < kMaxS; ++s) {
+    if (p.caps[s] > 0) {
+      p.pidx[s] = p.npres;
+      p.pres[p.npres++] = s;
+    }
   }
   return true;
-}
-
-// Dynamic shared memory of the angular forward (see AngSmem).
-template <typename T>
-size_t ang_smem_bytes(int cap, int atot, int nf) {
-  const size_t W = 27 * (size_t)cap;
-  return sizeof(T) * (3 * W + (size_t)nf * atot * cap + 3 * W + 9 * cap) +
-         sizeof(int) * (W + (size_t)atot * cap);
 }
 
 template <typename T>
@@ -912,12 +1214,16 @@ int angular_fwd(const int* ip, const double* fp, const void* pos,
                 void* stream) {
   const Grid g = grid_from(ip);
   AngParams<T> p;
-  if (!ang_params(ip, fp, p) || g.cap < 1 || g.cap > 1024)
+  if (!ang_params(ip, fp, p) || g.cap < 1 || g.cap > 1024 ||
+      p.zeta_floor < 0)
     return cudaErrorInvalidValue;
-  const size_t smem = ang_smem_bytes<T>(g.cap, p.atot, 6);
+  const int warps = best_warps(
+      kAfWarps, [&](int nw) { return af_smem<T>(g.cap, p.atot, nw); });
+  if (warps == 0) return cudaErrorInvalidValue;
+  const size_t smem = af_smem<T>(g.cap, p.atot, warps);
   cudaError_t err = set_smem(angular_fwd_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  angular_fwd_kernel<T><<<g.nx * g.ny * g.nz, g.cap, smem,
+  angular_fwd_kernel<T><<<g.nx * g.ny * g.nz, 32 * warps, smem,
                           (cudaStream_t)stream>>>(
       (const T*)pos, (const int*)sp, (const T*)h, (T*)out, (int*)deficit, g,
       p);
@@ -941,22 +1247,8 @@ int angular_bwd(const int* ip, const double* fp, const void* pos,
                              : p.caps[s1] * p.caps[s2];
       if (q > Q) Q = q;
     }
-  // the warp count whose shared memory lets the most warps reside on an
-  // SM (228 KB, 1 KB reserved a block; at most 32 blocks and 64 warps; ties:
-  // more warps a block)
-  constexpr size_t kSmPerSm = 228 * 1024, kPerBlock = 1024;
-  int warps = 0, best = 0;
-  for (int nw = 1; nw <= kBwdMaxWarps; ++nw) {
-    const size_t smem = bwd_smem<T>(g.cap, p.atot, Q, nw);
-    if (smem > kSmPerSm - kPerBlock) break;
-    const int blocks = min((int)(kSmPerSm / (smem + kPerBlock)),
-                           min(32, 64 / nw));
-    const int resident = nw * blocks;
-    if (resident >= best) {
-      best = resident;
-      warps = nw;
-    }
-  }
+  const int warps = best_warps(
+      kBwdMaxWarps, [&](int nw) { return bwd_smem<T>(g.cap, p.atot, Q, nw); });
   if (warps == 0) return cudaErrorInvalidValue;
   const size_t smem = bwd_smem<T>(g.cap, p.atot, Q, warps);
   cudaError_t err = set_smem(angular_bwd_kernel<T>, smem);

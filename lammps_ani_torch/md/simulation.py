@@ -33,8 +33,19 @@ the mirror engine; `cellroll=True` gives `pallas_asn` in f32 on the card
 explicit `engine` is the counterpart of the JAX package's LAT_ROLL_IMPL.
 A box too small for the 3x3x3 grid of a roll engine runs the mirror
 engine (`sim.engine` says which ran; an explicit `engine` that does not
-run warns). Step (LAMMPS fix nve + optional fix
-langevin):
+run warns).
+
+`sort_species` (default True): atoms held species-major, cell-minor, so
+the MLP runs one static block per species; False keeps the caller's
+species order (cell order only) and every engine takes the masked MLP
+(each present species' net on every atom). `auto_angular_caps` (default
+True): the angular caps come from the measured degrees at `init_state`
+and grow at a regrow; False, or caps already in the spec, keeps the
+spec's caps: the degree measure still sizes the engine's own capacities
+(k_max, the sub-list cap, the asn sections and tiers), an angular
+overflow raises "angular_caps overflow", and `pallas_full`/`pallas_asn`
+without caps run the `pallas` hybrid, as in the JAX package. Step (LAMMPS
+fix nve + optional fix langevin):
 
   v += dt/2 * ftm2v * f/m ;  x += dt * v ;  f = forces(x) (+ Langevin)
   v += dt/2 * ftm2v * f/m
@@ -127,8 +138,9 @@ class Simulation:
     whatever `cellroll` says; where it cannot run (a repulsion potential
     on a hybrid, a box too small for its grid) the mirror engine runs and
     a RuntimeWarning names both. `pair_stage` (asn engine): the angular pair
-    stage, "packed" (None: the default), "blocks" or "blocks_full". Runs
-    on the card unless `device` says otherwise."""
+    stage, "packed" (None: the default), "blocks" or "blocks_full".
+    `sort_species`, `auto_angular_caps`: the JAX package's options (see the
+    module docstring). Runs on the card unless `device` says otherwise."""
 
     def __init__(self, potential: potmod.ANIPotential, species: np.ndarray,
                  masses: np.ndarray, nbr: NeighborConfig, dt: float = 0.5,
@@ -136,7 +148,8 @@ class Simulation:
                  barostat=None, constraints=None,
                  extra_force: Optional[Callable] = None, device=None,
                  engine: Optional[str] = None,
-                 pair_stage: Optional[str] = None, cellroll: bool = False):
+                 pair_stage: Optional[str] = None, cellroll: bool = False,
+                 sort_species: bool = True, auto_angular_caps: bool = True):
         if integrator is not None and not isinstance(integrator,
                                                      integrate.Langevin):
             raise NotImplementedError(
@@ -163,6 +176,21 @@ class Simulation:
             raise ValueError(
                 "engine pallas_full has no pair-distance channel for the "
                 "repulsion term; use pallas_asn")
+        self.pair_stage = pair_stage or "packed"
+        aev_asn._check_stage(self.pair_stage)
+        if engine != "pallas_asn" and self.pair_stage != "packed":
+            raise ValueError(f"pair_stage {pair_stage!r} needs the "
+                             "pallas_asn engine")
+        # the caps are the spec's (fixed) unless they are to be measured
+        self._auto_angular_caps = (auto_angular_caps
+                                   and potential.spec.angular_caps is None)
+        if engine in ("pallas_full", "pallas_asn") and not (
+                auto_angular_caps or potential.spec.angular_caps):
+            # the roll and asn angular kernels need caps: the pallas hybrid
+            # (radial kernels, the mirror's angular channel)
+            self._warn_fallback("no angular caps and auto_angular_caps is "
+                                "off", "pallas")
+            engine = "pallas"
         # the requested engine (LAT_ROLL_IMPL's counterpart); a repulsion
         # potential on a hybrid runs the plain mirror, as does a box too
         # small for the engine's grid (`_setup_grids`)
@@ -172,11 +200,6 @@ class Simulation:
         self.engine = engine if self._want_cellroll else "mirror"
         if not self._want_cellroll:
             self._warn_fallback("a hybrid carries no repulsion term")
-        self.pair_stage = pair_stage or "packed"
-        aev_asn._check_stage(self.pair_stage)
-        if engine != "pallas_asn" and self.pair_stage != "packed":
-            raise ValueError(f"pair_stage {pair_stage!r} needs the "
-                             "pallas_asn engine")
         n = len(species)
         self.nbr = nbr
         self.dt = float(dt)
@@ -184,7 +207,9 @@ class Simulation:
         self.dtype = dtype
         self._species_in = np.asarray(species)
         self._masses_in = np.asarray(masses, np.float64)
-        self.order = np.argsort(species, kind="stable")
+        self._sort_species = sort_species
+        self.order = (np.argsort(species, kind="stable") if sort_species
+                      else np.arange(n))
         self._apply_order()
         # weights on the run's device and in its dtype (f32 weights cast to
         # f64 exactly, as JAX's type promotion computes them), in a module
@@ -193,8 +218,10 @@ class Simulation:
             potential.spec, potential.params).to(device=self.device,
                                                  dtype=dtype)
         num_species = potential.spec.net.num_species
-        self.species_counts = tuple(int((self.species_np == s).sum())
-                                    for s in range(num_species))
+        # static per-species blocks of the sorted MLP; None: the masked MLP
+        self.species_counts = tuple(
+            int((self.species_np == s).sum()) for s in range(num_species)
+        ) if sort_species else None
         self.dof = 3 * n - 3
         self.n_atoms = n
         self._shifts = nbops.image_shifts(nbr.n_shell)
@@ -213,11 +240,11 @@ class Simulation:
                              "sections": 0, "angular_caps": 0,
                              "tier_rows": 0}
 
-    def _warn_fallback(self, why: str):
-        """Warn when an engine the caller named runs as the mirror."""
-        if self._engine_asked not in (None, "mirror"):
+    def _warn_fallback(self, why: str, instead: str = "mirror"):
+        """Warn when an engine the caller named runs as another."""
+        if self._engine_asked not in (None, instead):
             warnings.warn(f"engine {self._engine_asked!r} cannot run ({why}); "
-                          "the mirror engine runs instead", RuntimeWarning,
+                          f"the {instead} engine runs instead", RuntimeWarning,
                           stacklevel=3)
 
     @property
@@ -282,7 +309,8 @@ class Simulation:
 
     def _spatial_sort(self, pos: np.ndarray, box: nbops.Box):
         """Species-major / cell-minor atom order (the JAX package's
-        lexsort, so both packages hold atoms in the same order)."""
+        lexsort, so both packages hold atoms in the same order); cell order
+        alone (a stable sort) without `sort_species`."""
         h = box.h.detach().cpu().numpy().astype(np.float64)
         origin = box.origin.detach().cpu().numpy().astype(np.float64)
         r = pos - origin
@@ -294,7 +322,9 @@ class Simulation:
         ncell = np.maximum((np.abs(np.diag(h)) / side).astype(np.int64), 1)
         cc = np.minimum((frac * ncell).astype(np.int64), ncell - 1)
         cell_id = (cc[:, 0] * ncell[1] + cc[:, 1]) * ncell[2] + cc[:, 2]
-        self.order = np.lexsort((cell_id, self._species_in))
+        self.order = (np.lexsort((cell_id, self._species_in))
+                      if self._sort_species
+                      else np.argsort(cell_id, kind="stable"))
         self._apply_order()
 
     @staticmethod
@@ -414,7 +444,9 @@ class Simulation:
         its cap) grows the sub-list's cap by at least 4 and k_max by at
         least 8. The asn engine sizes its compact sections (degrees within
         the keep radius Rcr + skin) and its occupancy tiers (the per-atom
-        degree matrix within Rca) from the same measure."""
+        degree matrix within Rca) from the same measure. Fixed caps (no
+        `auto_angular_caps`) stay the spec's: only the engine's capacities
+        are measured."""
         spec = self.potential.spec
         n_sp = spec.aev.num_species
 
@@ -465,15 +497,19 @@ class Simulation:
             if old_ang_cap is not None:
                 self._ang_cap = max(self._ang_cap, old_ang_cap + 4)
             self._k_max = max(self._k_max, _ceil_to(old_k_max + 8, 8))
-        m = ANG_CAP_MARGIN
-        caps = tuple(0 if d == 0 else _ceil_to(
-            int(d * m + 2 + (4 if d * m <= 10 else 0)), 4) for d in degrees)
-        old = spec.angular_caps
-        if regrow and old is not None:
-            caps = tuple(0 if c == 0 else max(c, o + 4)
-                         for c, o in zip(caps, old))
-        self.potential = self.potential.with_spec(
-            dataclasses.replace(spec, angular_caps=caps))
+        if self._auto_angular_caps:
+            m = ANG_CAP_MARGIN
+            caps = tuple(0 if d == 0 else _ceil_to(
+                int(d * m + 2 + (4 if d * m <= 10 else 0)), 4)
+                for d in degrees)
+            old = spec.angular_caps
+            if regrow and old is not None:
+                caps = tuple(0 if c == 0 else max(c, o + 4)
+                             for c, o in zip(caps, old))
+            self.potential = self.potential.with_spec(
+                dataclasses.replace(spec, angular_caps=caps))
+        else:
+            caps = spec.angular_caps
         if self._asn:
             self._sections = aev_asn.sections_from_degrees(sec_degrees,
                                                            SEC_MARGIN)
@@ -543,8 +579,11 @@ class Simulation:
             main_mirror=self._roll_grid is None)
 
     def _angular_overflow(self, pos, box, nlist) -> bool:
-        """Any per-species angular degree over the static caps."""
+        """Any per-species angular degree over the static caps (none
+        without caps: the generic angular channel)."""
         spec = self.potential.spec
+        if spec.angular_caps is None:
+            return False
         species_ext = nbops.extended_species(self.species, nlist.ghosts)
         _, dist = nbops.neighbor_displacements(pos, box, nlist)
         species_j = species_ext[nlist.idx]
@@ -680,7 +719,13 @@ class Simulation:
 
     def _regrow(self, state: MDState, overflow: dict):
         """Grow exactly the capacities that `overflow` names, each by what
-        was measured (never less than one rounding step, never down)."""
+        was measured (never less than one rounding step, never down).
+        Fixed angular caps do not grow: their overflow raises."""
+        if "angular" in overflow and not self._auto_angular_caps:
+            raise RuntimeError(
+                "angular_caps overflow: raise ANISpec.angular_caps or enable "
+                f"auto_angular_caps (caps {self.potential.spec.angular_caps}, "
+                f"deficit {overflow['angular']})")
         if "ghost" in overflow:
             self.nbr = dataclasses.replace(
                 self.nbr, ghost_capacity=int(self.nbr.ghost_capacity * 1.5))

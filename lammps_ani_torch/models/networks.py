@@ -81,14 +81,17 @@ def _mlp_stack(layers, x: torch.Tensor, celu_alpha: float,
 
 
 def atomic_energies_masked(spec: NetworkSpec, params, species: torch.Tensor,
-                           aev: torch.Tensor) -> torch.Tensor:
-    """[m, n]: every species net on all atoms, masked combine."""
+                           aev: torch.Tensor, present=None,
+                           col_idx=None) -> torch.Tensor:
+    """[m, n]: every species net on all atoms, masked combine. `present`
+    (tuple): the species whose nets run (the system's composition; None:
+    all); `col_idx` as in `_mlp_stack` (aev in compact columns)."""
     m = params[0][0]["w"].shape[0]
     n = aev.shape[0]
     x = aev[None].expand(m, n, aev.shape[1])
     out = aev.new_zeros((m, n))
-    for s in range(spec.num_species):
-        e_s = _mlp_stack(params[s], x, spec.celu_alpha)
+    for s in (range(spec.num_species) if present is None else present):
+        e_s = _mlp_stack(params[s], x, spec.celu_alpha, col_idx)
         out = torch.where((species == s)[None, :], e_s, out)
     return torch.where((species >= 0)[None, :], out, 0.0)
 

@@ -255,13 +255,15 @@ def energy_forces_virial_mirror(pot, species, pos, box, nbrs,
 
 def atomic_energies_roll(pot: ANIPotential, species: torch.Tensor,
                          pos: torch.Tensor, box: Box, grid, bins,
-                         species_counts: Sequence[int],
+                         species_counts: Optional[Sequence[int]],
                          radial_shell: int = 2):
     """([n] energies, angular-cap deficit) via the roll-grid AEV kernels.
 
-    Atoms are sorted by species, `species_counts[s]` of species s. Needs
-    spec.angular_caps. `deficit` > 0 means an angular cap truncated real
-    neighbors this evaluation — treat it like a capacity overflow."""
+    With `species_counts`, atoms are sorted by species, `species_counts[s]`
+    of species s (the sorted MLP); None: any order (the masked MLP, every
+    net on every atom). Needs spec.angular_caps. `deficit` > 0 means an
+    angular cap truncated real neighbors this evaluation — treat it like a
+    capacity overflow."""
     spec = pot.spec
     if spec.angular_caps is None:
         raise ValueError("the roll path needs composition-derived "
@@ -277,8 +279,14 @@ def atomic_energies_roll(pot: ANIPotential, species: torch.Tensor,
         species_counts=species_counts)
     local = species >= 0
     aev = torch.where(local[:, None], torch.cat([radial, angular], dim=1), 0.0)
-    atomic = netmod.atomic_energies_sorted(spec.net, pot.params,
-                                           species_counts, aev)
+    if species_counts is not None:
+        atomic = netmod.atomic_energies_sorted(spec.net, pot.params,
+                                               species_counts, aev)
+    else:
+        # the caps say which species occur as neighbors, not as centers:
+        # every net runs
+        atomic = netmod.atomic_energies_masked(spec.net, pot.params,
+                                               species, aev)
     e = netmod.ensemble_energies(atomic) + spec.shifter(species,
                                                         dtype=aev.dtype)
     return torch.where(local, e, 0.0), deficit
@@ -302,7 +310,7 @@ def _strained(pos, box, energy_fn):
 
 def energy_forces_virial_roll(pot: ANIPotential, species: torch.Tensor,
                               pos: torch.Tensor, box: Box, grid, bins,
-                              species_counts: Sequence[int],
+                              species_counts: Optional[Sequence[int]],
                               radial_shell: int = 2):
     """(E, F [n,3], W [3,3], deficit) in Hartree units; the kernels'
     backward supplies exact dpos and box cotangents."""
@@ -314,19 +322,23 @@ def energy_forces_virial_roll(pot: ANIPotential, species: torch.Tensor,
 
 def atomic_energies_asn(pot: ANIPotential, species: torch.Tensor,
                         pos: torch.Tensor, box: Box, asn_state,
-                        species_counts: Sequence[int], plain: bool = False):
+                        species_counts: Optional[Sequence[int]],
+                        plain: bool = False,
+                        present_species: Optional[tuple] = None):
     """([n] energies, angular deficit) via the assignment path.
 
     `asn_state` = (grid, bins, asn, sections[, tiers[, pair_stage]]): one
     coarse roll grid (bin side >= Rcr + skin), its bins, the frozen
     assignment of `aev_asn.build_assignment` and its sections, optional
     occupancy tiers and the angular pair stage (`aev_asn.PAIR_STAGES`,
-    default "packed"). Atoms are sorted by species, `species_counts[s]`
-    of species s. Both AEV channels come in compact columns (present radial
-    sections, present species-pair blocks); the first MLP layer gathers
-    the matching weight rows. With spec.repulsion, the XTB energies of
-    the same kernel pass are added. `plain=True` runs the kernels' plain
-    versions whatever the device."""
+    default "packed"). With `species_counts`, atoms are sorted by species,
+    `species_counts[s]` of species s (the sorted MLP); None: any order (the
+    masked MLP over the nets of `present_species`, None: all). Both AEV
+    channels come in compact columns (present radial sections, present
+    species-pair blocks); the first MLP layer gathers the matching weight
+    rows. With spec.repulsion, the XTB energies of the same kernel pass are
+    added. `plain=True` runs the kernels' plain versions whatever the
+    device."""
     spec = pot.spec
     if spec.angular_caps is None:
         raise ValueError("the asn path needs composition-derived "
@@ -341,9 +353,15 @@ def atomic_energies_asn(pot: ANIPotential, species: torch.Tensor,
     local = species >= 0
     aev = torch.where(local[:, None], torch.cat([radial, angular], dim=1),
                       0.0)
-    atomic = netmod.atomic_energies_sorted(spec.net, pot.params,
-                                           species_counts, aev,
-                                           col_idx=asn_col_idx(spec, sect))
+    col_idx = asn_col_idx(spec, sect)
+    if species_counts is not None:
+        atomic = netmod.atomic_energies_sorted(spec.net, pot.params,
+                                               species_counts, aev,
+                                               col_idx=col_idx)
+    else:
+        atomic = netmod.atomic_energies_masked(spec.net, pot.params, species,
+                                               aev, present=present_species,
+                                               col_idx=col_idx)
     e = netmod.ensemble_energies(atomic) + spec.shifter(species,
                                                         dtype=aev.dtype)
     if spec.repulsion is not None:
@@ -365,7 +383,7 @@ def asn_col_idx(spec: ANISpec, sections):
 
 def energy_forces_virial_asn(pot: ANIPotential, species: torch.Tensor,
                              pos: torch.Tensor, box: Box, asn_state,
-                             species_counts: Sequence[int]):
+                             species_counts: Optional[Sequence[int]]):
     """(E, F [n,3], W [3,3], deficit) in Hartree units via the asn path;
     the fused op's backward supplies exact dpos and box cotangents."""
     energy, deps, dpos, deficit = _strained(

@@ -600,7 +600,7 @@ def angular_fwd(pos_g, sp_g, h, ncells, spec, caps, present):
         return angular_fwd_plain(pos_g, sp_g, h, ncells, spec, caps, present)
     _check_grid("angular_fwd", ncells, pos_g, sp_g, h)
     nc, cap = sp_g.shape
-    out = pos_g.new_zeros((nc, cap, spec.angular_length))
+    out = pos_g.new_empty((nc, cap, spec.angular_length))  # all written
     deficit = torch.full((1,), DEFICIT_FLOOR, dtype=torch.int32,
                          device=pos_g.device)
     ip, fp = _angular_params(spec, caps, pos_g.dtype)
