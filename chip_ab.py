@@ -18,11 +18,16 @@ at its first rebuild (f32, ANI-2x + XTB repulsion, the sizing `Simulation`
 derives); a roll name (radial_fwd, radial_bwd, angular_fwd, angular_bwd:
 chip_smoke's `kernel_calls`) on the same tile under the roll engine
 (pallas_full, no repulsion, f32) at its first rebuild, with chip_smoke's
-seeded cotangents. Each timed name gets three rounds of 20 calls by CUDA
-events (ms per call; a packed kernel's call launches it once per occupancy
-tier, and the line gives the launches per call). Each f32 kernel function
-whose name carries one of the names (`asn_<name>_kernel` in
-csrc/aev_asn.cu, `<name>_kernel` in csrc/aev_roll.cu) gets the count of
+seeded cotangents; a per-block backward (block_bwd, block_bwd_tri) is
+one force evaluation's launches of it (chip_smoke's `stage_launches` under
+pair_stage "blocks", seeded cotangents) on the same tile under the asn
+engine with pair_stage "blocks" at its first rebuild, adding into buffers
+that the timed calls keep (the digest's call adds into zeros). Each timed
+name gets three rounds of 20 calls by CUDA events (ms per call; a packed
+kernel's call launches it once per occupancy tier, a per-block one once
+per block and tier, and the line gives the launches per call). Each f32
+kernel function whose name carries one of the names (`asn_<name>_kernel`
+in csrc/aev_asn.cu, `<name>_kernel` in csrc/aev_roll.cu) gets the count of
 its SASS lines and of a few kinds of operation among them (`cuobjdump
 -sass`; LDL and STL are local-memory loads and stores). A name without a
 call (block_fwd, block_fwd_tri) gets the counts only. Each call is the
@@ -46,6 +51,7 @@ import sys
 import torch
 
 KINDS = ("LDL", "STL", "LDG", "STG", "MUFU", "SHFL", "BRA")
+BLOCK_BWD = ("block_bwd", "block_bwd_tri")
 
 
 def sass_counts(names):
@@ -85,6 +91,31 @@ def digest(out) -> str:
     return h.hexdigest()[:16]
 
 
+def block_bwd_calls(c, data):
+    """{name: (timed call, the digest's call)} of the per-block backwards: one
+    force evaluation's launches under pair_stage "blocks" at the first
+    rebuild of the asn engine sized for that stage. The timed call adds
+    into buffers it keeps; the digest's into zeros."""
+    sim = c.make_sim(data, torch.float32, "cuda", pair_stage="blocks")
+    box = c.make_box(data, torch.float32, "cuda")
+    state = sim.init_state(data.positions, box)
+    k = c.asn_inputs(sim, state.pos, box)
+    part = k["part"]
+    tiers = part["tiers"] or ((sim.potential.spec.angular_caps, None),)
+    rows = [(cat_t, caps_t, k["a_offs"])
+            for (caps_t, _), cat_t in zip(tiers, part["cats"])]
+    aev = sim.potential.spec.aev
+    launches = c.stage_launches(aev, rows, "blocks")
+    out = {}
+    for name in BLOCK_BWD:
+        lau = launches[name]
+        accs = [torch.zeros_like(cat) for cat, _, _ in lau]
+        out[name] = (lambda lau=lau, accs=accs, name=name:
+                     c.block_call(name, aev, lau, accs=accs),
+                     lambda lau=lau, name=name: c.block_call(name, aev, lau))
+    return out
+
+
 def main(argv):
     if len(argv) < 3:
         print(__doc__, file=sys.stderr)
@@ -99,7 +130,7 @@ def main(argv):
     c._build.build_all()
     data = c.water_box(15)
     calls, counts = {}, {}
-    if any(name not in c.KERNELS for name in names):
+    if any(name not in c.KERNELS + BLOCK_BWD for name in names):
         sim = c.make_sim(data, torch.float32, "cuda")
         box = c.make_box(data, torch.float32, "cuda")
         state = sim.init_state(data.positions, box)
@@ -112,12 +143,18 @@ def main(argv):
         roll = c.kernel_calls(c.kernel_inputs(sim, state))
         calls.update(roll)
         counts.update(dict.fromkeys(roll, c.ar.LAUNCHES))
+    first = {}  # a call for the digest where it is not the timed one
+    if any(name in BLOCK_BWD for name in names):
+        blocks = block_bwd_calls(c, data)
+        calls.update(blocks)
+        first.update({name: fns[1] for name, fns in blocks.items()})
+        counts.update(dict.fromkeys(blocks, c.asn.LAUNCHES))
     timed = [name for name in names if name in calls]
     launches, digests = {}, {}
     for name in timed:
         c.asn.reset_counts()
         c.ar.reset_counts()
-        digests[name] = digest(calls[name][0]())
+        digests[name] = digest(first.get(name, calls[name][0])())
         launches[name] = counts[name][name]
     ms = {name: [c.time_ms(calls[name][0], reps=20, warm=2) for _ in range(3)]
           for name in timed}

@@ -13,11 +13,14 @@ object per line; any failure raises and the script exits non-zero:
            probes.cu for sm_90a, all at once; ptxas's registers per kernel.
   kernels  each of the four roll kernels against its plain PyTorch version
            on the card, WATER30 x 6^3 (6,480 atoms), in f64 and f32; two
-           calls of angular_fwd, radial_bwd and angular_bwd bit for bit
-           (f64 and f32); angular_fwd at caps below the measured degree
-           (output and deficit against the plain version's); radial_bwd's
-           dh exactly 0 from cotangents on the rows of the bins whose
-           shell-2 window is unshifted; radial_bwd at shell 1 (the pallas
+           calls of each bit for bit (f64 and f32); radial_fwd launched
+           into an output filled with NaN first, at shell 2 and shell 1
+           and on the grid padded to cap 256 at shell 2 (an entry it does
+           not write fails the comparison);
+           angular_fwd at caps below the measured degree (output and
+           deficit against the plain version's); radial_bwd's dh exactly
+           0 from cotangents on the rows of the bins whose shell-2 window
+           is unshifted; radial_fwd and radial_bwd at shell 1 (the pallas
            hybrid's window); the kernels' backwards against autograd
            through the plain forwards (f64).
   potential  E, F, W of the roll engine on the card against the plain path
@@ -51,9 +54,12 @@ object per line; any failure raises and the script exits non-zero:
            "blocks_full") at WATER30 x 6^3, sized by
            `Simulation(pair_stage="blocks")`, f64 and f32: its four
            kernels (block_fwd, block_fwd_tri, block_bwd, block_bwd_tri)
-           against their plain versions at the full caps and at tier caps,
-           in both same-species forms, two calls of each backward bit for
-           bit; the backwards of `aev_asn_fused` and `angular_aev_asn` with
+           against their plain versions at the full caps, at tier caps
+           and on rows with every third row parked whole (the backwards'
+           arm rows with every slot parked and partly parked counted, both
+           required), in both same-species forms, two calls of each
+           backward bit for bit; the backwards of `aev_asn_fused` and
+           `angular_aev_asn` with
            both stages against autograd through the plain forwards, both
            stages against the packed one, forward and gradients, and E, F,
            W with "blocks" on the card against the CPU (f64).
@@ -77,10 +83,10 @@ object per line; any failure raises and the script exits non-zero:
            chunks, its launch counts zeroed just before: its ms/step
            beside the asn engine's, and the roll kernels' inputs.
   timing   each roll kernel at the roll run's final state (f32) against
-           its plain version: error, ms, plain ms, the bound (two terms
-           but for radial_fwd) and the layout floor of the padded output
-           or wing slab; two calls of angular_fwd, radial_bwd and
-           angular_bwd there bit for bit.
+           its plain version: error, ms, plain ms, the bound (two terms)
+           and the layout floor of the padded output or wing slab; two
+           calls of each there bit for bit; radial_fwd into a NaN-filled
+           output.
   asn_timing  at the main path's final state, after a fresh rebuild: each
            of the eight asn kernels' error, ms, plain ms, bound and launches
            per MD step (the packed ones with the pair lanes of their tier
@@ -139,7 +145,9 @@ object per line; any failure raises and the script exits non-zero:
            version (f32 sums within 5e-6 + 1e-5 of the entry with the same
            NaN and inf entries; the gathers equal), its ms, plain ms,
            library ms and bound, and the radial forward kernel on the
-           probe's grid (the JAX probes' production-kernel timings).
+           probe's grid (the JAX probes' production-kernel timings; also
+           into a NaN-filled output, with its two-term bound and layout
+           floor).
 
 Then one line {"kernels": [...]} (the twenty package kernels, the probe
 kernels by stage and mode, and the radial forward kernel's probe
@@ -210,18 +218,17 @@ PEAK_F32 = 67e12
 PEAK_F32_INSTR = PEAK_F32 / 2
 PEAK_SFU = PEAK_F32 / 16
 
-# Operations each roll kernel needs per unit of work. radial_fwd counts
-# every add, multiply, compare and transcendental as one, at the fused
-# multiply-add rate (a lower bound): per in-cutoff pair, distance 9,
-# cutoff 5, 16 shifts x 6. The other three count in two terms, as the asn
-# pair kernels (ASN_OPS below): fp32 instructions of a lane (an fma counts
-# once) at PEAK_F32_INSTR and special-function results at PEAK_SFU, the
-# larger of the two, as (fp32, sfu) per unit of work:
+# Operations each roll kernel needs per unit of work, in two terms, as the
+# asn pair kernels (ASN_OPS below): fp32 instructions of a lane (an fma
+# counts once) at PEAK_F32_INSTR and special-function results at PEAK_SFU,
+# the larger of the two, as (fp32, sfu) per unit of work:
 #   per real candidate of a real center's 27-bin window ("window"), (8,
 #     1): the offset 3, the squared distance 3 (a product and two fmas),
 #     the 1e-12 clamp 1, the Rca test 1, and the square root;
 #   per real candidate of a real center's shell-s radial window
-#     ("window2"), (8, 1): the same test against Rcr;
+#     ("window2"), (7, 0): the offset 3, the squared distance 3 and its
+#     test against Rcr^2 1 (the radial kernels take the square root only
+#     below that, in "rpair");
 #   angular_fwd per kept neighbour ("nbr"), (11, 2): the slot (1 / d 5 and
 #     a reciprocal, the unit vector 3, the live test 1, fc with its
 #     argument 2 and the hardware cosine);
@@ -230,13 +237,18 @@ PEAK_SFU = PEAK_F32 / 16
 #     gu . u 3, g_cd 3, the vector 6, fcen 3, the wing's add 3);
 #   per slot pair ("pair"): packed_fwd's (272, 21) forward and
 #     packed_bwd's (306, 21) backward (ASN_OPS);
-#   radial_bwd per in-cutoff pair ("rpair"), (142, 19): the cutoff's
+#   radial_fwd per in-cutoff pair ("rpair"), (85, 18): the 1e-12 clamp 1,
+#     the square root, the Rcr test 1, the cutoff's argument 1, fc 1 with
+#     the hardware cosine, x 1, per shift (16) xk 1, geta xk^2 2, its ex2,
+#     the product with fc 1 and the add to its column 1;
+#   radial_bwd per in-cutoff pair ("rpair"), (144, 20): the clamp, the
+#     square root and the Rcr test as radial_fwd's, the cutoff's
 #     argument, fc and dfc 3 with the hardware cosine and sine, x 1, per
 #     shift (16) xk 1, geta xk^2 2, its ex2, the slope and its product
 #     with the cotangent 5, then gamma / d 1 and a reciprocal, g 3, fcen 3,
 #     the wing's add 3.
-OPS = {"radial_fwd": {"pair": 110},
-       "radial_bwd": {"window2": (8, 1), "rpair": (142, 19)},
+OPS = {"radial_fwd": {"window2": (7, 0), "rpair": (85, 18)},
+       "radial_bwd": {"window2": (7, 0), "rpair": (144, 20)},
        "angular_fwd": {"window": (8, 1), "nbr": (11, 2), "pair": (272, 21)},
        "angular_bwd": {"window": (8, 1), "nbr": (34, 4),
                        "pair": (306, 21)}}
@@ -462,26 +474,23 @@ def roll_two_term_ms(name, work):
 
 
 def layout_floor_ms(name, k):
-    """The bytes of the padded output (angular_fwd) or wing slab (the
-    backwards) that the kernel's contract fixes, over HBM's rate (ms);
-    None for radial_fwd, whose padded output is no larger than its
-    bound's."""
+    """The bytes of the padded output (the forwards) or wing slab (the
+    backwards) that the kernel's contract fixes, over HBM's rate (ms)."""
     nc, cap = k["sp_g"].shape
     fsize = k["pos_g"].element_size()
     if name == "angular_fwd":
         nbytes = nc * cap * k["spec"].angular_length * fsize
-    elif name.endswith("_bwd"):
+    elif name == "radial_fwd":
+        nbytes = nc * cap * k["spec"].radial_length * fsize
+    else:
         shell = k["shell"] if name.startswith("radial") else 1
         nbytes = nc * (2 * shell + 1) ** 3 * cap * 3 * fsize
-    else:
-        return None
     return nbytes / PEAK_BYTES * 1e3
 
 
 def bound(name, k, work):
     """(bound_ms, bound_by): the larger of the bytes the function must move
-    over HBM's rate and its operations (OPS: at the f32 peak for
-    radial_fwd, in two terms for the others). The bytes are
+    over HBM's rate and its operations (OPS, in two terms). The bytes are
     the real atoms' rows, each read or written once: positions, species
     and the box in; the AEV out (forward); the AEV cotangent in, dpos and
     dh out (backward). The grid's empty slots and the wing slabs are the
@@ -495,10 +504,7 @@ def bound(name, k, work):
         nbytes += n * width * fsize + (4 if name == "angular_fwd" else 0)
     else:
         nbytes += n * width * fsize + n * 3 * fsize + 9 * fsize
-    if name == "radial_fwd":
-        t_ops = OPS[name]["pair"] * work["radial_pairs"] / PEAK_F32 * 1e3
-    else:
-        t_ops = max(roll_two_term_ms(name, work))
+    t_ops = max(roll_two_term_ms(name, work))
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
@@ -546,7 +552,7 @@ def same_bits(a, b):
 
 # the roll kernels whose two calls must agree bit for bit, and the labels
 # of their outputs
-TWICE = {"angular_fwd": ("aev", "deficit"),
+TWICE = {"radial_fwd": ("aev",), "angular_fwd": ("aev", "deficit"),
          "radial_bwd": ("fcen", "wing", "dh"),
          "angular_bwd": ("fcen", "wing", "dh")}
 
@@ -556,6 +562,8 @@ def kernel_twice(k, name):
     unless every output agrees bit for bit."""
     kern = kernel_calls(k)[name][0]
     first, second = kern(), kern()
+    if isinstance(first, torch.Tensor):
+        first, second = (first,), (second,)
     _sync(k["pos_g"].device)
     out = {lab: 0 if same_bits((x,), (y,)) else int((x != y).sum())
            for lab, x, y in zip(TWICE[name], first, second)}
@@ -581,6 +589,36 @@ def angular_fwd_truncating(k):
             "worst_ratio": err["worst_ratio"]}
 
 
+def radial_fwd_every_entry(k, cap=None):
+    """radial_fwd launched into an output filled with NaN first, against
+    its plain version within the limit: an entry the kernel leaves unwritten
+    stays NaN and fails `compare`. With `cap`, the grid is first padded with
+    empty slots to `cap` a bin (256 is the most the wrappers take; the
+    kernel's staging then runs in many passes): the grid's own rows against
+    the plain version, the added rows exactly 0. Returns err / limit."""
+    a = (k["pos_g"], k["sp_g"], k["h"], k["ncells"], k["shell"], k["spec"],
+         k["present_r"])
+    nc, c0 = k["sp_g"].shape
+    cap = cap or c0
+    pos_g = k["pos_g"].new_full((nc, cap, 3), 1e6)
+    pos_g[:, :c0] = k["pos_g"]
+    sp_g = k["sp_g"].new_full((nc, cap), -1)
+    sp_g[:, :c0] = k["sp_g"]
+    out = torch.full((nc, cap, k["spec"].radial_length), float("nan"),
+                     dtype=k["pos_g"].dtype, device=k["pos_g"].device)
+    got = ar._radial_fwd_into(out, pos_g, sp_g, *a[2:])
+    ref = ar.radial_fwd_plain(*a)
+    _sync(k["pos_g"].device)
+    if bool((got[:, c0:] != 0).any()):
+        raise AssertionError(f"radial_fwd at cap {cap}: a padded row is not "
+                             f"0")
+    err = compare("radial_fwd", k, got[:, :c0], ref)  # raises on a NaN left
+    if err["worst_ratio"] > 1.0:
+        raise AssertionError(f"radial_fwd into a NaN-filled output, shell "
+                             f"{k['shell']}, cap {cap}: {err}")
+    return err["worst_ratio"]
+
+
 def radial_bwd_interior_dh(k):
     """radial_bwd with the cotangent on the rows of the bins whose
     shell-s window is unshifted: dh exactly 0 (kernel and plain
@@ -600,11 +638,11 @@ def radial_bwd_interior_dh(k):
 
 
 def phase_kernels_small(device, rep=6):
-    """Kernels vs plain versions at WATER30 x rep^3, f64 and f32 (and
-    radial_bwd at shell 1), two calls of angular_fwd, radial_bwd and
-    angular_bwd bit for bit, angular_fwd at truncating caps, radial_bwd's dh
-    from interior-only cotangents, and the kernels' backwards vs autograd
-    through the plain forwards (f64)."""
+    """Kernels vs plain versions at WATER30 x rep^3, f64 and f32 (and the
+    radial kernels at shell 1), radial_fwd into a NaN-filled output at both
+    shells, two calls of each kernel bit for bit, angular_fwd at truncating
+    caps, radial_bwd's dh from interior-only cotangents, and the kernels'
+    backwards vs autograd through the plain forwards (f64)."""
     data = water_box(rep)
     result = {}
     for dtype in (torch.float64, torch.float32):
@@ -614,7 +652,7 @@ def phase_kernels_small(device, rep=6):
         errs = {}
         for kk, tag in ((k, ""), (dict(k, shell=1), "_shell1")):
             for name, (kern, plain) in kernel_calls(kk).items():
-                if tag and name != "radial_bwd":
+                if tag and not name.startswith("radial"):
                     continue
                 got = kern()
                 ref = plain()
@@ -623,6 +661,11 @@ def phase_kernels_small(device, rep=6):
                 if errs[name + tag]["worst_ratio"] > 1.0:
                     raise AssertionError(f"{name}{tag} {dtype}: "
                                          f"{errs[name + tag]}")
+        errs["radial_fwd_nan_filled_ratio"] = {
+            f"shell{kk['shell']}": radial_fwd_every_entry(kk)
+            for kk in (k, dict(k, shell=1))}
+        errs["radial_fwd_nan_filled_ratio"]["shell2_cap256"] = (
+            radial_fwd_every_entry(k, cap=256))
         errs["twice_bit_mismatches"] = {name: kernel_twice(k, name)
                                         for name in TWICE}
         errs["angular_fwd_truncating"] = angular_fwd_truncating(k)
@@ -889,9 +932,8 @@ def phase_timing(sim, state, launches, work_start):
         torch.cuda.empty_cache()
         if name in TWICE:
             twice[name] = kernel_twice(k, name)
-        if name != "radial_fwd":
-            terms[name] = dict(zip(("fp32_ms", "sfu_ms"),
-                                   roll_two_term_ms(name, work)))
+        terms[name] = dict(zip(("fp32_ms", "sfu_ms"),
+                               roll_two_term_ms(name, work)))
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": ar.REPLACES[name].split()[0],
@@ -903,6 +945,7 @@ def phase_timing(sim, state, launches, work_start):
           "cap": int(k["sp_g"].shape[1]),
           "atoms": int((k["sp_g"] >= 0).sum()), "work": work,
           "twice_bit_mismatches": twice, "two_term_ms": terms,
+          "radial_fwd_nan_filled_ratio": radial_fwd_every_entry(k),
           "work_change_over_timed_window": {
               key: work[key] / work_start[key] - 1.0 for key in work},
           "outputs": {r["name"]: r for r in rows}})
@@ -2219,13 +2262,50 @@ def block_bound(name, nbytes, pairs):
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
 
+def parked_rows(cat, big, every=3):
+    """A copy of the flat rows `cat` [rows, 5 atot] with rows 0, every,
+    2 every, ... parked whole (u = 0, d = big, fc = 0 in every slot)."""
+    out = cat.clone()
+    v = out.view(cat.shape[0], 5, -1)[::every]
+    v.zero_()
+    v[:, 3] = big
+    return out
+
+
+def parked_arms(launches, big):
+    """(arm rows with every slot parked, arm rows with a live slot and a
+    parked one) over the backward launches [(cat, arms, ga)]."""
+    whole = part = 0
+    for cat, args, _ in launches:
+        c = cat.view(cat.shape[0], 5, -1)
+        parked = ((c[:, 0] == 0) & (c[:, 1] == 0) & (c[:, 2] == 0)
+                  & (c[:, 3] == big) & (c[:, 4] == 0))
+        arms = ((args[0], args[1]),) if len(args) == 2 else (
+            (args[0], args[1]), (args[2], args[3]))
+        for off, a in arms:
+            idx = torch.arange(1, a + 1, device=cat.device)
+            n_live = ((~parked[:, off:off + a]) * idx).amax(1)
+            whole += int((n_live == 0).sum())
+            part += int(((n_live > 0) & (n_live < a)).sum())
+    return whole, part
+
+
 def blocks_kernel_checks(aev, tiers_rows):
     """Each per-block kernel against its plain version on `tiers_rows`, in
     both same-species forms; each backward twice, bit for bit, adding into
-    nonzero buffers."""
+    nonzero buffers. The backwards' launches must hold arm rows with every
+    slot parked and arm rows partly parked (a live prefix, then parked
+    slots): their counts are reported."""
     out = {}
+    big = 2.0 * aev.angular_cutoff + 10.0
     for stage in ("blocks", "blocks_full"):
         launches = stage_launches(aev, tiers_rows, stage)
+        whole, part = parked_arms(
+            launches["block_bwd"] + launches["block_bwd_tri"], big)
+        if not (whole and part):
+            raise AssertionError(f"{stage}: parked arm rows {whole}, partly "
+                                 f"parked {part}: a case is not covered")
+        out[f"parked_arm_rows_{stage}"] = {"whole": whole, "partly": part}
         for name in BLOCK_KERNELS:
             if not launches[name]:
                 continue
@@ -2287,8 +2367,9 @@ def stage_vs_packed(sim, k, pos, box):
 def phase_asn_blocks(device, rep=6):
     """The per-block stage at WATER30 x rep^3, sized by
     `Simulation(pair_stage="blocks")`, f64 and f32: the four kernels
-    against their plain versions at the full caps and at tier caps (4
-    below), in both same-species forms, two calls of each backward bit for
+    against their plain versions at the full caps, at tier caps (4 below)
+    and on a copy of the rows with every third row parked whole, in both
+    same-species forms, two calls of each backward bit for
     bit; the backwards of `angular_aev_asn` and `aev_asn_fused` with
     "blocks" and "blocks_full" against autograd through the plain
     forwards (f64); both stages against packed (f64); E, F, W with
@@ -2313,8 +2394,10 @@ def phase_asn_blocks(device, rep=6):
         cat = part["cats"][0]
         caps_t = tuple(max(4, c - 4) if c else 0 for c in caps)
         tag = str(dtype).replace("torch.", "")
+        parked = parked_rows(cat, 2.0 * spec.aev.angular_cutoff + 10.0)
         result[tag] = blocks_kernel_checks(
-            spec.aev, [(cat, caps, a_offs), (cat, caps_t, a_offs)])
+            spec.aev, [(cat, caps, a_offs), (cat, caps_t, a_offs),
+                       (parked, caps, a_offs)])
         if dtype == torch.float64:
             for stage in ("blocks", "blocks_full"):
                 result[f"backward_{stage}_f64"] = asn_backward_checks(
@@ -2890,6 +2973,7 @@ def phase_probes(device, reps=10):
     if err["worst_ratio"] > 1.0:
         raise AssertionError(f"probes: radial_fwd on the probe grid: {err}")
     del got, ref
+    nan_filled = radial_fwd_every_entry(k)
     plain_ms = time_ms(lambda: ar.radial_fwd_plain(
         k["pos_g"], k["sp_g"], k["h"], k["ncells"], 1, s["spec"],
         s["present"]), reps=1)
@@ -2897,7 +2981,11 @@ def phase_probes(device, reps=10):
     b_ms, b_by = bound("radial_fwd", k, work)
     line["radial_fwd_probe_grid"] = {
         "ncells": list(k["ncells"]), "cap": s["grid"].cap, **err,
-        "work": work, "plain_ms": plain_ms, "bound_ms": b_ms}
+        "nan_filled_ratio": nan_filled, "work": work, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by,
+        **dict(zip(("fp32_ms", "sfu_ms"),
+                   roll_two_term_ms("radial_fwd", work))),
+        "layout_floor_ms": layout_floor_ms("radial_fwd", k)}
     rows.append({
         "name": "radial_fwd<probe grid>", "route": "cuda", "source": SOURCE,
         "replaces": "examples/benchmark/micro_kernel_variants.py:189, "

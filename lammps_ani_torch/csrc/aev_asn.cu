@@ -1264,6 +1264,111 @@ __global__ void __launch_bounds__(kThreads) asn_packed_fwd_kernel(
   }
 }
 
+// The backward's two pair passes over one block of a row staged in shared
+// memory (s: [5][A], the arms [off1, off1 + a1) and [off2, off2 + a2) of
+// its slots; gsm: the block's 32 column cotangents, scale included; pb:
+// [3][Q], Q at least the block's pair count): each slot's five sums go to
+// add(slot, g) on one lane (packed_bwd: its row's sums in shared memory;
+// the per-block kernels: acc in place). P carries big, zeta_floor and
+// zeta_frac (PackedParams, BlockParams). Every lane calls it; it ends with
+// the warp synchronized.
+template <typename T, typename P, typename Add>
+__device__ __forceinline__ void block_pairs_bwd(const P& p, const T* s, int A,
+                                                int off1, int a1, int off2,
+                                                int a2, bool same,
+                                                const T* gsm, T* pb, int Q,
+                                                int lane, Add add) {
+  const T(&gb)[kNAZ] = *reinterpret_cast<const T(*)[kNAZ]>(gsm);
+  const int n1 = live_len(s, A, off1, a1, p.big, lane);
+  const int n2 = same ? n1 : live_len(s, A, off2, a2, p.big, lane);
+  const int q = same ? n1 * (n1 - 1) / 2 : n1 * n2;
+  // C_b is wanted where a parked slot has a live partner; it is pair q
+  // (q < Q then: a parked slot leaves a pair of the full block out)
+  const bool want_cb = same ? (n1 < a1 && n1 > 0)
+                            : ((n1 < a1 && n2 > 0) || (n2 < a2 && n1 > 0));
+  const int q_all = q + (want_cb ? 1 : 0);
+  for (int t = lane; t < q_all; t += 32) {
+    // the parked pair: u = 0 and fc = 0 on both arms, d = big
+    T u1x = T(0), u1y = T(0), u1z = T(0), u2x = T(0), u2y = T(0),
+      u2z = T(0), d1 = p.big, d2 = p.big, fc1 = T(0), fc2 = T(0);
+    if (t < q) {
+      int j, k;
+      live_pair(t, same, n1, n2, j, k);
+      const int i1 = off1 + j, i2 = off2 + k;
+      u1x = s[i1];
+      u1y = s[A + i1];
+      u1z = s[2 * A + i1];
+      u2x = s[i2];
+      u2y = s[A + i2];
+      u2z = s[2 * A + i2];
+      d1 = s[3 * A + i1];
+      d2 = s[3 * A + i2];
+      fc1 = s[4 * A + i1];
+      fc2 = s[4 * A + i2];
+    }
+    PairTerms<T> pt;
+    pair_terms_geom<T>(p, u1x, u1y, u1z, u2x, u2y, u2z, d1, d2, fc1, fc2,
+                       pt);
+    pair_powers<T>(p, pt);
+    T dcos, drmean, dfc12;
+    pair_cotangents<T, true>(p, pt, gb, dcos, drmean, dfc12);
+    pb[t] = dcos;
+    pb[Q + t] = T(0.5) * drmean;
+    pb[2 * Q + t] = dfc12;
+  }
+  __syncwarp();
+  // a parked slot's fc cotangent: C_b times the fc sum of the live slots
+  // of the other arm (its own for one species)
+  T c_fc1 = T(0), c_fc2 = T(0);
+  if (want_cb) {
+    const T c_b = pb[2 * Q + q];
+    c_fc1 = c_b * arm_fc_sum(s, A, off1, n1, lane);
+    c_fc2 = same ? c_fc1 : c_b * arm_fc_sum(s, A, off2, n2, lane);
+  }
+  // items: the live slots of arm 1, of arm 2 (cross), then the parked
+  // slots of arm 1, of arm 2. A live slot walks its live partners in
+  // index order, with a running pair index; every lane of a block's walk
+  // takes the same number of steps.
+  const int w1 = n1, w2 = same ? 0 : n2;
+  const int p1 = a1 - n1, p2 = same ? 0 : a2 - n2;
+  for (int it = lane; it < w1 + w2 + p1 + p2; it += 32) {
+    T g[5] = {T(0), T(0), T(0), T(0), T(0)};
+    int slot;
+    if (it < w1 + w2 && same) {
+      // pairs (k, j), k < j: index j - 1 at k = 0, then + n1 - 2 - k;
+      // pairs (j, k), k > j: consecutive from the row's start
+      const int j = it;
+      slot = off1 + j;
+      int t_lo = j - 1, t_hi = tri_start(j, n1);
+      for (int k = 0; k < n1; ++k) {
+        if (k == j) continue;
+        add_partner<T>(g, pb, Q, k < j ? t_lo : t_hi, s, A, off1 + k);
+        if (k < j)
+          t_lo += n1 - 2 - k;
+        else
+          ++t_hi;
+      }
+    } else if (it < w1 + w2) {
+      // arm 1 slot i: pairs i n2 + k; arm 2 slot i: pairs j n2 + i
+      const bool arm1 = it < w1;
+      const int i = arm1 ? it : it - w1;
+      slot = (arm1 ? off1 : off2) + i;
+      const int po = arm1 ? off2 : off1, cnt = arm1 ? n2 : n1;
+      const int stride = arm1 ? 1 : n2;
+      int t = arm1 ? i * n2 : i;
+      for (int k = 0; k < cnt; ++k, t += stride)
+        add_partner<T>(g, pb, Q, t, s, A, po + k);
+    } else {
+      const int r = it - w1 - w2;
+      const bool arm1 = r < p1;
+      slot = arm1 ? off1 + n1 + r : off2 + n2 + (r - p1);
+      g[4] = arm1 ? c_fc2 : c_fc1;
+    }
+    add(slot, g);
+  }
+  __syncwarp();
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) asn_packed_bwd_kernel(
     const T* __restrict__ cat, const T* __restrict__ ga, T* __restrict__ out,
@@ -1291,98 +1396,12 @@ __global__ void __launch_bounds__(kThreads) asn_packed_bwd_kernel(
     // of its occupancy)
     gsm[lane] = T(2) * g_row[b * kNAZ + lane];
     __syncwarp();
-    const T(&gb)[kNAZ] = *reinterpret_cast<const T(*)[kNAZ]>(gsm);
-    const bool same = p.same[b] != 0;
-    const int off1 = p.off1[b], off2 = p.off2[b], a1 = p.a1[b], a2 = p.a2[b];
-    const int n1 = live_len(s, A, off1, a1, p.big, lane);
-    const int n2 = same ? n1 : live_len(s, A, off2, a2, p.big, lane);
-    const int q = same ? n1 * (n1 - 1) / 2 : n1 * n2;
-    // C_b is wanted where a parked slot has a live partner; it is pair q
-    // (q < max_q then: a parked slot leaves a pair of the full block out)
-    const bool want_cb = same ? (n1 < a1 && n1 > 0)
-                              : ((n1 < a1 && n2 > 0) || (n2 < a2 && n1 > 0));
-    const int q_all = q + (want_cb ? 1 : 0);
-    for (int t = lane; t < q_all; t += 32) {
-      // the parked pair: u = 0 and fc = 0 on both arms, d = big
-      T u1x = T(0), u1y = T(0), u1z = T(0), u2x = T(0), u2y = T(0),
-        u2z = T(0), d1 = p.big, d2 = p.big, fc1 = T(0), fc2 = T(0);
-      if (t < q) {
-        int j, k;
-        live_pair(t, same, n1, n2, j, k);
-        const int i1 = off1 + j, i2 = off2 + k;
-        u1x = s[i1];
-        u1y = s[A + i1];
-        u1z = s[2 * A + i1];
-        u2x = s[i2];
-        u2y = s[A + i2];
-        u2z = s[2 * A + i2];
-        d1 = s[3 * A + i1];
-        d2 = s[3 * A + i2];
-        fc1 = s[4 * A + i1];
-        fc2 = s[4 * A + i2];
-      }
-      PairTerms<T> pt;
-      pair_terms_geom<T>(p, u1x, u1y, u1z, u2x, u2y, u2z, d1, d2, fc1, fc2,
-                         pt);
-      pair_powers<T>(p, pt);
-      T dcos, drmean, dfc12;
-      pair_cotangents<T, true>(p, pt, gb, dcos, drmean, dfc12);
-      pb[t] = dcos;
-      pb[Q + t] = T(0.5) * drmean;
-      pb[2 * Q + t] = dfc12;
-    }
-    __syncwarp();
-    // a parked slot's fc cotangent: C_b times the fc sum of the live slots
-    // of the other arm (its own for one species)
-    T c_fc1 = T(0), c_fc2 = T(0);
-    if (want_cb) {
-      const T c_b = pb[2 * Q + q];
-      c_fc1 = c_b * arm_fc_sum(s, A, off1, n1, lane);
-      c_fc2 = same ? c_fc1 : c_b * arm_fc_sum(s, A, off2, n2, lane);
-    }
-    // items: the live slots of arm 1, of arm 2 (cross), then the parked
-    // slots of arm 1, of arm 2. A live slot walks its live partners in
-    // index order, with a running pair index; every lane of a block's walk
-    // takes the same number of steps.
-    const int w1 = n1, w2 = same ? 0 : n2;
-    const int p1 = a1 - n1, p2 = same ? 0 : a2 - n2;
-    for (int it = lane; it < w1 + w2 + p1 + p2; it += 32) {
-      T g[5] = {T(0), T(0), T(0), T(0), T(0)};
-      int slot;
-      if (it < w1 + w2 && same) {
-        // pairs (k, j), k < j: index j - 1 at k = 0, then + n1 - 2 - k;
-        // pairs (j, k), k > j: consecutive from the row's start
-        const int j = it;
-        slot = off1 + j;
-        int t_lo = j - 1, t_hi = tri_start(j, n1);
-        for (int k = 0; k < n1; ++k) {
-          if (k == j) continue;
-          add_partner<T>(g, pb, Q, k < j ? t_lo : t_hi, s, A, off1 + k);
-          if (k < j)
-            t_lo += n1 - 2 - k;
-          else
-            ++t_hi;
-        }
-      } else if (it < w1 + w2) {
-        // arm 1 slot i: pairs i n2 + k; arm 2 slot i: pairs j n2 + i
-        const bool arm1 = it < w1;
-        const int i = arm1 ? it : it - w1;
-        slot = (arm1 ? off1 : off2) + i;
-        const int po = arm1 ? off2 : off1, cnt = arm1 ? n2 : n1;
-        const int stride = arm1 ? 1 : n2;
-        int t = arm1 ? i * n2 : i;
-        for (int k = 0; k < cnt; ++k, t += stride)
-          add_partner<T>(g, pb, Q, t, s, A, po + k);
-      } else {
-        const int r = it - w1 - w2;
-        const bool arm1 = r < p1;
-        slot = arm1 ? off1 + n1 + r : off2 + n2 + (r - p1);
-        g[4] = arm1 ? c_fc2 : c_fc1;
-      }
+    block_pairs_bwd(p, s, A, p.off1[b], p.a1[b], p.off2[b], p.a2[b],
+                    p.same[b] != 0, gsm, pb, Q, lane,
+                    [&](int slot, const T(&g)[5]) {
 #pragma unroll
-      for (int f = 0; f < 5; ++f) o[f * A + slot] += g[f];
-    }
-    __syncwarp();
+                      for (int f = 0; f < 5; ++f) o[f * A + slot] += g[f];
+                    });
   }
   T* orow = out + (size_t)row * 5 * A;
   for (int i = lane; i < 5 * A; i += 32) orow[i] = o[i];
@@ -1420,13 +1439,18 @@ __global__ void __launch_bounds__(kThreads) asn_packed_bwd_kernel(
 // block whole. Bound: operations (the packed kernels' pair terms, on the
 // pairs of one block) against reading the block's slot fields and writing
 // 32 columns (forward) or reading the columns' cotangent and adding to the
-// block's slots (backward): bytes. Design as the packed kernels: one warp
-// per row stages the block's slots in shared memory; forward, each lane
-// takes every 32nd pair and a reduce-scatter leaves column l on lane l;
-// backward, pass 1 leaves every pair's three scalars in shared memory and
-// pass 2 gives every slot to one lane, which walks its partners in index
-// order (arm 1, then arm 2). Fixed order, no atomics, so two calls agree
-// bit for bit; successive launches on one stream add into acc in turn.
+// block's slots (backward): bytes. Design: one warp per row stages the
+// block's slots in shared memory. Forward, each lane takes every 32nd pair
+// and a reduce-scatter leaves column l on lane l. Backward, the packed
+// backward's own per-block passes (block_pairs_bwd): each arm's live prefix
+// by ballot, pass 1 over the live pairs only (the f32 split power and fast
+// divisions) with C_b on one more lane, pass 2 a live slot a lane walking
+// its live partners in index order with a running pair index and a parked
+// slot taking C_b times the live fc sum of the arm it pairs with. The full
+// form goes through the triangle at scale 2: its pairs (j, k) and (k, j)
+// have the same terms, bit for bit, so each unordered pair is evaluated
+// once. Fixed order, no atomics, so two calls agree bit for bit;
+// successive launches on one stream add into acc in turn.
 // ---------------------------------------------------------------------------
 template <typename T>
 struct BlockParams : AngConsts<T> {
@@ -1434,14 +1458,17 @@ struct BlockParams : AngConsts<T> {
   int off1, a1, off2, a2;  // the arms' first slots and widths
   int same;                // one species: off2 = off1, a2 = a1
   int q;                   // pairs per row of the form launched
+  int zeta_floor;          // floor(zeta), for the f32 split power
+  T zeta_frac;             // zeta - floor(zeta)
+  T big;                   // a parked slot's d, 2 Rca + 10
 };
 
 // The block's slots of one row into shared memory, [5][a1] then (cross)
-// [5][a2]; returns the slots staged.
+// [5][a2] (the forwards).
 template <typename T, int MODE>
-__device__ __forceinline__ int stage_block(const T* __restrict__ in, T* s,
-                                           const BlockParams<T>& p,
-                                           int lane) {
+__device__ __forceinline__ void stage_block(const T* __restrict__ in, T* s,
+                                            const BlockParams<T>& p,
+                                            int lane) {
   for (int i = lane; i < 5 * p.a1; i += 32) {
     const int f = i / p.a1;
     s[i] = in[f * p.atot + p.off1 + i - f * p.a1];
@@ -1454,7 +1481,6 @@ __device__ __forceinline__ int stage_block(const T* __restrict__ in, T* s,
     }
   }
   __syncwarp();
-  return MODE == kCross ? p.a1 + p.a2 : p.a1;
 }
 
 template <typename T>
@@ -1494,64 +1520,36 @@ __device__ __forceinline__ void block_fwd_row(const T* __restrict__ cat,
   out[(size_t)row * kNAZ + lane] = (MODE == kFullBlock ? T(1) : T(2)) * acc[0];
 }
 
-template <typename T, int MODE>
+// One row of a per-block backward: the block's slots staged as one row of
+// A = a1 (one species) or a1 + a2 slots, field after field (arm 1 from 0,
+// arm 2 from a1), then their pair scalars [3][q] and the 32 column
+// cotangents at scale 2 (each unordered pair once: cross and tri at their
+// own scale, the full form's two orders at scale 1 each); the slots' sums
+// added into acc.
+template <typename T>
 __device__ __forceinline__ void block_bwd_row(const T* __restrict__ cat,
                                               const T* __restrict__ ga,
                                               T* __restrict__ acc, T* s,
                                               const BlockParams<T>& p,
-                                              int row, int lane) {
-  const int slots =
-      stage_block<T, MODE>(cat + (size_t)row * 5 * p.atot, s, p, lane);
-  const int a1 = p.a1, a2 = MODE == kCross ? p.a2 : p.a1, Q = p.q;
-  const T* s2 = MODE == kCross ? s + 5 * a1 : s;
-  T* pb = s + 5 * slots;  // the pairs' scalars, [3][Q]
-  T gb[kNAZ];
-#pragma unroll
-  for (int i = 0; i < kNAZ; ++i)
-    gb[i] = (MODE == kFullBlock ? T(1) : T(2)) * ga[(size_t)row * kNAZ + i];
-  for (int t = lane; t < Q; t += 32) {
-    int j, k;
-    block_pair<MODE>(t, a1, a2, j, k);
-    PairTerms<T> pt;
-    block_terms<T>(p, s, a1, j, s2, a2, k, pt);
-    T dcos, drmean, dfc12;
-    pair_cotangents<T>(p, pt, gb, dcos, drmean, dfc12);
-    pb[t] = dcos;
-    pb[Q + t] = T(0.5) * drmean;
-    pb[2 * Q + t] = dfc12;
+                                              bool same, int row, int lane) {
+  const int A = same ? p.a1 : p.a1 + p.a2, Q = p.q;
+  T* pb = s + 5 * A;
+  T* gsm = pb + 3 * Q;
+  const T* in = cat + (size_t)row * 5 * p.atot;
+  for (int i = lane; i < 5 * A; i += 32) {
+    const int f = i / A, j = i - f * A;
+    s[i] = in[f * p.atot + (j < p.a1 ? p.off1 + j : p.off2 + j - p.a1)];
   }
+  gsm[lane] = T(2) * ga[(size_t)row * kNAZ + lane];
   __syncwarp();
   T* orow = acc + (size_t)row * 5 * p.atot;
-  for (int sl = lane; sl < slots; sl += 32) {
-    T g1[5] = {T(0), T(0), T(0), T(0), T(0)};
-    T g2[5] = {T(0), T(0), T(0), T(0), T(0)};
-    int slot;
-    if (MODE == kCross) {
-      if (sl < a1) {  // arm 1: partners k of the second arm
-        for (int k = 0; k < a2; ++k)
-          add_partner<T>(g1, pb, Q, sl * a2 + k, s2, a2, k);
-        slot = p.off1 + sl;
-      } else {  // arm 2: partners j of the first arm
-        const int k = sl - a1;
-        for (int j = 0; j < a1; ++j)
-          add_partner<T>(g2, pb, Q, j * a2 + k, s, a1, j);
-        slot = p.off2 + k;
-      }
-    } else {
-      // arm 1: pairs (sl, k); arm 2: pairs (j, sl)
-      for (int k = MODE == kTri ? sl + 1 : 0; k < a1; ++k)
-        if (k != sl)
-          add_partner<T>(g1, pb, Q, block_pair_index<MODE>(sl, k, a1, a1),
-                         s, a1, k);
-      for (int j = 0; j < (MODE == kTri ? sl : a1); ++j)
-        if (j != sl)
-          add_partner<T>(g2, pb, Q, block_pair_index<MODE>(j, sl, a1, a1),
-                         s, a1, j);
-      slot = p.off1 + sl;
-    }
+  block_pairs_bwd(p, s, A, 0, p.a1, same ? 0 : p.a1, same ? p.a1 : p.a2,
+                  same, gsm, pb, Q, lane, [&](int slot, const T(&g)[5]) {
+                    const int at =
+                        slot < p.a1 ? p.off1 + slot : p.off2 + slot - p.a1;
 #pragma unroll
-    for (int f = 0; f < 5; ++f) orow[f * p.atot + slot] += g1[f] + g2[f];
-  }
+                    for (int f = 0; f < 5; ++f) orow[f * p.atot + at] += g[f];
+                  });
 }
 
 template <typename T>
@@ -1587,13 +1585,10 @@ __global__ void __launch_bounds__(kThreads) asn_block_bwd_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   T* s = reinterpret_cast<T*>(smem_raw) +
-         (size_t)warp * (5 * (p.same ? p.a1 : p.a1 + p.a2) + 3 * p.q);
+         (size_t)warp * (5 * (p.same ? p.a1 : p.a1 + p.a2) + 3 * p.q + kNAZ);
   const int row = blockIdx.x * warps + warp;
   if (row >= p.rows) return;
-  if (p.same)
-    block_bwd_row<T, kFullBlock>(cat, ga, acc, s, p, row, lane);
-  else
-    block_bwd_row<T, kCross>(cat, ga, acc, s, p, row, lane);
+  block_bwd_row<T>(cat, ga, acc, s, p, p.same != 0, row, lane);
 }
 
 template <typename T>
@@ -1603,10 +1598,12 @@ __global__ void __launch_bounds__(kThreads) asn_block_bwd_tri_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   T* s = reinterpret_cast<T*>(smem_raw) +
-         (size_t)warp * (5 * p.a1 + 3 * p.q);
+         (size_t)warp * (5 * p.a1 + 3 * p.q + kNAZ);
   const int row = blockIdx.x * warps + warp;
   if (row >= p.rows) return;
-  block_bwd_row<T, kTri>(cat, ga, acc, s, p, row, lane);
+  // p.same is 1 here; read at run time, it gives both kernels one body
+  // (a constant let ptxas spill)
+  block_bwd_row<T>(cat, ga, acc, s, p, p.same != 0, row, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -2221,6 +2218,11 @@ bool block_params_from(const int* ip, const double* fp, bool tri,
   if (tri && p.a1 < 2) return false;
   p.q = tri ? p.a1 * (p.a1 - 1) / 2
             : (p.same ? p.a1 * (p.a1 - 1) : p.a1 * p.a2);
+  const double zf = floor(fp[2]);
+  p.zeta_floor = (int)zf;
+  if (p.zeta_floor < 0) return false;
+  p.zeta_frac = (T)(fp[2] - zf);
+  p.big = (T)(2.0 * fp[0] + 10.0);
   p.rca = (T)fp[0];
   p.eta = (T)fp[1];
   p.zeta = (T)fp[2];
@@ -2257,9 +2259,12 @@ int asn_block_bwd(const int* ip, const double* fp, bool tri,
   BlockParams<T> p;
   if (!block_params_from(ip, fp, tri, p)) return cudaErrorInvalidValue;
   if (p.rows == 0) return cudaSuccess;
+  // the same-species forms walk the triangle (block_bwd_row)
+  if (p.same) p.q = p.a1 * (p.a1 - 1) / 2;
   // as many warps (rows) per block as the shared memory holds
   const size_t per_warp =
-      sizeof(T) * (5 * (size_t)(p.same ? p.a1 : p.a1 + p.a2) + 3 * p.q);
+      sizeof(T) * (5 * (size_t)(p.same ? p.a1 : p.a1 + p.a2) + 3 * p.q +
+                   kNAZ);
   int warps = kWarpsPerBlock;
   while (warps > 1 && warps * per_warp > kMaxSmem) warps /= 2;
   const size_t smem = warps * per_warp;

@@ -338,15 +338,6 @@ __device__ __forceinline__ void block_pair(int t, int a1, int a2, int& j,
   }
 }
 
-// Pair index of (j, k) (for tri, j < k).
-template <int MODE>
-__device__ __forceinline__ int block_pair_index(int j, int k, int a1,
-                                                int a2) {
-  if (MODE == kCross) return j * a2 + k;
-  if (MODE == kFullBlock) return j * (a1 - 1) + (k < j ? k : k - 1);
-  return tri_start(j, a1) + k - j - 1;
-}
-
 // The partner `o` of pair t adds its terms to one slot's five sums: dcos
 // times the partner's unit vector, drmean / 2, dfc12 times its fc.
 template <typename T>

@@ -10,8 +10,9 @@
 //     candidate groups sized for 16 MB of VMEM. Here a block serves one
 //     bin and computes each candidate's bin, periodic wrap S and shifted
 //     position p + S h itself from the [NC, cap] grid: nothing is
-//     materialized, and the window is read through L1/L2 (radial_fwd) or
-//     staged once in shared memory (the other three).
+//     materialized, and the window is staged in shared memory once per
+//     bin (radial_fwd: in passes of a fixed lane count; radial_bwd: plane
+//     by plane).
 //   * The TPU grid runs in order, so its kernels carry sums across grid
 //     steps (fcen over candidate groups, dh over the whole grid, the
 //     deficit as a running max). Blocks here run in any order: fcen and
@@ -41,74 +42,250 @@ constexpr int kMaxNR = 16;  // radial shifts per species (ANI: 16)
 // Radial forward — replaces aev_pallas.py:260 _radial_fwd_kernel.
 //
 // out[cell, a, s*NR + k] = sum over window lanes of species s within Rcr
-//   0.25 fc(d) exp(-eta (d - mu0 - k delta)^2).
-// Bound: its least work is writing the [NC, cap, S*16] output (bytes);
-// the in-cutoff arithmetic (16 exps per pair) is smaller. As written it
-// is bound by operations instead: every center tests every lane of its
-// (2s+1)^3 cap window (125 cap at shell 2), of which about 1% lie
-// within Rcr. Design: a block per bin; its cap x G threads split the
-// window lanes G ways per center, keep the 16 shifts in registers, and
-// sum the G partials in shared memory in a fixed order. The window is
-// scanned once per present species (2 for water) so the accumulators
-// stay 16 registers, not 16 x species.
+//   0.25 fc(d) exp(-eta (d - mu0 - k delta)^2)
+// (self excluded); columns of absent species and rows of empty slots are 0.
+// Bound (chip_smoke.py OPS): fp32 instructions per real candidate of a
+// real center's window (the squared distance test) and fp32 instructions
+// and special-function results per in-cutoff pair (the square root, 16
+// Gaussians and the cutoff's cosine), against the bytes of the real rows'
+// output; the contract's padded [NC, cap, S NR] output (the layout floor)
+// is three times those bytes at the roll grid's occupancy.
+// Design: one block per bin. The block first writes zeros to every entry of
+// its bin's rows (the wrapper does not zero the output), then stages the
+// window's lanes of present species in shared memory, compacted in lane
+// order (a block scan of ballots; positions by candidate_pos, so every
+// distance has the bits it has from the grid), p.chunk window lanes a pass
+// (the host's choice, radial_fwd below). The bin's real centers go one a
+// warp (empty slots get no warp): the warp tests the staged lanes 32 at a
+// time (a squared distance a lane, the square root only where it may lie
+// within Rcr) and packs the in-cutoff ones by ballot onto full warps (at
+// most 63 waiting), where each lane takes one pair, every species in the
+// same pass: the hardware cosine (the argument lies in [0, pi]) and, in
+// f32, the 16 Gaussians by ex2 (gauss_of). A group's sums go to each
+// present species by a register reduce-scatter of its 16 columns (16
+// shuffles, skipped for a species with no pair in the group), lane k adding
+// column k to the center's row of the output, which no other warp touches
+// (as registers, one a present species, the sums spilled; in shared memory
+// they took 1.7 KB a slot in f64, more than a block has at large caps):
+// every sum in a fixed order, so two calls agree bit for bit.
 // ---------------------------------------------------------------------------
+constexpr int kRfMaxWarps = 8;
+constexpr int kRfPack = 64;  // a warp's in-cutoff lanes waiting (< 2 groups)
+
+__host__ __device__ inline unsigned al16(size_t b) {
+  return (unsigned)((b + 15) & ~(size_t)15);
+}
+
 template <typename T>
-__global__ void radial_fwd_kernel(const T* __restrict__ pos,
-                                  const int* __restrict__ sp,
-                                  const T* __restrict__ hmat,
-                                  T* __restrict__ out, Grid g, int shell,
-                                  int S, int NR, unsigned present, T rc,
-                                  T eta, T mu0, T delta, T pi_rc) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* red = reinterpret_cast<T*>(smem_raw);  // [G][cap][NR]
-  const int cell = blockIdx.x, cap = g.cap;
-  const int G = blockDim.x / cap;
-  const int a = threadIdx.x % cap, grp = threadIdx.x / cap;
-  const int ns = 2 * shell + 1, n_off = ns * ns * ns;
-  const int self_off = (n_off - 1) / 2;
-  T h[9];
-  for (int i = 0; i < 9; ++i) h[i] = hmat[i];
-  const int me = cell * cap + a;
-  const int csp = sp[me];
-  const T cx = pos[me * 3], cy = pos[me * 3 + 1], cz = pos[me * 3 + 2];
-  for (int s = 0; s < S; ++s) {
-    if (!((present >> s) & 1u)) continue;
-    T acc[kMaxNR];
+struct RfParams {
+  int shell, S, NR, chunk;  // chunk: window lanes staged a pass
+  unsigned present;         // bit s: species s is present
+  // rc2_hi: the least float above rc^2 (1 + 2^-20): a lane with d2 above it
+  // has sqrt(max(d2, 1e-12)) > rc, so only the others take the square root
+  T rc, rc2_hi, mu0, delta, pi_rc, geta;
+};
+
+// Dynamic shared memory of radial_fwd, byte offsets: the staged lanes
+// WinLane [chunk] (species | window lane << 4), the real centers int [cap];
+// then each warp's packed lanes, species int [kRfPack] and distances T
+// [kRfPack].
+struct RfLayout {
+  unsigned ctr, warps, pd, warp_bytes;
+};
+
+template <typename T>
+__host__ __device__ RfLayout rf_layout(int cap, int chunk) {
+  RfLayout L;
+  L.ctr = al16(sizeof(WinLane<T>) * (size_t)chunk);
+  L.warps = L.ctr + al16(sizeof(int) * (size_t)cap);
+  L.pd = al16(sizeof(int) * kRfPack);
+  L.warp_bytes = L.pd + al16(sizeof(T) * kRfPack);
+  return L;
+}
+
+// One group of n <= 32 packed pairs (species es, distance dd on lanes < n)
+// added to the sums of center row me of the output, one species after the
+// other: lane k < NR adds column k. (The row goes by its index: a 64-bit
+// pointer held across the passes spilled beside the square root's call.)
+template <typename T>
+__device__ __forceinline__ void rf_group(const RfParams<T>& p, int es, T dd,
+                                         int lane, T* out, int me) {
+  T g[kMaxNR];
+  const T pref = T(0.125) * cos_0pi(dd * p.pi_rc) + T(0.125);  // 0.25 fc
+  const T x = dd - p.mu0;
 #pragma unroll
-    for (int k = 0; k < kMaxNR; ++k) acc[k] = T(0);
-    if (csp >= 0) {
-      for (int o = 0; o < n_off; ++o) {
-        int ox, oy, oz, sx, sy, sz;
-        offset_of(o, shell, ox, oy, oz);
-        const int nb = neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz);
-        for (int b = grp; b < cap; b += G) {
-          const int q = nb * cap + b;
-          if (sp[q] != s || (o == self_off && b == a)) continue;
-          T px, py, pz;
-          candidate_pos(pos, q, h, sx, sy, sz, px, py, pz);
-          const T d = pair_dist(cx - px, cy - py, cz - pz);
-          if (!(d <= rc)) continue;
-          const T pref = T(0.25) * (T(0.5) * m_cos(d * pi_rc) + T(0.5));
-          const T x = d - mu0;
+  for (int k = 0; k < kMaxNR; ++k) {
+    const T xk = x - T(k) * p.delta;
+    g[k] = (es >= 0 && k < p.NR) ? pref * gauss_of(p.geta * xk * xk) : T(0);
+  }
+  for (int s = 0; s < p.S; ++s) {
+    if (!(p.present >> s & 1u) || !__any_sync(kFull, es == s)) continue;
+    T v[kMaxNR];
 #pragma unroll
-          for (int k = 0; k < kMaxNR; ++k) {
-            if (k < NR) {
-              const T xk = x - T(k) * delta;
-              acc[k] += pref * m_exp(-eta * xk * xk);
-            }
-          }
-        }
+    for (int k = 0; k < kMaxNR; ++k) v[k] = es == s ? g[k] : T(0);
+    reduce_step<8>(v, lane);
+    reduce_step<4>(v, lane);
+    reduce_step<2>(v, lane);
+    reduce_step<1>(v, lane);
+    const T sum = v[0] + __shfl_xor_sync(kFull, v[0], 16);
+    if (lane < p.NR) out[((size_t)me * p.S + s) * p.NR + lane] += sum;
+  }
+}
+
+// Center (cx, cy, cz) of window lane self_lane against the n_kept staged
+// lanes, on one warp: its pairs within Rcr in ascending lane order, packed
+// by ballot onto full warps, added to its output row me group after group.
+template <typename T>
+__device__ __forceinline__ void rf_center(const RfParams<T>& p,
+                                          const WinLane<T>* kept, int n_kept,
+                                          int self_lane, T cx, T cy, T cz,
+                                          int* ent, T* pd, int lane,
+                                          T* out, int me) {
+  const unsigned below = (1u << lane) - 1u;
+  int npk = 0;
+  for (int base = 0; base < n_kept; base += 32) {
+    const int i = base + lane;
+    bool m = false;
+    T d = T(0);
+    int e = 0;
+    if (i < n_kept) {
+      const WinLane<T> c = kept[i];
+      const T dx = cx - c.x, dy = cy - c.y, dz = cz - c.z;
+      const T d2 = dx * dx + dy * dy + dz * dz;
+      if ((c.sp >> 4) != self_lane && d2 <= p.rc2_hi) {
+        d = m_sqrt(d2 > T(1e-12) ? d2 : T(1e-12));
+        m = d <= p.rc;
+        e = c.sp & 15;
       }
     }
-    for (int k = 0; k < NR; ++k) red[(grp * cap + a) * NR + k] = acc[k];
-    __syncthreads();
-    for (int i = threadIdx.x; i < cap * NR; i += blockDim.x) {
-      const int aa = i / NR, k = i % NR;
-      T sum = T(0);
-      for (int gg = 0; gg < G; ++gg) sum += red[(gg * cap + aa) * NR + k];
-      out[((size_t)cell * cap + aa) * S * NR + s * NR + k] = sum;
+    const unsigned bal = __ballot_sync(kFull, m);
+    if (m) {
+      const int j = npk + __popc(bal & below);
+      ent[j] = e;
+      pd[j] = d;
     }
-    __syncthreads();
+    npk += __popc(bal);
+    // full groups of 32, and at the last chunk what is left
+    const bool last = base + 32 >= n_kept;
+    while (npk >= 32 || (last && npk > 0)) {
+      const int n = npk < 32 ? npk : 32;
+      __syncwarp();
+      const int es = lane < n ? ent[lane] : -1;
+      const T dd = lane < n ? pd[lane] : p.rc;
+      rf_group(p, es, dd, lane, out, me);
+      npk -= n;
+      // the waiting rest (fewer than 32) moves down to the front
+      int e2 = 0;
+      T d2 = T(0);
+      if (lane < npk) {
+        e2 = ent[32 + lane];
+        d2 = pd[32 + lane];
+      }
+      __syncwarp();
+      if (lane < npk) {
+        ent[lane] = e2;
+        pd[lane] = d2;
+      }
+    }
+  }
+  __syncwarp();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kRfMaxWarps) radial_fwd_kernel(
+    const T* __restrict__ pos, const int* __restrict__ sp,
+    const T* __restrict__ hmat, T* __restrict__ out, Grid g, RfParams<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int2 tab[125];
+  __shared__ int wtot[kRfMaxWarps];
+  __shared__ int n_ctr_s;
+  const int cell = blockIdx.x, cap = g.cap;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int ns = 2 * p.shell + 1, n_off = ns * ns * ns;
+  const int SR = p.S * p.NR, self_off = (n_off - 1) / 2;
+  const RfLayout L = rf_layout<T>(cap, p.chunk);
+  WinLane<T>* kept = reinterpret_cast<WinLane<T>*>(smem_raw);
+  int* ctr = reinterpret_cast<int*>(smem_raw + L.ctr);
+  unsigned char* scratch = smem_raw + L.warps + warp * L.warp_bytes;
+  int* ent = reinterpret_cast<int*>(scratch);
+  T* pd = reinterpret_cast<T*>(scratch + L.pd);
+  const unsigned below = (1u << lane) - 1u;
+  // every entry of the bin's rows starts at 0, in 16-byte stores where they
+  // allow it
+  T* ocell = out + (size_t)cell * cap * SR;
+  constexpr int V = 16 / sizeof(T);
+  if ((reinterpret_cast<size_t>(ocell) & 15) == 0 && SR % V == 0) {
+    int4* o4 = reinterpret_cast<int4*>(ocell);
+    for (int i = threadIdx.x; i < cap * SR / V; i += blockDim.x)
+      o4[i] = make_int4(0, 0, 0, 0);
+  } else {
+    for (int i = threadIdx.x; i < cap * SR; i += blockDim.x) ocell[i] = T(0);
+  }
+  // each offset's first grid slot and packed wrap shift, once
+  for (int o = threadIdx.x; o < n_off; o += blockDim.x) {
+    int ox, oy, oz, sx, sy, sz;
+    offset_of(o, p.shell, ox, oy, oz);
+    const int base = neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz) * cap;
+    tab[o] = make_int2(base, (sx + 1) | (sy + 1) << 2 | (sz + 1) << 4);
+  }
+  // the bin's real centers, in slot order
+  if (warp == 0) {
+    int n = 0;
+    for (int b0 = 0; b0 < cap; b0 += 32) {
+      const bool r = b0 + lane < cap && sp[cell * cap + b0 + lane] >= 0;
+      const unsigned bal = __ballot_sync(kFull, r);
+      if (r) ctr[n + __popc(bal & below)] = b0 + lane;
+      n += __popc(bal);
+    }
+    if (lane == 0) n_ctr_s = n;
+  }
+  T h[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) h[i] = hmat[i];
+  __syncthreads();  // the zeros are the centers' rows
+  const int n_ctr = n_ctr_s;
+  if (n_ctr == 0) return;
+  const int W = n_off * cap;
+  for (int w0 = 0; w0 < W; w0 += p.chunk) {
+    const int WL = min(p.chunk, W - w0);
+    // the lanes of present species, compacted in lane order
+    int n_kept = 0;
+    for (int base = 0; base < WL; base += blockDim.x) {
+      const int lw = w0 + base + threadIdx.x;
+      WinLane<T> c;
+      bool k = false;
+      if (base + threadIdx.x < WL) {
+        const int oo = lw / cap;
+        const int2 t = tab[oo];
+        const int q = t.x + (lw - oo * cap);
+        const int s = sp[q];
+        if (s >= 0 && (p.present >> s & 1u)) {
+          candidate_pos(pos, q, h, (t.y & 3) - 1, (t.y >> 2 & 3) - 1,
+                        (t.y >> 4 & 3) - 1, c.x, c.y, c.z);
+          c.sp = s | lw << 4;
+          k = true;
+        }
+      }
+      const unsigned bal = __ballot_sync(kFull, k);
+      if (lane == 0) wtot[warp] = __popc(bal);
+      __syncthreads();
+      int at = n_kept + __popc(bal & below), total = 0;
+      for (int v = 0; v < nw; ++v) {
+        if (v < warp) at += wtot[v];
+        total += wtot[v];
+      }
+      if (k) kept[at] = c;
+      n_kept += total;
+      __syncthreads();
+    }
+    for (int ci = warp; ci < n_ctr; ci += nw) {
+      const int a = ctr[ci];
+      const int me = cell * cap + a;
+      rf_center(p, kept, n_kept, self_off * cap + a, pos[me * 3],
+                pos[me * 3 + 1], pos[me * 3 + 2], ent, pd, lane, out, me);
+    }
+    __syncthreads();  // the staged lanes are the next pass's
   }
 }
 
@@ -121,11 +298,12 @@ __global__ void radial_fwd_kernel(const T* __restrict__ pos,
 // and g = gamma (center - candidate) / d; fcen[cell, a] = sum_w g (center
 // role), wing[cell, w] = -sum_a g (neighbor role, folded back to the owner
 // bins by torch rolls), dh partial = sum_w S_w^T wing_w.
-// Bound (chip_smoke.py OPS): fp32 instructions and special-function
-// results per real candidate of a real center's window (the distance test)
-// and per in-cutoff pair (16 Gaussians, the cutoff's cosine and sine, the
-// chain), against the bytes of ga in and dpos out; the contract's wing slab
-// [NC, n_off cap, 3] (the layout floor) is ten times those bytes.
+// Bound (chip_smoke.py OPS): fp32 instructions per real candidate of a
+// real center's window (the squared distance test) and fp32 instructions
+// and special-function results per in-cutoff pair (the square root, 16
+// Gaussians, the cutoff's cosine and sine, the chain), against the bytes
+// of ga in and dpos out; the contract's wing slab [NC, n_off cap, 3] (the
+// layout floor) is ten times those bytes.
 // Design: one block per bin, in one pass per x-plane of the window (P =
 // (2 shell + 1)^2 offsets; a whole window's lanes and wing need 112 KB in
 // f32 at cap 32 and do not fit beside the scratch in f64, a plane 22 KB).
@@ -162,10 +340,6 @@ struct RbParams {
   // has sqrt(max(d2, 1e-12)) > rc, so only the others take the square root
   T rc, rc2_hi, mu0, delta, pi_rc, dfc_rk, geta, two_eta;
 };
-
-__host__ __device__ inline unsigned al16(size_t b) {
-  return (unsigned)((b + 15) & ~(size_t)15);
-}
 
 // Dynamic shared memory of radial_bwd, byte offsets: the plane's kept lanes
 // WinLane [P cap] (species | window lane << 4), its wing T [3 P cap], the
@@ -1076,12 +1250,6 @@ __global__ void __launch_bounds__(32 * kBwdMaxWarps) angular_bwd_kernel(
 
 Grid grid_from(const int* ip) { return Grid{ip[0], ip[1], ip[2], ip[3]}; }
 
-int radial_groups(int cap) {
-  int g = 256 / cap;
-  if (g > cap) g = cap;
-  return g < 1 ? 1 : g;
-}
-
 // The warp count in [1, max_warps] whose shared memory (smem_of(warps)
 // bytes a block) lets the most warps reside on an SM (228 KB, 1 KB reserved
 // a block; at most 32 blocks and 64 warps; ties: more warps a block); 0 if
@@ -1104,20 +1272,50 @@ int best_warps(int max_warps, F smem_of) {
   return warps;
 }
 
+// ip: nx ny nz cap shell S NR present; fp: rc eta mu0 delta. A pass stages
+// the most window lanes that leave a full SM of blocks of kRfMaxWarps warps
+// resident (28,160 B a block: 1,496 lanes in f32 at cap 32, 684 in f64),
+// at least 32; every cap up to 256 fits in both dtypes.
 template <typename T>
 int radial_fwd(const int* ip, const double* fp, const void* pos,
                const void* sp, const void* h, void* out, void* stream) {
   const Grid g = grid_from(ip);
-  const int shell = ip[4], S = ip[5], NR = ip[6];
-  const unsigned present = (unsigned)ip[7];
-  if (NR > kMaxNR || g.cap < 1 || g.cap > 256) return cudaErrorInvalidValue;
-  const int G = radial_groups(g.cap);
-  const size_t smem = sizeof(T) * G * g.cap * NR;
-  const T rc = (T)fp[0];
-  radial_fwd_kernel<T><<<g.nx * g.ny * g.nz, G * g.cap, smem,
+  RfParams<T> p;
+  p.shell = ip[4];
+  p.S = ip[5];
+  p.NR = ip[6];
+  p.present = (unsigned)ip[7];
+  if (p.NR < 1 || p.NR > kMaxNR || p.S < 1 || p.S > kMaxS || p.shell < 1 ||
+      p.shell > 2 || g.cap < 1 || g.cap > 256)
+    return cudaErrorInvalidValue;
+  const double rc = fp[0], eta = fp[1];
+  const bool f32 = std::is_same<T, float>::value;
+  p.rc = (T)rc;
+  const double rcw = (double)p.rc;
+  p.rc2_hi = (T)(rcw * rcw * (1.0 + 1.0 / 1048576.0));
+  p.mu0 = (T)fp[2];
+  p.delta = (T)fp[3];
+  p.pi_rc = (T)(kPi / rc);
+  p.geta = (T)(f32 ? -eta * 1.4426950408889634 : -eta);
+  const int ns = 2 * p.shell + 1, W = ns * ns * ns * g.cap;
+  constexpr size_t kFullSm = 228 * 1024 / (64 / kRfMaxWarps) - 1024;
+  const RfLayout L0 = rf_layout<T>(g.cap, 0);
+  const size_t fixed = L0.warps + (size_t)kRfMaxWarps * L0.warp_bytes;
+  const size_t fit =
+      (fixed < kFullSm ? kFullSm - fixed : 0) / sizeof(WinLane<T>);
+  p.chunk = fit < 32 ? 32 : fit < (size_t)W ? (int)fit : W;
+  auto smem_of = [&](int nw) {
+    const RfLayout L = rf_layout<T>(g.cap, p.chunk);
+    return (size_t)L.warps + (size_t)nw * L.warp_bytes;
+  };
+  const int warps = best_warps(kRfMaxWarps, smem_of);
+  if (warps == 0) return cudaErrorInvalidValue;
+  const size_t smem = smem_of(warps);
+  cudaError_t err = set_smem(radial_fwd_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  radial_fwd_kernel<T><<<g.nx * g.ny * g.nz, 32 * warps, smem,
                          (cudaStream_t)stream>>>(
-      (const T*)pos, (const int*)sp, (const T*)h, (T*)out, g, shell, S, NR,
-      present, rc, (T)fp[1], (T)fp[2], (T)fp[3], (T)(kPi / fp[0]));
+      (const T*)pos, (const int*)sp, (const T*)h, (T*)out, g, p);
   return (int)cudaGetLastError();
 }
 

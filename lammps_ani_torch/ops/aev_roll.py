@@ -550,9 +550,19 @@ def radial_fwd(pos_g, sp_g, h, ncells, shell, spec, present):
     if not _route("radial_fwd", pos_g, sp_g, h):
         return radial_fwd_plain(pos_g, sp_g, h, ncells, shell, spec, present)
     _check_grid("radial_fwd", ncells, pos_g, sp_g, h)
+    nc, cap = sp_g.shape
+    out = pos_g.new_empty((nc, cap, spec.radial_length))  # all written
+    return _radial_fwd_into(out, pos_g, sp_g, h, ncells, shell, spec, present)
+
+
+def _radial_fwd_into(out, pos_g, sp_g, h, ncells, shell, spec, present):
+    """Launches the radial forward kernel into `out` [NC, cap, S*R], every
+    entry of which it writes, and returns `out`."""
     rc, eta, mu0, delta, nr = radial_consts(spec)
     nc, cap = sp_g.shape
-    out = pos_g.new_zeros((nc, cap, spec.num_species * nr))
+    if (out.shape != (nc, cap, spec.num_species * nr)
+            or out.dtype != pos_g.dtype or not out.is_contiguous()):
+        raise ValueError(f"radial_fwd: out {tuple(out.shape)} {out.dtype}")
     mask = sum(1 << s for s in present)
     _launch("radial_fwd", pos_g.dtype,
             _grid_iparams(ncells, cap) + [shell, spec.num_species, nr, mask],
