@@ -22,7 +22,9 @@ seeded cotangents; a per-block backward (block_bwd, block_bwd_tri) is
 one force evaluation's launches of it (chip_smoke's `stage_launches` under
 pair_stage "blocks", seeded cotangents) on the same tile under the asn
 engine with pair_stage "blocks" at its first rebuild, adding into buffers
-that the timed calls keep (the digest's call adds into zeros). Each timed
+that the timed calls keep (the digest's call adds into zeros); a per-block
+forward (block_fwd, block_fwd_tri) is one force evaluation's launches of
+it on the same rows. Each timed
 name gets three rounds of 20 calls by CUDA events (ms per call; a packed
 kernel's call launches it once per occupancy tier, a per-block one once
 per block and tier, and the line gives the launches per call). Each f32
@@ -30,7 +32,7 @@ kernel function whose name carries one of the names (`asn_<name>_kernel`
 in csrc/aev_asn.cu, `<name>_kernel` in csrc/aev_roll.cu) gets the count of
 its SASS lines and of a few kinds of operation among them (`cuobjdump
 -sass`; LDL and STL are local-memory loads and stores). A name without a
-call (block_fwd, block_fwd_tri) gets the counts only. Each call is the
+call gets the counts only. Each call is the
 checkout's own wrapper on the same tensors: `wing` is `wing(gt, inv, idx)`
 where the wrapper takes idx (the kernel scatters over idx) and
 `wing(gt, inv)` in a checkout whose kernel gathers through inv. Each
@@ -51,7 +53,7 @@ import sys
 import torch
 
 KINDS = ("LDL", "STL", "LDG", "STG", "MUFU", "SHFL", "BRA")
-BLOCK_BWD = ("block_bwd", "block_bwd_tri")
+BLOCK = ("block_fwd", "block_fwd_tri", "block_bwd", "block_bwd_tri")
 
 
 def sass_counts(names):
@@ -73,6 +75,12 @@ def sass_counts(names):
                 hit = [n for n in names if f"{prefix}{n}_kernelIf" in fn]
                 cur = hit[0] if hit else None
                 if cur:
+                    # a kernel with more template arguments than its type
+                    # (radial_bwd's plane form Lb1 and row form Lb0) under
+                    # a key each
+                    more = fn.split(f"{prefix}{cur}_kernelIf")[1]
+                    more = more[:more.find("EE")] if more[:1] == "L" else ""
+                    cur = f"{cur}[{more}]" if more else cur
                     out[cur] = dict.fromkeys(("n",) + KINDS, 0)
             elif cur and "/*" in line and ";" in line:
                 out[cur]["n"] += 1
@@ -91,11 +99,12 @@ def digest(out) -> str:
     return h.hexdigest()[:16]
 
 
-def block_bwd_calls(c, data):
-    """{name: (timed call, the digest's call)} of the per-block backwards: one
-    force evaluation's launches under pair_stage "blocks" at the first
-    rebuild of the asn engine sized for that stage. The timed call adds
-    into buffers it keeps; the digest's into zeros."""
+def block_calls(c, data):
+    """{name: (timed call, the digest's call)} of the per-block kernels:
+    one force evaluation's launches under pair_stage "blocks" at the first
+    rebuild of the asn engine sized for that stage. A backward's timed call
+    adds into buffers it keeps, the digest's into zeros; a forward's two
+    calls are one."""
     sim = c.make_sim(data, torch.float32, "cuda", pair_stage="blocks")
     box = c.make_box(data, torch.float32, "cuda")
     state = sim.init_state(data.positions, box)
@@ -107,8 +116,12 @@ def block_bwd_calls(c, data):
     aev = sim.potential.spec.aev
     launches = c.stage_launches(aev, rows, "blocks")
     out = {}
-    for name in BLOCK_BWD:
+    for name in BLOCK:
         lau = launches[name]
+        if name.startswith("block_fwd"):
+            call = (lambda lau=lau, name=name: c.block_call(name, aev, lau))
+            out[name] = (call, call)
+            continue
         accs = [torch.zeros_like(cat) for cat, _, _ in lau]
         out[name] = (lambda lau=lau, accs=accs, name=name:
                      c.block_call(name, aev, lau, accs=accs),
@@ -130,7 +143,7 @@ def main(argv):
     c._build.build_all()
     data = c.water_box(15)
     calls, counts = {}, {}
-    if any(name not in c.KERNELS + BLOCK_BWD for name in names):
+    if any(name not in c.KERNELS + BLOCK for name in names):
         sim = c.make_sim(data, torch.float32, "cuda")
         box = c.make_box(data, torch.float32, "cuda")
         state = sim.init_state(data.positions, box)
@@ -144,8 +157,8 @@ def main(argv):
         calls.update(roll)
         counts.update(dict.fromkeys(roll, c.ar.LAUNCHES))
     first = {}  # a call for the digest where it is not the timed one
-    if any(name in BLOCK_BWD for name in names):
-        blocks = block_bwd_calls(c, data)
+    if any(name in BLOCK for name in names):
+        blocks = block_calls(c, data)
         calls.update(blocks)
         first.update({name: fns[1] for name, fns in blocks.items()})
         counts.update(dict.fromkeys(blocks, c.asn.LAUNCHES))

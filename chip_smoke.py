@@ -18,7 +18,12 @@ object per line; any failure raises and the script exits non-zero:
            and on the grid padded to cap 256 at shell 2 (an entry it does
            not write fails the comparison);
            angular_fwd at caps below the measured degree (output and
-           deficit against the plain version's); radial_bwd's dh exactly
+           deficit against the plain version's); radial_bwd, angular_fwd
+           and angular_bwd on the grid padded to the largest cap each host
+           takes (radial_bwd 256; the angular kernels their shared-memory
+           limit, the card's equal to its transcription's), the padding
+           exactly 0, and one cap above the angular limits raising the
+           named ValueError before any launch; radial_bwd's dh exactly
            0 from cotangents on the rows of the bins whose shell-2 window
            is unshifted; radial_fwd and radial_bwd at shell 1 (the pallas
            hybrid's window); the kernels' backwards against autograd
@@ -55,10 +60,11 @@ object per line; any failure raises and the script exits non-zero:
            `Simulation(pair_stage="blocks")`, f64 and f32: its four
            kernels (block_fwd, block_fwd_tri, block_bwd, block_bwd_tri)
            against their plain versions at the full caps, at tier caps
-           and on rows with every third row parked whole (the backwards'
-           arm rows with every slot parked and partly parked counted, both
-           required), in both same-species forms, two calls of each
-           backward bit for bit; the backwards of `aev_asn_fused` and
+           and on rows with every third row parked whole (arm rows with
+           every slot parked and partly parked counted, both required),
+           in both same-species forms, two calls of each kernel bit for
+           bit, the forwards' rows parked whole exact zeros (counted,
+           required); the backwards of `aev_asn_fused` and
            `angular_aev_asn` with
            both stages against autograd through the plain forwards, both
            stages against the packed one, forward and gradients, and E, F,
@@ -114,7 +120,9 @@ object per line; any failure raises and the script exits non-zero:
            kernels of the path all launched, packed_fwd and packed_bwd and
            every plain version not); ms/step, ns/day, sizing, regrows;
            one chunk under torch.profiler; then each per-block kernel at
-           the final state: error, ms, plain ms, bound, launches per step;
+           the final state: error (the forwards also twice bit for bit,
+           their tier pad rows exact zeros), ms, plain ms, bound, filled
+           and laid-out slot pairs, launches per step;
            and one force evaluation there through each of the three pair
            stages on the same tiers (ms, forces against packed's).
   pair_stage  the pair stage alone on synthetic rows (the counterpart of
@@ -619,6 +627,83 @@ def radial_fwd_every_entry(k, cap=None):
     return err["worst_ratio"]
 
 
+def pad_grid(k, cap, seed=11):
+    """`k` with every bin padded with empty slots to `cap` (positions 1e6,
+    species -1, seeded cotangents on the added rows, which no kernel may
+    read: they are no center)."""
+    nc, c0 = k["sp_g"].shape
+    pos_g = k["pos_g"].new_full((nc, cap, 3), 1e6)
+    pos_g[:, :c0] = k["pos_g"]
+    sp_g = k["sp_g"].new_full((nc, cap), -1)
+    sp_g[:, :c0] = k["sp_g"]
+    g = torch.Generator(device=pos_g.device).manual_seed(seed)
+    out = dict(k, pos_g=pos_g, sp_g=sp_g)
+    for key in ("ga_r", "ga_a"):
+        ga = torch.randn((nc, cap, k[key].shape[-1]), generator=g,
+                         dtype=pos_g.dtype, device=pos_g.device)
+        ga[:, :c0] = k[key]
+        out[key] = ga
+    return out
+
+
+def _strip_pad(name, got, c0, n_off):
+    """A padded call's outputs cut to the grid's own rows and lanes, and
+    whether the padding's rows and lanes hold anything but zeros."""
+    if name == "angular_fwd":
+        out, deficit = got
+        return (out[:, :c0], deficit), bool((out[:, c0:] != 0).any())
+    fcen, wing, dh = got
+    nc, cap = fcen.shape[:2]
+    w = wing.view(nc, n_off, cap, 3)
+    stray = bool((fcen[:, c0:] != 0).any()) or bool((w[:, :, c0:] != 0).any())
+    return (fcen[:, :c0], w[:, :, :c0].reshape(nc, n_off * c0, 3), dh), stray
+
+
+def roll_at_largest_cap(k, name):
+    """`name` on the grid padded with empty slots to the largest cap its
+    host takes (radial_bwd 256, in passes of whole offsets; the angular
+    kernels their limit at these caps, which the card's export and
+    `aev_roll.angular_smem` must give alike) against the plain version on
+    the grid's own rows: within the limit there, exact zeros on the
+    padding; for the angular kernels, one cap above raises the named
+    ValueError before any launch. Returns {"cap", "worst_ratio"}."""
+    dev, dtype = k["pos_g"].device, k["pos_g"].dtype
+    c0 = k["sp_g"].shape[1]
+    if name == "radial_bwd":
+        cap, n_off = 256, (2 * k["shell"] + 1) ** 3
+    else:
+        cap, n_off = ar.angular_cap_limit(name, dtype, k["caps"], dev), 27
+        host = ar.angular_cap_limit(name, dtype, k["caps"])
+        if cap != host or cap <= c0:
+            raise AssertionError(f"{name}: the card's cap limit {cap}, its "
+                                 f"transcription's {host} (grid cap {c0})")
+    got = kernel_calls(pad_grid(k, cap))[name][0]()
+    ref = kernel_calls(k)[name][1]()
+    _sync(dev)
+    got, stray = _strip_pad(name, got, c0, n_off)
+    if stray:
+        raise AssertionError(f"{name} at cap {cap}: a padded row or lane "
+                             "is not 0")
+    err = compare(name, k, got, ref)
+    if err["worst_ratio"] > 1.0:
+        raise AssertionError(f"{name} at cap {cap}: {err}")
+    out = {"cap": cap, "worst_ratio": err["worst_ratio"]}
+    if name != "radial_bwd":
+        before = ar.LAUNCHES[name]
+        try:
+            kernel_calls(pad_grid(k, cap + 1))[name][0]()
+        except ValueError as e:
+            if name not in str(e) or f"cap {cap + 1}" not in str(e):
+                raise
+            out["above_raises"] = str(e).split(" (")[0]
+        else:
+            raise AssertionError(f"{name} took cap {cap + 1}, above its "
+                                 f"limit {cap}")
+        if ar.LAUNCHES[name] != before:
+            raise AssertionError(f"{name}: launched above its limit")
+    return out
+
+
 def radial_bwd_interior_dh(k):
     """radial_bwd with the cotangent on the rows of the bins whose
     shell-s window is unshifted: dh exactly 0 (kernel and plain
@@ -666,6 +751,9 @@ def phase_kernels_small(device, rep=6):
             for kk in (k, dict(k, shell=1))}
         errs["radial_fwd_nan_filled_ratio"]["shell2_cap256"] = (
             radial_fwd_every_entry(k, cap=256))
+        errs["largest_caps"] = {
+            name: roll_at_largest_cap(k, name)
+            for name in ("radial_bwd", "angular_fwd", "angular_bwd")}
         errs["twice_bit_mismatches"] = {name: kernel_twice(k, name)
                                         for name in TWICE}
         errs["angular_fwd_truncating"] = angular_fwd_truncating(k)
@@ -2228,9 +2316,10 @@ def block_work(launches, rca, live_rows=None):
     """(bytes, pairs) the launches must move and evaluate: for each block,
     the real rows' slot fields of its arms read once and 32 columns
     written (forward), or the fields, the columns' cotangent and the arm
-    slots' sums read and written (backward); its filled slot pairs (both
-    orders for a full same-species block). `live_rows` [rows] bool per
-    launch's rows: the real rows (all where None)."""
+    slots' sums read and written (backward); its filled slot pairs, each
+    unordered pair once (a full same-species block's two orders have the
+    same terms: the kernels walk its triangle). `live_rows` [rows] bool
+    per launch's rows: the real rows (all where None)."""
     nbytes = pairs = 0.0
     for i, (cat, args, ga) in enumerate(launches):
         f = cat.element_size()
@@ -2240,19 +2329,72 @@ def block_work(launches, rca, live_rows=None):
         n = int(live.sum())
         d = cat[:, 3 * atot:4 * atot]
         if len(args) == 2:  # the triangle
-            off1, a1, off2, a2, same, tri = *args, *args, True, True
+            off1, a1, off2, a2, same = *args, *args, True
         else:
-            (off1, a1, off2, a2, same), tri = args, False
+            off1, a1, off2, a2, same = args
         c1 = (d[:, off1:off1 + a1] < rca + 1.0).sum(1)[live].double()
         c2 = (d[:, off2:off2 + a2] < rca + 1.0).sum(1)[live].double()
         if same:
-            pairs += float((c1 * (c1 - 1) / (2 if tri else 1)).sum())
+            pairs += float((c1 * (c1 - 1) / 2).sum())
         else:
             pairs += float((c1 * c2).sum())
         slots = a1 if same else a1 + a2
         nbytes += n * f * ((5 * slots + 32) if ga is None
                            else (5 * slots + 32 + 10 * slots))
     return nbytes, pairs
+
+
+def block_laid_out(launches, live_rows):
+    """Slot pairs the launches' blocks lay out at the tiers' caps over their
+    real rows (`live_rows`, as block_work): a1 (a1 - 1) / 2 for the
+    triangle, a1 a2 across species, a1 (a1 - 1) for the full form; the
+    walk the kernels took before they found each arm's live prefix."""
+    total = 0
+    for (cat, args, _), live in zip(launches, live_rows):
+        if len(args) == 2:
+            q = args[1] * (args[1] - 1) // 2
+        else:
+            q = args[1] * (args[1] - 1) if args[4] else args[1] * args[3]
+        total += q * int(live.sum())
+    return total
+
+
+def fwd_parked_zeros(launches, outs, big):
+    """The forward's rows whose block arms are parked whole (u = 0, d = big,
+    fc = 0 in every slot) must hold exact zeros, kernel (`outs`) and plain
+    alike; returns how many such rows the launches hold."""
+    n = 0
+    for (cat, args, _), out in zip(launches, outs):
+        c = cat.view(cat.shape[0], 5, -1)
+        parked = ((c[:, 0] == 0) & (c[:, 1] == 0) & (c[:, 2] == 0)
+                  & (c[:, 3] == big) & (c[:, 4] == 0))
+        arms = ((args[0], args[1]),) if len(args) == 2 else (
+            (args[0], args[1]), (args[2], args[3]))
+        whole = torch.ones(cat.shape[0], dtype=torch.bool, device=cat.device)
+        for off, a in arms:
+            whole &= parked[:, off:off + a].all(1)
+        if bool((out[whole] != 0).any()):
+            raise AssertionError("a per-block forward wrote a nonzero entry "
+                                 "on a row whose arms are parked whole")
+        n += int(whole.sum())
+    return n
+
+
+def block_fwd_checks(name, aev, launches):
+    """A per-block forward against its plain version, twice bit for bit,
+    and its rows parked whole exact zeros (counted)."""
+    big = 2.0 * aev.angular_cutoff + 10.0
+    got = block_call(name, aev, launches)
+    again = block_call(name, aev, launches)
+    ref = block_call(name, aev, launches, plain=True)
+    torch.cuda.synchronize()
+    if not all(same_bits((x,), (y,)) for x, y in zip(got, again)):
+        raise AssertionError(f"{name}: two calls differ")
+    res = block_compare(name, got, ref)
+    res["two_calls_bit_for_bit"] = True
+    res["parked_rows_zero"] = fwd_parked_zeros(launches, got, big)
+    fwd_parked_zeros(launches, ref, big)
+    return res
 
 
 def block_bound(name, nbytes, pairs):
@@ -2292,10 +2434,11 @@ def parked_arms(launches, big):
 
 def blocks_kernel_checks(aev, tiers_rows):
     """Each per-block kernel against its plain version on `tiers_rows`, in
-    both same-species forms; each backward twice, bit for bit, adding into
-    nonzero buffers. The backwards' launches must hold arm rows with every
-    slot parked and arm rows partly parked (a live prefix, then parked
-    slots): their counts are reported."""
+    both same-species forms; each kernel twice, bit for bit (the backwards
+    adding into nonzero buffers); the forwards' rows parked whole exact
+    zeros. The launches must hold arm rows with every slot parked and arm
+    rows partly parked (a live prefix, then parked slots): their counts
+    are reported."""
     out = {}
     big = 2.0 * aev.angular_cutoff + 10.0
     for stage in ("blocks", "blocks_full"):
@@ -2329,9 +2472,12 @@ def blocks_kernel_checks(aev, tiers_rows):
                 got = [x - b for x, b in zip(got, base)]
                 ref = [x - b for x, b in zip(ref, base)]
             else:
-                got = block_call(name, aev, launches[name])
-                ref = block_call(name, aev, launches[name], plain=True)
-                same = None
+                res = block_fwd_checks(name, aev, launches[name])
+                if not res["parked_rows_zero"]:
+                    raise AssertionError(f"{name} ({stage}): no row parked "
+                                         "whole: a case is not covered")
+                out[f"{name}_{stage}"] = res
+                continue
             res = block_compare(name, got, ref)
             res["two_calls_bit_for_bit"] = same
             out[f"{name}_{stage}"] = res
@@ -2473,10 +2619,13 @@ def phase_blocks_md(device, sim_asn, state_asn, warm_chunks=1,
         lau = calls[name]
         live_l = [live_of[id(c)] for c, _, _ in lau]
         accs = [torch.zeros_like(c) for c, _, _ in lau]
-        err = block_compare(name, block_call(name, sim.potential.spec.aev,
-                                             lau, accs=None),
-                            block_call(name, sim.potential.spec.aev, lau,
-                                       plain=True))
+        if name.startswith("block_fwd"):
+            # the tiers' pad rows are parked whole
+            err = block_fwd_checks(name, sim.potential.spec.aev, lau)
+        else:
+            err = block_compare(name, block_call(
+                name, sim.potential.spec.aev, lau, accs=None), block_call(
+                    name, sim.potential.spec.aev, lau, plain=True))
         torch.cuda.synchronize()
         nbytes, pairs = block_work(lau, rca, live_l)
         b_ms, b_by = block_bound(name, nbytes, pairs)
@@ -2489,6 +2638,7 @@ def phase_blocks_md(device, sim_asn, state_asn, warm_chunks=1,
         timing[name] = {**err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by,
                         "bytes": nbytes, "filled_pairs": pairs,
+                        "laid_out_pairs": block_laid_out(lau, live_l),
                         "launches_per_step": launches[name] / steps}
         rows_out.append({
             "name": name, "route": "cuda", "source": ASN_SOURCE,

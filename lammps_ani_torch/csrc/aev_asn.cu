@@ -1173,11 +1173,12 @@ struct PackedParams : AngConsts<T> {
   T big;           // a parked slot's d, 2 Rca + 10
 };
 
-// Pair terms of the staged slots i1, i2 of a row (s: [5][A]).
-template <typename T>
-__device__ __forceinline__ void packed_terms(const PackedParams<T>& p,
-                                             const T* s, int A, int i1,
-                                             int i2, PairTerms<T>& pt) {
+// Pair terms of the staged slots i1, i2 of a row (s: [5][A]); P carries
+// zeta_floor and zeta_frac (PackedParams, BlockParams).
+template <typename T, typename P>
+__device__ __forceinline__ void packed_terms(const P& p, const T* s, int A,
+                                             int i1, int i2,
+                                             PairTerms<T>& pt) {
   pair_terms_geom<T>(p, s[i1], s[A + i1], s[2 * A + i1], s[i2], s[A + i2],
                      s[2 * A + i2], s[3 * A + i1], s[3 * A + i2],
                      s[4 * A + i1], s[4 * A + i2], pt);
@@ -1222,6 +1223,45 @@ __device__ __forceinline__ T arm_fc_sum(const T* s, int A, int off, int n,
   return warp_sum(v);
 }
 
+// The forward's pair pass over one block of a row staged in shared memory
+// (s: [5][A], the arms [off1, off1 + a1) and [off2, off2 + a2) of its
+// slots): each arm's live prefix by ballot, then each lane takes every
+// 32nd live pair (one species: the triangle of the n1 live slots row by
+// row; two: the n1 x n2 rectangle) and adds its 32 column terms fc12 e_j
+// f1_m into acc[j*8 + m], the lane's partial sums. FLUSH (packed_fwd): a
+// term is added only where it exceeds p.pmin; the per-block forwards add
+// each term as it comes. P carries big, zeta_floor and zeta_frac
+// (PackedParams, BlockParams). Every lane calls it.
+template <bool FLUSH, typename T, typename P>
+__device__ __forceinline__ void block_pairs_fwd(const P& p, const T* s,
+                                                int A, int off1, int a1,
+                                                int off2, int a2, bool same,
+                                                int lane, T (&acc)[kNAZ]) {
+  const int n1 = live_len(s, A, off1, a1, p.big, lane);
+  const int n2 = same ? n1 : live_len(s, A, off2, a2, p.big, lane);
+  const int q = same ? n1 * (n1 - 1) / 2 : n1 * n2;
+#pragma unroll
+  for (int i = 0; i < kNAZ; ++i) acc[i] = T(0);
+  for (int t = lane; t < q; t += 32) {
+    int j, k;
+    live_pair(t, same, n1, n2, j, k);
+    PairTerms<T> pt;
+    packed_terms<T>(p, s, A, off1 + j, off2 + k, pt);
+#pragma unroll
+    for (int jj = 0; jj < kNA; ++jj) {
+      const T f2 = pt.fc12 * pt.e[jj];
+#pragma unroll
+      for (int m = 0; m < kNZ; ++m) {
+        const T c = f2 * pt.f1[m];
+        if constexpr (FLUSH)
+          acc[jj * kNZ + m] += c > p.pmin ? c : T(0);
+        else
+          acc[jj * kNZ + m] += c;
+      }
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) asn_packed_fwd_kernel(
     const T* __restrict__ cat, T* __restrict__ out, PackedParams<T> p) {
@@ -1236,29 +1276,9 @@ __global__ void __launch_bounds__(kThreads) asn_packed_fwd_kernel(
   __syncwarp();
   T* orow = out + (size_t)row * p.n_blocks * kNAZ;
   for (int b = 0; b < p.n_blocks; ++b) {
-    const bool same = p.same[b] != 0;
-    const int off1 = p.off1[b], off2 = p.off2[b];
-    const int n1 = live_len(s, A, off1, p.a1[b], p.big, lane);
-    const int n2 = same ? n1 : live_len(s, A, off2, p.a2[b], p.big, lane);
-    const int q = same ? n1 * (n1 - 1) / 2 : n1 * n2;
     T acc[kNAZ];
-#pragma unroll
-    for (int i = 0; i < kNAZ; ++i) acc[i] = T(0);
-    for (int t = lane; t < q; t += 32) {
-      int j, k;
-      live_pair(t, same, n1, n2, j, k);
-      PairTerms<T> pt;
-      packed_terms<T>(p, s, A, off1 + j, off2 + k, pt);
-#pragma unroll
-      for (int jj = 0; jj < kNA; ++jj) {
-        const T f2 = pt.fc12 * pt.e[jj];
-#pragma unroll
-        for (int m = 0; m < kNZ; ++m) {
-          const T c = f2 * pt.f1[m];
-          acc[jj * kNZ + m] += c > p.pmin ? c : T(0);
-        }
-      }
-    }
+    block_pairs_fwd<true>(p, s, A, p.off1[b], p.a1[b], p.off2[b], p.a2[b],
+                          p.same[b] != 0, lane, acc);
     reduce_scatter32<T>(acc, lane);
     orow[b * kNAZ + lane] = T(2) * acc[0];
   }
@@ -1440,16 +1460,20 @@ __global__ void __launch_bounds__(kThreads) asn_packed_bwd_kernel(
 // pairs of one block) against reading the block's slot fields and writing
 // 32 columns (forward) or reading the columns' cotangent and adding to the
 // block's slots (backward): bytes. Design: one warp per row stages the
-// block's slots in shared memory. Forward, each lane takes every 32nd pair
-// and a reduce-scatter leaves column l on lane l. Backward, the packed
+// block's slots in shared memory. Forward, the packed forward's own pair
+// pass (block_pairs_fwd) without its flush of tiny terms: each arm's live
+// prefix by ballot, each lane every 32nd live pair (parked slots add
+// exactly 0 and are never walked; a row with every slot parked writes
+// zeros) with the f32 split power, the 32 sums in registers, and a
+// reduce-scatter leaves column l on lane l. Backward, the packed
 // backward's own per-block passes (block_pairs_bwd): each arm's live prefix
 // by ballot, pass 1 over the live pairs only (the f32 split power and fast
 // divisions) with C_b on one more lane, pass 2 a live slot a lane walking
 // its live partners in index order with a running pair index and a parked
-// slot taking C_b times the live fc sum of the arm it pairs with. The full
-// form goes through the triangle at scale 2: its pairs (j, k) and (k, j)
-// have the same terms, bit for bit, so each unordered pair is evaluated
-// once. Fixed order, no atomics, so two calls agree bit for bit;
+// slot taking C_b times the live fc sum of the arm it pairs with. Both
+// go through the triangle at scale 2 for the full form: its pairs (j, k)
+// and (k, j) have the same terms, bit for bit, so each unordered pair is
+// evaluated once. Fixed order, no atomics, so two calls agree bit for bit;
 // successive launches on one stream add into acc in turn.
 // ---------------------------------------------------------------------------
 template <typename T>
@@ -1463,83 +1487,55 @@ struct BlockParams : AngConsts<T> {
   T big;                   // a parked slot's d, 2 Rca + 10
 };
 
-// The block's slots of one row into shared memory, [5][a1] then (cross)
-// [5][a2] (the forwards).
-template <typename T, int MODE>
-__device__ __forceinline__ void stage_block(const T* __restrict__ in, T* s,
-                                            const BlockParams<T>& p,
-                                            int lane) {
-  for (int i = lane; i < 5 * p.a1; i += 32) {
-    const int f = i / p.a1;
-    s[i] = in[f * p.atot + p.off1 + i - f * p.a1];
-  }
-  if (MODE == kCross) {
-    T* s2 = s + 5 * p.a1;
-    for (int i = lane; i < 5 * p.a2; i += 32) {
-      const int f = i / p.a2;
-      s2[i] = in[f * p.atot + p.off2 + i - f * p.a2];
-    }
-  }
-  __syncwarp();
-}
-
+// The block's slots of one row into shared memory as one row of A = a1
+// (one species) or a1 + a2 slots, field after field (arm 1 from 0, arm 2
+// from a1). Returns A.
 template <typename T>
-__device__ __forceinline__ void block_terms(const AngConsts<T>& p,
-                                            const T* s1, int a1, int j,
-                                            const T* s2, int a2, int k,
-                                            PairTerms<T>& pt) {
-  pair_terms_core<T>(p, s1[j], s1[a1 + j], s1[2 * a1 + j], s2[k],
-                     s2[a2 + k], s2[2 * a2 + k], s1[3 * a1 + j],
-                     s2[3 * a2 + k], s1[4 * a1 + j], s2[4 * a2 + k], pt);
+__device__ __forceinline__ int stage_arms(const T* __restrict__ cat, T* s,
+                                          const BlockParams<T>& p, bool same,
+                                          int row, int lane) {
+  const int A = same ? p.a1 : p.a1 + p.a2;
+  const T* in = cat + (size_t)row * 5 * p.atot;
+  for (int j = lane; j < A; j += 32) {
+    const int at = j < p.a1 ? p.off1 + j : p.off2 + j - p.a1;
+#pragma unroll
+    for (int f = 0; f < 5; ++f) s[f * A + j] = in[f * p.atot + at];
+  }
+  return A;
 }
 
-template <typename T, int MODE>
+// One row of a per-block forward: the block's slots staged (stage_arms),
+// then packed_fwd's own pair pass (block_pairs_fwd) without the flush:
+// the live pairs only, each unordered pair once at scale 2 (the full
+// form's two orders have the same terms), the 32 sums reduce-scattered,
+// lane l writing column l.
+template <typename T>
 __device__ __forceinline__ void block_fwd_row(const T* __restrict__ cat,
                                               T* __restrict__ out, T* s,
                                               const BlockParams<T>& p,
-                                              int row, int lane) {
-  stage_block<T, MODE>(cat + (size_t)row * 5 * p.atot, s, p, lane);
-  const int a1 = p.a1, a2 = MODE == kCross ? p.a2 : p.a1;
-  const T* s2 = MODE == kCross ? s + 5 * a1 : s;
+                                              bool same, int row, int lane) {
+  const int A = stage_arms(cat, s, p, same, row, lane);
+  __syncwarp();
   T acc[kNAZ];
-#pragma unroll
-  for (int i = 0; i < kNAZ; ++i) acc[i] = T(0);
-  for (int t = lane; t < p.q; t += 32) {
-    int j, k;
-    block_pair<MODE>(t, a1, a2, j, k);
-    PairTerms<T> pt;
-    block_terms<T>(p, s, a1, j, s2, a2, k, pt);
-#pragma unroll
-    for (int jj = 0; jj < kNA; ++jj) {
-      const T f2 = pt.fc12 * pt.e[jj];
-#pragma unroll
-      for (int m = 0; m < kNZ; ++m) acc[jj * kNZ + m] += f2 * pt.f1[m];
-    }
-  }
+  block_pairs_fwd<false>(p, s, A, 0, p.a1, same ? 0 : p.a1,
+                         same ? p.a1 : p.a2, same, lane, acc);
   reduce_scatter32<T>(acc, lane);
-  out[(size_t)row * kNAZ + lane] = (MODE == kFullBlock ? T(1) : T(2)) * acc[0];
+  out[(size_t)row * kNAZ + lane] = T(2) * acc[0];
 }
 
-// One row of a per-block backward: the block's slots staged as one row of
-// A = a1 (one species) or a1 + a2 slots, field after field (arm 1 from 0,
-// arm 2 from a1), then their pair scalars [3][q] and the 32 column
-// cotangents at scale 2 (each unordered pair once: cross and tri at their
-// own scale, the full form's two orders at scale 1 each); the slots' sums
-// added into acc.
+// One row of a per-block backward: the block's slots staged (stage_arms),
+// then their pair scalars [3][q] and the 32 column cotangents at scale 2
+// (each unordered pair once: cross and tri at their own scale, the full
+// form's two orders at scale 1 each); the slots' sums added into acc.
 template <typename T>
 __device__ __forceinline__ void block_bwd_row(const T* __restrict__ cat,
                                               const T* __restrict__ ga,
                                               T* __restrict__ acc, T* s,
                                               const BlockParams<T>& p,
                                               bool same, int row, int lane) {
-  const int A = same ? p.a1 : p.a1 + p.a2, Q = p.q;
+  const int A = stage_arms(cat, s, p, same, row, lane), Q = p.q;
   T* pb = s + 5 * A;
   T* gsm = pb + 3 * Q;
-  const T* in = cat + (size_t)row * 5 * p.atot;
-  for (int i = lane; i < 5 * A; i += 32) {
-    const int f = i / A, j = i - f * A;
-    s[i] = in[f * p.atot + (j < p.a1 ? p.off1 + j : p.off2 + j - p.a1)];
-  }
   gsm[lane] = T(2) * ga[(size_t)row * kNAZ + lane];
   __syncwarp();
   T* orow = acc + (size_t)row * 5 * p.atot;
@@ -1552,30 +1548,35 @@ __device__ __forceinline__ void block_bwd_row(const T* __restrict__ cat,
                   });
 }
 
+// The per-block forwards' blocks: kFwdWarps rows, at least kFwdMinBlocks
+// blocks an SM (with the thread bound alone ptxas held them at 80
+// registers and spilled to local memory).
+constexpr int kFwdWarps = 2, kFwdMinBlocks = 8;
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) asn_block_fwd_kernel(
-    const T* __restrict__ cat, T* __restrict__ out, BlockParams<T> p) {
+__global__ void __launch_bounds__(32 * kFwdWarps, kFwdMinBlocks)
+    asn_block_fwd_kernel(const T* __restrict__ cat, T* __restrict__ out,
+                         BlockParams<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   T* s = reinterpret_cast<T*>(smem_raw) +
          warp * 5 * (p.same ? p.a1 : p.a1 + p.a2);
-  const int row = blockIdx.x * kWarpsPerBlock + warp;
+  const int row = blockIdx.x * kFwdWarps + warp;
   if (row >= p.rows) return;
-  if (p.same)
-    block_fwd_row<T, kFullBlock>(cat, out, s, p, row, lane);
-  else
-    block_fwd_row<T, kCross>(cat, out, s, p, row, lane);
+  block_fwd_row<T>(cat, out, s, p, p.same != 0, row, lane);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) asn_block_fwd_tri_kernel(
-    const T* __restrict__ cat, T* __restrict__ out, BlockParams<T> p) {
+__global__ void __launch_bounds__(32 * kFwdWarps, kFwdMinBlocks)
+    asn_block_fwd_tri_kernel(const T* __restrict__ cat, T* __restrict__ out,
+                             BlockParams<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   T* s = reinterpret_cast<T*>(smem_raw) + warp * 5 * p.a1;
-  const int row = blockIdx.x * kWarpsPerBlock + warp;
+  const int row = blockIdx.x * kFwdWarps + warp;
   if (row >= p.rows) return;
-  block_fwd_row<T, kTri>(cat, out, s, p, row, lane);
+  // p.same is 1 here; read at run time, as the backwards read it
+  block_fwd_row<T>(cat, out, s, p, p.same != 0, row, lane);
 }
 
 template <typename T>
@@ -2243,13 +2244,13 @@ int asn_block_fwd(const int* ip, const double* fp, bool tri,
   if (!block_params_from(ip, fp, tri, p)) return cudaErrorInvalidValue;
   if (p.rows == 0) return cudaSuccess;
   const size_t smem =
-      sizeof(T) * kWarpsPerBlock * 5 * (p.same ? p.a1 : p.a1 + p.a2);
+      sizeof(T) * kFwdWarps * 5 * (p.same ? p.a1 : p.a1 + p.a2);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = tri ? asn_block_fwd_tri_kernel<T> : asn_block_fwd_kernel<T>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<row_blocks(p.rows), kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)cat, (T*)out, p);
+  kernel<<<(p.rows + kFwdWarps - 1) / kFwdWarps, 32 * kFwdWarps, smem,
+           (cudaStream_t)stream>>>((const T*)cat, (T*)out, p);
   return (int)cudaGetLastError();
 }
 

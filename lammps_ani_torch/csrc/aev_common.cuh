@@ -232,16 +232,6 @@ __device__ __forceinline__ void pair_terms_geom(
     t.base[m] = T(0.5) * (T(1) + t.c95 * p.cos_m[m] + t.sv * p.sin_m[m]);
 }
 
-// The whole pair-term body: pair_terms_geom and f1_m = base_m^zeta.
-template <typename T>
-__device__ __forceinline__ void pair_terms_core(
-    const AngConsts<T>& p, T u1x, T u1y, T u1z, T u2x, T u2y, T u2z, T d1,
-    T d2, T fc1, T fc2, PairTerms<T>& t) {
-  pair_terms_geom<T>(p, u1x, u1y, u1z, u2x, u2y, u2z, d1, d2, fc1, fc2, t);
-#pragma unroll
-  for (int m = 0; m < kNZ; ++m) t.f1[m] = zeta_pow(t.base[m], p);
-}
-
 // base^zeta of the 8 angle sections of one pair, f32, zeta not an
 // integer: base^n 2^(f log2 base), n = floor(zeta), f = zeta - n. The
 // fraction goes to the special-function unit (lg2, ex2), whose error f < 1
@@ -308,25 +298,21 @@ __device__ __forceinline__ void pair_powers(const P& p, PairTerms<T>& pt) {
 // ---------------------------------------------------------------------------
 // Slot-pair helpers of the angular pair stages (packed and per-block)
 // ---------------------------------------------------------------------------
-constexpr int kCross = 0, kFullBlock = 1, kTri = 2;
+constexpr int kCross = 0, kTri = 1;
 
 // First pair of row j of an a x a strict upper triangle, row by row.
 __device__ __forceinline__ int tri_start(int j, int a) {
   return j * (2 * a - j - 1) / 2;
 }
 
-// Slot pair (j, k) of pair index t: cross t = j a2 + k; full, the ordered
-// off-diagonal pairs row by row; tri, the upper triangle row by row.
+// Slot pair (j, k) of pair index t: cross t = j a2 + k; tri, the upper
+// triangle row by row.
 template <int MODE>
 __device__ __forceinline__ void block_pair(int t, int a1, int a2, int& j,
                                            int& k) {
   if (MODE == kCross) {
     j = t / a2;
     k = t - j * a2;
-  } else if (MODE == kFullBlock) {
-    j = t / (a1 - 1);
-    const int m = t - j * (a1 - 1);
-    k = m + (m >= j);
   } else {
     // counted from the end, the rows hold 1, 2, 3, ... pairs
     const int r = a1 * (a1 - 1) / 2 - 1 - t;

@@ -11,8 +11,8 @@
 //     bin and computes each candidate's bin, periodic wrap S and shifted
 //     position p + S h itself from the [NC, cap] grid: nothing is
 //     materialized, and the window is staged in shared memory once per
-//     bin (radial_fwd: in passes of a fixed lane count; radial_bwd: plane
-//     by plane).
+//     bin (radial_fwd: in passes of a fixed lane count; radial_bwd: an
+//     x-plane of the window at a time where it fits, else a row).
 //   * The TPU grid runs in order, so its kernels carry sums across grid
 //     steps (fcen over candidate groups, dh over the whole grid, the
 //     deficit as a running max). Blocks here run in any order: fcen and
@@ -304,12 +304,14 @@ __global__ void __launch_bounds__(32 * kRfMaxWarps) radial_fwd_kernel(
 // Gaussians, the cutoff's cosine and sine, the chain), against the bytes
 // of ga in and dpos out; the contract's wing slab [NC, n_off cap, 3] (the
 // layout floor) is ten times those bytes.
-// Design: one block per bin, in one pass per x-plane of the window (P =
-// (2 shell + 1)^2 offsets; a whole window's lanes and wing need 112 KB in
-// f32 at cap 32 and do not fit beside the scratch in f64, a plane 22 KB).
-// Per plane the block stages the plane's lanes of present species,
-// compacted in lane order (a block scan of ballots), and zeroes the
-// plane's wing in shared memory. The bin's real centers go in rounds, one
+// Design: one block per bin, in passes of whole window offsets (the
+// host's choice: an x-plane, (2 shell + 1)^2 offsets, where a block of
+// kRbMaxWarps warps holds its layout, else an x-y row of 2 shell + 1
+// offsets, else one, so every cap up to 256 fits in both dtypes; a whole
+// window's lanes and wing need 112 KB in f32 at cap 32 and do not fit
+// beside the scratch in f64, a plane 22 KB). Per pass the block stages the pass's lanes of present
+// species, compacted in lane order (a block scan of ballots), and zeroes
+// the pass's wing in shared memory. The bin's real centers go in rounds, one
 // a warp, in slot order: the warp tests the compacted lanes 32 at a time
 // (a squared distance a lane, the square root only where it may lie within
 // Rcr) and packs the in-cutoff ones by ballot onto full warps (at most 63
@@ -317,47 +319,49 @@ __global__ void __launch_bounds__(32 * kRfMaxWarps) radial_fwd_kernel(
 // Gaussians (gauss_of) and the hardware cosine and sine (the argument lies
 // in [0, pi]), gamma / d by quot<true>. Each pair is evaluated once: its g
 // goes to the center's fcen sums (registers, a warp sum, added to the
-// center's shared fcen plane after plane) and, with its lane, to the warp's
-// store. Then each warp owns a range of the plane's lanes and adds the
+// center's shared fcen pass after pass) and, with its lane, to the warp's
+// store. Then each warp owns a range of the pass's lanes and adds the
 // stores in warp order, which is center order: every wing entry is a sum
 // in center order, at any warp count, and two calls agree bit for bit. A
 // round in which a center found more pairs than its warp's store holds is
 // run again center after center, each warp adding its pairs straight to
-// the wing: the same values in the same order. The plane's wing leaves in
+// the wing: the same values in the same order. The pass's wing leaves in
 // 16-byte stores, and its per-offset sums stay for dh (an interior bin,
 // every shift 0, writes 0 without them); dh_reduce_kernel sums the bins'
 // partials.
 // ---------------------------------------------------------------------------
 constexpr int kRbMaxWarps = 8;
 constexpr int kRbPack = 64;    // a warp's in-cutoff lanes waiting (< 2 groups)
-constexpr int kRbStore = 128;  // a warp's stored pairs (the center's plane)
+constexpr int kRbStore = 128;  // a warp's stored pairs (the center's pass)
 
 template <typename T>
 struct RbParams {
   int shell, S, NR, K;
+  int opp;  // window offsets staged a pass
   unsigned present;
   // rc2_hi: the least float above rc^2 (1 + 2^-20): a lane with d2 above it
   // has sqrt(max(d2, 1e-12)) > rc, so only the others take the square root
   T rc, rc2_hi, mu0, delta, pi_rc, dfc_rk, geta, two_eta;
 };
 
-// Dynamic shared memory of radial_bwd, byte offsets: the plane's kept lanes
-// WinLane [P cap] (species | window lane << 4), its wing T [3 P cap], the
-// centers' fcen sums T [3 cap], the per-offset wing sums T [3 n_off], the
-// real centers int [cap]; then each warp's scratch: the center's cotangent
-// row T [S NR], the packed lanes' entries int [kRbPack] (plane lane << 4 |
-// species) and values T [4][kRbPack] (dx, dy, dz, d), and the stored pairs
-// WinLane [K] (g, plane lane).
+// Dynamic shared memory of radial_bwd, byte offsets: a pass's kept lanes
+// WinLane [opp cap] (species | window lane << 4), its wing T [3 opp cap],
+// the centers' fcen sums T [3 cap], the per-offset wing sums T [3 n_off],
+// the real centers int [cap]; then each warp's scratch: the center's
+// cotangent row T [S NR], the packed lanes' entries int [kRbPack] (pass
+// lane << 4 | species) and values T [4][kRbPack] (dx, dy, dz, d), and the
+// stored pairs WinLane [K] (g, pass lane).
 struct RbLayout {
   unsigned wing, fcen, osum, ctr, warps, ent, pk, store, warp_bytes;
 };
 
 template <typename T>
-__host__ __device__ RbLayout rb_layout(int cap, int shell, int SR, int K) {
-  const int ns = 2 * shell + 1, P = ns * ns, n_off = P * ns;
+__host__ __device__ RbLayout rb_layout(int cap, int shell, int SR, int K,
+                                       int opp) {
+  const int ns = 2 * shell + 1, n_off = ns * ns * ns;
   RbLayout L;
-  L.wing = al16(sizeof(WinLane<T>) * (size_t)P * cap);
-  L.fcen = L.wing + al16(sizeof(T) * 3 * (size_t)P * cap);
+  L.wing = al16(sizeof(WinLane<T>) * (size_t)opp * cap);
+  L.fcen = L.wing + al16(sizeof(T) * 3 * (size_t)opp * cap);
   L.osum = L.fcen + al16(sizeof(T) * 3 * (size_t)cap);
   L.ctr = L.osum + al16(sizeof(T) * 3 * (size_t)n_off);
   L.warps = L.ctr + al16(sizeof(int) * (size_t)cap);
@@ -375,12 +379,12 @@ __device__ __forceinline__ WinLane<T>* rb_store(unsigned char* raw,
                                        L.store);
 }
 
-// Center `me` of the bin (its window lane self_lane) against the plane's
-// n_kept compacted lanes (plane lanes from w0), on one warp: its pairs
+// Center `me` of the bin (its window lane self_lane) against the pass's
+// n_kept compacted lanes (pass lanes from w0), on one warp: its pairs
 // within Rcr in ascending lane order, packed by ballot onto full warps,
 // one pair a lane: g = gamma (center - candidate) / d, added to the lane's
 // fcen sums and either stored in the warp's store (while fewer than K) or,
-// `direct`, subtracted from the plane's wing at its lane (a center's pairs
+// `direct`, subtracted from the pass's wing at its lane (a center's pairs
 // name distinct lanes). Returns the pair count.
 template <typename T>
 __device__ __forceinline__ int rb_center(
@@ -511,7 +515,11 @@ __device__ __forceinline__ void copy_out(T* __restrict__ dst, const T* src,
   }
 }
 
-template <typename T>
+// PLANE: a pass is an x-plane of the window (P = ns^2 offsets; the host
+// takes it where the layout holds it); else p.opp offsets. (One body with
+// the pass width read from p spilled the pass bookkeeping at 64
+// registers; the plane, as a compile-time form, keeps none.)
+template <typename T, bool PLANE>
 __global__ void __launch_bounds__(32 * kRbMaxWarps) radial_bwd_kernel(
     const T* __restrict__ pos, const int* __restrict__ sp,
     const T* __restrict__ hmat, const T* __restrict__ ga,
@@ -524,9 +532,10 @@ __global__ void __launch_bounds__(32 * kRbMaxWarps) radial_bwd_kernel(
   const int cell = blockIdx.x, cap = g.cap;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  const int ns = 2 * p.shell + 1, P = ns * ns, n_off = P * ns;
+  const int ns = 2 * p.shell + 1, P = PLANE ? ns * ns : p.opp;
+  const int n_off = ns * ns * ns, n_pass = PLANE ? ns : n_off / P;
   const int PL = P * cap, self_lane = (n_off - 1) / 2 * cap;
-  const RbLayout L = rb_layout<T>(cap, p.shell, p.S * p.NR, p.K);
+  const RbLayout L = rb_layout<T>(cap, p.shell, p.S * p.NR, p.K, P);
   WinLane<T>* kept = reinterpret_cast<WinLane<T>*>(smem_raw);
   T* wing_s = reinterpret_cast<T*>(smem_raw + L.wing);
   T* fcen_s = reinterpret_cast<T*>(smem_raw + L.fcen);
@@ -563,10 +572,10 @@ __global__ void __launch_bounds__(32 * kRbMaxWarps) radial_bwd_kernel(
                         iy < g.ny - sh && iz >= sh && iz < g.nz - sh;
   __syncthreads();
   const int n_ctr = n_ctr_s;
-  for (int plane = 0; plane < ns; ++plane) {
-    const int o0 = plane * P, w0 = o0 * cap;
+  for (int pass = 0; pass < n_pass; ++pass) {
+    const int o0 = pass * P, w0 = o0 * cap;
     for (int i = threadIdx.x; i < 3 * PL; i += blockDim.x) wing_s[i] = T(0);
-    // the plane's lanes of present species, compacted in lane order
+    // the pass's lanes of present species, compacted in lane order
     int n_kept = 0;
     for (int base = 0; base < PL; base += blockDim.x) {
       const int lw = base + threadIdx.x;
@@ -629,7 +638,7 @@ __global__ void __launch_bounds__(32 * kRbMaxWarps) radial_bwd_kernel(
         if (step < 0) {
           for (int v = 0; v < nw; ++v) over |= cnt[v] > p.K;
           if (!over) {
-            // each warp owns a range of the plane's lanes and adds the
+            // each warp owns a range of the pass's lanes and adds the
             // stores in warp order (center order)
             const int per = (PL + nw - 1) / nw, lo = warp * per;
             const int hi = min(PL, lo + per);
@@ -664,7 +673,7 @@ __global__ void __launch_bounds__(32 * kRbMaxWarps) radial_bwd_kernel(
         }
       }
     }
-    __syncthreads();  // the wing and the kept lanes are the next plane's
+    __syncthreads();  // the wing and the kept lanes are the next pass's
   }
   copy_out(fcen + (size_t)cell * cap * 3, fcen_s, 3 * cap);
   if (threadIdx.x < 9) {
@@ -850,6 +859,7 @@ __device__ __forceinline__ int triu_index(int s1, int s2, int S) {
 // The deficit: integer atomicMax into shared memory, then one per block.
 // ---------------------------------------------------------------------------
 constexpr int kAfWarps = 8;
+constexpr int kMaxAngCap = 1024;  // the angular hosts' largest grid cap
 
 template <typename T>
 size_t af_smem(int cap, int A, int warps) {
@@ -1250,17 +1260,22 @@ __global__ void __launch_bounds__(32 * kBwdMaxWarps) angular_bwd_kernel(
 
 Grid grid_from(const int* ip) { return Grid{ip[0], ip[1], ip[2], ip[3]}; }
 
+// The dynamic shared memory a block of these kernels may take: a block's
+// 227 KB less 2 KB for the kernels' static arrays (1,068 B at most, in
+// radial_bwd; the two together must fit the 227 KB).
+constexpr size_t kDynSmem = 227 * 1024 - 2048;
+
 // The warp count in [1, max_warps] whose shared memory (smem_of(warps)
-// bytes a block) lets the most warps reside on an SM (228 KB, 1 KB reserved
-// a block; at most 32 blocks and 64 warps; ties: more warps a block); 0 if
-// not even one warp fits.
+// bytes a block, at most kDynSmem) lets the most warps reside on an SM
+// (228 KB, 1 KB reserved a block; at most 32 blocks and 64 warps; ties:
+// more warps a block); 0 if not even one warp fits.
 template <typename F>
 int best_warps(int max_warps, F smem_of) {
   constexpr size_t kSmPerSm = 228 * 1024, kPerBlock = 1024;
   int warps = 0, best = 0;
   for (int nw = 1; nw <= max_warps; ++nw) {
     const size_t smem = smem_of(nw);
-    if (smem > kSmPerSm - kPerBlock) break;
+    if (smem > kDynSmem) break;
     const int blocks =
         min((int)(kSmPerSm / (smem + kPerBlock)), min(32, 64 / nw));
     const int resident = nw * blocks;
@@ -1344,16 +1359,28 @@ int radial_bwd(const int* ip, const double* fp, const void* pos,
   p.dfc_rk = (T)(-0.5 * kPi / rc);
   p.geta = (T)(f32 ? -eta * 1.4426950408889634 : -eta);
   p.two_eta = T(2) * (T)eta;
-  const RbLayout L = rb_layout<T>(g.cap, p.shell, p.S * p.NR, p.K);
-  const int warps = best_warps(
-      kRbMaxWarps, [&](int nw) { return L.warps + nw * L.warp_bytes; });
+  // a pass: an x-plane of the window (ns^2 offsets) where a block of
+  // kRbMaxWarps warps holds its layout (every cap the engines size), else
+  // an x-y row (ns offsets), else one offset (at cap 256: a row in f64,
+  // the plane in f32); each divides the window
+  const int ns = 2 * p.shell + 1;
+  auto smem_at = [&](int opp, int nw) {
+    const RbLayout L = rb_layout<T>(g.cap, p.shell, p.S * p.NR, p.K, opp);
+    return (size_t)L.warps + (size_t)nw * L.warp_bytes;
+  };
+  p.opp = ns * ns;
+  while (p.opp > 1 && smem_at(p.opp, kRbMaxWarps) > kDynSmem) p.opp /= ns;
+  const int warps =
+      best_warps(kRbMaxWarps, [&](int nw) { return smem_at(p.opp, nw); });
   if (warps == 0) return cudaErrorInvalidValue;
-  const size_t smem = L.warps + warps * L.warp_bytes;
-  cudaError_t err = set_smem(radial_bwd_kernel<T>, smem);
+  const size_t smem = smem_at(p.opp, warps);
+  auto kernel = p.opp == ns * ns ? radial_bwd_kernel<T, true>
+                                 : radial_bwd_kernel<T, false>;
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int nc = g.nx * g.ny * g.nz;
   cudaStream_t st = (cudaStream_t)stream;
-  radial_bwd_kernel<T><<<nc, 32 * warps, smem, st>>>(
+  kernel<<<nc, 32 * warps, smem, st>>>(
       (const T*)pos, (const int*)sp, (const T*)h, (const T*)ga, (T*)fcen,
       (T*)wing, (T*)dh_part, g, p);
   err = cudaGetLastError();
@@ -1406,14 +1433,59 @@ bool ang_params(const int* ip, const double* fp, AngParams<T>& p) {
   return true;
 }
 
+// The largest grid cap in [0, kMaxAngCap] whose one-warp layout
+// (smem_of(cap) bytes a block, growing with the cap) fits kDynSmem.
+template <typename F>
+int largest_cap(F smem_of) {
+  int lo = 0, hi = kMaxAngCap;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (smem_of(mid) <= kDynSmem)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// The angular kernels keep the bin's whole 27-bin window in shared memory
+// (angular_bwd also its centers' slot results), so their host takes the
+// caps that layout holds: angular_fwd 531 in f32 and 264 in f64,
+// angular_bwd 207 and 101, at caps H 24 / O 16 (the JAX kernels, which
+// cut the window into groups, take any cap).
+template <typename T>
+int angular_fwd_cap_limit(const AngParams<T>& p) {
+  return largest_cap([&](int cap) { return af_smem<T>(cap, p.atot, 1); });
+}
+
+// The largest species-pair block's slot pairs (at least 1).
+template <typename T>
+int max_block_pairs(const AngParams<T>& p) {
+  int Q = 1;
+  for (int s1 = 0; s1 < p.S; ++s1)
+    for (int s2 = s1; s2 < p.S; ++s2) {
+      const int q = s1 == s2 ? p.caps[s1] * (p.caps[s1] - 1) / 2
+                             : p.caps[s1] * p.caps[s2];
+      if (q > Q) Q = q;
+    }
+  return Q;
+}
+
+template <typename T>
+int angular_bwd_cap_limit(const AngParams<T>& p) {
+  const int Q = max_block_pairs(p);
+  return largest_cap(
+      [&](int cap) { return bwd_smem<T>(cap, p.atot, Q, 1); });
+}
+
 template <typename T>
 int angular_fwd(const int* ip, const double* fp, const void* pos,
                 const void* sp, const void* h, void* out, void* deficit,
                 void* stream) {
   const Grid g = grid_from(ip);
   AngParams<T> p;
-  if (!ang_params(ip, fp, p) || g.cap < 1 || g.cap > 1024 ||
-      p.zeta_floor < 0)
+  if (!ang_params(ip, fp, p) || g.cap < 1 ||
+      g.cap > angular_fwd_cap_limit(p) || p.zeta_floor < 0)
     return cudaErrorInvalidValue;
   const int warps = best_warps(
       kAfWarps, [&](int nw) { return af_smem<T>(g.cap, p.atot, nw); });
@@ -1434,17 +1506,10 @@ int angular_bwd(const int* ip, const double* fp, const void* pos,
                 void* wing, void* dh_part, void* dh, void* stream) {
   const Grid g = grid_from(ip);
   AngParams<T> p;
-  if (!ang_params(ip, fp, p) || g.cap < 1 || g.cap > 1024 || p.atot < 1 ||
-      p.zeta_floor < 0)
+  if (!ang_params(ip, fp, p) || g.cap < 1 ||
+      g.cap > angular_bwd_cap_limit(p) || p.atot < 1 || p.zeta_floor < 0)
     return cudaErrorInvalidValue;
-  // the largest species-pair block's slot pairs
-  int Q = 1;
-  for (int s1 = 0; s1 < p.S; ++s1)
-    for (int s2 = s1; s2 < p.S; ++s2) {
-      const int q = s1 == s2 ? p.caps[s1] * (p.caps[s1] - 1) / 2
-                             : p.caps[s1] * p.caps[s2];
-      if (q > Q) Q = q;
-    }
+  const int Q = max_block_pairs(p);
   const int warps = best_warps(
       kBwdMaxWarps, [&](int nw) { return bwd_smem<T>(g.cap, p.atot, Q, nw); });
   if (warps == 0) return cudaErrorInvalidValue;
@@ -1494,8 +1559,24 @@ int angular_bwd(const int* ip, const double* fp, const void* pos,
                           stream);                                           \
   }
 
+// The largest grid cap an angular kernel's host takes (ip, fp: as the
+// kernel's; the grid's own cap is not read); -1 on invalid parameters.
+#define AEV_ROLL_LIMIT(T, SUF)                                               \
+  extern "C" int angular_fwd_cap_limit_##SUF(const int* ip,                 \
+                                             const double* fp) {            \
+    AngParams<T> p;                                                          \
+    return ang_params(ip, fp, p) ? angular_fwd_cap_limit(p) : -1;           \
+  }                                                                          \
+  extern "C" int angular_bwd_cap_limit_##SUF(const int* ip,                 \
+                                             const double* fp) {            \
+    AngParams<T> p;                                                          \
+    return ang_params(ip, fp, p) ? angular_bwd_cap_limit(p) : -1;           \
+  }
+
 AEV_ROLL_ENTRY(float, f32)
 AEV_ROLL_ENTRY(double, f64)
+AEV_ROLL_LIMIT(float, f32)
+AEV_ROLL_LIMIT(double, f64)
 
 extern "C" const char* aev_roll_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -80,6 +80,7 @@ from .._device import resolve_device
 from ..models import aev as aevmod
 from ..models import potential as potmod
 from ..ops import aev_asn
+from ..ops import aev_roll
 from ..ops import cell_list as clmod
 from ..ops import cell_roll as crmod
 from ..ops import nbr_grad
@@ -291,6 +292,7 @@ class Simulation:
         else:
             vel_t = torch.zeros_like(pos_t)
         self._derive_angular_caps(pos_t, box)
+        self._check_kernel_caps()
         pos_w = nbops.wrap_positions(pos_t, box)
         bins = self._bins(pos_w, box)
         nlist = nbrs = None
@@ -514,6 +516,21 @@ class Simulation:
             self._sections = aev_asn.sections_from_degrees(sec_degrees,
                                                            SEC_MARGIN)
             self._tiers = self._derive_tiers(cnt.cpu().numpy(), caps)
+
+    def _check_kernel_caps(self):
+        """pallas_full: its angular kernels keep a bin's 27-bin window in
+        one block's shared memory, so a grid cap above what they take at
+        the angular caps raises ValueError here, at init_state or a regrow,
+        not mid-chunk (`aev_roll.check_cap`: on the card the kernels' own
+        limit, on the CPU its transcription)."""
+        if not self._full:
+            return
+        spec = self.potential.spec
+        caps, _ = aev_roll.effective_caps(spec.aev, spec.angular_caps,
+                                          self.species_counts)
+        for name in ("angular_fwd", "angular_bwd"):
+            aev_roll.check_cap(name, self._roll_grid.cap, caps, self.dtype,
+                               self.device)
 
     def _derive_tiers(self, cnt, caps):
         """Occupancy tiers of the asn pair stage from the measured degree
@@ -779,6 +796,7 @@ class Simulation:
                     last_rows += max(256, int(overflow["tier_rows"] * 1.5))
                     self.regrow_kinds["tier_rows"] += 1
                 self._tiers = self._tiers[:-1] + ((caps, last_rows),)
+        self._check_kernel_caps()
 
     # ---------- host API ----------
 

@@ -30,6 +30,14 @@ bins with `torch.roll` (glue, shared by both routes).
 Conventions (as the TPU kernels): empty slots are parked at 1e6 with
 species -1; self is excluded by lane index (lane == self_off*cap + slot);
 pairs count at dist <= cutoff with dist = sqrt(max(d2, 1e-12)).
+
+Grid caps: the radial kernels take every cap up to 256 (their blocks
+stage the window in passes). The angular kernels keep a bin's whole
+27-bin window in one block's shared memory, so they take the caps up to
+`angular_cap_limit` (531 / 264 for angular_fwd and 207 / 101 for
+angular_bwd in f32 / f64 at caps H 24 / O 16); above it their wrappers,
+and `Simulation`'s sizing, raise ValueError (the TPU kernels, which cut
+the window into groups, take any cap).
 """
 
 from __future__ import annotations
@@ -505,13 +513,10 @@ def _launch(name, dtype, iparams, fparams, *tensors):
     """Call the C entry point `<name>_<f32|f64>` on the current stream."""
     from . import _build
 
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{name}: dtype {dtype} not supported")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: non-contiguous tensor {tuple(t.shape)}")
-    fn = _build.entry(f"{name}_{'f64' if dtype == torch.float64 else 'f32'}",
-                      len(tensors) + 3)
+    fn = _build.entry(f"{name}_{_suffix(dtype, name)}", len(tensors) + 3)
     ip = np.ascontiguousarray(iparams, np.int32)
     fp = np.ascontiguousarray(fparams, np.float64)
     stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
@@ -521,6 +526,14 @@ def _launch(name, dtype, iparams, fparams, *tensors):
         raise RuntimeError(f"{name}: CUDA launch failed: "
                            f"{_build.error_string(err)} ({err})")
     LAUNCHES[name] += 1
+
+
+def _suffix(dtype, name="roll kernels"):
+    if dtype == torch.float32:
+        return "f32"
+    if dtype == torch.float64:
+        return "f64"
+    raise TypeError(f"{name}: dtype {dtype} not supported")
 
 
 def _grid_iparams(ncells, cap):
@@ -592,6 +605,89 @@ def radial_bwd(pos_g, sp_g, h, ncells, shell, spec, present, ga_g):
     return fcen, wing, dh
 
 
+# The dynamic shared memory a block of the roll kernels may take (227 KB
+# less 2 KB for their static arrays), and the angular hosts' largest cap.
+MAX_DYN_SMEM = 227 * 1024 - 2048
+MAX_ANG_CAP = 1024
+
+
+def _al16(nbytes):
+    return (nbytes + 15) & ~15
+
+
+def _max_block_pairs(caps):
+    """The largest species-pair block's slot pairs (at least 1)."""
+    q = [c * (c - 1) // 2 for c in caps]
+    q += [c1 * c2 for i, c1 in enumerate(caps) for c2 in caps[i + 1:]]
+    return max([1] + q)
+
+
+def angular_smem(name, cap, caps, dtype):
+    """Bytes of dynamic shared memory a one-warp block of the angular
+    kernel `name` takes at grid cap `cap` (csrc/aev_roll.cu `af_smem`,
+    `bwd_smem`): the 27-bin window of staged lanes (16 bytes a lane in
+    f32, 32 in f64), then angular_fwd a warp's slots [5][A]; angular_bwd
+    the centers' slot results [cap][A] (a staged lane each), their
+    species int [cap] and a warp's scratch (11 A + 3 Q + 32 values and A
+    ints, Q the largest block's slot pairs), A = sum(caps)."""
+    t = torch.empty((), dtype=dtype).element_size()
+    lane = 16 if t == 4 else 32
+    a = sum(caps)
+    if name == "angular_fwd":
+        return lane * 27 * cap + t * 5 * a
+    if name != "angular_bwd":
+        raise ValueError(f"{name}: no cap limit")
+    per_warp = _al16(t * (11 * a + 3 * _max_block_pairs(caps) + 32)
+                     + 4 * a)
+    return lane * 27 * cap + lane * cap * a + _al16(4 * cap) + per_warp
+
+
+def angular_cap_limit(name, dtype, caps, device=None):
+    """The largest grid cap the angular kernel `name` takes at the
+    per-species caps `caps`: the most whose one-warp block fits the
+    shared memory, at most MAX_ANG_CAP. For a CUDA `device` the kernel's
+    host code answers (`<name>_cap_limit_<f32|f64>`, the layout that sizes
+    its launch); otherwise `angular_smem`, its transcription."""
+    caps = tuple(int(c) for c in caps)
+    if device is not None and torch.device(device).type == "cuda":
+        return _host_cap_limit(name, dtype, caps)
+    lo, hi = 0, MAX_ANG_CAP
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if angular_smem(name, mid, caps, dtype) <= MAX_DYN_SMEM:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+@functools.lru_cache(maxsize=None)
+def _host_cap_limit(name, dtype, caps):
+    from . import _build
+
+    fn = _build.entry(f"{name}_cap_limit_{_suffix(dtype)}", 2)
+    ip = np.ascontiguousarray([0, 0, 0, 0, len(caps), 0] + list(caps),
+                              np.int32)
+    fp = np.zeros(6 + 16, np.float64)
+    limit = fn(ip.ctypes.data, fp.ctypes.data)
+    if limit < 0:
+        raise ValueError(f"{name}: caps {caps} not taken")
+    return limit
+
+
+def check_cap(name, cap, caps, dtype, device=None):
+    """Raises ValueError, naming the kernel, the cap, the dtype and the
+    limit, where the angular kernel `name` does not take grid cap `cap`
+    at the per-species caps `caps` (see `angular_cap_limit`)."""
+    limit = angular_cap_limit(name, dtype, caps, device)
+    if cap > limit:
+        raise ValueError(
+            f"{name}: grid cap {cap} above {limit}, the most its "
+            f"{str(dtype).replace('torch.', '')} kernel takes at angular "
+            f"caps {tuple(caps)} (its block keeps the 27-bin window in "
+            "shared memory)")
+
+
 def _angular_params(spec, caps, dtype):
     cst = angular_consts(spec, dtype)
     if cst["n_a"] != 4 or len(cst["cos_m"]) != 8:
@@ -610,6 +706,7 @@ def angular_fwd(pos_g, sp_g, h, ncells, spec, caps, present):
         return angular_fwd_plain(pos_g, sp_g, h, ncells, spec, caps, present)
     _check_grid("angular_fwd", ncells, pos_g, sp_g, h)
     nc, cap = sp_g.shape
+    check_cap("angular_fwd", cap, caps, pos_g.dtype, pos_g.device)
     out = pos_g.new_empty((nc, cap, spec.angular_length))  # all written
     deficit = torch.full((1,), DEFICIT_FLOOR, dtype=torch.int32,
                          device=pos_g.device)
@@ -627,6 +724,7 @@ def angular_bwd(pos_g, sp_g, h, ncells, spec, caps, present, ga_g):
     _check_grid("angular_bwd", ncells, pos_g, sp_g, h, ga_g,
                 spec.angular_length)
     nc, cap = sp_g.shape
+    check_cap("angular_bwd", cap, caps, pos_g.dtype, pos_g.device)
     fcen = pos_g.new_empty((nc, cap, 3))
     wing = pos_g.new_empty((nc, 27 * cap, 3))  # every lane is written
     dh_part = pos_g.new_empty((nc, 9))

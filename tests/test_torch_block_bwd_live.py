@@ -254,8 +254,9 @@ def jax_stage(jspec, spec, cat, ga, caps, a_offs, stage):
                                            1))
 
 
-@pytest.fixture(scope="module")
-def rows():
+def live_rows():
+    """The rows of this file (see the module docstring): dict(spec, caps,
+    a_offs, atot, cat [64, 5 atot] f64, big, off_h)."""
     species, pos, h, origin = asn_system()
     sections, kpad, caps, _ = sizing(species, pos, h)
     _, t = grids(species, pos, h, origin)
@@ -285,11 +286,19 @@ def rows():
     tiny[:, 4] = 0.0
     extra[12:16, :, off_h + 1] = tiny
     cat = torch.cat([base, extra.reshape(16, 5 * atot)]).contiguous()
+    return dict(spec=spec, caps=caps, a_offs=a_offs, atot=atot, cat=cat,
+                big=big, off_h=off_h)
+
+
+@pytest.fixture(scope="module")
+def rows():
+    out = live_rows()
+    spec, caps, a_offs, cat = (out["spec"], out["caps"], out["a_offs"],
+                               out["cat"])
     n_blocks = len(tasn._stage_blocks(spec, caps, a_offs, "blocks"))
     ga = torch.from_numpy(np.random.default_rng(41).standard_normal(
         (cat.shape[0], 32 * n_blocks)))
-    out = dict(spec=spec, caps=caps, a_offs=a_offs, atot=atot, cat=cat,
-               ga=ga, big=big, off_h=off_h)
+    out["ga"] = ga
     for stage in SWITCH:
         for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
             c, g = cat.to(dtype), ga.to(dtype)
