@@ -19,11 +19,15 @@ object per line; any failure raises and the script exits non-zero:
            not write fails the comparison);
            angular_fwd at caps below the measured degree (output and
            deficit against the plain version's); radial_bwd, angular_fwd
-           and angular_bwd on the grid padded to the largest cap each host
-           takes (radial_bwd 256; the angular kernels their shared-memory
-           limit, the card's equal to its transcription's), the padding
-           exactly 0, and one cap above the angular limits raising the
-           named ValueError before any launch; radial_bwd's dh exactly
+           and angular_bwd on the grid padded to cap 256, the most each
+           host takes (the angular hosts' limit and the offsets they stage
+           a pass there equal to their transcriptions'; angular_fwd, whose
+           whole window fits there, also in its pass form), the padding
+           exactly 0, the angular pass forms at the grid's own cap equal
+           to the whole-window kernels bit for bit, and cap 257 raising the
+           named ValueError before any launch; the SASS lines and local
+           loads and stores (LDL/STL) of the angular kernels' f32 forms;
+           radial_bwd's dh exactly
            0 from cotangents on the rows of the bins whose shell-2 window
            is unshifted; radial_fwd and radial_bwd at shell 1 (the pallas
            hybrid's window); the kernels' backwards against autograd
@@ -157,6 +161,26 @@ object per line; any failure raises and the script exits non-zero:
            into a NaN-filled output, with its two-term bound and layout
            floor).
 
+  nvt_npt  the main path's model and final state (101,250 atoms, f32,
+           cellroll=True, so pallas_asn) under NoseHooverNPT at
+           examples/water-NPT's settings (300 K, tdamp 100 fs, 1 atm,
+           pdamp 500 fs), its counts zeroed just before and read just
+           after: 1 warm and 3 timed chunks (ms/step, the volume and
+           pressure at each chunk's end, regrows), one chunk under
+           torch.profiler (device busy, idle share), the eight asn
+           kernels' launches (all required, no plain version); then in
+           f64 NoseHoover, NoseHooverNPT and NVE + BerendsenBarostat, two
+           chunks of a step on the card against the same run on the CPU
+           (pe rtol 1e-11, positions and box.h 1e-9 A) on pallas_asn at
+           WATER30 x 6^3 (6,480 atoms) and on pallas_full at WATER30 x
+           2^3 spread to a 17.6 A box (240 atoms: at 6,480 the plain
+           roll kernels on the CPU take minutes); and a
+           forced re-derive of the grid on both engines at 6,480 atoms
+           (the box scaled so that its grid sits 6.5% above the engine's
+           side, then by 0.93): the card's new grid and radial shell equal
+           the port's `_setup_grids` on the CPU from the same state, one
+           regrow event for it and one for each capacity grown.
+
 Then one line {"kernels": [...]} (the twenty package kernels, the probe
 kernels by stage and mode, and the radial forward kernel's probe
 timing), nvidia-smi's name and power-limit line, and last {"ok": true,
@@ -178,6 +202,7 @@ import torch
 from lammps_ani_torch import Box, NeighborConfig, Simulation
 from lammps_ani_torch.io.lammps_data import LammpsData, replicate
 from lammps_ani_torch.md import integrate
+from lammps_ani_torch.md import simulation as simmod
 from lammps_ani_torch.models import networks as netmod
 from lammps_ani_torch.models import potential as potmod
 from lammps_ani_torch.models import zoo
@@ -197,6 +222,9 @@ SOURCE = "lammps_ani_torch/csrc/aev_roll.cu"
 ASN_SOURCE = "lammps_ani_torch/csrc/aev_asn.cu"
 PROBE_SOURCE = "lammps_ani_torch/csrc/probes.cu"
 KERNELS = ("radial_fwd", "radial_bwd", "angular_fwd", "angular_bwd")
+# the angular kernels' pass forms (csrc/aev_roll.cu), above the caps their
+# whole-window layouts hold
+PASS_FORMS = ("angular_fwd_pass", "angular_bwd_pass")
 # the kernels of the MD main path, and those of the per-channel surface
 ASN_KERNELS = ("build_inv", "build_idx", "step_fused", "packed_fwd",
                "radial_gamma", "packed_bwd", "chain_sum", "wing")
@@ -305,14 +333,15 @@ def water_box(rep: int) -> LammpsData:
 
 def make_sim(data, dtype, device, integrator=None, rebuild_every=CHUNK,
              seed=1, engine="pallas_asn", repulsion=None, pair_stage=None,
-             cellroll=False, ghost_capacity=None):
+             cellroll=False, ghost_capacity=None, barostat=None):
     """A `Simulation` of ANI-2x, one model, weights drawn from `seed`, on
     `engine` (None: as `cellroll` resolves it, the user's path; the main
     path's `cellroll=True` in f32 on the card is pallas_asn); the asn
     engine and the mirror carry the XTB repulsion term, the roll engine
     (pallas_full) and the hybrids do not; `pair_stage`: the asn engine's
     angular pair stage (None: packed); `ghost_capacity` (None: max(4096,
-    n / 2), which only the degree measure uses on the grid engines)."""
+    n / 2), which only the degree measure uses on the grid engines);
+    `barostat`: a BerendsenBarostat."""
     n = data.n_atoms
     if repulsion is None:
         repulsion = engine not in ("pallas_full", "xla", "pallas")
@@ -326,7 +355,7 @@ def make_sim(data, dtype, device, integrator=None, rebuild_every=CHUNK,
                       masses=data.masses_by_type[data.species], nbr=nbr,
                       dt=0.5, integrator=integrator, dtype=dtype,
                       device=device, engine=engine, pair_stage=pair_stage,
-                      cellroll=cellroll)
+                      cellroll=cellroll, barostat=barostat)
 
 
 def make_box(data, dtype, device):
@@ -533,7 +562,7 @@ def phase_build():
             regs[fn] = line.split(":", 1)[1].strip()
     names = {}
     for fn, used in regs.items():
-        for kname in (*KERNELS, "dh_reduce",
+        for kname in (*KERNELS, *PASS_FORMS, "dh_reduce",
                       *(f"asn_{k}" for k in ASN_KERNELS + CHANNEL_KERNELS
                         + BLOCK_KERNELS),
                       "probe_radial_variant", "probe_compact_onehot"):
@@ -659,36 +688,70 @@ def _strip_pad(name, got, c0, n_off):
     return (fcen[:, :c0], w[:, :, :c0].reshape(nc, n_off * c0, 3), dh), stray
 
 
+def angular_call(k, name, pass_form=False):
+    """The angular kernel `name` on `k`, in its pass form if `pass_form`
+    (even where the whole window fits: a check of the pass walk)."""
+    a = (k["pos_g"], k["sp_g"], k["h"], k["ncells"], k["spec"], k["caps"],
+         k["present_a"])
+    if name == "angular_fwd":
+        return ar.angular_fwd(*a, pass_form=pass_form)
+    return ar.angular_bwd(*a, k["ga_a"], pass_form=pass_form)
+
+
 def roll_at_largest_cap(k, name):
-    """`name` on the grid padded with empty slots to the largest cap its
-    host takes (radial_bwd 256, in passes of whole offsets; the angular
-    kernels their limit at these caps, which the card's export and
-    `aev_roll.angular_smem` must give alike) against the plain version on
-    the grid's own rows: within the limit there, exact zeros on the
-    padding; for the angular kernels, one cap above raises the named
-    ValueError before any launch. Returns {"cap", "worst_ratio"}."""
+    """`name` on the grid padded with empty slots to cap 256, the most its
+    host takes (radial_bwd in passes of whole offsets; the angular kernels
+    at these caps too: the card's limit and the offsets it stages a pass,
+    `aev_roll.angular_form`, equal to their transcriptions'), against the
+    plain version on the grid's own rows: within the limit there, exact
+    zeros on the padding. An angular kernel whose whole window fits at cap
+    256 runs its pass form there too; at the grid's own cap its pass form
+    gives the whole-window kernel's bits; cap 257 raises the named
+    ValueError before any launch. Returns {"cap", "worst_ratio", ...}."""
     dev, dtype = k["pos_g"].device, k["pos_g"].dtype
-    c0 = k["sp_g"].shape[1]
+    c0, cap = k["sp_g"].shape[1], ar.MAX_ANG_CAP
+    out = {"cap": cap}
     if name == "radial_bwd":
-        cap, n_off = 256, (2 * k["shell"] + 1) ** 3
+        n_off = (2 * k["shell"] + 1) ** 3
+        runs = {"": lambda kk: kernel_calls(kk)[name][0]()}
     else:
-        cap, n_off = ar.angular_cap_limit(name, dtype, k["caps"], dev), 27
-        host = ar.angular_cap_limit(name, dtype, k["caps"])
-        if cap != host or cap <= c0:
-            raise AssertionError(f"{name}: the card's cap limit {cap}, its "
-                                 f"transcription's {host} (grid cap {c0})")
-    got = kernel_calls(pad_grid(k, cap))[name][0]()
+        n_off = 27
+        lim = ar.angular_cap_limit(name, dtype, k["caps"], dev)
+        form = ar.angular_form(name, cap, k["caps"], dtype, dev)
+        host = (ar.angular_cap_limit(name, dtype, k["caps"]),
+                ar.angular_form(name, cap, k["caps"], dtype))
+        if (lim, form) != host or lim != cap or c0 >= cap:
+            raise AssertionError(f"{name}: the card's cap limit and form "
+                                 f"{(lim, form)}, its transcription's {host}"
+                                 f" (grid cap {c0})")
+        out["offsets_a_pass"] = form
+        runs = {"": lambda kk: angular_call(kk, name)}
+        if form == 27:
+            runs["pass_form_"] = lambda kk: angular_call(kk, name, True)
     ref = kernel_calls(k)[name][1]()
-    _sync(dev)
-    got, stray = _strip_pad(name, got, c0, n_off)
-    if stray:
-        raise AssertionError(f"{name} at cap {cap}: a padded row or lane "
-                             "is not 0")
-    err = compare(name, k, got, ref)
-    if err["worst_ratio"] > 1.0:
-        raise AssertionError(f"{name} at cap {cap}: {err}")
-    out = {"cap": cap, "worst_ratio": err["worst_ratio"]}
+    kp = pad_grid(k, cap)
+    for tag, run in runs.items():
+        got = run(kp)
+        _sync(dev)
+        got, stray = _strip_pad(name, got, c0, n_off)
+        if stray:
+            raise AssertionError(f"{name} {tag}at cap {cap}: a padded row "
+                                 "or lane is not 0")
+        err = compare(name, k, got, ref)
+        if err["worst_ratio"] > 1.0:
+            raise AssertionError(f"{name} {tag}at cap {cap}: {err}")
+        out[f"{tag}worst_ratio"] = err["worst_ratio"]
+        out[f"{tag}ms"] = time_ms(lambda: run(kp), reps=5)
     if name != "radial_bwd":
+        whole, passes = angular_call(k, name), angular_call(k, name, True)
+        _sync(dev)
+        if not same_bits(whole, passes):
+            raise AssertionError(f"{name} at grid cap {c0}: the pass form's "
+                                 "bits differ from the whole window's")
+        out["pass_form_same_bits_at_cap"] = c0
+        out["ms_at_grid_cap"] = time_ms(lambda: angular_call(k, name), 5)
+        out["pass_form_ms_at_grid_cap"] = time_ms(
+            lambda: angular_call(k, name, True), 5)
         before = ar.LAUNCHES[name]
         try:
             kernel_calls(pad_grid(k, cap + 1))[name][0]()
@@ -761,6 +824,9 @@ def phase_kernels_small(device, rep=6):
         result[str(dtype).replace("torch.", "")] = errs
         if dtype == torch.float64:
             result["autograd_f64"] = autograd_check(sim, state)
+    from chip_ab import sass_counts
+    result["angular_sass_f32"] = sass_counts(
+        ["angular_fwd", "angular_bwd", *PASS_FORMS])
     emit({"phase": "kernels", "atoms": data.n_atoms,
           "ncells": list(sim._roll_grid.ncells), "cap": sim._roll_grid.cap,
           "shell": sim._roll_shell,
@@ -3149,6 +3215,184 @@ def phase_probes(device, reps=10):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The nvt and npt ensembles (md/integrate.py NoseHoover, NoseHooverNPT,
+# BerendsenBarostat) on the grid engines
+# ---------------------------------------------------------------------------
+
+NPT = dict(temp=300.0, tdamp=100.0, press=1.0, pdamp=500.0)  # water-NPT's
+
+
+def ensemble(name):
+    """Simulation keywords of the nvt (examples/water), npt
+    (examples/water-NPT) and NVE + Berendsen ensembles."""
+    if name == "nvt":
+        return dict(integrator=integrate.NoseHoover(temp=300.0, tdamp=100.0))
+    if name == "npt":
+        return dict(integrator=integrate.NoseHooverNPT(**NPT))
+    return dict(integrator=None,
+                barostat=integrate.BerendsenBarostat(press=1.0, pdamp=100.0))
+
+
+def scaled(data, scale):
+    """`data` with its box and positions scaled about the box origin."""
+    o = data.box_bounds[:, 0]
+    return dataclasses.replace(
+        data, positions=o + (data.positions - o) * scale,
+        box_bounds=np.stack([o, o + (data.box_bounds[:, 1] - o) * scale], 1))
+
+
+def grid_sim(data, device, engine, ens, rebuild_every=1):
+    """An f64 Simulation of `engine` under ensemble `ens` at `data`'s start
+    (velocities at 300 K from seed 1), and its state."""
+    sim = make_sim(data, torch.float64, device, engine=engine,
+                   rebuild_every=rebuild_every, **ensemble(ens))
+    return sim, sim.init_state(data.positions,
+                               make_box(data, torch.float64, device),
+                               temp=300.0, seed=1)
+
+
+def card_counts(engine):
+    if engine == "pallas_asn":
+        return ({k: asn.LAUNCHES[k] for k in ASN_KERNELS},
+                dict(asn.PLAIN_CALLS))
+    return dict(ar.LAUNCHES), dict(ar.PLAIN_CALLS)
+
+
+def card_vs_cpu(device, data, engine, ens, chunks=2):
+    """`chunks` chunks of one step of `engine` under `ens` on the card and
+    the same run on the CPU: pe (rtol 1e-11), positions and box.h (1e-9 A)
+    and the kernels the card's run launched (none of their plain
+    versions)."""
+    out = {}
+    for dev in (device, "cpu"):
+        sim, st = grid_sim(data, dev, engine, ens)
+        if dev == device:
+            _reset_all_counts()
+        st, rows = sim.run(st, chunks, thermo_every=1)
+        if dev == device:
+            launches, plain = card_counts(engine)
+            _check_md(f"nvt_npt {engine} {ens}", rows, st, launches, plain)
+        out[dev] = (sim, st, rows)
+    (sk, stk, rk), (sc, stc, _) = out[device], out["cpu"]
+    if sk.engine != engine or sc.engine != engine:
+        raise AssertionError(f"nvt_npt: {engine} ran as {sk.engine} / "
+                             f"{sc.engine}")
+    e_pe = abs(float(stk.pe) - float(stc.pe)) / abs(float(stc.pe))
+    e_pos = float(np.abs(sk.positions_input_order(stk)
+                         - sc.positions_input_order(stc)).max())
+    e_h = float((stk.box.h.cpu() - stc.box.h).abs().max())
+    line = {"pe_rel_err": e_pe, "pos_err": e_pos, "box_h_err": e_h,
+            "vol_change": rk[-1]["vol"] / float(torch.det(
+                make_box(data, torch.float64, "cpu").h)) - 1.0,
+            "launches": launches}
+    if not (e_pe <= 1e-11 and e_pos <= 1e-9 and e_h <= 1e-9):
+        raise AssertionError(f"nvt_npt {engine} {ens}, card vs CPU: {line}")
+    return line
+
+
+def card_rederive(device, engine, rep=6, shrink=0.93):
+    """A forced re-derive of the grid under NoseHooverNPT on the card, as
+    tests/test_torch_npt_asn.py's: the box is first scaled so that its
+    grid sits 6.5% above the engine's side, one chunk, then the state's box
+    and positions are scaled by 0.93: the next chunk's `run` re-derives
+    the grid to what the port's `_setup_grids` derives on the CPU from the
+    same state (regrow_events rises by one for it, and by one for each
+    capacity the 24% denser box outgrows, by kind) and launches the
+    engine's kernels on the new grid."""
+    data0 = water_box(rep)
+    probe = make_sim(data0, torch.float64, "cpu", engine=engine)
+    side = simmod.BAROSTAT_SLACK * probe._roll_side
+    n = int(float(data0.box_h[0, 0]) // side)
+    data = scaled(data0, n * 1.065 * probe._roll_side
+                  / float(data0.box_h[0, 0]))
+    sim, st = grid_sim(data, device, engine, "npt")
+    st, _ = sim.run(st, 1)
+    grid0 = (list(sim._roll_grid.ncells), sim._roll_grid.cap)
+    box = Box(h=st.box.h * shrink, origin=st.box.origin)
+    st = st.replace(box=box, pos=box.origin + (st.pos - box.origin) * shrink)
+    cpu = make_sim(data, torch.float64, "cpu", engine=engine,
+                   **ensemble("npt"))
+    pos_in = sim.positions_input_order(st)
+    cbox = box.to(device="cpu")
+    cpu._spatial_sort(pos_in, cbox)
+    cpu._setup_grids(torch.tensor(pos_in[cpu.order]), cbox)
+    want = (list(cpu._roll_grid.ncells), cpu._roll_grid.cap, cpu._roll_shell)
+    if sim._grids_valid(box.h.cpu().numpy()):
+        raise AssertionError(f"nvt_npt {engine}: the box scaled by {shrink} "
+                             f"still fits grid {grid0}")
+    events, kinds = sim.regrow_events, dict(sim.regrow_kinds)
+    _reset_all_counts()
+    st, rows = sim.run(st, 1, thermo_every=1)
+    launches, plain = card_counts(engine)
+    grown = {k: v - kinds[k] for k, v in sim.regrow_kinds.items()
+             if v != kinds[k]}
+    line = {"atoms": data.n_atoms, "grid_before": grid0,
+            "grid_after": (list(sim._roll_grid.ncells), sim._roll_grid.cap,
+                           sim._roll_shell),
+            "cpu_grid": want, "regrow_events": sim.regrow_events - events,
+            "capacities_grown": grown, "launches": launches}
+    _check_md(f"nvt_npt {engine} re-derive", rows, st, launches, plain)
+    if (line["grid_after"][0] != want[0] or line["grid_after"][2] != want[2]
+            or line["regrow_events"] != 1 + sum(grown.values())
+            or sim.engine != engine):
+        raise AssertionError(f"nvt_npt {engine} re-derive: {line}")
+    if "roll" not in grown and line["grid_after"][1] != want[1]:
+        raise AssertionError(f"nvt_npt {engine} re-derive: {line}")
+    return line
+
+
+def phase_nvt_npt(device, sim_asn, state_asn, warm_chunks=1,
+                  timed_chunks=3):
+    """The main path's model and state under NoseHooverNPT (water-NPT's
+    settings, f32, cellroll=True, so pallas_asn), its counts zeroed just
+    before and read just after; then the grid engines under NVT, NPT and
+    Berendsen in f64 against the CPU, and a forced re-derive."""
+    data = water_box(15)
+    sim = make_sim(data, torch.float32, device, engine=None, cellroll=True,
+                   **ensemble("npt"))
+    if sim.engine != "pallas_asn":
+        raise AssertionError(f"nvt_npt: engine {sim.engine}")
+    state = sim.init_state(sim_asn.positions_input_order(state_asn),
+                           make_box(data, torch.float32, device),
+                           vel=sim_asn.velocities_input_order(state_asn))
+    _reset_all_counts()
+    state, warm_rows = sim.run(state, warm_chunks * CHUNK, thermo_every=1)
+    rows, chunk_ms, ends = [], [], []
+    for _ in range(timed_chunks):
+        t0 = time.perf_counter()
+        state, r = sim.run(state, CHUNK, thermo_every=1)
+        _sync(device)
+        chunk_ms.append((time.perf_counter() - t0) * 1e3 / CHUNK)
+        rows += r
+        ends.append({"vol": r[-1]["vol"], "press": r[-1]["press"]})
+    state, prof = profile_chunk(sim, state, ASN_KERNELS)
+    launches = {name: asn.LAUNCHES[name] for name in ASN_KERNELS}
+    plain = dict(asn.PLAIN_CALLS)
+    line = {"phase": "nvt_npt", "engine": sim.engine, "atoms": data.n_atoms,
+            "dtype": "float32", "integrator": "NoseHooverNPT", **NPT,
+            "dt_fs": sim.dt, **_md_numbers(sim, rows, chunk_ms),
+            "chunk_ends": ends, "regrow_events": sim.regrow_events,
+            "regrow_kinds": sim.regrow_kinds, "sizing": asn_sizing(sim),
+            "omega": float(state.barostat.omega),
+            "profile": {k: prof[k] for k in (
+                "device_busy_ms_per_step", "device_idle_share",
+                "unprofiled_ms_per_step", "device_ms_per_step_by_group")},
+            "launches": launches, "plain_calls": plain,
+            "roll_launches": dict(ar.LAUNCHES)}
+    _check_md("nvt_npt", warm_rows + rows, state, launches, plain)
+    small = water_box(6)
+    full_cpu = scaled(water_box(2), 1.1)  # a 3^3 fine grid (see PERF.md)
+    line["card_vs_cpu_f64"] = {
+        engine: {"atoms": d.n_atoms,
+                 **{ens: card_vs_cpu(device, d, engine, ens)
+                    for ens in ("nvt", "npt", "berendsen")}}
+        for engine, d in (("pallas_asn", small), ("pallas_full", full_cpu))}
+    line["rederive_f64"] = {engine: card_rederive(device, engine)
+                            for engine in ("pallas_asn", "pallas_full")}
+    emit(line)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3177,6 +3421,7 @@ def main() -> int:
     phase_mirror(device)
     phase_mirror_md(device, sim, state)
     rows += phase_probes(device)
+    phase_nvt_npt(device, sim, state)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,7 +12,9 @@
 //     position p + S h itself from the [NC, cap] grid: nothing is
 //     materialized, and the window is staged in shared memory once per
 //     bin (radial_fwd: in passes of a fixed lane count; radial_bwd: an
-//     x-plane of the window at a time where it fits, else a row).
+//     x-plane of the window at a time where it fits, else a row; the
+//     angular kernels: the whole 27-bin window where it fits, as at every
+//     cap the engines size, else in passes of whole offsets).
 //   * The TPU grid runs in order, so its kernels carry sums across grid
 //     steps (fcen over candidate groups, dh over the whole grid, the
 //     deficit as a running max). Blocks here run in any order: fcen and
@@ -769,8 +771,10 @@ __device__ __forceinline__ int compact_window(WinLane<T>* win, int W,
 // kernels' field order); with LANES also dfc at f = 5 and its window lane
 // in slane[q] (-1: filled at d <= 1e-6). fc and dfc by the hardware cosine
 // and sine in f32 (the argument lies in [0, pi]). carry[pi] ends as the
-// count of in-Rca lanes of species p.pres[pi], kept or not.
-template <typename T, bool LANES>
+// count of in-Rca lanes of species p.pres[pi], kept or not. FIRST: the
+// carry starts at 0; else it goes on from the caller's (the pass forms
+// compact the window a pass at a time, in window order).
+template <typename T, bool LANES, bool FIRST = true>
 __device__ __forceinline__ void compact_slots(const AngParams<T>& p,
                                               const WinLane<T>* win,
                                               int n_kept, int cap, int a,
@@ -780,8 +784,10 @@ __device__ __forceinline__ void compact_slots(const AngParams<T>& p,
   const int A = p.atot;
   const int self_lane = 13 * cap + a;
   const unsigned below = (1u << lane) - 1u;
+  if constexpr (FIRST) {
 #pragma unroll
-  for (int pi = 0; pi < kMaxS; ++pi) carry[pi] = 0;
+    for (int pi = 0; pi < kMaxS; ++pi) carry[pi] = 0;
+  }
   for (int base = 0; base < n_kept; base += 32) {
     const int i = base + lane;
     int ws = -1, w = 0;
@@ -830,6 +836,69 @@ __device__ __forceinline__ int triu_index(int s1, int s2, int S) {
   return s1 * S - s1 * (s1 - 1) / 2 + (s2 - s1);
 }
 
+// The worst per-species deficit of a center's compaction: count - cap.
+template <typename T>
+__device__ __forceinline__ int carry_deficit(const AngParams<T>& p,
+                                             const int (&carry)[kMaxS]) {
+  int dmax = kDeficitFloor;
+#pragma unroll
+  for (int pi = 0; pi < kMaxS; ++pi)
+    if (pi < p.npres) dmax = max(dmax, carry[pi] - p.caps[p.pres[pi]]);
+  return dmax;
+}
+
+// A center's angular_fwd row orow[AL] from its compacted slots s [5][A]
+// (carry: its per-species in-Rca counts), on one warp: per species-pair
+// block its live slot pairs spread over the lanes, a reduce-scatter, lane
+// l writing channel l; zeros in absent blocks (and on a row whose carry
+// is all 0: a slot with no atom).
+template <typename T>
+__device__ __forceinline__ void af_row(const AngParams<T>& p, const T* s,
+                                       const int (&carry)[kMaxS], T* orow,
+                                       int lane) {
+  const int A = p.atot;
+  int b = 0;
+  for (int s1 = 0; s1 < p.S; ++s1) {
+    for (int s2 = s1; s2 < p.S; ++s2, ++b) {
+      const int p1 = p.pidx[s1], p2 = p.pidx[s2];
+      const bool same = s1 == s2;
+      const int n1 = p1 < 0 ? 0 : min(pick(carry, p1), p.caps[s1]);
+      const int n2 = p2 < 0 ? 0 : min(pick(carry, p2), p.caps[s2]);
+      const int q = same ? n1 * (n1 - 1) / 2 : n1 * n2;
+      T v = T(0);
+      if (q > 0) {
+        const int off1 = p.slot0[s1], off2 = p.slot0[s2];
+        T acc[kNAZ];
+#pragma unroll
+        for (int i = 0; i < kNAZ; ++i) acc[i] = T(0);
+        for (int t = lane; t < q; t += 32) {
+          int j, k;
+          if (same)
+            block_pair<kTri>(t, n1, n1, j, k);
+          else
+            block_pair<kCross>(t, n1, n2, j, k);
+          const int i1 = off1 + j, i2 = off2 + k;
+          PairTerms<T> pt;
+          pair_terms_geom<T, true, AngParams<T>>(
+              p, s[i1], s[A + i1], s[2 * A + i1], s[i2], s[A + i2],
+              s[2 * A + i2], s[3 * A + i1], s[3 * A + i2], s[4 * A + i1],
+              s[4 * A + i2], pt);
+          pair_powers<T>(p, pt);
+#pragma unroll
+          for (int jj = 0; jj < kNA; ++jj) {
+            const T f2 = pt.fc12 * pt.e[jj];
+#pragma unroll
+            for (int m = 0; m < kNZ; ++m) acc[jj * kNZ + m] += f2 * pt.f1[m];
+          }
+        }
+        reduce_scatter32<T>(acc, lane);
+        v = T(2) * acc[0];
+      }
+      orow[b * kNAZ + lane] = v;
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Angular forward — replaces aev_pallas.py:737 _angular_fwd_kernel.
 //
@@ -859,7 +928,7 @@ __device__ __forceinline__ int triu_index(int s1, int s2, int S) {
 // The deficit: integer atomicMax into shared memory, then one per block.
 // ---------------------------------------------------------------------------
 constexpr int kAfWarps = 8;
-constexpr int kMaxAngCap = 1024;  // the angular hosts' largest grid cap
+constexpr int kMaxAngCap = 256;  // the angular hosts' largest grid cap
 
 template <typename T>
 size_t af_smem(int cap, int A, int warps) {
@@ -906,58 +975,13 @@ __global__ void __launch_bounds__(32 * kAfWarps) angular_fwd_kernel(
       compact_slots<T, false>(p, win, n_kept, cap, a, pos[me * 3],
                               pos[me * 3 + 1], pos[me * 3 + 2], lane, s,
                               nullptr, carry);
-      if (lane == 0) {
-        int dmax = kDeficitFloor;
-#pragma unroll
-        for (int pi = 0; pi < kMaxS; ++pi)
-          if (pi < p.npres) dmax = max(dmax, carry[pi] - p.caps[p.pres[pi]]);
-        atomicMax(&red, dmax);
-      }
+      if (lane == 0) atomicMax(&red, carry_deficit(p, carry));
     } else {
 #pragma unroll
       for (int pi = 0; pi < kMaxS; ++pi) carry[pi] = 0;
     }
     __syncwarp();
-    int b = 0;
-    for (int s1 = 0; s1 < p.S; ++s1) {
-      for (int s2 = s1; s2 < p.S; ++s2, ++b) {
-        const int p1 = p.pidx[s1], p2 = p.pidx[s2];
-        const bool same = s1 == s2;
-        const int n1 = p1 < 0 ? 0 : min(pick(carry, p1), p.caps[s1]);
-        const int n2 = p2 < 0 ? 0 : min(pick(carry, p2), p.caps[s2]);
-        const int q = same ? n1 * (n1 - 1) / 2 : n1 * n2;
-        T v = T(0);
-        if (q > 0) {
-          const int off1 = p.slot0[s1], off2 = p.slot0[s2];
-          T acc[kNAZ];
-#pragma unroll
-          for (int i = 0; i < kNAZ; ++i) acc[i] = T(0);
-          for (int t = lane; t < q; t += 32) {
-            int j, k;
-            if (same)
-              block_pair<kTri>(t, n1, n1, j, k);
-            else
-              block_pair<kCross>(t, n1, n2, j, k);
-            const int i1 = off1 + j, i2 = off2 + k;
-            PairTerms<T> pt;
-            pair_terms_geom<T, true, AngParams<T>>(
-                p, s[i1], s[A + i1], s[2 * A + i1], s[i2], s[A + i2],
-                s[2 * A + i2], s[3 * A + i1], s[3 * A + i2], s[4 * A + i1],
-                s[4 * A + i2], pt);
-            pair_powers<T>(p, pt);
-#pragma unroll
-            for (int jj = 0; jj < kNA; ++jj) {
-              const T f2 = pt.fc12 * pt.e[jj];
-#pragma unroll
-              for (int m = 0; m < kNZ; ++m) acc[jj * kNZ + m] += f2 * pt.f1[m];
-            }
-          }
-          reduce_scatter32<T>(acc, lane);
-          v = T(2) * acc[0];
-        }
-        orow[b * kNAZ + lane] = v;
-      }
-    }
+    af_row(p, s, carry, orow, lane);
     __syncwarp();  // the slots are the next center's
   }
   __syncthreads();
@@ -1029,38 +1053,24 @@ size_t bwd_smem(int cap, int A, int Q, int warps) {
   return bwd_warps_off<T>(cap, A) + (size_t)warps * bwd_warp_bytes<T>(A, Q);
 }
 
-// One center of angular_bwd, on one warp: its fcen, and its kept slots'
-// lane cotangents and window lanes in res[0, A) (lane -1: no lane).
+// A center `me` of angular_bwd after its compaction (its slots and their
+// window lanes in the warp's scratch, carry its per-species counts), on
+// one warp: the pair passes, its kept slots' lane cotangents and window
+// lanes in res[0, A) (lane -1: no lane), and its fcen.
 template <typename T>
-__device__ __forceinline__ void bwd_center(
-    const AngParams<T>& p, const Grid& g, const int* csp,
-    const T* __restrict__ pos, const T* __restrict__ ga,
-    T* __restrict__ fcen, const WinLane<T>* win, int n_kept, WinLane<T>* res,
-    unsigned char* scratch, int cell, int a, int Q, int lane) {
-  const int cap = g.cap, A = p.atot;
+__device__ __forceinline__ void bwd_chain(const AngParams<T>& p,
+                                          const int (&carry)[kMaxS],
+                                          const T* __restrict__ ga,
+                                          T* __restrict__ fcen,
+                                          WinLane<T>* res,
+                                          unsigned char* scratch, int me,
+                                          int Q, int lane) {
+  const int A = p.atot;
   T* s = reinterpret_cast<T*>(scratch);
   T* o = s + 6 * A;
   T* pb = o + 5 * A;
   T* gsm = pb + 3 * Q;
   int* slane = reinterpret_cast<int*>(gsm + kNAZ);
-  const int me = cell * cap + a;
-  if (csp[a] < 0) {
-    for (int q = lane; q < A; q += 32) res[q].sp = -1;
-    if (lane < 3) fcen[(size_t)me * 3 + lane] = T(0);
-    return;
-  }
-  for (int q = lane; q < A; q += 32) {
-    slane[q] = -1;
-#pragma unroll
-    for (int f = 0; f < 5; ++f) o[f * A + q] = T(0);
-  }
-  int carry[kMaxS];  // by position in p.pres
-  // compaction: the first caps[s] in-Rca lanes of species s, ascending
-  __syncwarp();
-  compact_slots<T, true>(p, win, n_kept, cap, a, pos[me * 3],
-                         pos[me * 3 + 1], pos[me * 3 + 2], lane, s, slane,
-                         carry);
-  __syncwarp();
   const int AL = p.S * (p.S + 1) / 2 * kNAZ;
   const T(&gb)[kNAZ] = *reinterpret_cast<const T(*)[kNAZ]>(gsm);
   for (int p1 = 0; p1 < p.npres; ++p1) {
@@ -1165,6 +1175,41 @@ __device__ __forceinline__ void bwd_center(
   __syncwarp();  // the scratch is the next center's
 }
 
+// One center of angular_bwd, on one warp: its fcen, and its kept slots'
+// lane cotangents and window lanes in res[0, A) (lane -1: no lane).
+template <typename T>
+__device__ __forceinline__ void bwd_center(
+    const AngParams<T>& p, const Grid& g, const int* csp,
+    const T* __restrict__ pos, const T* __restrict__ ga,
+    T* __restrict__ fcen, const WinLane<T>* win, int n_kept, WinLane<T>* res,
+    unsigned char* scratch, int cell, int a, int Q, int lane) {
+  const int cap = g.cap, A = p.atot;
+  T* s = reinterpret_cast<T*>(scratch);
+  T* o = s + 6 * A;
+  T* pb = o + 5 * A;
+  T* gsm = pb + 3 * Q;
+  int* slane = reinterpret_cast<int*>(gsm + kNAZ);
+  const int me = cell * cap + a;
+  if (csp[a] < 0) {
+    for (int q = lane; q < A; q += 32) res[q].sp = -1;
+    if (lane < 3) fcen[(size_t)me * 3 + lane] = T(0);
+    return;
+  }
+  for (int q = lane; q < A; q += 32) {
+    slane[q] = -1;
+#pragma unroll
+    for (int f = 0; f < 5; ++f) o[f * A + q] = T(0);
+  }
+  int carry[kMaxS];  // by position in p.pres
+  // compaction: the first caps[s] in-Rca lanes of species s, ascending
+  __syncwarp();
+  compact_slots<T, true>(p, win, n_kept, cap, a, pos[me * 3],
+                         pos[me * 3 + 1], pos[me * 3 + 2], lane, s, slane,
+                         carry);
+  __syncwarp();
+  bwd_chain(p, carry, ga, fcen, res, scratch, me, Q, lane);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(32 * kBwdMaxWarps) angular_bwd_kernel(
     const T* __restrict__ pos, const int* __restrict__ sp,
@@ -1236,6 +1281,326 @@ __global__ void __launch_bounds__(32 * kBwdMaxWarps) angular_bwd_kernel(
     for (int b = lane; b < cap; b += 32)
 #pragma unroll
       for (int c = 0; c < 3; ++c) v[c] += wing_s[3 * (off * cap + b) + c];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      v[c] = warp_sum(v[c]);
+      if (lane == 0) osum[off][c] = v[c];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 9) {
+    const int m = threadIdx.x / 3, c = threadIdx.x % 3;
+    T acc = T(0);
+    for (int off = 0; off < 27; ++off) {
+      const int sm = (tab[off].y >> (2 * m) & 3) - 1;
+      if (sm) acc += T(sm) * osum[off][c];
+    }
+    dh_part[(size_t)cell * 9 + threadIdx.x] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Angular kernels in passes: the same two functions at grid caps whose
+// whole-window layout does not fit a block.
+//
+// The kernels above stage a bin's 27-bin window in shared memory at once
+// (angular_bwd also every center's results, cap A lanes), so their layouts
+// outgrow a block above a few hundred slots a bin (207 in f32 for
+// angular_bwd at caps H 24 / O 16). The JAX kernels hold the whole window
+// in one block of VMEM, which is far larger. Here, as radial_bwd does,
+// the block stages the window in passes of whole offsets (the host's
+// choice: an x-plane of 9, else an x-y row of 3, else one), compacted to
+// its lanes of present species in lane order, and the bin's real centers
+// go in rounds, one a warp, in slot order: each warp carries its center's
+// compaction from pass to pass (compact_slots without the carry's reset:
+// the per-species counts in registers, the kept slots in its scratch), so
+// a center's slots are the first caps[s] in-Rca lanes of species s in
+// ascending window lane order, the same slots with the same bits as the
+// whole window gives. After the last pass each warp runs its center as
+// the whole-window kernel does (af_row; bwd_chain). angular_bwd keeps a
+// round's results a warp (A lanes), and builds the wing in the bin's own
+// slab of the output, which no other block touches: zeroed first, then
+// each warp owns a range of window lanes and subtracts the round's results
+// in warp order, which is center order, with no atomics, so every wing
+// entry is the same sum in the same order as in the whole-window kernel;
+// the per-offset sums and the dh partial are read back from that slab.
+// The window is staged once a round (the whole-window kernels stage it
+// once a bin); the hosts launch these forms only where those do not fit.
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory of the pass forms, byte offsets: a pass's kept
+// lanes WinLane [opp cap], the bin's real centers int [cap], then each
+// warp's scratch (ang_pass_warp_bytes).
+struct PassLayout {
+  unsigned ctr, warps;
+};
+
+template <typename T>
+__host__ __device__ PassLayout pass_layout(int cap, int opp) {
+  PassLayout L;
+  L.ctr = al16(sizeof(WinLane<T>) * (size_t)opp * cap);
+  L.warps = L.ctr + al16(sizeof(int) * (size_t)cap);
+  return L;
+}
+
+// A warp's scratch in the pass forms: angular_fwd its slots [5][A];
+// angular_bwd the whole-window kernel's (bwd_warp_bytes) and its
+// center's results WinLane [A].
+template <typename T>
+__host__ __device__ size_t ang_pass_warp_bytes(bool bwd, int A, int Q) {
+  return bwd ? bwd_warp_bytes<T>(A, Q) + sizeof(WinLane<T>) * (size_t)A
+             : (size_t)al16(sizeof(T) * 5 * (size_t)A);
+}
+
+template <typename T>
+size_t ang_pass_smem(bool bwd, int cap, int A, int Q, int opp, int warps) {
+  return pass_layout<T>(cap, opp).warps +
+         (size_t)warps * ang_pass_warp_bytes<T>(bwd, A, Q);
+}
+
+// The 27 window offsets' first grid slots and packed wrap shifts (threads
+// below 27) and the bin's real centers in slot order (warp 0), with their
+// count; the caller's barrier publishes both.
+__device__ __forceinline__ void pass_setup(const Grid& g, int cell,
+                                           const int* __restrict__ sp,
+                                           int2* tab, int* ctr, int* n_ctr) {
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 27) {
+    int ox, oy, oz, sx, sy, sz;
+    offset_of(threadIdx.x, 1, ox, oy, oz);
+    const int base = neighbor_bin(g, cell, ox, oy, oz, sx, sy, sz) * g.cap;
+    tab[threadIdx.x] = make_int2(base, (sx + 1) | (sy + 1) << 2 |
+                                           (sz + 1) << 4);
+  }
+  if (threadIdx.x < 32) {
+    const unsigned below = (1u << lane) - 1u;
+    int n = 0;
+    for (int b0 = 0; b0 < g.cap; b0 += 32) {
+      const bool r = b0 + lane < g.cap && sp[cell * g.cap + b0 + lane] >= 0;
+      const unsigned bal = __ballot_sync(kFull, r);
+      if (r) ctr[n + __popc(bal & below)] = b0 + lane;
+      n += __popc(bal);
+    }
+    if (lane == 0) *n_ctr = n;
+  }
+}
+
+// Stage the window offsets [o0, o0 + opp) of a bin (tab: pass_setup's) in
+// shared memory, compacted in lane order to the lanes of a species in the
+// bit mask `keep`, each as species | window lane << 4, by a block scan of
+// ballots (wtot: an int a warp); returns how many, the same on every
+// thread. Positions by candidate_pos, as stage_window. Every thread calls
+// it; it ends with a barrier.
+template <typename T>
+__device__ __forceinline__ int stage_pass(const T* __restrict__ pos,
+                                          const int* __restrict__ sp,
+                                          const T* h, const int2* tab,
+                                          int cap, unsigned keep, int o0,
+                                          int opp, WinLane<T>* kept,
+                                          int* wtot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5, PL = opp * cap, w0 = o0 * cap;
+  const unsigned below = (1u << lane) - 1u;
+  int n_kept = 0;
+  for (int base = 0; base < PL; base += blockDim.x) {
+    const int lw = base + threadIdx.x;
+    WinLane<T> c;
+    bool k = false;
+    if (lw < PL) {
+      const int oo = lw / cap;
+      const int2 t = tab[o0 + oo];
+      const int q = t.x + (lw - oo * cap);
+      const int s = sp[q];
+      if (s >= 0 && (keep >> s & 1u)) {
+        candidate_pos(pos, q, h, (t.y & 3) - 1, (t.y >> 2 & 3) - 1,
+                      (t.y >> 4 & 3) - 1, c.x, c.y, c.z);
+        c.sp = s | (w0 + lw) << 4;
+        k = true;
+      }
+    }
+    const unsigned bal = __ballot_sync(kFull, k);
+    if (lane == 0) wtot[warp] = __popc(bal);
+    __syncthreads();
+    int at = n_kept + __popc(bal & below), total = 0;
+    for (int v = 0; v < nw; ++v) {
+      if (v < warp) at += wtot[v];
+      total += wtot[v];
+    }
+    if (k) kept[at] = c;
+    n_kept += total;
+    __syncthreads();
+  }
+  return n_kept;
+}
+
+template <typename T>
+__device__ __forceinline__ unsigned keep_mask(const AngParams<T>& p) {
+  unsigned keep = 0;
+#pragma unroll
+  for (int pi = 0; pi < kMaxS; ++pi)
+    if (pi < p.npres) keep |= 1u << p.pres[pi];
+  return keep;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kAfWarps) angular_fwd_pass_kernel(
+    const T* __restrict__ pos, const int* __restrict__ sp,
+    const T* __restrict__ hmat, T* __restrict__ out,
+    int* __restrict__ deficit_out, Grid g, AngParams<T> p, int opp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int2 tab[27];
+  __shared__ int red, n_ctr_s, wtot[kAfWarps];
+  const int cell = blockIdx.x, cap = g.cap, A = p.atot;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const PassLayout L = pass_layout<T>(cap, opp);
+  WinLane<T>* kept = reinterpret_cast<WinLane<T>*>(smem_raw);
+  int* ctr = reinterpret_cast<int*>(smem_raw + L.ctr);
+  T* s = reinterpret_cast<T*>(smem_raw + L.warps +
+                              warp * ang_pass_warp_bytes<T>(false, A, 0));
+  if (threadIdx.x == 0) red = kDeficitFloor;
+  const unsigned keep = keep_mask(p);
+  T h[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) h[i] = hmat[i];
+  pass_setup(g, cell, sp, tab, ctr, &n_ctr_s);
+  const int AL = p.S * (p.S + 1) / 2 * kNAZ;
+  // the rows of empty slots are zeros
+  for (int a = warp; a < cap; a += nw) {
+    if (sp[cell * cap + a] >= 0) continue;
+    T* orow = out + (size_t)(cell * cap + a) * AL;
+    for (int i = lane; i < AL; i += 32) orow[i] = T(0);
+  }
+  __syncthreads();
+  const int n_ctr = n_ctr_s;
+  for (int r0 = 0; r0 < n_ctr; r0 += nw) {
+    const bool has = r0 + warp < n_ctr;
+    const int a = has ? ctr[r0 + warp] : 0;
+    const int me = cell * cap + a;
+    T cx = T(0), cy = T(0), cz = T(0);
+    if (has) {
+      cx = pos[me * 3];
+      cy = pos[me * 3 + 1];
+      cz = pos[me * 3 + 2];
+    }
+    int carry[kMaxS];
+#pragma unroll
+    for (int pi = 0; pi < kMaxS; ++pi) carry[pi] = 0;
+    for (int o0 = 0; o0 < 27; o0 += opp) {
+      const int n_kept =
+          stage_pass(pos, sp, h, tab, cap, keep, o0, opp, kept, wtot);
+      if (has)
+        compact_slots<T, false, false>(p, kept, n_kept, cap, a, cx, cy, cz,
+                                       lane, s, nullptr, carry);
+      __syncthreads();  // the kept lanes are the next pass's
+    }
+    if (has) {
+      if (lane == 0) atomicMax(&red, carry_deficit(p, carry));
+      __syncwarp();
+      af_row(p, s, carry, out + (size_t)me * AL, lane);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) atomicMax(deficit_out, red);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kBwdMaxWarps) angular_bwd_pass_kernel(
+    const T* __restrict__ pos, const int* __restrict__ sp,
+    const T* __restrict__ hmat, const T* __restrict__ ga,
+    T* __restrict__ fcen, T* __restrict__ wing, T* __restrict__ dh_part,
+    Grid g, AngParams<T> p, int Q, int opp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int2 tab[27];
+  __shared__ T osum[27][3];
+  __shared__ int n_ctr_s, wtot[kBwdMaxWarps];
+  const int cell = blockIdx.x, cap = g.cap, W = 27 * cap, A = p.atot;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const PassLayout L = pass_layout<T>(cap, opp);
+  const size_t wb = ang_pass_warp_bytes<T>(true, A, Q);
+  const size_t res_off = bwd_warp_bytes<T>(A, Q);
+  WinLane<T>* kept = reinterpret_cast<WinLane<T>*>(smem_raw);
+  int* ctr = reinterpret_cast<int*>(smem_raw + L.ctr);
+  unsigned char* scratch = smem_raw + L.warps + warp * wb;
+  T* s = reinterpret_cast<T*>(scratch);
+  T* o = s + 6 * A;
+  int* slane = reinterpret_cast<int*>(o + 5 * A + 3 * Q + kNAZ);
+  const unsigned keep = keep_mask(p);
+  T h[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) h[i] = hmat[i];
+  pass_setup(g, cell, sp, tab, ctr, &n_ctr_s);
+  // the bin's wing slab starts at 0; empty slots' fcen is 0
+  T* wing_b = wing + (size_t)cell * 3 * W;
+  for (int i = threadIdx.x; i < 3 * W; i += blockDim.x) wing_b[i] = T(0);
+  for (int i = threadIdx.x; i < 3 * cap; i += blockDim.x)
+    if (sp[cell * cap + i / 3] < 0) fcen[(size_t)cell * cap * 3 + i] = T(0);
+  __syncthreads();
+  const int n_ctr = n_ctr_s;
+  const int per = (W + nw - 1) / nw, lo = warp * per, hi = min(W, lo + per);
+  for (int r0 = 0; r0 < n_ctr; r0 += nw) {
+    const bool has = r0 + warp < n_ctr;
+    const int a = has ? ctr[r0 + warp] : 0;
+    const int me = cell * cap + a;
+    T cx = T(0), cy = T(0), cz = T(0);
+    if (has) {
+      cx = pos[me * 3];
+      cy = pos[me * 3 + 1];
+      cz = pos[me * 3 + 2];
+      for (int q = lane; q < A; q += 32) {
+        slane[q] = -1;
+#pragma unroll
+        for (int f = 0; f < 5; ++f) o[f * A + q] = T(0);
+      }
+    }
+    int carry[kMaxS];
+#pragma unroll
+    for (int pi = 0; pi < kMaxS; ++pi) carry[pi] = 0;
+    for (int o0 = 0; o0 < 27; o0 += opp) {
+      const int n_kept =
+          stage_pass(pos, sp, h, tab, cap, keep, o0, opp, kept, wtot);
+      if (has)
+        compact_slots<T, true, false>(p, kept, n_kept, cap, a, cx, cy, cz,
+                                      lane, s, slane, carry);
+      __syncthreads();  // the kept lanes are the next pass's
+    }
+    if (has)
+      bwd_chain(p, carry, ga, fcen,
+                reinterpret_cast<WinLane<T>*>(scratch + res_off), scratch,
+                me, Q, lane);
+    __syncthreads();
+    // each warp owns a range of window lanes and subtracts the round's
+    // results in warp order (center order)
+    const int nv = min(nw, n_ctr - r0);
+    for (int v = 0; v < nv; ++v) {
+      const WinLane<T>* rv = reinterpret_cast<const WinLane<T>*>(
+          smem_raw + L.warps + v * wb + res_off);
+      for (int q = lane; q < A; q += 32) {
+        const WinLane<T> r = rv[q];
+        if (r.sp >= lo && r.sp < hi) {
+          wing_b[3 * r.sp] -= r.x;
+          wing_b[3 * r.sp + 1] -= r.y;
+          wing_b[3 * r.sp + 2] -= r.z;
+        }
+      }
+      __syncwarp();
+    }
+    __syncthreads();  // the results are the next round's, the wing whole
+  }
+  // dh[m][c] = sum over offsets of S_m (sum of the offset's wing_c)
+  const int iz = cell % g.nz, iy = (cell / g.nz) % g.ny;
+  const int ix = cell / (g.ny * g.nz);
+  if (ix > 0 && ix < g.nx - 1 && iy > 0 && iy < g.ny - 1 && iz > 0 &&
+      iz < g.nz - 1) {
+    if (threadIdx.x < 9) dh_part[(size_t)cell * 9 + threadIdx.x] = T(0);
+    return;
+  }
+  for (int off = warp; off < 27; off += nw) {
+    T v[3] = {T(0), T(0), T(0)};
+    for (int b = lane; b < cap; b += 32)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) v[c] += wing_b[3 * (off * cap + b) + c];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       v[c] = warp_sum(v[c]);
@@ -1433,29 +1798,19 @@ bool ang_params(const int* ip, const double* fp, AngParams<T>& p) {
   return true;
 }
 
-// The largest grid cap in [0, kMaxAngCap] whose one-warp layout
-// (smem_of(cap) bytes a block, growing with the cap) fits kDynSmem.
+// The largest grid cap in [0, kMaxAngCap] that `taken(cap)` admits (it
+// admits every cap below one it admits).
 template <typename F>
-int largest_cap(F smem_of) {
+int largest_cap(F taken) {
   int lo = 0, hi = kMaxAngCap;
   while (lo < hi) {
     const int mid = (lo + hi + 1) / 2;
-    if (smem_of(mid) <= kDynSmem)
+    if (taken(mid))
       lo = mid;
     else
       hi = mid - 1;
   }
   return lo;
-}
-
-// The angular kernels keep the bin's whole 27-bin window in shared memory
-// (angular_bwd also its centers' slot results), so their host takes the
-// caps that layout holds: angular_fwd 531 in f32 and 264 in f64,
-// angular_bwd 207 and 101, at caps H 24 / O 16 (the JAX kernels, which
-// cut the window into groups, take any cap).
-template <typename T>
-int angular_fwd_cap_limit(const AngParams<T>& p) {
-  return largest_cap([&](int cap) { return af_smem<T>(cap, p.atot, 1); });
 }
 
 // The largest species-pair block's slot pairs (at least 1).
@@ -1471,32 +1826,73 @@ int max_block_pairs(const AngParams<T>& p) {
   return Q;
 }
 
+// The window offsets a block of an angular kernel (bwd: angular_bwd)
+// stages a pass at grid cap `cap`: 27 where the whole-window kernel's
+// one-warp layout fits (every cap the engines size: today's kernel as
+// it was); else the pass form's x-plane (9), x-y row (3) or one offset,
+// the first whose layout holds a block of the most warps, else one
+// offset if it holds one warp; 0 where the kernel does not take the cap
+// (above kMaxAngCap, the radial kernels' limit too, or where even one
+// offset and one warp do not fit: the caps' per-warp scratch). `pass`:
+// the pass form even where the whole window fits (a check of its walk).
 template <typename T>
-int angular_bwd_cap_limit(const AngParams<T>& p) {
-  const int Q = max_block_pairs(p);
-  return largest_cap(
-      [&](int cap) { return bwd_smem<T>(cap, p.atot, Q, 1); });
+int ang_form(bool bwd, const AngParams<T>& p, int cap, bool pass) {
+  if (cap < 1 || cap > kMaxAngCap) return 0;
+  const int A = p.atot, Q = max_block_pairs(p);
+  const size_t whole =
+      bwd ? bwd_smem<T>(cap, A, Q, 1) : af_smem<T>(cap, A, 1);
+  if (!pass && whole <= kDynSmem) return 27;
+  const int most = bwd ? kBwdMaxWarps : kAfWarps;
+  int opp = 9;
+  while (opp > 1 && ang_pass_smem<T>(bwd, cap, A, Q, opp, most) > kDynSmem)
+    opp /= 3;
+  return ang_pass_smem<T>(bwd, cap, A, Q, opp, 1) <= kDynSmem ? opp : 0;
 }
 
+// The largest grid cap an angular kernel's host takes at these caps:
+// 256 at the caps the engines size, in both dtypes.
+template <typename T>
+int angular_cap_limit(bool bwd, const AngParams<T>& p) {
+  return largest_cap(
+      [&](int cap) { return ang_form<T>(bwd, p, cap, false) > 0; });
+}
+
+// ip: nx ny nz cap S zeta_int caps[S] pass; fp: as ang_params.
 template <typename T>
 int angular_fwd(const int* ip, const double* fp, const void* pos,
                 const void* sp, const void* h, void* out, void* deficit,
                 void* stream) {
   const Grid g = grid_from(ip);
   AngParams<T> p;
-  if (!ang_params(ip, fp, p) || g.cap < 1 ||
-      g.cap > angular_fwd_cap_limit(p) || p.zeta_floor < 0)
+  if (!ang_params(ip, fp, p) || p.zeta_floor < 0)
     return cudaErrorInvalidValue;
-  const int warps = best_warps(
-      kAfWarps, [&](int nw) { return af_smem<T>(g.cap, p.atot, nw); });
+  const int opp = ang_form<T>(false, p, g.cap, ip[6 + p.S] != 0);
+  if (opp == 0) return cudaErrorInvalidValue;
+  const int nc = g.nx * g.ny * g.nz;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (opp == 27) {
+    const int warps = best_warps(
+        kAfWarps, [&](int nw) { return af_smem<T>(g.cap, p.atot, nw); });
+    if (warps == 0) return cudaErrorInvalidValue;
+    const size_t smem = af_smem<T>(g.cap, p.atot, warps);
+    cudaError_t err = set_smem(angular_fwd_kernel<T>, smem);
+    if (err != cudaSuccess) return (int)err;
+    angular_fwd_kernel<T><<<nc, 32 * warps, smem, st>>>(
+        (const T*)pos, (const int*)sp, (const T*)h, (T*)out, (int*)deficit,
+        g, p);
+    return (int)cudaGetLastError();
+  }
+  auto smem_of = [&](int nw) {
+    return ang_pass_smem<T>(false, g.cap, p.atot, 0, opp, nw);
+  };
+  const int warps = best_warps(kAfWarps, smem_of);
   if (warps == 0) return cudaErrorInvalidValue;
-  const size_t smem = af_smem<T>(g.cap, p.atot, warps);
-  cudaError_t err = set_smem(angular_fwd_kernel<T>, smem);
+  const size_t smem = smem_of(warps);
+  cudaError_t err = set_smem(angular_fwd_pass_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  angular_fwd_kernel<T><<<g.nx * g.ny * g.nz, 32 * warps, smem,
-                          (cudaStream_t)stream>>>(
+  angular_fwd_pass_kernel<T><<<nc, 32 * warps, smem, st>>>(
       (const T*)pos, (const int*)sp, (const T*)h, (T*)out, (int*)deficit, g,
-      p);
+      p, opp);
   return (int)cudaGetLastError();
 }
 
@@ -1506,21 +1902,38 @@ int angular_bwd(const int* ip, const double* fp, const void* pos,
                 void* wing, void* dh_part, void* dh, void* stream) {
   const Grid g = grid_from(ip);
   AngParams<T> p;
-  if (!ang_params(ip, fp, p) || g.cap < 1 ||
-      g.cap > angular_bwd_cap_limit(p) || p.atot < 1 || p.zeta_floor < 0)
+  if (!ang_params(ip, fp, p) || p.atot < 1 || p.zeta_floor < 0)
     return cudaErrorInvalidValue;
+  const int opp = ang_form<T>(true, p, g.cap, ip[6 + p.S] != 0);
+  if (opp == 0) return cudaErrorInvalidValue;
   const int Q = max_block_pairs(p);
-  const int warps = best_warps(
-      kBwdMaxWarps, [&](int nw) { return bwd_smem<T>(g.cap, p.atot, Q, nw); });
-  if (warps == 0) return cudaErrorInvalidValue;
-  const size_t smem = bwd_smem<T>(g.cap, p.atot, Q, warps);
-  cudaError_t err = set_smem(angular_bwd_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
   const int nc = g.nx * g.ny * g.nz;
   cudaStream_t st = (cudaStream_t)stream;
-  angular_bwd_kernel<T><<<nc, 32 * warps, smem, st>>>(
-      (const T*)pos, (const int*)sp, (const T*)h, (const T*)ga, (T*)fcen,
-      (T*)wing, (T*)dh_part, g, p, Q);
+  cudaError_t err;
+  if (opp == 27) {
+    const int warps = best_warps(kBwdMaxWarps, [&](int nw) {
+      return bwd_smem<T>(g.cap, p.atot, Q, nw);
+    });
+    if (warps == 0) return cudaErrorInvalidValue;
+    const size_t smem = bwd_smem<T>(g.cap, p.atot, Q, warps);
+    err = set_smem(angular_bwd_kernel<T>, smem);
+    if (err != cudaSuccess) return (int)err;
+    angular_bwd_kernel<T><<<nc, 32 * warps, smem, st>>>(
+        (const T*)pos, (const int*)sp, (const T*)h, (const T*)ga, (T*)fcen,
+        (T*)wing, (T*)dh_part, g, p, Q);
+  } else {
+    auto smem_of = [&](int nw) {
+      return ang_pass_smem<T>(true, g.cap, p.atot, Q, opp, nw);
+    };
+    const int warps = best_warps(kBwdMaxWarps, smem_of);
+    if (warps == 0) return cudaErrorInvalidValue;
+    const size_t smem = smem_of(warps);
+    err = set_smem(angular_bwd_pass_kernel<T>, smem);
+    if (err != cudaSuccess) return (int)err;
+    angular_bwd_pass_kernel<T><<<nc, 32 * warps, smem, st>>>(
+        (const T*)pos, (const int*)sp, (const T*)h, (const T*)ga, (T*)fcen,
+        (T*)wing, (T*)dh_part, g, p, Q, opp);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dh_reduce_kernel<T><<<1, kRedThreads, 0, st>>>((const T*)dh_part, nc,
@@ -1559,18 +1972,28 @@ int angular_bwd(const int* ip, const double* fp, const void* pos,
                           stream);                                           \
   }
 
-// The largest grid cap an angular kernel's host takes (ip, fp: as the
-// kernel's; the grid's own cap is not read); -1 on invalid parameters.
+// The largest grid cap an angular kernel's host takes, and the window
+// offsets its block stages a pass at grid cap ip[3] (ang_form: 27 the
+// whole window, 9, 3 or 1 in passes, 0 not taken); ip, fp as the
+// kernel's (the pass flag is not read); -1 on invalid parameters.
 #define AEV_ROLL_LIMIT(T, SUF)                                               \
   extern "C" int angular_fwd_cap_limit_##SUF(const int* ip,                 \
                                              const double* fp) {            \
     AngParams<T> p;                                                          \
-    return ang_params(ip, fp, p) ? angular_fwd_cap_limit(p) : -1;           \
+    return ang_params(ip, fp, p) ? angular_cap_limit(false, p) : -1;        \
   }                                                                          \
   extern "C" int angular_bwd_cap_limit_##SUF(const int* ip,                 \
                                              const double* fp) {            \
     AngParams<T> p;                                                          \
-    return ang_params(ip, fp, p) ? angular_bwd_cap_limit(p) : -1;           \
+    return ang_params(ip, fp, p) ? angular_cap_limit(true, p) : -1;         \
+  }                                                                          \
+  extern "C" int angular_fwd_form_##SUF(const int* ip, const double* fp) {  \
+    AngParams<T> p;                                                          \
+    return ang_params(ip, fp, p) ? ang_form(false, p, ip[3], false) : -1;   \
+  }                                                                          \
+  extern "C" int angular_bwd_form_##SUF(const int* ip, const double* fp) {  \
+    AngParams<T> p;                                                          \
+    return ang_params(ip, fp, p) ? ang_form(true, p, ip[3], false) : -1;    \
   }
 
 AEV_ROLL_ENTRY(float, f32)

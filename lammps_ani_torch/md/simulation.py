@@ -44,11 +44,26 @@ and grow at a regrow; False, or caps already in the spec, keeps the
 spec's caps: the degree measure still sizes the engine's own capacities
 (k_max, the sub-list cap, the asn sections and tiers), an angular
 overflow raises "angular_caps overflow", and `pallas_full`/`pallas_asn`
-without caps run the `pallas` hybrid, as in the JAX package. Step (LAMMPS
-fix nve + optional fix langevin):
+without caps run the `pallas` hybrid, as in the JAX package.
 
-  v += dt/2 * ftm2v * f/m ;  x += dt * v ;  f = forces(x) (+ Langevin)
+Integrators (`integrator=`): None (NVE), `Langevin`, `NoseHoover` (the
+CLI's nvt) and `NoseHooverNPT` (its npt); `barostat=` a
+`BerendsenBarostat` with any of the first three. A step, in the JAX
+package's order (md/integrate.py):
+
+  NPT: piston half step, chain half step, MTK velocity scale
+  NVT: chain half step
   v += dt/2 * ftm2v * f/m
+  NPT: box and positions scale by exp(dt omega) about the box origin
+  x += dt * v ;  f = forces(x, box) (+ Langevin)
+  v += dt/2 * ftm2v * f/m
+  NPT: MTK velocity scale, chain half step, piston half step at the new
+       virial;  NVT: chain half step
+  Berendsen: box and positions scale by the pressure's factor
+
+The kernels take the state's box every step. Under a barostat the grids
+are sized with 6% slack, and `run` re-derives them at the top of a chunk
+when the box has left it (one `regrow_events`), as the JAX engine does.
 
 Neighbor contract (LAMMPS `neigh_modify check yes`): if any atom moved
 more than skin_eff/2 since the rebuild (skin_eff = skin on the asn and
@@ -62,8 +77,8 @@ last tier short of rows) is reported per chunk; `run` grows exactly that
 capacity, never shrinking one, and re-runs the chunk from its input
 state.
 
-Not ported yet (they raise NotImplementedError): NoseHoover, NPT and the
-barostats, RATTLE constraints and `extra_force`.
+Not ported yet (they raise NotImplementedError): RATTLE constraints and
+`extra_force`.
 """
 
 from __future__ import annotations
@@ -87,6 +102,12 @@ from ..ops import nbr_grad
 from ..ops import neighbors as nbops
 from . import integrate
 from .state import MDState
+
+INTEGRATORS = (integrate.Langevin, integrate.NoseHoover,
+               integrate.NoseHooverNPT)
+# Grid slack under a barostat: the box may shrink this much before the
+# grids are re-derived.
+BAROSTAT_SLACK = 1.06
 
 # Extra roll-bin slots above the measured occupancy (+2 base): the t=0
 # occupancy sits one thermal fluctuation below the run's high-water mark.
@@ -151,13 +172,18 @@ class Simulation:
                  engine: Optional[str] = None,
                  pair_stage: Optional[str] = None, cellroll: bool = False,
                  sort_species: bool = True, auto_angular_caps: bool = True):
+        if barostat is not None and isinstance(integrator,
+                                               integrate.NoseHooverNPT):
+            raise ValueError("NoseHooverNPT already includes a barostat")
         if integrator is not None and not isinstance(integrator,
-                                                     integrate.Langevin):
-            raise NotImplementedError(
-                f"integrator {type(integrator).__name__} is not ported yet "
-                "(NVE and Langevin are)")
-        if barostat is not None:
-            raise NotImplementedError("barostats are not ported yet")
+                                                     INTEGRATORS):
+            raise TypeError(f"integrator {type(integrator).__name__}: "
+                            "expected None (NVE), Langevin, NoseHoover or "
+                            "NoseHooverNPT")
+        if barostat is not None and not isinstance(
+                barostat, integrate.BerendsenBarostat):
+            raise TypeError(f"barostat {type(barostat).__name__}: expected "
+                            "a BerendsenBarostat")
         if constraints is not None:
             raise NotImplementedError("RATTLE constraints are not ported yet")
         if extra_force is not None:
@@ -205,6 +231,7 @@ class Simulation:
         self.nbr = nbr
         self.dt = float(dt)
         self.integrator = integrator
+        self.barostat = barostat
         self.dtype = dtype
         self._species_in = np.asarray(species)
         self._masses_in = np.asarray(masses, np.float64)
@@ -302,12 +329,18 @@ class Simulation:
             nbrs = self._mirror(nlist, pos_w, box)
             struct = (nbrs, bins)
         pe, force, virial, _ = self._forces(pos_w, box, struct)
+        ts = bs = None
+        if isinstance(self.integrator, integrate.NoseHooverNPT):
+            ts = self.integrator.thermostat.init(self.dtype, self.device)
+            bs = self.integrator.init(self.dtype, self.device)
+        elif isinstance(self.integrator, integrate.NoseHoover):
+            ts = self.integrator.init(self.dtype, self.device)
         # the asn tables are stale after the next rebuild and large: the
         # state does not carry them
         return MDState(pos=pos_w, vel=vel_t, force=force, box=box, step=0,
                        pe=pe, virial=virial, pos_at_rebuild=pos_w,
                        bins=None if self._asn else bins, nlist=nlist,
-                       nbrs=nbrs)
+                       nbrs=nbrs, thermostat=ts, barostat=bs)
 
     def _spatial_sort(self, pos: np.ndarray, box: nbops.Box):
         """Species-major / cell-minor atom order (the JAX package's
@@ -328,6 +361,10 @@ class Simulation:
                       if self._sort_species
                       else np.argsort(cell_id, kind="stable"))
         self._apply_order()
+
+    def _barostat_active(self) -> bool:
+        return self.barostat is not None or isinstance(
+            self.integrator, integrate.NoseHooverNPT)
 
     @staticmethod
     def _perp_lengths(box_h) -> np.ndarray:
@@ -365,13 +402,16 @@ class Simulation:
     def _setup_grids(self, pos, box):
         """The roll grid of a roll engine (None and the mirror engine when
         the box holds no 3x3x3 grid of its side) and the neighbor matrix's
-        cell grid."""
+        cell grid, from the box as it is: at init_state and, under a
+        barostat, whenever `_grids_valid` finds the box has left them;
+        with a barostat both are sized with BAROSTAT_SLACK."""
         box_h = box.h.detach().cpu().numpy().astype(np.float64)
         spec = self.potential.spec
+        slack = BAROSTAT_SLACK if self._barostat_active() else 1.0
         self.engine = self._roll_impl if self._want_cellroll else "mirror"
         self._roll_grid = None
         self._rlist_query = self.nbr.rlist
-        probe = (crmod.RollGrid.for_box(box_h, self._roll_side, 64)
+        probe = (crmod.RollGrid.for_box(box_h, self._roll_side * slack, 64)
                  if self._want_cellroll else None)
         if probe is None:
             if self._want_cellroll:
@@ -398,10 +438,49 @@ class Simulation:
                 self._rlist_query = (spec.aev.angular_cutoff
                                      + self._skin_eff)
         if self.nbr.use_cell_list:
-            self._grid = clmod.CellGrid.for_box(box_h, self._rlist_query,
-                                                self.nbr.cell_capacity)
+            self._grid = clmod.CellGrid.for_box(
+                box_h, self._rlist_query * slack, self.nbr.cell_capacity)
             # None: the box is too small for a 3x3x3 cell grid; brute build
             self._probe_cell_capacity(pos, box)
+
+    def _grids_valid(self, box_h) -> bool:
+        """Whether the grids still serve the (barostat-rescaled) box: every
+        roll bin at least the engine's side (pallas_full's shell-1 radial
+        window still reaching Rcr + skin), a roll grid where the box now
+        holds one, the cell grid's ghost margin and cells still covering
+        the query radius (the JAX engine's test)."""
+        h = np.asarray(box_h, np.float64)
+        perp = self._perp_lengths(h)
+        if self._want_cellroll and self._roll_impl == "pallas_asn":
+            if self._roll_grid is None:
+                return crmod.RollGrid.for_box(h, self._roll_side, 4) is None
+            return not np.any(perp / np.asarray(self._roll_grid.ncells)
+                              < self._roll_side)
+        if self._want_cellroll:
+            if self._roll_grid is None:
+                if crmod.RollGrid.for_box(h, self._roll_side, 4) is not None:
+                    return False
+            else:
+                side_now = perp / np.asarray(self._roll_grid.ncells)
+                if np.any(side_now < self._roll_side):
+                    return False
+                if (self._full and self._roll_shell == 1 and np.any(
+                        side_now < self.potential.spec.cutoff
+                        + self._skin_eff)):
+                    return False
+        if self.nbr.use_cell_list:
+            rq = self._rlist_query
+            if self._grid is None:
+                if clmod.CellGrid.for_box(h, rq, 4) is not None:
+                    return False
+            else:
+                m = np.asarray(self._grid.margin_frac)
+                if np.any(rq / perp > m * (1 + 1e-12)):
+                    return False
+                side = perp * (1.0 + 2.0 * m) / np.asarray(self._grid.ncells)
+                if np.any(side < rq):
+                    return False
+        return True
 
     def _probe_cell_capacity(self, pos, box) -> bool:
         """Grow the degree measure's cell capacity to the measured
@@ -518,11 +597,11 @@ class Simulation:
             self._tiers = self._derive_tiers(cnt.cpu().numpy(), caps)
 
     def _check_kernel_caps(self):
-        """pallas_full: its angular kernels keep a bin's 27-bin window in
-        one block's shared memory, so a grid cap above what they take at
-        the angular caps raises ValueError here, at init_state or a regrow,
-        not mid-chunk (`aev_roll.check_cap`: on the card the kernels' own
-        limit, on the CPU its transcription)."""
+        """pallas_full: a grid cap above what its angular kernels take at
+        the angular caps (256, less only at caps whose per-warp slots do
+        not fit a block) raises ValueError here, at init_state, a regrow or
+        a re-derive, not mid-chunk (`aev_roll.check_cap`: on the card the
+        kernels' own limit, on the CPU its transcription)."""
         if not self._full:
             return
         spec = self.potential.spec
@@ -638,24 +717,64 @@ class Simulation:
         c = units.HARTREE2KCALMOL
         return pe * c, f * c, w * c, deficit
 
+    def _pressure(self, vel, virial, box):
+        """[] scalar pressure in atm."""
+        return torch.trace(integrate.pressure_tensor(
+            vel, self.masses, virial, box.volume)) / 3.0
+
     def _step(self, st: MDState):
-        vel = integrate.nve_halfkick(st.vel, st.force, self.masses, self.dt)
-        pos = integrate.nve_drift(st.pos, vel, self.dt)
+        """One step in the JAX engine's order (module docstring)."""
+        dt, masses, dof = self.dt, self.masses, self.dof
+        vel, pos, box = st.vel, st.pos, st.box
+        ts, bs = st.thermostat, st.barostat
+        npt = (self.integrator if isinstance(self.integrator,
+                                             integrate.NoseHooverNPT)
+               else None)
+        nvt = (self.integrator if isinstance(self.integrator,
+                                             integrate.NoseHoover) else None)
+        n = self.n_atoms
+        if npt is not None:
+            ke = integrate.kinetic_energy(vel, masses)
+            bs = npt.piston_half(bs, self._pressure(vel, st.virial, box),
+                                 box.volume, ke, n, dt, dof)
+            ts, vel = npt.thermostat.half_step(ts, vel, masses, dof, dt)
+            vel = vel * npt.vel_scale(bs.omega, dof, n, dt)
+        elif nvt is not None:
+            ts, vel = nvt.half_step(ts, vel, masses, dof, dt)
+        vel = integrate.nve_halfkick(vel, st.force, masses, dt)
+        if npt is not None:
+            s = npt.box_scale(bs.omega, dt)
+            box = integrate.rescale_box(box, s)
+            pos = box.origin + (pos - box.origin) * s
+        pos = integrate.nve_drift(pos, vel, dt)
         pe, force, virial, deficit = self._forces(
-            pos, st.box, (st.nbrs, st.bins) if self._mirror_tables
+            pos, box, (st.nbrs, st.bins) if self._mirror_tables
             else st.bins)
-        if self.integrator is not None:
-            force = force + self.integrator.force(vel, self.masses, self.dt)
-        vel = integrate.nve_halfkick(vel, force, self.masses, self.dt)
+        if isinstance(self.integrator, integrate.Langevin):
+            force = force + self.integrator.force(vel, masses, dt)
+        vel = integrate.nve_halfkick(vel, force, masses, dt)
+        if npt is not None:
+            vel = vel * npt.vel_scale(bs.omega, dof, n, dt)
+            ts, vel = npt.thermostat.half_step(ts, vel, masses, dof, dt)
+            ke = integrate.kinetic_energy(vel, masses)
+            bs = npt.piston_half(bs, self._pressure(vel, virial, box),
+                                 box.volume, ke, n, dt, dof)
+        elif nvt is not None:
+            ts, vel = nvt.half_step(ts, vel, masses, dof, dt)
+        if self.barostat is not None:
+            s = self.barostat.scale_factor(self._pressure(vel, virial, box),
+                                           dt)
+            box = integrate.rescale_box(box, s)
+            pos = box.origin + (pos - box.origin) * s
         return st.replace(pos=pos, vel=vel, force=force, pe=pe,
-                          virial=virial, step=st.step + 1), deficit
+                          virial=virial, box=box, step=st.step + 1,
+                          thermostat=ts, barostat=bs), deficit
 
     def _thermo(self, st: MDState) -> torch.Tensor:
         """[6] pe, ke, temp, press, vol, density (device scalars)."""
         ke = integrate.kinetic_energy(st.vel, self.masses)
         vol = st.box.volume
-        press = torch.trace(integrate.pressure_tensor(
-            st.vel, self.masses, st.virial, vol)) / 3.0
+        press = self._pressure(st.vel, st.virial, st.box)
         return torch.stack([
             st.pe, ke, 2.0 * ke / (self.dof * units.BOLTZ), press, vol,
             torch.sum(self.masses) / units.AVOGADRO_VOL / vol])
@@ -798,6 +917,21 @@ class Simulation:
                 self._tiers = self._tiers[:-1] + ((caps, last_rows),)
         self._check_kernel_caps()
 
+    def _rederive_grids(self, state: MDState):
+        """The grids from the state's box (`_setup_grids`: the roll grid,
+        its cap from the measured occupancy, pallas_full's radial shell,
+        the engine where no roll grid fits any more, the cell grid), then
+        what the port sizes from them: the angular kernels' cap check
+        (pallas_full). The asn sections and tiers, the angular caps, k_max
+        and the sub-list's cap come from the degree measure, not the grid,
+        and stay; a chunk that outgrows one still regrows it. (An asn
+        engine that ran as the mirror until the box grew a grid has no
+        sections yet: it measures them.)"""
+        self._setup_grids(state.pos, state.box)
+        if self._asn and self._sections is None:
+            self._derive_angular_caps(state.pos, state.box)
+        self._check_kernel_caps()
+
     # ---------- host API ----------
 
     def run(self, state: MDState, n_steps: int,
@@ -810,6 +944,11 @@ class Simulation:
         done = 0
         recap_attempts = 0
         while done < n_steps:
+            if self._barostat_active() and not self._grids_valid(
+                    state.box.h.detach().cpu().numpy()):
+                # the box left the grids' slack: re-derive them
+                self._rederive_grids(state)
+                self.regrow_events += 1
             take = min(chunk, n_steps - done)
             new_state, thermo, disp, overflow, n_done = self._chunk(state,
                                                                     take)

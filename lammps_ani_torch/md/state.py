@@ -1,7 +1,14 @@
 """Simulation state.
 
 Port of lammps_ani_tpu/md/state.py: everything that evolves during a run
-(LAMMPS `real` units), held as tensors on the run's device.
+(LAMMPS `real` units), held as tensors on the run's device, with the
+Nose-Hoover chain and barostat states of the nvt and npt ensembles.
+
+The JAX state also carries its PRNG key (`rng`). This port does not: the
+Langevin thermostat draws from its own explicit `torch.Generator`
+(md/integrate.py), so the noise stream lives with the integrator, not in
+the state. A restart that resumes the stream bit for bit is the IO
+queue's question (restarts are not ported yet).
 """
 
 from __future__ import annotations
@@ -12,6 +19,20 @@ from typing import Optional
 import torch
 
 from ..ops.neighbors import Box
+
+
+@dataclasses.dataclass(frozen=True)
+class ThermostatState:
+    """Nose-Hoover chain state (also the barostat's piston chain)."""
+
+    eta: torch.Tensor  # [chain] thermostat positions
+    eta_dot: torch.Tensor  # [chain] thermostat velocities
+
+
+@dataclasses.dataclass(frozen=True)
+class BarostatState:
+    omega: torch.Tensor  # [] piston velocity of ln V (iso), 1/fs
+    omega_chain: ThermostatState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +51,10 @@ class MDState:
     # (ops/nbr_grad.MirrorNeighbors)
     nlist: Optional[object] = None
     nbrs: Optional[object] = None
+    # NoseHoover / NoseHooverNPT: the particles' chain; NoseHooverNPT: the
+    # piston and its chain
+    thermostat: Optional[ThermostatState] = None
+    barostat: Optional[BarostatState] = None
 
     def replace(self, **kw) -> "MDState":
         return dataclasses.replace(self, **kw)

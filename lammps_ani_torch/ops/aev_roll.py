@@ -31,13 +31,16 @@ Conventions (as the TPU kernels): empty slots are parked at 1e6 with
 species -1; self is excluded by lane index (lane == self_off*cap + slot);
 pairs count at dist <= cutoff with dist = sqrt(max(d2, 1e-12)).
 
-Grid caps: the radial kernels take every cap up to 256 (their blocks
-stage the window in passes). The angular kernels keep a bin's whole
-27-bin window in one block's shared memory, so they take the caps up to
-`angular_cap_limit` (531 / 264 for angular_fwd and 207 / 101 for
-angular_bwd in f32 / f64 at caps H 24 / O 16); above it their wrappers,
-and `Simulation`'s sizing, raise ValueError (the TPU kernels, which cut
-the window into groups, take any cap).
+Grid caps: all four kernels take every cap up to 256 in both dtypes.
+The radial kernels' blocks stage the window in passes of whole offsets.
+The angular kernels keep a bin's whole 27-bin window in one block where
+it fits (every cap the engines size), else stage it in passes of whole
+offsets with the compaction carried per center (`angular_form` gives the
+offsets a pass). Above 256, or at per-species caps whose per-warp slots
+do not fit a block even in passes (angular_bwd's pair scalars grow as
+A^2: one species alone takes cap 256 up to A = 188 in f32 and 131 in
+f64), their wrappers and `Simulation`'s sizing raise ValueError
+(`angular_cap_limit`, `check_cap`).
 """
 
 from __future__ import annotations
@@ -606,9 +609,12 @@ def radial_bwd(pos_g, sp_g, h, ncells, shell, spec, present, ga_g):
 
 
 # The dynamic shared memory a block of the roll kernels may take (227 KB
-# less 2 KB for their static arrays), and the angular hosts' largest cap.
+# less 2 KB for their static arrays), and the angular hosts' largest cap
+# (the radial kernels' too).
 MAX_DYN_SMEM = 227 * 1024 - 2048
-MAX_ANG_CAP = 1024
+MAX_ANG_CAP = 256
+# The most warps a block of angular_fwd or angular_bwd holds.
+ANG_MAX_WARPS = 8
 
 
 def _al16(nbytes):
@@ -622,39 +628,86 @@ def _max_block_pairs(caps):
     return max([1] + q)
 
 
-def angular_smem(name, cap, caps, dtype):
-    """Bytes of dynamic shared memory a one-warp block of the angular
-    kernel `name` takes at grid cap `cap` (csrc/aev_roll.cu `af_smem`,
-    `bwd_smem`): the 27-bin window of staged lanes (16 bytes a lane in
-    f32, 32 in f64), then angular_fwd a warp's slots [5][A]; angular_bwd
-    the centers' slot results [cap][A] (a staged lane each), their
-    species int [cap] and a warp's scratch (11 A + 3 Q + 32 values and A
-    ints, Q the largest block's slot pairs), A = sum(caps)."""
+def _ang_sizes(name, caps, dtype):
+    """(staged-lane bytes, A, bytes of a warp's scratch in the whole-window
+    kernel: angular_fwd its slots [5][A], angular_bwd 11 A + 3 Q + 32
+    values and A ints, Q the largest block's slot pairs)."""
+    if name not in ("angular_fwd", "angular_bwd"):
+        raise ValueError(f"{name}: no cap limit")
     t = torch.empty((), dtype=dtype).element_size()
-    lane = 16 if t == 4 else 32
     a = sum(caps)
     if name == "angular_fwd":
-        return lane * 27 * cap + t * 5 * a
-    if name != "angular_bwd":
-        raise ValueError(f"{name}: no cap limit")
-    per_warp = _al16(t * (11 * a + 3 * _max_block_pairs(caps) + 32)
-                     + 4 * a)
-    return lane * 27 * cap + lane * cap * a + _al16(4 * cap) + per_warp
+        return 4 * t, a, t * 5 * a
+    return 4 * t, a, _al16(t * (11 * a + 3 * _max_block_pairs(caps) + 32)
+                           + 4 * a)
+
+
+def angular_smem(name, cap, caps, dtype):
+    """Bytes of dynamic shared memory a one-warp block of the whole-window
+    angular kernel `name` takes at grid cap `cap` (csrc/aev_roll.cu
+    `af_smem`, `bwd_smem`): the 27-bin window of staged lanes (16 bytes a
+    lane in f32, 32 in f64) and a warp's scratch; angular_bwd also the
+    centers' slot results [cap][A] (a staged lane each) and their species
+    int [cap]; A = sum(caps)."""
+    lane, a, warp = _ang_sizes(name, caps, dtype)
+    if name == "angular_fwd":
+        return lane * 27 * cap + warp
+    return lane * 27 * cap + lane * cap * a + _al16(4 * cap) + warp
+
+
+def angular_pass_smem(name, cap, caps, dtype, opp, warps=1):
+    """Bytes of dynamic shared memory a block of `warps` warps of the pass
+    form of `name` takes staging `opp` window offsets a pass
+    (`ang_pass_smem`): the pass's staged lanes [opp cap], the bin's real
+    centers int [cap], and each warp's scratch: angular_fwd its slots
+    [5][A] (to 16 bytes); angular_bwd the whole-window kernel's and its
+    center's results [A] (a staged lane each)."""
+    lane, a, warp = _ang_sizes(name, caps, dtype)
+    if name == "angular_fwd":
+        warp = _al16(warp)
+    else:
+        warp += lane * a
+    return _al16(lane * opp * cap) + _al16(4 * cap) + warps * warp
+
+
+def angular_form(name, cap, caps, dtype, device=None):
+    """The window offsets a block of the angular kernel `name` stages a
+    pass at grid cap `cap` and per-species caps `caps` (`ang_form`): 27,
+    the whole window in one block, where its one-warp layout fits (every
+    cap the engines size); else the pass form's x-plane (9), x-y row (3) or
+    one offset, the first whose layout holds a block of the most warps,
+    else one offset at fewer warps; 0 where the kernel does not take the
+    cap. For a CUDA `device` the kernel's host code answers
+    (`<name>_form_<f32|f64>`), otherwise this transcription."""
+    caps = tuple(int(c) for c in caps)
+    if device is not None and torch.device(device).type == "cuda":
+        return _host_answer(f"{name}_form", dtype, caps, int(cap))
+    if not 1 <= cap <= MAX_ANG_CAP:
+        return 0
+    if angular_smem(name, cap, caps, dtype) <= MAX_DYN_SMEM:
+        return 27
+    opp = 9
+    while opp > 1 and angular_pass_smem(
+            name, cap, caps, dtype, opp, ANG_MAX_WARPS) > MAX_DYN_SMEM:
+        opp //= 3
+    fits = angular_pass_smem(name, cap, caps, dtype, opp) <= MAX_DYN_SMEM
+    return opp if fits else 0
 
 
 def angular_cap_limit(name, dtype, caps, device=None):
     """The largest grid cap the angular kernel `name` takes at the
-    per-species caps `caps`: the most whose one-warp block fits the
-    shared memory, at most MAX_ANG_CAP. For a CUDA `device` the kernel's
-    host code answers (`<name>_cap_limit_<f32|f64>`, the layout that sizes
-    its launch); otherwise `angular_smem`, its transcription."""
+    per-species caps `caps`: MAX_ANG_CAP where one offset a pass and one
+    warp fit a block (at the caps the engines size), else the most whose
+    whole window fits, or 0. For a CUDA `device` the kernel's host
+    code answers (`<name>_cap_limit_<f32|f64>`), otherwise `angular_form`,
+    its transcription."""
     caps = tuple(int(c) for c in caps)
     if device is not None and torch.device(device).type == "cuda":
-        return _host_cap_limit(name, dtype, caps)
+        return _host_answer(f"{name}_cap_limit", dtype, caps, 0)
     lo, hi = 0, MAX_ANG_CAP
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        if angular_smem(name, mid, caps, dtype) <= MAX_DYN_SMEM:
+        if angular_form(name, mid, caps, dtype) > 0:
             lo = mid
         else:
             hi = mid - 1
@@ -662,17 +715,17 @@ def angular_cap_limit(name, dtype, caps, device=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _host_cap_limit(name, dtype, caps):
+def _host_answer(fn_name, dtype, caps, cap):
     from . import _build
 
-    fn = _build.entry(f"{name}_cap_limit_{_suffix(dtype)}", 2)
-    ip = np.ascontiguousarray([0, 0, 0, 0, len(caps), 0] + list(caps),
+    fn = _build.entry(f"{fn_name}_{_suffix(dtype)}", 2)
+    ip = np.ascontiguousarray([0, 0, 0, cap, len(caps), 0] + list(caps),
                               np.int32)
     fp = np.zeros(6 + 16, np.float64)
-    limit = fn(ip.ctypes.data, fp.ctypes.data)
-    if limit < 0:
-        raise ValueError(f"{name}: caps {caps} not taken")
-    return limit
+    out = fn(ip.ctypes.data, fp.ctypes.data)
+    if out < 0:
+        raise ValueError(f"{fn_name}: caps {caps} not taken")
+    return out
 
 
 def check_cap(name, cap, caps, dtype, device=None):
@@ -684,8 +737,8 @@ def check_cap(name, cap, caps, dtype, device=None):
         raise ValueError(
             f"{name}: grid cap {cap} above {limit}, the most its "
             f"{str(dtype).replace('torch.', '')} kernel takes at angular "
-            f"caps {tuple(caps)} (its block keeps the 27-bin window in "
-            "shared memory)")
+            f"caps {tuple(caps)} (at most {MAX_ANG_CAP}; less only where "
+            "the caps' per-warp slots do not fit a block)")
 
 
 def _angular_params(spec, caps, dtype):
@@ -699,9 +752,12 @@ def _angular_params(spec, caps, dtype):
     return [spec.num_species, zeta_int] + list(caps), fparams
 
 
-def angular_fwd(pos_g, sp_g, h, ncells, spec, caps, present):
+def angular_fwd(pos_g, sp_g, h, ncells, spec, caps, present,
+                pass_form=False):
     """([NC, cap, angular_length], deficit) (replaces
-    aev_pallas._angular_fwd_kernel)."""
+    aev_pallas._angular_fwd_kernel). `pass_form`: launch the pass form
+    even where the whole window fits (a check of its walk: the same
+    bits)."""
     if not _route("angular_fwd", pos_g, sp_g, h):
         return angular_fwd_plain(pos_g, sp_g, h, ncells, spec, caps, present)
     _check_grid("angular_fwd", ncells, pos_g, sp_g, h)
@@ -711,13 +767,16 @@ def angular_fwd(pos_g, sp_g, h, ncells, spec, caps, present):
     deficit = torch.full((1,), DEFICIT_FLOOR, dtype=torch.int32,
                          device=pos_g.device)
     ip, fp = _angular_params(spec, caps, pos_g.dtype)
-    _launch("angular_fwd", pos_g.dtype, _grid_iparams(ncells, cap) + ip, fp,
-            pos_g, sp_g, h, out, deficit)
+    _launch("angular_fwd", pos_g.dtype,
+            _grid_iparams(ncells, cap) + ip + [int(pass_form)], fp, pos_g,
+            sp_g, h, out, deficit)
     return out, deficit[0].to(pos_g.dtype)
 
 
-def angular_bwd(pos_g, sp_g, h, ncells, spec, caps, present, ga_g):
-    """(fcen, wing, dh) (replaces aev_pallas._angular_bwd_kernel)."""
+def angular_bwd(pos_g, sp_g, h, ncells, spec, caps, present, ga_g,
+                pass_form=False):
+    """(fcen, wing, dh) (replaces aev_pallas._angular_bwd_kernel);
+    `pass_form` as angular_fwd's."""
     if not _route("angular_bwd", pos_g, sp_g, h, ga_g):
         return angular_bwd_plain(pos_g, sp_g, h, ncells, spec, caps, present,
                                  ga_g)
@@ -730,8 +789,9 @@ def angular_bwd(pos_g, sp_g, h, ncells, spec, caps, present, ga_g):
     dh_part = pos_g.new_empty((nc, 9))
     dh = pos_g.new_empty((3, 3))
     ip, fp = _angular_params(spec, caps, pos_g.dtype)
-    _launch("angular_bwd", pos_g.dtype, _grid_iparams(ncells, cap) + ip, fp,
-            pos_g, sp_g, h, ga_g, fcen, wing, dh_part, dh)
+    _launch("angular_bwd", pos_g.dtype,
+            _grid_iparams(ncells, cap) + ip + [int(pass_form)], fp, pos_g,
+            sp_g, h, ga_g, fcen, wing, dh_part, dh)
     return fcen, wing, dh
 
 

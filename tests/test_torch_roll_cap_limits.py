@@ -9,15 +9,21 @@ walk of tests/test_torch_roll_radial_bwd_order.py with passes of `opp`
 offsets) and held against the plain version on a grid padded with empty
 slots to cap 128 in f64, which takes 25 passes of a row.
 
-angular_fwd and angular_bwd keep a bin's whole 27-bin window in one
-block's shared memory, so their hosts take only the caps that layout
-holds: `aev_roll.angular_cap_limit` (on the card the kernels' own export,
-here `aev_roll.angular_smem`, its transcription) against the layout's
-bytes worked out here; the wrappers raise a ValueError naming the kernel,
-the cap, the dtype and the limit before any launch, and `Simulation`
+angular_fwd and angular_bwd take every cap up to 256 too: where their
+whole-window layout fits a block (every cap the engines size) they keep a
+bin's 27-bin window in one block, above it they stage it in passes of
+whole offsets with each center's compaction carried from pass to pass
+(`aev_roll.angular_form` gives the offsets a pass: the host's rule,
+transcribed). `aev_roll.angular_cap_limit` is 256 in both dtypes at the
+engines' caps (on the card the kernels' own export, here its
+transcription), against the layouts' bytes worked out here; the pass
+walk, transcribed, keeps every center's slots of the whole window at a
+padded cap; the wrappers raise a ValueError naming the kernel, the cap,
+the dtype and the limit at cap 260 before any launch, and `Simulation`
 raises it at init_state and at a regrow. chip_smoke.py launches each
-kernel at its largest cap in f64 and f32 on the card and holds it against
-the plain version, and checks that one cap above raises.
+kernel at cap 256 in f64 and f32 on the card against the plain version,
+its pass form at the grid's own cap against the whole window bit for bit,
+and checks that cap 257 raises.
 
 System: WATER30 x 3^3 (810 atoms, 24 A box) on the roll engine's fine grid
 (6 x 6 x 6 bins at cap 12), a seeded cotangent. Limits: f64 against the
@@ -36,9 +42,12 @@ from lammps_ani_torch.models import aev as taev
 from lammps_ani_torch.models import zoo as tzoo
 from lammps_ani_torch.ops import aev_roll as tar
 from lammps_ani_torch.ops import cell_roll as tcr
+from lammps_ani_torch.md import simulation as tsm
 from lammps_ani_torch.ops import neighbors as tnb
 
+from .test_torch_build_inv_order import stage_window
 from .test_torch_neighbors import water_system
+from .test_torch_roll_angular_bwd_order import compact
 from .test_torch_roll_radial_bwd_order import (CAP, PRESENT, SHELL, SIDE,
                                                dh_reduce, lane_sums, pair_g,
                                                staged_window, warp_sum)
@@ -249,41 +258,60 @@ CAPS = (24, 0, 0, 16, 0, 0, 0)  # the roll state's caps, H and O present
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_angular_limits_are_the_layouts(dtype):
-    """The limit is the largest cap whose one-warp block fits: angular_fwd
-    the window (27 cap staged lanes) and a warp's slots [5][A];
-    angular_bwd the window, the centers' results [cap][A] (a staged lane
-    each), their species int [cap] and a warp's scratch; A = 40, Q = 384
-    at these caps."""
+    """At the roll state's caps both angular kernels take every grid cap
+    up to 256 and none above: the whole-window layout (one warp) at the
+    caps the engines size, the pass form's above it. By hand, A = 40,
+    Q = 384: angular_fwd's whole window at cap 256 (27 x 256 staged lanes
+    and a warp's slots [5][A]) fits in both dtypes; angular_bwd's (the
+    window, the centers' results [cap][A] and a warp's scratch) does not,
+    and its pass form stages an x-plane (9 offsets, the real centers int
+    [cap], 8 warps of scratch and results [A]) at cap 256."""
     t = 4 if dtype == torch.float32 else 8
     lane = 4 * t
-    fwd = (BUDGET - t * 5 * 40) // (27 * lane)
     warp = al16(t * (11 * 40 + 3 * 384 + 32) + 4 * 40)
-    bwd = max(c for c in range(1025)
-              if 27 * lane * c + lane * 40 * c + al16(4 * c) + warp
-              <= BUDGET)
-    assert tar.angular_cap_limit("angular_fwd", dtype, CAPS) == fwd
-    assert tar.angular_cap_limit("angular_bwd", dtype, CAPS) == bwd
-    assert (fwd, bwd) == ((531, 207) if t == 4 else (264, 101))
-    for name, lim in (("angular_fwd", fwd), ("angular_bwd", bwd)):
-        assert tar.angular_smem(name, lim, CAPS, dtype) <= BUDGET
-        assert tar.angular_smem(name, lim + 1, CAPS, dtype) > BUDGET
-    # an H cap alone: A = 4
-    assert tar.angular_cap_limit("angular_fwd", torch.float32,
-                                 (4, 0, 0, 0, 0, 0, 0)) == 533
+    whole_bwd = max(c for c in range(257)
+                    if 27 * lane * c + lane * 40 * c + al16(4 * c) + warp
+                    <= BUDGET)
+    assert whole_bwd == (207 if t == 4 else 101)
+    assert 27 * lane * 256 + t * 5 * 40 <= BUDGET
+    plane = al16(9 * 256 * lane) + al16(4 * 256) + 8 * (warp + lane * 40)
+    assert plane <= BUDGET
+    for name in ("angular_fwd", "angular_bwd"):
+        assert tar.angular_cap_limit(name, dtype, CAPS) == 256
+        for cap in (12, 32, 48):
+            assert tar.angular_form(name, cap, CAPS, dtype) == 27
+        assert tar.angular_form(name, 257, CAPS, dtype) == 0
+    assert tar.angular_form("angular_fwd", 256, CAPS, dtype) == 27
+    assert tar.angular_form("angular_bwd", whole_bwd, CAPS, dtype) == 27
+    assert tar.angular_form("angular_bwd", whole_bwd + 1, CAPS, dtype) == 9
+    assert tar.angular_form("angular_bwd", 256, CAPS, dtype) == 9
+    assert tar.angular_pass_smem("angular_bwd", 256, CAPS, dtype, 9,
+                                 8) == plane
+    # the largest A whose backward scratch (its pair scalars grow as A^2)
+    # still takes cap 256, one species alone: 188 in f32, 131 in f64
+    a_max = 188 if t == 4 else 131
+    for a, lim in ((a_max, 256), (a_max + 1, None)):
+        got = tar.angular_cap_limit("angular_bwd", dtype,
+                                    (a, 0, 0, 0, 0, 0, 0))
+        assert got == lim if lim else got < 256
+    # per-species caps whose backward scratch fits no block even in
+    # passes (one warp, one offset): no grid cap at all
+    assert tar.angular_cap_limit("angular_bwd", dtype,
+                                 (200, 0, 0, 200, 0, 0, 0)) == 0
 
 
 @pytest.mark.parametrize("name", ["angular_fwd", "angular_bwd"])
 def test_wrapper_raises_before_any_launch(case, monkeypatch, name):
-    """The wrapper on the card's route: at the limit it launches; one cap
-    above, a ValueError naming the kernel, the cap, the dtype and the
-    limit, and no launch."""
+    """The wrapper on the card's route: at cap 256 it launches; at cap
+    260, a ValueError naming the kernel, the cap, the dtype and the limit,
+    and no launch."""
     launched = []
     monkeypatch.setattr(tar, "_route", lambda *a: True)
     monkeypatch.setattr(tar, "_launch",
                         lambda n, *a: launched.append(n))
     pos_g, sp_g, h, ncells, _, spec, _, _ = case["args"]
-    lim = tar.angular_cap_limit(name, torch.float64, CAPS)
-    for cap in (lim, lim + 1):
+    assert tar.angular_cap_limit(name, torch.float64, CAPS) == 256
+    for cap in (256, 260):
         p, s, _, _, _, _, _, g = padded(
             (pos_g, sp_g, h, ncells, 1, spec, (0, 3),
              pos_g.new_zeros(pos_g.shape[:2] + (896,))), cap)
@@ -293,51 +321,125 @@ def test_wrapper_raises_before_any_launch(case, monkeypatch, name):
                 return tar.angular_fwd(p, s, h, ncells, spec, CAPS, (0, 3))
             return tar.angular_bwd(p, s, h, ncells, spec, CAPS, (0, 3), g)
 
-        if cap == lim:
+        if cap == 256:
             call()
             assert launched == [name]
         else:
             with pytest.raises(ValueError) as err:
                 call()
             msg = str(err.value)
-            assert (name in msg and f"cap {cap}" in msg
-                    and "float64" in msg and str(lim) in msg)
+            assert (name in msg and "cap 260" in msg and "float64" in msg
+                    and "256" in msg)
             assert launched == [name]
 
 
-def _roll_sim(caps):
+def pass_walk(cst, caps, present, pos_g, win_p, win_s, opp, cells):
+    """Slot lanes [NC, cap, atot] (window lane, or -1) of the pass forms'
+    compaction: per pass of `opp` window offsets, the pass's lanes of
+    present species compacted in lane order, 32 at a time, each species'
+    in-Rca lanes ranked with a carry that goes on from pass to pass (self
+    excluded by its window lane); only the bins `cells`."""
+    nc, cap = pos_g.shape[:2]
+    slot0 = np.concatenate([[0], np.cumsum(caps)[:-1]])
+    out = torch.full((nc, cap, sum(caps)), -1, dtype=torch.int64)
+    self_lane = 13 * cap + torch.arange(cap)
+    for b in cells:
+        carry = {s: torch.zeros(cap, dtype=torch.int64) for s in present}
+        for o0 in range(0, 27, opp):
+            lanes = torch.arange(o0 * cap, (o0 + opp) * cap)
+            kept = lanes[win_s[b, lanes] >= 0]
+            for base in range(0, len(kept), 32):
+                ln = kept[base:base + 32]
+                d = pos_g[b, :, None, :] - win_p[b, None, ln, :]
+                dist = torch.sqrt(torch.clamp((d * d).sum(-1), min=1e-12))
+                sw = win_s[b, ln][None, :]
+                ok = (dist <= cst["rca"]) & (ln[None, :]
+                                              != self_lane[:, None])
+                for s in present:
+                    bal = (ok & (sw == s)).to(torch.int64)
+                    rank = carry[s][:, None] + torch.cumsum(bal, -1) - bal
+                    keep = (bal > 0) & (rank < caps[s])
+                    a, k = torch.nonzero(keep, as_tuple=True)
+                    out[b, a, int(slot0[s]) + rank[keep]] = ln[k]
+                    carry[s] += bal.sum(-1)
+    return out
+
+
+def test_pass_walk_compacts_the_whole_windows_slots(case):
+    """On the grid padded to cap 128 (f64, every fourth bin), the pass
+    forms' walk in planes (the offsets the backward's host picks there),
+    rows and single offsets gives every center the slots the whole window
+    gives (tests/test_torch_roll_angular_bwd_order.py's `compact`, the
+    whole-window kernels' walk): the first caps[s] in-Rca lanes of species
+    s in ascending window lane order; and the real centers fill slots."""
+    pos_g, sp_g, h, ncells, _, spec, _, ga = case["args"]
+    caps = (20, 0, 0, 12, 0, 0, 0)
+    p, s, *_ = padded((pos_g, sp_g, h, ncells, 1, spec, (0, 3),
+                       ga), PAD_CAP)
+    cst = tar.angular_consts(spec, torch.float64)
+    win_p, win_s = stage_window(p, s, h, ncells, (0, 3))
+    whole, _, _ = compact(cst, caps, (0, 3), p, win_p, win_s)
+    opp = tar.angular_form("angular_bwd", PAD_CAP, caps, torch.float64)
+    assert opp == 9
+    cells = range(0, p.shape[0], 4)
+    for o in (opp, 3, 1):
+        walk = pass_walk(cst, caps, (0, 3), p, win_p, win_s, o, cells)
+        assert torch.equal(walk[list(cells)], whole[list(cells)])
+    assert bool((whole[list(cells)][:, :CAP] >= 0).any())
+    assert not bool((whole[:, CAP:] >= 0).any())
+
+
+def _roll_sim(caps=None):
     species, pos, h, origin, masses = water_system(3)
     pot = tzoo.ani2x(num_models=1, dtype=torch.float64, device="cpu")
-    pot = pot.with_spec(dataclasses.replace(pot.spec, angular_caps=caps))
+    if caps is not None:
+        pot = pot.with_spec(dataclasses.replace(pot.spec, angular_caps=caps))
     sim = tlat.Simulation(
         potential=pot, species=species, masses=masses,
         nbr=tlat.NeighborConfig(cutoff=5.1, rebuild_every=2,
                                 ghost_capacity=4096, k_max=192),
         dt=0.2, dtype=torch.float64, device="cpu", engine="pallas_full",
-        auto_angular_caps=False)
+        auto_angular_caps=caps is None)
     box = tlat.Box(h=torch.tensor(h), origin=torch.tensor(origin))
     return sim, pos, box
 
 
-def test_simulation_raises_at_init_state():
-    """pallas_full with angular caps whose backward block cannot hold even
-    one slot (caps 200, 200: a warp's pair scalars alone take 960 KB):
-    init_state raises the named error before any force evaluation."""
-    sim, pos, box = _roll_sim((200, 0, 0, 200, 0, 0, 0))
-    with pytest.raises(ValueError, match=r"angular_bwd: grid cap \d+ above "
-                       r"0, .*float64"):
-        sim.init_state(pos, box)
+def test_simulation_raises_at_init_state(monkeypatch):
+    """pallas_full at a grid cap of 260 (the occupancy's margin raised):
+    init_state raises the named error before any force evaluation; so it
+    does with angular caps whose backward block cannot hold even one slot
+    (caps 200, 200: a warp's pair scalars alone take 960 KB) at any cap."""
+    calls = []
+    for margin, caps, match in (
+            (None, None, r"angular_fwd: grid cap 260 above 256, .*float64"),
+            (4, (200, 0, 0, 200, 0, 0, 0),
+             r"angular_bwd: grid cap \d+ above 0, .*float64")):
+        sim, pos, box = _roll_sim(caps)
+        monkeypatch.setattr(sim, "_forces", lambda *a: calls.append(a))
+        if margin is None:
+            probe = tcr.RollGrid.for_box(box.h.numpy(), sim._roll_side, 4)
+            cnt = int(tcr.build_bins(probe, tnb.wrap_positions(
+                torch.tensor(pos)[sim.order], box), sim.species,
+                box).count_max)
+            margin = 260 - 2 - cnt
+        monkeypatch.setattr(tsm, "ROLL_CAP_MARGIN", margin)
+        with pytest.raises(ValueError, match=match):
+            sim.init_state(pos, box)
+    assert not calls
 
 
 def test_simulation_raises_at_a_regrow(monkeypatch):
-    """A regrow of the roll grid's cap past what the angular kernels take
-    raises the named error at the regrow, not in a kernel launch."""
+    """A regrow of the roll grid's cap past 256 raises the named error at
+    the regrow, not in a kernel launch; one to 256 does not."""
     sim, pos, box = _roll_sim((20, 0, 0, 12, 0, 0, 0))
     calls = []
     monkeypatch.setattr(sim, "_forces", lambda *a: calls.append(a) or (
         None,) * 4)
     state = sim.init_state(pos, box)
     assert len(calls) == 1 and sim._roll_grid.cap < 100
-    with pytest.raises(ValueError, match=r"angular_fwd: grid cap 1028 above"):
-        sim._regrow(state, {"roll": 1024})
+    sim._regrow(state, {"roll": 254})
+    assert sim._roll_grid.cap == 256
+    with pytest.raises(ValueError, match=r"angular_fwd: grid cap 260 above "
+                       r"256"):
+        sim._regrow(state, {"roll": 258})
     assert len(calls) == 1
