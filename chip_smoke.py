@@ -181,10 +181,40 @@ object per line; any failure raises and the script exits non-zero:
            the port's `_setup_grids` on the CPU from the same state, one
            regrow event for it and one for each capacity grown.
 
+  ani1xnr_kernels  the main path's eight asn kernels against their plain
+           versions at ANI-1xnr's constants (zeta 32 by the integer power,
+           4 species, Rcr 5.2 beside the repulsion's 5.1, the AEV 384
+           wide), 8 models, on the combustion mixture (examples/combustion's
+           placement, copied here: 1,440 atoms at 0.25 g/cm^3) replicated
+           2^3 (11,520 atoms), sized by `Simulation`, f64 and f32, within
+           the asn limits, each worst error as a fraction of its limit,
+           two calls of each bit for bit, the packed kernels' edge cases;
+           then E, F, W of `energy_forces_virial_asn` on the card against
+           the CPU, f64, on the 1,440-atom mixture.
+  ani1xnr_md  the combustion config's model and settings at 92,160 atoms
+           (the mixture replicated 4^3; ANI-1xnr, 8 models, f32,
+           pallas_asn, NVT 2500 K, tdamp 50 fs, dt 0.25 fs, a rebuild every
+           10 steps), its counts zeroed just before and read just after:
+           1 warm and 3 timed chunks (ms/step, ns/day), one profiled chunk
+           (device busy, idle share, each kernel's device ms a step), the
+           eight kernels' launches (all required, no plain version); then
+           each kernel at the final state: error, ms, plain ms and its
+           bound (ASN_OPS_1XNR).
+  cli      `lammps_ani_torch.run.main` on the card on
+           examples/combustion/config.json and the 1,440-atom mixture
+           (written by the port's writer, read back by both parsers): 200
+           steps with a DCD frame every 50 (4 frames, the last the final
+           positions; the thermo YAML to step 200); 100 steps with a
+           restart and 100 more from it (the final positions against the
+           200-step call's, bit for bit or within 1e-3 A); Langevin 40 + 40
+           steps through a restart against 80 straight; `minimize_first`;
+           `replicate [4, 4, 4]` for 20 steps beside the 92,160-atom data
+           file parsed by the native and the Python parser.
+
 Then one line {"kernels": [...]} (the twenty package kernels, the probe
-kernels by stage and mode, and the radial forward kernel's probe
-timing), nvidia-smi's name and power-limit line, and last {"ok": true,
-"device": {...}}.
+kernels by stage and mode, the radial forward kernel's probe timing, and
+the eight asn kernels' ANI-1xnr rows, `<kernel><ani1xnr>`), nvidia-smi's
+name and power-limit line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -916,15 +946,15 @@ def phase_potential(device, rep=4):
         raise AssertionError(f"potential: card vs CPU plain: {line}")
 
 
-def _run_timed(sim, state, chunks, device):
-    """`chunks` chunks, each on the host clock up to a synchronize:
-    (state, thermo rows, ms/step by chunk)."""
+def _run_timed(sim, state, chunks, device, chunk=CHUNK):
+    """`chunks` chunks of `chunk` steps, each on the host clock up to a
+    synchronize: (state, thermo rows, ms/step by chunk)."""
     rows, chunk_ms = [], []
     for _ in range(chunks):
         t0 = time.perf_counter()
-        state, r = sim.run(state, CHUNK, thermo_every=1)
+        state, r = sim.run(state, chunk, thermo_every=1)
         _sync(device)
-        chunk_ms.append((time.perf_counter() - t0) * 1e3 / CHUNK)
+        chunk_ms.append((time.perf_counter() - t0) * 1e3 / chunk)
         rows += r
     return state, rows, chunk_ms
 
@@ -1239,15 +1269,16 @@ ASN_OPS = {"build_inv": {"window": (9, 0)}, "build_idx": {"lane": 2},
                                "keep_face": (9, 0)}}
 
 
-def two_term(name):
-    """Whether ASN_OPS counts `name` in two terms ((fp32, sfu) tuples)."""
-    return isinstance(next(iter(ASN_OPS[name].values())), tuple)
+def two_term(name, ops=ASN_OPS):
+    """Whether `ops` (ASN_OPS) counts `name` in two terms ((fp32, sfu)
+    tuples)."""
+    return isinstance(next(iter(ops[name].values())), tuple)
 
 
-def two_term_ms(name, work):
+def two_term_ms(name, work, ops=ASN_OPS):
     """(fp32 ms, special-function ms) of a two-term kernel on `work`: the
-    sum over its units u of ASN_OPS[name][u] x work[u]."""
-    units = ASN_OPS[name]
+    sum over its units u of ops[name][u] x work[u]."""
+    units = ops[name]
     fp32 = sum(units[u][0] * work[u] for u in units)
     sfu = sum(units[u][1] * work[u] for u in units)
     return fp32 / PEAK_F32_INSTR * 1e3, sfu / PEAK_SFU * 1e3
@@ -1484,7 +1515,7 @@ def interior_bins(ncells, device, shell=1):
             & ax[2][None, None, :]).reshape(-1)
 
 
-def asn_bound(name, k, work):
+def asn_bound(name, k, work, ops_table=ASN_OPS):
     """(bound_ms, bound_by) of one call of an asn kernel (of its calls of
     one step, one per tier, for the packed ones), from this run's data.
     Bytes: the real atoms' rows, each input read once and each output
@@ -1501,13 +1532,13 @@ def asn_bound(name, k, work):
     they leave out: radial_fwd_asn no slots and no rank2, compact_asn no
     rad, radial_bwd_asn radial_gamma's rows with fcen and dh,
     decompact_chain chain_sum's without gr. Operations: ASN_OPS on
-    `work`."""
+    `work` (`ops_table`: ASN_OPS, or another model's count)."""
     n, f = k["n"], k["pos_g"].element_size()
     cap = k["sp_g"].shape[1]
     wpad, kpad, atot = asn._round_lane(27 * cap), k["kpad"], k["atot"]
     srl1 = k["ga"].shape[-1]
     ncols = k["packed"][0][2].shape[1]
-    ops, n_ops = ASN_OPS[name], None
+    ops, n_ops = ops_table[name], None
     base_in = n * (3 * f + 4) + 9 * f
     if name == "build_inv":
         nbytes = base_in + n * wpad * 2
@@ -1538,8 +1569,8 @@ def asn_bound(name, k, work):
         nbytes = work["keep"] * 3 * f + n * kpad * 2 + n * 27 * 3 * f
         n_ops = ops["lane"] * work["keep"]
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = (max(two_term_ms(name, work)) if two_term(name)
-             else n_ops / PEAK_F32 * 1e3)
+    t_ops = (max(two_term_ms(name, work, ops_table))
+             if two_term(name, ops_table) else n_ops / PEAK_F32 * 1e3)
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
 
@@ -2004,21 +2035,23 @@ def laid_out_pairs(k):
     return total, real
 
 
-def asn_kernel_row(name, k, kern, plain_fn, work, launches, reps):
-    """(the kernel's row of the `kernels` line, its timing entry): error
-    against the plain version (raises beyond the limit), ms, the plain
-    version's ms and the bound, on the inputs `k`."""
+def asn_kernel_row(name, k, kern, plain_fn, work, launches, reps,
+                   ops=ASN_OPS, label=None):
+    """(the kernel's row of the `kernels` line, named `label` or `name`,
+    its timing entry): error against the plain version (raises beyond the
+    limit), ms, the plain version's ms and the bound (`ops`: the operation
+    count), on the inputs `k`."""
     err = asn_compare(name, k, kern(), plain_fn())
     torch.cuda.synchronize()
-    b_ms, b_by = asn_bound(name, k, work)
+    b_ms, b_by = asn_bound(name, k, work, ops)
     ms = time_ms(kern, reps=reps, warm=1)
     plain_ms = time_ms(plain_fn, reps=2, warm=1)
     torch.cuda.empty_cache()
     timing = {**err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
               "bound_by": b_by}
-    if two_term(name):
-        timing["fp32_ms"], timing["sfu_ms"] = two_term_ms(name, work)
-    row = {"name": name, "route": "cuda", "source": ASN_SOURCE,
+    if two_term(name, ops):
+        timing["fp32_ms"], timing["sfu_ms"] = two_term_ms(name, work, ops)
+    row = {"name": label or name, "route": "cuda", "source": ASN_SOURCE,
            "replaces": asn.REPLACES[name].split()[0], "launches": launches,
            "max_abs_err": err["max_abs_err"],
            "err_over_limit": err["worst_ratio"], "ms": ms,
@@ -2278,7 +2311,7 @@ def profile_groups(kernels):
            ("roll_fold", ("roll",))])
 
 
-def profile_chunk(sim, state, kernels, groups=None):
+def profile_chunk(sim, state, kernels, groups=None, chunk=CHUNK):
     """Where one asn MD step spends its time: one chunk on the host clock
     and one under torch.profiler. The idle share is 1 - (device busy time
     of the profiled chunk) / (host time of the unprofiled chunk): the
@@ -2292,25 +2325,25 @@ def profile_chunk(sim, state, kernels, groups=None):
     for _ in range(4):
         before = sim.regrow_events
         t0 = time.perf_counter()
-        state, _ = sim.run(state, CHUNK)
+        state, _ = sim.run(state, chunk)
         torch.cuda.synchronize()
         chunk_ms = (time.perf_counter() - t0) * 1e3
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            state, _ = sim.run(state, CHUNK)
+            state, _ = sim.run(state, chunk)
             torch.cuda.synchronize()
         if sim.regrow_events == before:
             break
         regrows += sim.regrow_events - before
     else:
         raise AssertionError("profile: every chunk regrew a capacity")
-    busy, groups, top = device_time(prof, CHUNK,
+    busy, groups, top = device_time(prof, chunk,
                                     groups or profile_groups(kernels))
     return state, {"engine": sim.engine, "pair_stage": sim.pair_stage,
-                   "steps": CHUNK, "regrows_skipped": regrows,
-                   "unprofiled_ms_per_step": chunk_ms / CHUNK,
+                   "steps": chunk, "regrows_skipped": regrows,
+                   "unprofiled_ms_per_step": chunk_ms / chunk,
                    "device_busy_ms_per_step": busy,
-                   "device_idle_share": 1.0 - busy * CHUNK / chunk_ms,
+                   "device_idle_share": 1.0 - busy * chunk / chunk_ms,
                    "device_ms_per_step_by_group": groups,
                    "top_kernels_ms_per_step": top}
 
@@ -3393,6 +3426,368 @@ def phase_nvt_npt(device, sim_asn, state_asn, warm_chunks=1,
     emit(line)
 
 
+# ---------------------------------------------------------------------------
+# ANI-1xnr (examples/combustion) and the CLI
+# ---------------------------------------------------------------------------
+
+COMBUSTION = os.path.join(ROOT, "examples", "combustion", "config.json")
+CHUNK_CLI = 10  # the CLI's rebuild_every
+# ANI-1xnr's count of the packed pair kernels: its zeta, 32, is an integer,
+# so pair_powers takes zeta_pow's square and multiply, 5 squarings an angle
+# section and no special function, where ANI-2x's split power takes 10
+# fp32 and an lg2 and an ex2: packed_fwd 272 - 8 x 10 + 8 x 5 = 232 fp32
+# and 21 - 16 = 5 sfu (the square root, 4 ex2), packed_bwd 306 - 40 = 266
+# and 5.
+ASN_OPS_1XNR = {**ASN_OPS, "packed_fwd": {"pairs": (232, 5)},
+                "packed_bwd": {"pairs": (266, 5)}}
+
+# examples/combustion/prepare_system.py's molecules (species H 0, C 1, O
+# 3) and masses
+CH4_SPECIES = np.array([1, 0, 0, 0, 0], np.int32)
+CH4_POS = np.array([[0.000, 0.000, 0.000], [1.092, 0.000, 0.000],
+                    [-0.364, 1.017, -0.165], [-0.364, -0.366, 0.963],
+                    [-0.364, -0.651, -0.798]])
+O2_SPECIES = np.array([3, 3], np.int32)
+O2_POS = np.array([[0.0, 0.0, 0.0], [1.281, 0.0, 0.0]])
+MIX_MASSES = np.array([1.008, 12.0107, 14.0067, 15.999, 32.06, 18.998403163,
+                       35.453])
+
+
+def _random_rotation(rng):
+    q = rng.normal(size=4)
+    q /= np.linalg.norm(q)
+    w, x, y, z = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def mixture(n_ch4=160, density_g_cm3=0.25, seed=7) -> LammpsData:
+    """The combustion system, as examples/combustion/prepare_system.py's
+    `build` places it: n_ch4 CH4 and 2 n_ch4 O2, one molecule per cell of
+    a jittered cubic lattice, each rotated at random, in a cube of the
+    given density (160 CH4: 1,440 atoms, 0.25 g/cm^3, a 43.98 A box)."""
+    mols = ([(CH4_SPECIES, CH4_POS)] * n_ch4
+            + [(O2_SPECIES, O2_POS)] * (2 * n_ch4))
+    mass_total = n_ch4 * (12.0107 + 4 * 1.008) + 2 * n_ch4 * 2 * 15.999
+    edge = (mass_total / 6.02214076e23 / density_g_cm3 * 1e24) ** (1.0 / 3.0)
+    rng = np.random.default_rng(seed)
+    per_axis = int(np.ceil(len(mols) ** (1.0 / 3.0)))
+    cells = [(i, j, k) for i in range(per_axis) for j in range(per_axis)
+             for k in range(per_axis)]
+    rng.shuffle(cells)
+    cell = edge / per_axis
+    species, pos = [], []
+    for (sp, mpos), (i, j, k) in zip(mols, cells):
+        center = (np.array([i, j, k]) + 0.5) * cell
+        jitter = rng.uniform(-0.18, 0.18, 3) * cell
+        pos.append(mpos @ _random_rotation(rng).T + center + jitter)
+        species.append(sp)
+    return LammpsData(species=np.concatenate(species).astype(np.int32),
+                      positions=np.concatenate(pos), masses_by_type=MIX_MASSES,
+                      box_bounds=np.array([[0.0, edge]] * 3),
+                      tilt=np.zeros(3))
+
+
+def make_sim_1xnr(data, dtype, device, engine="pallas_asn", integrator=None,
+                  rebuild_every=CHUNK_CLI, seed=1, num_models=8):
+    """A `Simulation` of ANI-1xnr (XTB repulsion always on), 8 models,
+    weights drawn from `seed`, at the combustion config's dt (0.25 fs),
+    sized as `make_sim` sizes the ANI-2x ones."""
+    n = data.n_atoms
+    nbr = NeighborConfig(cutoff=5.1, skin=2.0, k_max=128,
+                         ghost_capacity=max(4096, n // 2),
+                         use_cell_list=n > 4096, cell_capacity=32,
+                         rebuild_every=rebuild_every)
+    pot = zoo.ani1xnr(num_models=num_models, seed=seed, dtype=dtype,
+                      device=device)
+    return Simulation(potential=pot, species=data.species,
+                      masses=data.masses_by_type[data.species], nbr=nbr,
+                      dt=0.25, integrator=integrator, dtype=dtype,
+                      device=device, engine=engine)
+
+
+def identical(a, b):
+    """Whether two sequences of tensors agree bit for bit."""
+    return all(same_bits((x,), (y,)) if x.is_floating_point()
+               else torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_ani1xnr_kernels(device, rep=2):
+    """The main path's eight asn kernels against their plain versions at
+    ANI-1xnr's constants (zeta 32 by the integer power, 4 species and 10
+    pair blocks, Rcr 5.2 beside the repulsion's 5.1, eta_a 8, the AEV 384
+    wide), 8 models, on the combustion mixture replicated rep^3 (11,520
+    atoms), sized by `Simulation`, f64 and f32: asn_compare's limits, each
+    worst error as a fraction of its limit, two calls of each bit for bit,
+    the packed kernels' edge cases; then E, F, W of
+    `energy_forces_virial_asn` on the card against the CPU, f64, on the
+    1,440-atom mixture."""
+    data = replicate(mixture(), rep, rep, rep)
+    result = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        sim = make_sim_1xnr(data, dtype, device)
+        box = make_box(data, dtype, device)
+        state = sim.init_state(data.positions, box)
+        if sim.engine != "pallas_asn":
+            raise AssertionError(f"ani1xnr_kernels: engine {sim.engine}")
+        k = asn_inputs(sim, state.pos, box)
+        calls = asn_calls(k)
+        errs, twice = {}, {}
+        for name in ASN_KERNELS:
+            kern, plain = calls[name]
+            got, again, ref = kern(), kern(), plain()
+            _sync(device)
+            errs[name] = asn_compare(name, k, got, ref)
+            twice[name] = identical(got, again)
+            del got, again, ref
+        if not all(twice.values()):
+            raise AssertionError(f"ani1xnr_kernels {tag}: two calls differ: "
+                                 f"{twice}")
+        ip, _ = ar._angular_params(sim.potential.spec.aev, (), dtype)
+        result[tag] = {
+            "sizing": asn_sizing(sim), "zeta_int": ip[1],
+            "pair_blocks": len(asn._packed_layout(
+                sim.potential.spec.aev, sim.potential.spec.angular_caps,
+                k["a_offs"])[0]),
+            "errors": errs,
+            "err_over_limit": {n: e["worst_ratio"] for n, e in errs.items()},
+            "two_calls_bit_for_bit": twice,
+            "packed_edge_cases": packed_edge_cases(k)}
+        del k, calls
+        torch.cuda.empty_cache()
+    small = mixture()
+    sim = make_sim_1xnr(small, torch.float64, device)
+    state = sim.init_state(small.positions,
+                           make_box(small, torch.float64, device))
+    bins, a = sim._bins(state.pos, state.box)
+    got = sim._forces(state.pos, state.box, (bins, a))
+    sim_c = make_sim_1xnr(small, torch.float64, "cpu")
+    box_c = make_box(small, torch.float64, "cpu")
+    sim_c.init_state(small.positions, box_c)
+    same = (asn_sizing(sim_c) == asn_sizing(sim)
+            and bool(np.array_equal(sim_c.order, sim.order)))
+    ref = sim_c._forces(state.pos.cpu(), box_c, _to_cpu(bins, a))
+    efw = _efw_line(got, ref, same)
+    emit({"phase": "ani1xnr_kernels", "atoms": data.n_atoms, "models": 8,
+          **result, "efw_card_vs_cpu_f64": {"atoms": small.n_atoms,
+                                            **efw}})
+    if not (same and efw["pe_rel_err"] <= 1e-11 and efw["force_err"] <= 1e-9
+            and efw["virial_err"] <= 1e-8):
+        raise AssertionError(f"ani1xnr E/F/W card vs CPU: {efw}")
+
+
+def phase_ani1xnr_md(device, rep=4, warm_chunks=1, timed_chunks=3, seed=1,
+                     reps=10):
+    """The combustion config's model and settings at a realistic size:
+    the mixture replicated rep^3 (92,160 atoms), ANI-1xnr with 8 models in
+    f32 on `pallas_asn`, NVT at 2500 K (tdamp 50 fs), dt 0.25 fs, a rebuild
+    every 10 steps, velocities at 2500 K from `seed`; the counts zeroed
+    just before and read just after: 1 warm and 3 timed chunks (ms/step on
+    the host clock, ns/day), one chunk under torch.profiler (device busy,
+    idle share, each kernel's device ms a step), the eight kernels'
+    launches (all required, no plain version); then each kernel at the
+    final state against its plain version, its ms, plain ms and bound
+    (ASN_OPS_1XNR). Returns their rows, named `<kernel><ani1xnr>`."""
+    data = replicate(mixture(), rep, rep, rep)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim = make_sim_1xnr(data, torch.float32, device,
+                        integrator=integrate.NoseHoover(temp=2500.0,
+                                                        tdamp=50.0))
+    box = make_box(data, torch.float32, device)
+    t0 = time.perf_counter()
+    state = sim.init_state(data.positions, box, temp=2500.0, seed=seed)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    _reset_all_counts()
+    state, warm_rows = sim.run(state, warm_chunks * CHUNK_CLI,
+                               thermo_every=1)
+    for attempt in range(3):
+        before = sim.regrow_events
+        state, rows, chunk_ms = _run_timed(sim, state, timed_chunks, device,
+                                           chunk=CHUNK_CLI)
+        if sim.regrow_events == before:
+            break
+    state, prof = profile_chunk(sim, state, ASN_KERNELS, chunk=CHUNK_CLI)
+    launches = {name: asn.LAUNCHES[name] for name in ASN_KERNELS}
+    plain = dict(asn.PLAIN_CALLS)
+    _check_md("ani1xnr_md", warm_rows + rows, state, launches, plain)
+    if any(ar.LAUNCHES.values()) or any(ar.PLAIN_CALLS.values()):
+        raise AssertionError("ani1xnr_md: the asn engine ran a roll kernel")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pos = nbops.wrap_positions(state.pos, state.box)
+    k = asn_inputs(sim, pos, state.box)
+    work = asn_work(k)
+    calls = asn_calls(k)
+    kern_rows, timing = [], {}
+    by_group = prof["device_ms_per_step_by_group"]
+    for name in ASN_KERNELS:
+        row, timing[name] = asn_kernel_row(
+            name, k, *calls[name], work, launches[name], reps,
+            ops=ASN_OPS_1XNR, label=f"{name}<ani1xnr>")
+        timing[name]["launches_per_step"] = (
+            launches[name] / max(launches["step_fused"], 1))
+        timing[name]["device_ms_per_step"] = by_group.get(name)
+        kern_rows.append(row)
+    del k, calls
+    torch.cuda.empty_cache()
+    emit({"phase": "ani1xnr_md", "engine": sim.engine,
+          "atoms": data.n_atoms, "dtype": "float32", "models": 8,
+          "integrator": "NoseHoover", "temp": 2500.0, "tdamp": 50.0,
+          "dt_fs": sim.dt, "rebuild_every": CHUNK_CLI,
+          **_md_numbers(sim, rows, chunk_ms), "init_state_s": t_init,
+          "timed_windows_taken": attempt + 1,
+          "profile": {key: prof[key] for key in (
+              "device_busy_ms_per_step", "device_idle_share",
+              "unprofiled_ms_per_step", "device_ms_per_step_by_group",
+              "top_kernels_ms_per_step")},
+          "sizing": asn_sizing(sim), "regrow_kinds": sim.regrow_kinds,
+          "launches": launches, "plain_calls": plain, "work": work,
+          "peak_mem_gb": peak, "kernels": timing})
+    return kern_rows
+
+
+def phase_cli(device, steps=200, rep=4, pos_tol=1e-3):
+    """The port's CLI (`lammps_ani_torch.run.main`) on the card, on the
+    combustion config (examples/combustion/config.json: ANI-1xnr, 8 models,
+    nvt at 2500 K, dt 0.25 fs, a DCD dump) and the 1,440-atom mixture,
+    written by the port's `write_lammps_data` and read back by both
+    parsers: `steps` (200) steps with a frame every steps / 4 (4 DCD
+    frames, the last the final positions, which the restart written at
+    the end holds; the thermo YAML to the last step); steps / 2 with a
+    restart, then steps / 2 more from it (the final positions against the
+    first call's: bit for bit, or the worst difference within `pos_tol`
+    A); Langevin steps / 5 twice through a restart against 2 steps / 5
+    straight (the generator's state carried, no warning);
+    `minimize_first`; `replicate [rep] * 3` for steps / 10 (the cell list
+    at 92,160 atoms), beside that data file parsed by the native and the
+    Python parser. Each call's stdout is kept and its `Performance:` line
+    reported."""
+    import contextlib
+    import io
+    import tempfile
+    import warnings
+
+    from lammps_ani_torch import run as cli
+    from lammps_ani_torch.io import dump as dumpio
+    from lammps_ani_torch.io import lammps_data as ldio
+
+    base = json.loads(open(COMBUSTION).read())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    data = mixture()
+    path = os.path.join(tmp, "methane_oxygen.data")
+    ldio.write_lammps_data(path, data)
+
+    def parsed(p):
+        t0 = time.perf_counter()
+        py = ldio.read_lammps_data(p, fast=False)
+        t1 = time.perf_counter()
+        nat = ldio.read_lammps_data(p, fast=True)
+        t2 = time.perf_counter()
+        same = all(np.array_equal(getattr(py, f), getattr(nat, f))
+                   for f in ("species", "positions", "masses_by_type",
+                             "box_bounds", "tilt"))
+        if not same:
+            raise AssertionError(f"cli: the parsers disagree on {p}")
+        return py, {"bytes": os.path.getsize(p), "python_s": t1 - t0,
+                    "native_s": t2 - t1, "equal": same}
+
+    back, parse_small = parsed(path)
+    if not np.allclose(back.positions, data.positions, rtol=0, atol=1e-8):
+        raise AssertionError("cli: the data file does not hold the system")
+    line = {"phase": "cli", "atoms": data.n_atoms, "config": base,
+            "parse": parse_small}
+
+    def call(tag, **over):
+        cfg = {**base, "data": path, "dump": None, "log": None,
+               "device": device, **over}
+        cfg_path = os.path.join(tmp, f"{tag}.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with contextlib.redirect_stdout(out):
+                cli.main([cfg_path])
+        text = out.getvalue().splitlines()
+        perf = [x for x in text if x.startswith("# Performance:")]
+        return {"wall_s": time.perf_counter() - t0,
+                "performance": perf[-1] if perf else None,
+                "warnings": [str(w.message) for w in caught],
+                "minimize": [x for x in text if x.startswith("# minimize:")],
+                "last_thermo": text[-2] if len(text) > 1 else None}
+
+    def final_pos(restart_path):
+        with np.load(restart_path) as z:
+            return z["pos"].copy(), int(z["step"])
+
+    def compare(a, b):
+        return {"bit_for_bit": bool(np.array_equal(a, b)),
+                "max_abs_diff": float(np.abs(a - b).max()),
+                "tolerance": pos_tol}
+
+    r = {n: os.path.join(tmp, f"{n}.npz") for n in (
+        "full", "half", "resumed", "lang_a", "lang_b", "lang_straight")}
+    dcd, yaml = os.path.join(tmp, "combustion.dcd"), os.path.join(
+        tmp, "thermo.yaml")
+    half, lang_n = steps // 2, steps // 5
+    line["combustion"] = call("combustion", steps=steps,
+                              dump_every=steps // 4, dump=dcd, log=yaml,
+                              restart=r["full"])
+    frames = dumpio.read_dcd(dcd)
+    thermo = dumpio.read_thermo_yaml(yaml)
+    pos_full, step_full = final_pos(r["full"])
+    line["combustion"].update(
+        frames=int(frames.shape[0]), thermo_steps=thermo["step"],
+        last_frame_is_final=bool(np.array_equal(
+            frames[-1], pos_full.astype(np.float32))),
+        final_temp=thermo["temp"][-1])
+    if not (frames.shape == (4, data.n_atoms, 3)
+            and line["combustion"]["last_frame_is_final"]
+            and thermo["step"][-1] == steps and step_full == steps):
+        raise AssertionError(f"cli combustion: {line['combustion']}")
+
+    line["restart_half"] = call("half", steps=half, restart=r["half"])
+    line["resume_half"] = call("resumed", steps=half,
+                               read_restart=r["half"], restart=r["resumed"])
+    pos_res, step_res = final_pos(r["resumed"])
+    line["resume_vs_straight"] = {"step": step_res,
+                                  **compare(pos_res, pos_full)}
+
+    lang = dict(ensemble="langevin")
+    line["langevin"] = call("lang_a", steps=lang_n, restart=r["lang_a"],
+                            **lang)
+    line["langevin_resumed"] = call("lang_b", steps=lang_n,
+                                    read_restart=r["lang_a"],
+                                    restart=r["lang_b"], **lang)
+    line["langevin_straight"] = call("lang_straight", steps=2 * lang_n,
+                                     restart=r["lang_straight"], **lang)
+    line["langevin_resume_vs_straight"] = compare(
+        final_pos(r["lang_b"])[0], final_pos(r["lang_straight"])[0])
+
+    line["minimize"] = call("minimize", steps=10, minimize_first=True)
+
+    big = replicate(data, rep, rep, rep)
+    big_path = os.path.join(tmp, "methane_oxygen_replicated.data")
+    ldio.write_lammps_data(big_path, big)
+    line["parse_replicated"] = {"atoms": big.n_atoms,
+                                **parsed(big_path)[1]}
+    line["replicate"] = {"atoms": big.n_atoms, **call(
+        "replicate", steps=steps // 10, replicate=[rep] * 3)}
+    emit(line)
+    bad = [k for k in ("resume_vs_straight", "langevin_resume_vs_straight")
+           if line[k]["max_abs_diff"] > pos_tol]
+    if (bad or step_res != steps or line["langevin_resumed"]["warnings"]
+            or not line["minimize"]["minimize"]
+            or not line["replicate"]["performance"]):
+        raise AssertionError(f"cli: {bad} {line}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3422,6 +3817,9 @@ def main() -> int:
     phase_mirror_md(device, sim, state)
     rows += phase_probes(device)
     phase_nvt_npt(device, sim, state)
+    phase_ani1xnr_kernels(device)
+    rows += phase_ani1xnr_md(device)
+    phase_cli(device)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

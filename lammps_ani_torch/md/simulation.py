@@ -5,7 +5,8 @@ Port of lammps_ani_tpu/md/simulation.py, with its engines under the JAX
 package's names:
 
   * `mirror` (the default, `cellroll=False`): the AEV over a neighbor
-    matrix of radius cutoff + skin and a frozen angular sub-list of radius
+    matrix of radius max(cutoff, Rcr) + skin (the JAX engine's is cutoff
+    + skin) and a frozen angular sub-list of radius
     Rca + ang_skin, both resolved into owner/shift/mirror tables
     (ops/nbr_grad.py) whose backward gathers instead of scattering; plain
     PyTorch, no kernel; carries the XTB repulsion term.
@@ -258,7 +259,7 @@ class Simulation:
         self._ang_cap = None  # angular sub-list capacity (mirror engines)
         self._roll_grid = None
         self._roll_shell = 2
-        self._rlist_query = nbr.rlist
+        self._rlist_query = self._mirror_rlist
         self._sections = None  # asn: ((species, lanes), ...) compact layout
         self._tiers = None  # asn: ((caps_t, rows_t), ...) or None
         # cumulative capacity regrows (callers warm up until it stops):
@@ -300,12 +301,18 @@ class Simulation:
     # ---------- setup ----------
 
     def init_state(self, pos: np.ndarray, box, vel: np.ndarray | None = None,
-                   temp: float | None = None, seed: int = 12345) -> MDState:
+                   temp: float | None = None, seed: int = 12345,
+                   order: np.ndarray | None = None) -> MDState:
         """`box`: an ops.neighbors.Box. Velocities: given (caller order),
-        drawn at `temp` from `seed`, or zero."""
+        drawn at `temp` from `seed`, or zero. `order`: the atom order to
+        hold (a restart's `sim.order`); None: the spatial sort."""
         pos = np.asarray(pos, np.float64)
         box = box.to(device=self.device, dtype=self.dtype)
-        self._spatial_sort(pos, box)
+        if order is None:
+            self._spatial_sort(pos, box)
+        else:
+            self.order = np.asarray(order, np.int64)
+            self._apply_order()
         pos_t = torch.as_tensor(pos[self.order], dtype=self.dtype,
                                 device=self.device)
         self._setup_grids(pos_t, box)
@@ -385,6 +392,16 @@ class Simulation:
         return min(self.nbr.skin, self.nbr.ang_skin)
 
     @property
+    def _mirror_rlist(self) -> float:
+        """The neighbor matrix's radius on the mirror engine: the larger of
+        the configured cutoff and the model's Rcr, plus the skin. A
+        NeighborConfig cutoff below Rcr (5.1 for ANI-1xnr's 5.2, as the
+        JAX CLI configures it) would otherwise miss pairs that come within
+        Rcr before the next rebuild where skin <= ang_skin."""
+        return (max(self.nbr.cutoff, self.potential.spec.cutoff)
+                + self.nbr.skin)
+
+    @property
     def _roll_side(self) -> float:
         """Least bin side. pallas_full: one fine grid for both channels
         (the angular kernels read the 27-bin window, side >= Rca + skin;
@@ -410,7 +427,7 @@ class Simulation:
         slack = BAROSTAT_SLACK if self._barostat_active() else 1.0
         self.engine = self._roll_impl if self._want_cellroll else "mirror"
         self._roll_grid = None
-        self._rlist_query = self.nbr.rlist
+        self._rlist_query = self._mirror_rlist
         probe = (crmod.RollGrid.for_box(box_h, self._roll_side * slack, 64)
                  if self._want_cellroll else None)
         if probe is None:
@@ -595,6 +612,51 @@ class Simulation:
             self._sections = aev_asn.sections_from_degrees(sec_degrees,
                                                            SEC_MARGIN)
             self._tiers = self._derive_tiers(cnt.cpu().numpy(), caps)
+
+    def sizing(self) -> dict:
+        """What the engine derived and grew, JSON-able: the engine that
+        runs, its grids and every capacity. A restart carries it
+        (io/restart.py), so the resumed run takes the shapes, and so the
+        sums, of the run it continues."""
+        spec = self.potential.spec
+        rg, cg = self._roll_grid, self._grid
+        return {
+            "engine": self.engine, "k_max": self._k_max,
+            "ang_cap": self._ang_cap,
+            "angular_caps": (None if spec.angular_caps is None
+                             else list(spec.angular_caps)),
+            "roll_grid": None if rg is None else [list(rg.ncells), rg.cap],
+            "roll_shell": self._roll_shell, "rlist_query": self._rlist_query,
+            "cell_grid": None if cg is None else [
+                list(cg.ncells), list(cg.margin_frac), cg.cell_capacity],
+            "ghost_capacity": self.nbr.ghost_capacity,
+            "sections": (None if self._sections is None
+                         else [list(x) for x in self._sections]),
+            "tiers": (None if self._tiers is None
+                      else [[list(c), r] for c, r in self._tiers])}
+
+    def restore_sizing(self, d: dict):
+        """Take the sizing `d` that `sizing()` gave (a restart's)."""
+        self.engine = d["engine"]
+        self._k_max, self._ang_cap = d["k_max"], d["ang_cap"]
+        caps = d["angular_caps"]
+        self.potential = self.potential.with_spec(dataclasses.replace(
+            self.potential.spec,
+            angular_caps=None if caps is None else tuple(caps)))
+        rg, cg = d["roll_grid"], d["cell_grid"]
+        self._roll_grid = (None if rg is None else crmod.RollGrid(
+            ncells=tuple(rg[0]), cap=rg[1]))
+        self._roll_shell, self._rlist_query = d["roll_shell"], d["rlist_query"]
+        self._grid = (None if cg is None else clmod.CellGrid(
+            ncells=tuple(cg[0]), margin_frac=tuple(cg[1]),
+            cell_capacity=cg[2]))
+        self.nbr = dataclasses.replace(self.nbr,
+                                       ghost_capacity=d["ghost_capacity"])
+        self._sections = (None if d["sections"] is None
+                          else tuple(tuple(x) for x in d["sections"]))
+        self._tiers = (None if d["tiers"] is None
+                       else tuple((tuple(c), r) for c, r in d["tiers"]))
+        self._check_kernel_caps()
 
     def _check_kernel_caps(self):
         """pallas_full: a grid cap above what its angular kernels take at

@@ -7,8 +7,7 @@ Nose-Hoover chain and barostat states of the nvt and npt ensembles.
 The JAX state also carries its PRNG key (`rng`). This port does not: the
 Langevin thermostat draws from its own explicit `torch.Generator`
 (md/integrate.py), so the noise stream lives with the integrator, not in
-the state. A restart that resumes the stream bit for bit is the IO
-queue's question (restarts are not ported yet).
+the state; a restart carries that generator's state (io/restart.py).
 """
 
 from __future__ import annotations

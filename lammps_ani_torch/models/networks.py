@@ -25,6 +25,14 @@ ANI2X_HIDDEN = (
     (160, 128, 96),   # Cl
 )
 
+# Published ANI-1x per-element hidden-layer widths (also ANI-1xnr).
+ANI1X_HIDDEN = (
+    (160, 128, 96),   # H
+    (144, 112, 96),   # C
+    (128, 112, 96),   # N
+    (128, 112, 96),   # O
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class NetworkSpec:
@@ -60,6 +68,15 @@ class _CELU(torch.autograd.Function):
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         return g * torch.exp(torch.clamp(x, max=0.0) / ctx.alpha), None
+
+
+def select_models(params, num_models: int | None):
+    """The first `num_models` members of the stacked ensemble (None: all);
+    the slices keep their device and dtype."""
+    if num_models is None:
+        return params
+    return [[{k: v[:num_models] for k, v in layer.items()}
+             for layer in layers] for layers in params]
 
 
 def _mlp_stack(layers, x: torch.Tensor, celu_alpha: float,
@@ -150,4 +167,12 @@ ANI2X_SELF_ENERGIES = (
     -398.1577125334925,    # S
     -99.80348506781634,    # F
     -460.1681939421027,    # Cl
+)
+
+# ANI-1x self atomic energies (Hartree; HCNO).
+ANI1X_SELF_ENERGIES = (
+    -0.600952980000,  # H
+    -38.08316124000,  # C
+    -54.58049914300,  # N
+    -75.01173938500,  # O
 )

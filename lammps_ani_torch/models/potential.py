@@ -88,6 +88,12 @@ class ANIPotential(nn.Module):
     def num_models(self) -> int:
         return self.s0_l0_w.shape[0]
 
+    def select_models(self, num_models: Optional[int]) -> "ANIPotential":
+        """A new potential of the first `num_models` ensemble members
+        (None: all), on the same device and in the same dtype."""
+        return ANIPotential(self.spec,
+                            netmod.select_models(self.params, num_models))
+
     def with_spec(self, spec: ANISpec) -> "ANIPotential":
         """The same weights under another spec (e.g. new angular caps)."""
         return ANIPotential(spec, self.params)

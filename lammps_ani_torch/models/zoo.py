@@ -1,4 +1,5 @@
-"""Model zoo: the ANI-2x factory, weight transfer and serialization.
+"""Model zoo: the ANI-2x and ANI-1xnr factories, weight transfer and
+serialization.
 
 Port of lammps_ani_tpu/models/zoo.py. Synthetic weights are drawn with a
 `torch.Generator` (the same damped-Kaiming scale as the JAX package; the
@@ -21,6 +22,7 @@ from . import potential as potmod
 from . import repulsion as repmod
 
 ANI2X_SYMBOLS = ("H", "C", "N", "O", "S", "F", "Cl")
+ANI1X_SYMBOLS = ("H", "C", "N", "O")
 
 
 def init_network_params(spec: netmod.NetworkSpec, num_models: int,
@@ -68,17 +70,23 @@ def _ani2x_spec(repulsion: bool = False) -> potmod.ANISpec:
         repulsion=rep, symbols=ANI2X_SYMBOLS)
 
 
-def ani2x(num_models: int = 8, seed: int = 0, dtype=torch.float32,
-          device=None, params=None,
-          repulsion: bool = False) -> potmod.ANIPotential:
-    """ANI-2x at its published widths (7 species, AEV 1008).
-    `repulsion=True` adds the XTB core-repulsion term (cutoff 5.1,
-    smooth envelope), which the reference's ANI-2x leaves out but which
-    keeps MD under synthetic weights in a liquid-like regime; only the
-    asn path evaluates it. `params=None` draws synthetic weights from
-    `seed`. Runs on the card unless `device` says otherwise."""
+def _ani1xnr_spec(repulsion: bool = True) -> potmod.ANISpec:
+    aev_spec = aevmod.ani1x_aev_spec()
+    net_spec = netmod.NetworkSpec(aev_length=aev_spec.aev_length,
+                                  hidden=netmod.ANI1X_HIDDEN)
+    rep = (repmod.RepulsionSpec.for_symbols(ANI1X_SYMBOLS, cutoff=5.1,
+                                            cutoff_fn="smooth")
+           if repulsion else None)
+    return potmod.ANISpec(
+        aev=aev_spec, net=net_spec,
+        shifter=netmod.EnergyShifter(netmod.ANI1X_SELF_ENERGIES),
+        repulsion=rep, symbols=ANI1X_SYMBOLS)
+
+
+def _potential(spec, num_models, seed, dtype, device, params):
+    """`spec` with `params` (moved to the device and dtype) or synthetic
+    weights drawn from `seed`."""
     dev = resolve_device(device)
-    spec = _ani2x_spec(repulsion)
     if params is None:
         g = torch.Generator(device="cpu").manual_seed(seed)
         params = init_network_params(spec.net, num_models, g, dtype, dev)
@@ -87,6 +95,35 @@ def ani2x(num_models: int = 8, seed: int = 0, dtype=torch.float32,
                     for k, v in layer.items()} for layer in layers]
                   for layers in params]
     return potmod.ANIPotential(spec, params)
+
+
+def ani2x(num_models: int = 8, seed: int = 0, dtype=torch.float32,
+          device=None, params=None,
+          repulsion: bool = False) -> potmod.ANIPotential:
+    """ANI-2x at its published widths (7 species, AEV 1008).
+    `repulsion=True` adds the XTB core-repulsion term (cutoff 5.1,
+    smooth envelope), which the reference's ANI-2x leaves out but which
+    keeps MD under synthetic weights in a liquid-like regime. `params=None`
+    draws synthetic weights from `seed`. Runs on the card unless `device`
+    says otherwise."""
+    return _potential(_ani2x_spec(repulsion), num_models, seed, dtype,
+                      device, params)
+
+
+def ani1xnr(num_models: int = 8, seed: int = 1, dtype=torch.float32,
+            params=None, device=None) -> potmod.ANIPotential:
+    """ANI-1xnr: the ANI-1x AEV (4 species HCNO, Rcr 5.2, zeta 32, AEV
+    384) and networks, with the XTB repulsion term always on (cutoff 5.1,
+    smooth envelope). `params=None` draws synthetic weights from `seed`.
+    Runs on the card unless `device` says otherwise."""
+    return _potential(_ani1xnr_spec(), num_models, seed, dtype, device,
+                      params)
+
+
+all_models = {
+    "ani2x": ani2x,
+    "ani1x_nr": ani1xnr,
+}
 
 
 def save_potential(path, pot: potmod.ANIPotential):

@@ -19,6 +19,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .._device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Box:
@@ -26,6 +28,17 @@ class Box:
 
     h: torch.Tensor
     origin: torch.Tensor
+
+    @staticmethod
+    def from_lammps(xlo, xhi, ylo, yhi, zlo, zhi, xy=0.0, xz=0.0, yz=0.0,
+                    dtype=torch.float32, device=None) -> "Box":
+        """The box of a LAMMPS data file's bounds and tilt factors, on the
+        card unless `device` says otherwise."""
+        h = torch.tensor([[xhi - xlo, 0.0, 0.0], [xy, yhi - ylo, 0.0],
+                          [xz, yz, zhi - zlo]], dtype=dtype,
+                         device=resolve_device(device))
+        return Box(h=h, origin=torch.tensor([xlo, ylo, zlo], dtype=dtype,
+                                            device=h.device))
 
     def to(self, device=None, dtype=None) -> "Box":
         return Box(h=self.h.to(device=device, dtype=dtype),

@@ -29,6 +29,17 @@ PRESENT = (0, 3)
 CAPS = (20, 0, 0, 12, 0, 0, 0)
 SHELL = 2
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread: with several test processes on one machine, each
+    with a thread per core, the threads wait on one another at every
+    operation."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def roll_case(dtype, seed=0):
     """Port inputs, and JAX reference outputs of the four *_impl

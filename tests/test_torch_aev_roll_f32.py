@@ -18,6 +18,17 @@ TOL32 = {"radial": dict(atol=5e-6, rtol=1e-5),
          "radial_dpos": dict(atol=2e-4, rtol=0),
          "angular_dpos": dict(atol=2e-4, rtol=0)}
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread: with several test processes on one machine, each
+    with a thread per core, the threads wait on one another at every
+    operation."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 @pytest.fixture(scope="module")
 def case32():

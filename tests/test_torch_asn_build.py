@@ -32,6 +32,17 @@ KEEP_R = 7.1  # Rcr 5.1 + skin 2.0
 RCA = 3.5
 CAP = 40
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread: with several test processes on one machine, each
+    with a thread per core, the threads wait on one another at every
+    operation."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def asn_system(rep=3, jitter=0.05, seed=3):
     """(species, positions, box_h, origin) of WATER30 x rep^3, jittered,

@@ -33,6 +33,17 @@ SYMBOLS = ("H", "C", "N", "O", "S", "F", "Cl")
 QUANTITIES = ("radial", "erep", "angular", "deficit")
 CASES = ("rep", "norep", "tiered", "f32")
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread: with several test processes on one machine, each
+    with a thread per core, the threads wait on one another at every
+    operation."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def _as_np(out):
     return {q: np.asarray(x.detach().numpy() if isinstance(x, torch.Tensor)

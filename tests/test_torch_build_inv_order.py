@@ -37,6 +37,17 @@ from .test_torch_asn_build import KEEP_R, asn_system, grids, sizing
 
 DTYPES = {"f64": torch.float64, "f32": torch.float32}
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread: with several test processes on one machine, each
+    with a thread per core, the threads wait on one another at every
+    operation."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def window_tab(ncells, cap):
     """(first grid slot [NC, 27], wrap shift [NC, 27, 3]) of each bin's

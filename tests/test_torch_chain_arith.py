@@ -40,6 +40,17 @@ from .test_torch_asn_build import KEEP_R, asn_system, grids, sizing
 RED_THREADS, RED_ROWS = 512, 4  # dh_reduce_kernel's
 WARPS_PER_BLOCK = 8             # rows (warps) of a chain block
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread: with several test processes on one machine, each
+    with a thread per core, the threads wait on one another at every
+    operation."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def gate(scale):
     return 5e-6 + 1e-5 * scale

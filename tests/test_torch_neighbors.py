@@ -22,6 +22,17 @@ from lammps_ani_torch.ops import neighbors as tnb
 from .fixtures import MASSES, WATER30_BOX, WATER30_ORIGIN, WATER30_POS
 from .fixtures import WATER30_SPECIES
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread: with several test processes on one machine, each
+    with a thread per core, the threads wait on one another at every
+    operation."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def water_system(rep=2, jitter=0.0, seed=0):
     """(species, positions, box_h, origin, masses) of WATER30 replicated

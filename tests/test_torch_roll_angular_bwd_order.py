@@ -50,6 +50,17 @@ PRESENT = (0, 3)
 CAPS = (20, 0, 0, 12, 0, 0, 0)
 CAP = 16
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread: with several test processes on one machine, each
+    with a thread per core, the threads wait on one another at every
+    operation."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def compact(cst, caps, present, pos_g, win_p, win_s):
     """Slot lanes [NC, cap, atot] (window lane, or -1 for an unfilled

@@ -25,6 +25,17 @@ from .test_torch_neighbors import water_system
 
 DT = 0.2
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread: with several test processes on one machine, each
+    with a thread per core, the threads wait on one another at every
+    operation."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def _nbr(mod, **kw):
     return mod.NeighborConfig(cutoff=5.1, skin=1.0, k_max=160,

@@ -38,6 +38,17 @@ F32 = np.float32
 LOG2E = 1.4426950408889634
 TINY = F32(1e-30)
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread: with several test processes on one machine, each
+    with a thread per core, the threads wait on one another at every
+    operation."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def gate(scale):
     return 5e-6 + 1e-5 * scale

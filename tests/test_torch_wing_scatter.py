@@ -33,6 +33,17 @@ from lammps_ani_torch.ops import aev_asn as tasn
 
 from .test_torch_asn_build import asn_system, grids, sizing
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread: with several test processes on one machine, each
+    with a thread per core, the threads wait on one another at every
+    operation."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 @pytest.fixture(scope="module")
 def tables():
