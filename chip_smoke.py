@@ -211,6 +211,43 @@ object per line; any failure raises and the script exits non-zero:
            `replicate [4, 4, 4]` for 20 steps beside the 92,160-atom data
            file parsed by the native and the Python parser.
 
+  rattle_md  the main path's model, engine and settings (pallas_asn, f32,
+           Langevin 300 K, dt 0.5 fs, 12-step chunks) on the reference
+           water tile (WATER30_POS: equil_water30.npz's molecules came
+           apart under the synthetic weights) x 15^3 = 101,250 atoms with
+           every O-H bond constrained (67,500): the bonds from
+           `fragments.bond_pairs` on the card, equal to the tile's 20
+           replicated; 12 chunks at damp 10 fs while the tile relaxes,
+           then a fresh engine sized at that state, its counts zeroed
+           just before and read just after: 2 warm and 3 timed chunks
+           (ms/step, max_violation at each chunk's end below 1e-4 A, the
+           temperature over the reduced dof), one profiled chunk (device
+           busy, idle share), the
+           constraint stage alone (launches, device and host ms a step);
+           then f64 NVE on the tile x 6^3 (6,480 atoms), 12 steps, twice
+           on the card (bit for bit) and on the CPU (positions within
+           1e-9 A), max_violation below 1e-8 A.
+  bias_md  the main path's model and final state with `bias.combine` of a
+           distance, an angle and a dihedral restraint (k 40, atoms near
+           the box's center): 1 warm and 3 timed chunks (ms/step and
+           device busy beside main's, each CV at each chunk's end); f64
+           NVE with the restraints on 6,480 atoms, 12 steps, card against
+           CPU (positions within 1e-9 A); `run_windows` over 3 windows of
+           24 steps on 6,480 atoms (f32) and the port's `wham` over the
+           samples (the PMF's finite values).
+  trace    `utils.profiling.trace` around one chunk of the main path, then
+           `summarize_trace`: its top 10; the eight asn kernels named in
+           it, the sum of its entries equal to the sum of the trace's
+           device-kernel events, the "nn_forward" ranges present.
+  fragments  `analysis.fragments.bond_pairs` and `fragments` at
+           ani1xnr_md's final state (92,160 atoms) on the card: seconds,
+           pairs and formula counts; the card's pairs equal to the CPU
+           path's on the mixture x 2^3 (11,520 atoms).
+  equilibrate_tile  the port's tile tool on the card on the reference
+           tile written by the port's `write_lammps_data`: FIRE and 1 leg
+           of 100 Langevin steps into a scratch directory; finite
+           positions and velocities in the written .npz.
+
 Then one line {"kernels": [...]} (the twenty package kernels, the probe
 kernels by stage and mode, the radial forward kernel's probe timing, and
 the eight asn kernels' ANI-1xnr rows, `<kernel><ani1xnr>`), nvidia-smi's
@@ -363,7 +400,8 @@ def water_box(rep: int) -> LammpsData:
 
 def make_sim(data, dtype, device, integrator=None, rebuild_every=CHUNK,
              seed=1, engine="pallas_asn", repulsion=None, pair_stage=None,
-             cellroll=False, ghost_capacity=None, barostat=None):
+             cellroll=False, ghost_capacity=None, barostat=None,
+             constraints=None, extra_force=None):
     """A `Simulation` of ANI-2x, one model, weights drawn from `seed`, on
     `engine` (None: as `cellroll` resolves it, the user's path; the main
     path's `cellroll=True` in f32 on the card is pallas_asn); the asn
@@ -371,7 +409,8 @@ def make_sim(data, dtype, device, integrator=None, rebuild_every=CHUNK,
     (pallas_full) and the hybrids do not; `pair_stage`: the asn engine's
     angular pair stage (None: packed); `ghost_capacity` (None: max(4096,
     n / 2), which only the degree measure uses on the grid engines);
-    `barostat`: a BerendsenBarostat."""
+    `barostat`: a BerendsenBarostat; `constraints` (a Rattle) and
+    `extra_force` as `Simulation` takes them."""
     n = data.n_atoms
     if repulsion is None:
         repulsion = engine not in ("pallas_full", "xla", "pallas")
@@ -385,7 +424,8 @@ def make_sim(data, dtype, device, integrator=None, rebuild_every=CHUNK,
                       masses=data.masses_by_type[data.species], nbr=nbr,
                       dt=0.5, integrator=integrator, dtype=dtype,
                       device=device, engine=engine, pair_stage=pair_stage,
-                      cellroll=cellroll, barostat=barostat)
+                      cellroll=cellroll, barostat=barostat,
+                      constraints=constraints, extra_force=extra_force)
 
 
 def make_box(data, dtype, device):
@@ -997,7 +1037,7 @@ def asn_sizing(sim):
 def phase_main(device, rep=15, equil_chunks=12, warm_chunks=2,
                timed_chunks=4, seed=1):
     """The MD main path at 101,250 atoms on the default engine (pallas_asn,
-    ANI-2x + XTB repulsion); returns (sim, state, launches)."""
+    ANI-2x + XTB repulsion); returns (sim, state, launches, its line)."""
     data = water_box(rep)
     gen = torch.Generator(device=device).manual_seed(seed)
     torch.cuda.empty_cache()
@@ -1059,7 +1099,7 @@ def phase_main(device, rep=15, equil_chunks=12, warm_chunks=2,
     if any(asn.LAUNCHES[name] for name in CHANNEL_KERNELS + BLOCK_KERNELS):
         raise AssertionError("main: the packed fused path ran a per-channel "
                              f"or a per-block kernel: {asn.LAUNCHES}")
-    return sim, state, launches
+    return sim, state, launches, line
 
 
 def phase_roll_md(device, sim_asn, state_asn, warm_chunks=1, timed_chunks=3,
@@ -1151,13 +1191,25 @@ def _busy_ms(intervals):
     return total / 1e3
 
 
+def device_events(prof):
+    """The device's events of a torch.profiler run: kernels and copies,
+    not the ranges that `record_function` labels (the engines'
+    "nn_forward") project onto the device's timeline, which span the gaps
+    between their kernels."""
+    events = prof.events()
+    labels = {ev.name for ev in events
+              if getattr(ev, "is_user_annotation", False)}
+    return [ev for ev in events
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
+            and ev.name not in labels]
+
+
 def device_time(prof, calls, group_keys):
     """(device busy ms, device ms by group, the 25 largest kernels' ms),
     each per call, from a torch.profiler run over `calls` calls."""
     by_name, intervals = {}, []
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for ev in device_events(prof):
         dur = ev.time_range.end - ev.time_range.start
         by_name[ev.name] = by_name.get(ev.name, 0.0) + dur / 1e3
         intervals.append((ev.time_range.start, ev.time_range.end))
@@ -2349,9 +2401,11 @@ def profile_chunk(sim, state, kernels, groups=None, chunk=CHUNK):
 
 
 def phase_profile(sim, state):
-    """The main path's step from its final state (`profile_chunk`)."""
+    """The main path's step from its final state (`profile_chunk`);
+    returns its numbers."""
     _, line = profile_chunk(sim, state, ASN_KERNELS)
     emit({"phase": "profile", **line})
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -3591,7 +3645,8 @@ def phase_ani1xnr_md(device, rep=4, warm_chunks=1, timed_chunks=3, seed=1,
     idle share, each kernel's device ms a step), the eight kernels'
     launches (all required, no plain version); then each kernel at the
     final state against its plain version, its ms, plain ms and bound
-    (ASN_OPS_1XNR). Returns their rows, named `<kernel><ani1xnr>`."""
+    (ASN_OPS_1XNR). Returns their rows, named `<kernel><ani1xnr>`, the
+    simulation and its final state."""
     data = replicate(mixture(), rep, rep, rep)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3648,7 +3703,7 @@ def phase_ani1xnr_md(device, rep=4, warm_chunks=1, timed_chunks=3, seed=1,
           "sizing": asn_sizing(sim), "regrow_kinds": sim.regrow_kinds,
           "launches": launches, "plain_calls": plain, "work": work,
           "peak_mem_gb": peak, "kernels": timing})
-    return kern_rows
+    return kern_rows, sim, state
 
 
 def phase_cli(device, steps=200, rep=4, pos_tol=1e-3):
@@ -3788,6 +3843,544 @@ def phase_cli(device, steps=200, rep=4, pos_tol=1e-3):
         raise AssertionError(f"cli: {bad} {line}")
 
 
+# ---------------------------------------------------------------------------
+# RATTLE, collective-variable biases, profiling, fragments, the tile tool
+# ---------------------------------------------------------------------------
+
+# The reference's 30-atom water tile (its tests/water-0.8nm.data, as
+# tests/fixtures.py holds it: 10 molecules in an 8 A cube about the
+# origin). Its 20 O-H bonds are within the element-pair cutoffs; the
+# synthetic weights have taken equil_water30.npz's molecules apart (one
+# pair within them), so the constrained runs start from this tile.
+WATER30_POS = np.array([
+    [2.011, -3.116, 0.463], [2.86, -3.525, 0.294], [2.165, -2.181, 0.331],
+    [2.386, -0.118, 2.278], [2.828, 0.165, 3.078], [2.781, 0.412, 1.585],
+    [1.38, 1.855, 0.54], [1.942, 2.597, 0.317], [1.131, 2.008, 1.452],
+    [-0.822, -3.413, 0.574], [0.133, -3.346, 0.568], [-1.118, -2.588, 0.958],
+    [-0.555, 2.185, -2.095], [0.007, 2.852, -2.49], [-0.02, 1.803, -1.399],
+    [2.07, -0.491, -0.665], [1.717, 0.373, -0.451], [1.38, -0.91, -1.18],
+    [-2.282, 0.752, 0.227], [-2.603, 0.335, -0.573], [-2.91, 0.493, 0.901],
+    [-0.21, -0.857, 1.541], [0.744, -0.78, 1.574], [-0.493, -0.112, 1.011],
+    [-0.2, -1.356, -2.464], [-0.837, -0.898, -3.013], [-0.727, -1.942, -1.922],
+    [-3.127, 2.221, -3.095], [-2.798, 2.675, -3.871], [-2.383, 2.202, -2.494],
+])
+
+
+def water30_box(rep: int) -> LammpsData:
+    """The reference's water tile replicated rep^3 times."""
+    tile = LammpsData(species=WATER30_SPECIES, positions=WATER30_POS,
+                      masses_by_type=MASSES,
+                      box_bounds=np.array([[-4.0, 4.0]] * 3),
+                      tilt=np.zeros(3))
+    return replicate(tile, rep, rep, rep)
+
+
+def tile_bonds_replicated(rep):
+    """The tile's bonds (`bond_pairs` on the CPU: its 20 O-H) in the
+    replicated box's atom order: atom i of each copy with atom j of the
+    copy that holds j's minimum image (`replicate`'s copy order)."""
+    from lammps_ani_torch.analysis import fragments as frag
+
+    tile = water30_box(1)
+    h = tile.box_h
+    copies = [(x, y, z) for x in range(rep) for y in range(rep)
+              for z in range(rep)]
+    index = {c: k for k, c in enumerate(copies)}
+    n = tile.n_atoms
+    out = []
+    for i, j in frag.bond_pairs(tile.species, tile.positions, h,
+                                device="cpu"):
+        frac = (tile.positions[j] - tile.positions[i]) @ np.linalg.inv(h)
+        s = -np.round(frac).astype(np.int64)
+        for c in copies:
+            a = index[c] * n + i
+            b = index[tuple((np.asarray(c) + s) % rep)] * n + j
+            out.append((min(a, b), max(a, b)))
+    return sorted(out)
+
+
+def _min_image_np(d, h):
+    frac = d @ np.linalg.inv(h)
+    return (frac - np.round(frac)) @ h
+
+
+def _timed_chunks(sim, state, device, chunks, at_end):
+    """`chunks` chunks of CHUNK steps (taken again, up to 3 times, where a
+    capacity regrew in them), `at_end(state)` after each: (state, rows,
+    ms/step by chunk, what at_end gave, windows taken)."""
+    for attempt in range(3):
+        before = sim.regrow_events
+        rows, chunk_ms, ends = [], [], []
+        for _ in range(chunks):
+            t0 = time.perf_counter()
+            state, r = sim.run(state, CHUNK, thermo_every=1)
+            _sync(device)
+            chunk_ms.append((time.perf_counter() - t0) * 1e3 / CHUNK)
+            rows += r
+            ends.append(at_end(state))
+        if sim.regrow_events == before:
+            break
+    else:
+        raise AssertionError("every timed window regrew a capacity: "
+                             f"{sim.regrow_kinds}")
+    return state, rows, chunk_ms, ends, attempt + 1
+
+
+def constraint_stage(sim, state, reps=10):
+    """One step's constraint stage alone (`project_positions` after a
+    drift, then `project_velocities`) at `state`: its launches and
+    device ms (torch.profiler) and its host ms (10 calls, synchronized)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    r, dt, m = sim._rattle, sim.dt, sim.masses
+    pos, vel, box = state.pos, state.vel, state.box
+    pos_new = pos + dt * vel
+
+    def stage():
+        p, v = r.project_positions(pos_new, pos, vel, m, box, dt)
+        return r.project_velocities(p, v, m, box)
+
+    stage()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stage()
+        torch.cuda.synchronize()
+    kern = [ev for ev in device_events(prof)
+            if not ev.name.startswith(("Memcpy", "Memset"))]
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        stage()
+    torch.cuda.synchronize()
+    return {"launches_per_step": len(kern),
+            "device_ms_per_step": sum(ev.time_range.end
+                                      - ev.time_range.start
+                                      for ev in kern) / 1e3,
+            "host_ms_per_step": (time.perf_counter() - t0) * 1e3 / reps,
+            "iters": r.iters, "constraints": r.n_constraints}
+
+
+def rattle_card_vs_cpu(device, rep=6, steps=12):
+    """NVE with every O-H bond constrained on pallas_asn in f64 (the
+    reference tile x rep^3, velocities at 300 K from seed 1): twice on the
+    card (bit for bit), once on the CPU (positions within 1e-9 A), the
+    bonds within 1e-8 A of their lengths; the eight kernels launched on the
+    card, no plain version."""
+    from lammps_ani_torch.analysis import fragments as frag
+    from lammps_ani_torch.md import constraints as cons
+
+    data = water30_box(rep)
+    rat = cons.Rattle.from_bonds(
+        frag.bond_pairs(data.species, data.positions, data.box_h,
+                        device="cpu"), data.positions, data.box_h)
+    runs = []
+    for dev in (device, device, "cpu"):
+        sim = make_sim(data, torch.float64, dev, constraints=rat)
+        st = sim.init_state(data.positions,
+                            make_box(data, torch.float64, dev), temp=300.0,
+                            seed=1)
+        if dev == device:
+            _reset_all_counts()
+        st, rows = sim.run(st, steps, thermo_every=1)
+        if dev == device:
+            launches, plain = card_counts("pallas_asn")
+            _check_md("rattle_md f64", rows, st, launches, plain)
+        runs.append((sim, st))
+    (s1, a), (_, b), (sc, c) = runs
+    pos = [s1.positions_input_order(a), s1.positions_input_order(b),
+           sc.positions_input_order(c)]
+    viol = float(rat.max_violation(torch.as_tensor(pos[0]),
+                                   make_box(data, torch.float64, "cpu")))
+    line = {"atoms": data.n_atoms, "constraints": rat.n_constraints,
+            "steps": steps, "engine": s1.engine,
+            "pos_err_vs_cpu": float(np.abs(pos[0] - pos[2]).max()),
+            "max_violation": viol,
+            "card_twice_same_bits": bool(
+                torch.equal(a.pos, b.pos) and torch.equal(a.vel, b.vel)),
+            "temp_last": rows[-1]["temp"], "launches": launches}
+    if not (line["pos_err_vs_cpu"] <= 1e-9 and viol < 1e-8
+            and line["card_twice_same_bits"] and s1.engine == "pallas_asn"):
+        raise AssertionError(f"rattle_md f64: {line}")
+    return line
+
+
+def phase_rattle_md(device, rep=15, equil_chunks=12, warm_chunks=2,
+                    timed_chunks=3, seed=1):
+    """The main path's model, engine and settings (ANI-2x + XTB repulsion,
+    one model, f32, cellroll=True, so pallas_asn; Langevin 300 K at damp
+    100 fs, dt 0.5 fs, 12-step chunks) on the reference water tile x rep^3
+    (101,250 atoms) with every O-H bond constrained: the bonds from
+    `fragments.bond_pairs` on the card, equal to the tile's 20 replicated;
+    12 chunks at damp 10 fs (the tile relaxes under the synthetic
+    weights), then a fresh engine at that state, its counts zeroed just
+    before its runs and read just after: 2 warm and 3 timed chunks
+    (ms/step, `max_violation` at each chunk's end,
+    below 1e-4 A, the temperature over the reduced dof), one chunk under
+    torch.profiler (device busy, idle share), the constraint stage alone
+    (launches, device and host ms a step); then `rattle_card_vs_cpu`."""
+    from lammps_ani_torch.analysis import fragments as frag
+    from lammps_ani_torch.md import constraints as cons
+
+    data = water30_box(rep)
+    box_h = data.box_h
+    _sync(device)
+    t0 = time.perf_counter()
+    pairs = frag.bond_pairs(data.species, data.positions, box_h,
+                            device=device)
+    bonds_s = time.perf_counter() - t0
+    if pairs != tile_bonds_replicated(rep):
+        raise AssertionError(f"rattle_md: bond_pairs gave {len(pairs)} "
+                             "pairs, not the tile's bonds replicated")
+    rat = cons.Rattle.from_bonds(pairs, data.positions, box_h)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    box = make_box(data, torch.float32, device)
+
+    def constrained(damp):
+        sim = make_sim(data, torch.float32, device, engine=None,
+                       cellroll=True, constraints=rat,
+                       integrator=integrate.Langevin(temp=300.0, damp=damp,
+                                                     generator=gen))
+        if sim.engine != "pallas_asn":
+            raise AssertionError(f"rattle_md: engine {sim.engine}")
+        return sim
+
+    # the reference tile relaxes under the synthetic weights, and its
+    # degrees drift while it does (the last tier's rows regrew nearly every
+    # chunk): equil_chunks at damp 10 fs, then a fresh engine sized at the
+    # relaxed state, as the main path starts from a relaxed tile
+    sim_eq = constrained(10.0)
+    state = sim_eq.init_state(data.positions, box, temp=300.0, seed=seed)
+    state, equil_rows = sim_eq.run(state, equil_chunks * CHUNK,
+                                   thermo_every=1)
+    regrow_equil = dict(sim_eq.regrow_kinds)
+    sim = constrained(100.0)
+    state = sim.init_state(sim_eq.positions_input_order(state), box,
+                           vel=sim_eq.velocities_input_order(state))
+    del sim_eq
+    _reset_all_counts()
+    state, warm_rows = sim.run(state, warm_chunks * CHUNK, thermo_every=1)
+
+    def violation(st):
+        pos = st.pos[sim._inv_order_t]
+        return float(rat.max_violation(pos, st.box))
+
+    state, rows, chunk_ms, viol, windows = _timed_chunks(
+        sim, state, device, timed_chunks, violation)
+    try:
+        state, prof = profile_chunk(sim, state, ASN_KERNELS)
+    except AssertionError as e:
+        raise AssertionError(f"rattle_md: {e}: regrows {sim.regrow_kinds} "
+                             f"(relaxing {regrow_equil}), sizing "
+                             f"{asn_sizing(sim)}") from e
+    launches = {name: asn.LAUNCHES[name] for name in ASN_KERNELS}
+    plain = dict(asn.PLAIN_CALLS)
+    line = {"phase": "rattle_md", "engine": sim.engine,
+            "atoms": data.n_atoms, "constraints": rat.n_constraints,
+            "dof": sim.dof, "dtype": "float32", "dt_fs": sim.dt,
+            "bond_pairs_s": bonds_s, **_md_numbers(sim, rows, chunk_ms),
+            "max_violation_by_chunk": viol, "timed_windows_taken": windows,
+            "equil": {"chunks": equil_chunks, "damp_fs": 10.0,
+                      "temp_first": equil_rows[0]["temp"],
+                      "temp_max": max(r["temp"] for r in equil_rows),
+                      "temp_last": equil_rows[-1]["temp"]},
+            "regrow_kinds_relaxing": regrow_equil,
+            "regrow_kinds": sim.regrow_kinds, "sizing": asn_sizing(sim),
+            "profile": {k: prof[k] for k in (
+                "device_busy_ms_per_step", "device_idle_share",
+                "unprofiled_ms_per_step", "device_ms_per_step_by_group")},
+            "constraint_stage": constraint_stage(sim, state),
+            "launches": launches, "plain_calls": plain}
+    _check_md("rattle_md", warm_rows + rows, state, launches, plain)
+    if not all(np.isfinite(r["temp"]) for r in equil_rows):
+        raise AssertionError("rattle_md: non-finite temperature while the "
+                             "tile relaxed")
+    if max(viol) >= 1e-4:
+        raise AssertionError(f"rattle_md: bonds off by {viol} A")
+    line["card_vs_cpu_f64"] = rattle_card_vs_cpu(device)
+    emit(line)
+
+
+def cv_atoms(species, pos, box_h):
+    """Atoms near the box's center for a distance, an angle and a
+    dihedral: the O nearest the center, its two nearest H, the next
+    nearest O and its nearest H; none straddles a face."""
+    center = pos.min(0) + 0.5 * np.diag(box_h)
+    o_idx = np.flatnonzero(species == 3)
+    h_idx = np.flatnonzero(species == 0)
+    o = o_idx[np.argsort(np.linalg.norm(pos[o_idx] - center, axis=1))]
+    a, d = int(o[0]), int(o[1])
+    hb = h_idx[np.argsort(np.linalg.norm(pos[h_idx] - pos[a], axis=1))]
+    b, c = int(hb[0]), int(hb[1])
+    e = int(h_idx[np.argmin(np.linalg.norm(pos[h_idx] - pos[d], axis=1))])
+    atoms = {"distance": (a, b), "angle": (b, a, c), "dihedral": (b, a, d, e)}
+    for idx in atoms.values():
+        for x in idx[1:]:
+            dd = pos[x] - pos[idx[0]]
+            if not np.allclose(_min_image_np(dd, box_h), dd):
+                raise AssertionError(f"cv atoms {idx} straddle a face")
+    return atoms
+
+
+BIAS_K = 40.0  # kcal/mol per CV unit squared
+BIAS_OFFSETS = {"distance": 0.1, "angle": 0.1, "dihedral": 0.2}
+
+
+def restraints(species, pos, box_h, k=BIAS_K):
+    """`combine`-able restraints: one distance, one angle and one
+    dihedral (`cv_atoms`), each centered BIAS_OFFSETS above its value at
+    `pos`; and the CV functions by name."""
+    from lammps_ani_torch.md import bias
+
+    atoms = cv_atoms(species, pos, box_h)
+    p = torch.as_tensor(pos)
+    box = Box(h=torch.as_tensor(box_h), origin=torch.zeros(3,
+                                                           dtype=p.dtype))
+    cvs = {name: getattr(bias, f"{name}_cv")(*idx)
+           for name, idx in atoms.items()}
+    out = [bias.HarmonicBias(cv, k, float(cv(p, box)) + BIAS_OFFSETS[name],
+                             2 * np.pi if name == "dihedral" else None)
+           for name, cv in cvs.items()]
+    return out, cvs, atoms
+
+
+def bias_card_vs_cpu(device, rep=6, steps=12):
+    """NVE with the three restraints on pallas_asn in f64 (the equilibrated
+    tile x rep^3, velocities at 300 K from seed 1), card against CPU:
+    positions within 1e-9 A; the eight kernels launched on the card."""
+    from lammps_ani_torch.md import bias
+
+    data = water_box(rep)
+    biases, _, atoms = restraints(data.species, data.positions, data.box_h)
+    runs = []
+    for dev in (device, "cpu"):
+        sim = make_sim(data, torch.float64, dev,
+                       extra_force=bias.combine(biases))
+        st = sim.init_state(data.positions,
+                            make_box(data, torch.float64, dev), temp=300.0,
+                            seed=1)
+        if dev == device:
+            _reset_all_counts()
+        st, rows = sim.run(st, steps, thermo_every=1)
+        if dev == device:
+            launches, plain = card_counts("pallas_asn")
+            _check_md("bias_md f64", rows, st, launches, plain)
+        runs.append(sim.positions_input_order(st))
+    line = {"atoms": data.n_atoms, "steps": steps, "cv_atoms": atoms,
+            "pos_err_vs_cpu": float(np.abs(runs[0] - runs[1]).max()),
+            "launches": launches}
+    if not line["pos_err_vs_cpu"] <= 1e-9:
+        raise AssertionError(f"bias_md f64: {line}")
+    return line
+
+
+def umbrella_windows(device, rep=6, steps=24, seed=3):
+    """`run_windows` over 3 windows of `steps` steps (a distance CV, k 40,
+    centers 0.1 A apart; f32 on pallas_asn, Langevin 300 K) on the
+    equilibrated tile x rep^3, a sample every 4 steps, then the port's
+    `wham` over the samples: the PMF's finite values."""
+    from lammps_ani_torch.analysis import wham
+    from lammps_ani_torch.md import bias
+
+    data = water_box(rep)
+    atoms = cv_atoms(data.species, data.positions, data.box_h)["distance"]
+    d0 = float(np.linalg.norm(_min_image_np(
+        data.positions[atoms[1]] - data.positions[atoms[0]], data.box_h)))
+    centers = [d0 - 0.1, d0, d0 + 0.1]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    samples = bias.run_windows(
+        lambda extra: make_sim(
+            data, torch.float32, device, extra_force=extra,
+            integrator=integrate.Langevin(temp=300.0, damp=100.0,
+                                          generator=gen)),
+        data.positions, make_box(data, torch.float32, device), centers,
+        BIAS_K, lambda: bias.distance_cv(*atoms), steps, sample_every=4,
+        seed=seed)
+    seconds = time.perf_counter() - t0
+    x, pmf, f = wham.wham(samples, centers, k=BIAS_K, temp=300.0, n_bins=12)
+    ok = np.isfinite(pmf)
+    line = {"atoms": data.n_atoms, "windows": len(samples),
+            "steps_per_window": steps, "cv_atoms": atoms,
+            "centers": centers, "seconds": seconds,
+            "samples": [s.tolist() for s in samples],
+            "pmf_x": x[ok].tolist(), "pmf": pmf[ok].tolist(),
+            "f": f.tolist()}
+    if not (len(samples) == 3 and all(len(s) == steps // 4 and
+                                      np.all(np.isfinite(s))
+                                      for s in samples) and ok.sum() >= 2):
+        raise AssertionError(f"bias_md windows: {line}")
+    return line
+
+
+def phase_bias_md(device, sim_asn, state_asn, main_line, prof_line,
+                  warm_chunks=1, timed_chunks=3, seed=2):
+    """The main path's model and final state (101,250 atoms, f32,
+    pallas_asn, Langevin 300 K) with `bias.combine` of a distance, an
+    angle and a dihedral restraint (k 40, each on atoms near the box's
+    center, none across a face), the counts zeroed just before and read
+    just after: 1 warm and 3 timed chunks (ms/step and device busy beside
+    `main`'s, each CV at each chunk's end); then `bias_card_vs_cpu` and
+    `umbrella_windows`."""
+    from lammps_ani_torch.md import bias
+
+    data = water_box(15)
+    pos0 = sim_asn.positions_input_order(state_asn)
+    box_h = state_asn.box.h.detach().cpu().numpy().astype(np.float64)
+    biases, cvs, atoms = restraints(data.species, pos0, box_h)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sim = make_sim(data, torch.float32, device, engine=None, cellroll=True,
+                   integrator=integrate.Langevin(temp=300.0, damp=100.0,
+                                                 generator=gen),
+                   extra_force=bias.combine(biases))
+    if sim.engine != "pallas_asn":
+        raise AssertionError(f"bias_md: engine {sim.engine}")
+    state = sim.init_state(pos0, make_box(data, torch.float32, device),
+                           vel=sim_asn.velocities_input_order(state_asn))
+    _reset_all_counts()
+    state, warm_rows = sim.run(state, warm_chunks * CHUNK, thermo_every=1)
+
+    def cv_values(st):
+        pos = st.pos[sim._inv_order_t]
+        return {name: float(cv(pos, st.box)) for name, cv in cvs.items()}
+
+    state, rows, chunk_ms, ends, windows = _timed_chunks(
+        sim, state, device, timed_chunks, cv_values)
+    state, prof = profile_chunk(sim, state, ASN_KERNELS)
+    launches = {name: asn.LAUNCHES[name] for name in ASN_KERNELS}
+    plain = dict(asn.PLAIN_CALLS)
+    md = _md_numbers(sim, rows, chunk_ms)
+    line = {"phase": "bias_md", "engine": sim.engine, "atoms": data.n_atoms,
+            "dtype": "float32", "k": BIAS_K, "cv_atoms": atoms,
+            "centers": {name: b.center for name, b in zip(cvs, biases)},
+            **md, "cv_by_chunk": ends, "timed_windows_taken": windows,
+            "main_ms_per_step": main_line["ms_per_step"],
+            "profile": {k: prof[k] for k in (
+                "device_busy_ms_per_step", "device_idle_share",
+                "unprofiled_ms_per_step")},
+            "main_device_busy_ms_per_step":
+                prof_line["device_busy_ms_per_step"],
+            "launches": launches, "plain_calls": plain}
+    _check_md("bias_md", warm_rows + rows, state, launches, plain)
+    if not all(np.isfinite(v) for e in ends for v in e.values()):
+        raise AssertionError(f"bias_md: CVs {ends}")
+    line["card_vs_cpu_f64"] = bias_card_vs_cpu(device)
+    line["windows_f32"] = umbrella_windows(device)
+    emit(line)
+
+
+def phase_trace(sim, state, top=10):
+    """`profiling.trace` around one chunk of the main path, then
+    `summarize_trace`: its top entries; the eight asn kernels named in it,
+    the sum of its entries equal to the sum of the trace's device-kernel
+    events, the "nn_forward" label present."""
+    import glob
+    import shutil
+    import tempfile
+
+    from lammps_ani_torch.utils import profiling
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        t0 = time.perf_counter()
+        with profiling.trace(tmp):
+            sim.run(state, CHUNK)
+        trace_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        summary = profiling.summarize_trace(tmp, top=None)
+        summarize_s = time.perf_counter() - t0
+        (path,) = glob.glob(os.path.join(tmp, "*.pt.trace.json*"))
+        tr = profiling.read_trace(path)
+        trace_mb = os.path.getsize(path) / 1e6
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    events_ms = sum(e["dur"] for e in profiling.kernel_events(tr)) / 1e3
+    sum_ms = sum(ms for ms, _ in summary)
+    named = {k: any(f"asn_{k}_kernel" in name for _, name in summary)
+             for k in ASN_KERNELS}
+    labels = sum(1 for e in tr["traceEvents"]
+                 if e.get("name") == "nn_forward")
+    line = {"phase": "trace", "steps": CHUNK, "trace_s": trace_s,
+            "summarize_s": summarize_s, "trace_mb_gz": trace_mb,
+            "kernels_named": len(summary), "sum_ms": sum_ms,
+            "events_ms": events_ms, "kernel_ms_per_step": sum_ms / CHUNK,
+            "asn_kernels_named": named, "nn_forward_ranges": labels,
+            "top": [[ms, name[:120]] for ms, name in summary[:top]]}
+    emit(line)
+    if not (all(named.values()) and labels > 0
+            and abs(sum_ms - events_ms) <= 1e-9 * max(events_ms, 1e-30)):
+        raise AssertionError(f"trace: {line}")
+
+
+def phase_fragments(device, sim_x, state_x, rep_small=2):
+    """`bond_pairs` and `fragments` at `ani1xnr_md`'s final state (92,160
+    atoms) on the card: seconds, pairs, fragments and formula counts; the
+    card's pairs equal the CPU path's on the mixture x rep_small^3 (11,520
+    atoms)."""
+    from lammps_ani_torch.analysis import fragments as frag
+
+    species = sim_x._species_in
+    pos = sim_x.positions_input_order(state_x)
+    h = state_x.box.h.detach().cpu().numpy().astype(np.float64)
+    _sync(device)
+    t0 = time.perf_counter()
+    pairs = frag.bond_pairs(species, pos, h, device=device)
+    pairs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    labels, formulas = frag.fragments(species, pos, h, device=device)
+    fragments_s = time.perf_counter() - t0
+    small = replicate(mixture(), rep_small, rep_small, rep_small)
+    card = frag.bond_pairs(small.species, small.positions, small.box_h,
+                           device=device)
+    cpu = frag.bond_pairs(small.species, small.positions, small.box_h,
+                          device="cpu")
+    line = {"phase": "fragments", "atoms": len(species),
+            "bond_pairs_s": pairs_s, "fragments_s": fragments_s,
+            "pairs": len(pairs), "fragments": int(labels.max()) + 1,
+            "formulas": dict(formulas.most_common(15)),
+            "distinct_formulas": len(formulas),
+            "small_atoms": small.n_atoms, "small_pairs": len(card),
+            "small_card_equals_cpu": card == cpu}
+    emit(line)
+    if not (card == cpu and len(card) > 0
+            and sum(formulas.values()) == line["fragments"]):
+        raise AssertionError(f"fragments: {line}")
+
+
+def phase_equilibrate_tile(device, legs=1, steps=100):
+    """The port's tile tool on the card: the reference water tile written
+    by the port's `write_lammps_data`, FIRE, then `legs` legs of `steps`
+    Langevin steps, into the run's scratch directory: finite positions and
+    velocities in the written .npz."""
+    import shutil
+    import tempfile
+
+    from lammps_ani_torch.io.lammps_data import write_lammps_data
+    from lammps_ani_torch.tools import equilibrate_tile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tile_")
+    try:
+        src, out = os.path.join(tmp, "water30.data"), os.path.join(
+            tmp, "tile.npz")
+        write_lammps_data(src, water30_box(1))
+        log = []
+        t0 = time.perf_counter()
+        equilibrate_tile.equilibrate(src, out, legs=legs, steps=steps,
+                                     device=device, log=log.append)
+        seconds = time.perf_counter() - t0
+        with np.load(out) as z:
+            got = {k: z[k] for k in z.files}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line = {"phase": "equilibrate_tile", "legs": legs,
+            "steps_per_leg": steps, "seconds": seconds, "log": log,
+            "keys": sorted(got), "temp": float(got["temp"])}
+    emit(line)
+    if not (np.all(np.isfinite(got["positions"]))
+            and np.all(np.isfinite(got["velocities"]))
+            and got["positions"].shape == (30, 3)):
+        raise AssertionError(f"equilibrate_tile: {line}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3804,8 +4397,8 @@ def main() -> int:
     phase_potential(device)
     phase_asn_kernels(device)
     phase_asn_blocks(device)
-    sim, state, launches = phase_main(device)
-    phase_profile(sim, state)
+    sim, state, launches, main_line = phase_main(device)
+    prof_line = phase_profile(sim, state)
     roll_sim, roll_state, roll_launches, work_start = phase_roll_md(
         device, sim, state)
     rows = phase_timing(roll_sim, roll_state, roll_launches, work_start)
@@ -3818,8 +4411,14 @@ def main() -> int:
     rows += phase_probes(device)
     phase_nvt_npt(device, sim, state)
     phase_ani1xnr_kernels(device)
-    rows += phase_ani1xnr_md(device)
+    x_rows, sim_x, state_x = phase_ani1xnr_md(device)
+    rows += x_rows
     phase_cli(device)
+    phase_rattle_md(device)
+    phase_bias_md(device, sim, state, main_line, prof_line)
+    phase_trace(sim, state)
+    phase_fragments(device, sim_x, state_x)
+    phase_equilibrate_tile(device)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

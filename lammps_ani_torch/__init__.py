@@ -36,7 +36,7 @@ from .models.potential import (  # noqa: E402
 from .models.repulsion import RepulsionSpec  # noqa: E402
 from .md.simulation import NeighborConfig, Simulation  # noqa: E402
 from .md.state import MDState  # noqa: E402
-from .md import integrate  # noqa: E402
+from .md import bias, constraints, integrate  # noqa: E402
 from . import units  # noqa: E402
 
 __version__ = "0.1.0"

@@ -67,7 +67,8 @@ def minimize(sim, state, max_steps: int = 1000, ftol: float = 1e-4,
         for _ in range(chunk):
             vel = st.vel + (0.5 * dt * units.FTM2V) * st.force / masses
             pos = st.pos + dt * vel
-            pe, force, virial, _ = sim._forces(pos, st.box, struct)
+            pe, force, virial, _ = sim._forces(pos, st.box, struct,
+                                                 st.step)
             vel = vel + (0.5 * dt * units.FTM2V) * force / masses
             p = torch.sum(force * vel)
             fnorm = torch.sqrt(torch.sum(force * force))

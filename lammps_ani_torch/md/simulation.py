@@ -78,8 +78,45 @@ last tier short of rows) is reported per chunk; `run` grows exactly that
 capacity, never shrinking one, and re-runs the chunk from its input
 state.
 
-Not ported yet (they raise NotImplementedError): RATTLE constraints and
-`extra_force`.
+`constraints=` a `constraints.Rattle` (the pairs in the caller's atom
+order, mapped to the engine's in `init_state`, after the spatial sort or a
+restart's `order`): one dof less per constraint (velocities drawn at
+`init_state`, the thermo row's temperature, the chains and the piston);
+the positions are projected after the drift (the pre-drift positions as
+the old ones), the velocities after the second half kick. `extra_force=`
+a callable (pos, box, step) -> [n, 3] kcal/mol/A (md/bias.py's forces):
+it sees the positions in the caller's order, its force is mapped back to
+the engine's and added to the force only, not to the virial; `step` is
+the state's step before the increment (0 at `init_state`).
+
+The JAX package's environment overrides and what takes their place here
+(the port reads no environment variable on its paths):
+
+  LAT_ROLL_IMPL         `engine=` (ENGINES).
+  LAT_ANG_PACKED        `pair_stage=` ("packed"; 0: "blocks").
+  LAT_ANG_TRI           `pair_stage=` (0 with LAT_ANG_PACKED=0:
+                        "blocks_full").
+  LAT_ROLL_CAP_MARGIN   ROLL_CAP_MARGIN.
+  LAT_SEC_MARGIN        SEC_MARGIN.
+  LAT_ANG_CAP_MARGIN    ANG_CAP_MARGIN.
+  LAT_ANG_TIERS         ANG_TIERS.
+  LAT_ANG_TIER_MIN_N    ANG_TIER_MIN_ATOMS.
+  LAT_TIER0_MARGIN      TIER_ROWS_MARGIN (with TIER_ROWS_EXTRA).
+  LAT_TIER_ROWS_MARGIN  LAST_TIER_ROWS_MARGIN (with LAST_TIER_ROWS_EXTRA).
+  LAT_EXP_RECUR         nothing: it switches the JAX radial shifts between
+                        a recurrence and direct exps, which agree to
+                        rounding; the CUDA kernels take one hardware exp2
+                        per shift.
+  LAT_MATMUL_PRECISION  nothing: TF32 is pinned off (lammps_ani_torch/
+                        __init__.py), so f32 products keep full f32.
+  LAT_NN_PRECISION      nothing: the MLP runs in the run's dtype, f32
+                        products without TF32, as above.
+  LAT_NN_REMAT          nothing: it recomputes the MLP in its backward
+                        (by default from 150,000 rows) to save the TPU's
+                        memory; the port's MLP keeps its activations, which
+                        the card holds at every size the engines run.
+  LAT_VERBOSE           nothing: `sim.engine`, `sim.sizing()` and
+                        `regrow_kinds` say what ran and what grew.
 """
 
 from __future__ import annotations
@@ -102,6 +139,7 @@ from ..ops import cell_roll as crmod
 from ..ops import nbr_grad
 from ..ops import neighbors as nbops
 from . import integrate
+from .constraints import Rattle
 from .state import MDState
 
 INTEGRATORS = (integrate.Langevin, integrate.NoseHoover,
@@ -185,10 +223,12 @@ class Simulation:
                 barostat, integrate.BerendsenBarostat):
             raise TypeError(f"barostat {type(barostat).__name__}: expected "
                             "a BerendsenBarostat")
-        if constraints is not None:
-            raise NotImplementedError("RATTLE constraints are not ported yet")
-        if extra_force is not None:
-            raise NotImplementedError("extra_force is not ported yet")
+        if constraints is not None and not isinstance(constraints, Rattle):
+            raise TypeError(f"constraints {type(constraints).__name__}: "
+                            "expected a Rattle")
+        if extra_force is not None and not callable(extra_force):
+            raise TypeError("extra_force: expected a callable (pos, box, "
+                            "step) -> [n, 3]")
         self.device = resolve_device(device)
         self._engine_asked = engine
         if engine is None:
@@ -251,7 +291,11 @@ class Simulation:
         self.species_counts = tuple(
             int((self.species_np == s).sum()) for s in range(num_species)
         ) if sort_species else None
-        self.dof = 3 * n - 3
+        self.constraints = constraints
+        self._rattle = None  # engine-order constraints, set at init_state
+        self.extra_force = extra_force
+        self.dof = 3 * n - 3 - (0 if constraints is None
+                                else constraints.n_constraints)
         self.n_atoms = n
         self._shifts = nbops.image_shifts(nbr.n_shell)
         self._grid = None  # CellGrid of the neighbor matrix
@@ -297,6 +341,10 @@ class Simulation:
                                        device=self.device)
         self.masses = torch.as_tensor(self._masses_in[self.order],
                                       dtype=self.dtype, device=self.device)
+        # extra_force's order maps: engine -> caller, and back
+        self._order_t = torch.as_tensor(self.order, device=self.device)
+        self._inv_order_t = torch.as_tensor(self.inv_order,
+                                            device=self.device)
 
     # ---------- setup ----------
 
@@ -313,6 +361,12 @@ class Simulation:
         else:
             self.order = np.asarray(order, np.int64)
             self._apply_order()
+        if self.constraints is not None:
+            inv = self.inv_order
+            self._rattle = dataclasses.replace(
+                self.constraints, pairs=tuple(
+                    (int(inv[i]), int(inv[j]))
+                    for i, j in self.constraints.pairs))
         pos_t = torch.as_tensor(pos[self.order], dtype=self.dtype,
                                 device=self.device)
         self._setup_grids(pos_t, box)
@@ -751,13 +805,14 @@ class Simulation:
 
     # ---------- per step ----------
 
-    def _forces(self, pos, box, bins):
+    def _forces(self, pos, box, bins, step: int = 0):
         """(pe, force, virial, angular deficit) in kcal/mol units at the
         rebuild's structure `bins`: (MirrorNeighbors, roll bins or None)
         for the mirror engine and its hybrids (no deficit: their caps are
         checked at the rebuild), the roll bins (pallas_full; one deficit)
         or (bins, assignment) (pallas_asn; one deficit per species and,
-        when tiered, the rows the last tier could not hold)."""
+        when tiered, the rows the last tier could not hold). `extra_force`
+        at `step` adds to the force, not to the virial."""
         if self._mirror_tables:
             nbrs, rbins = bins
             cellroll = (None if rbins is None
@@ -777,7 +832,11 @@ class Simulation:
                 self.potential, self.species, pos, box, self._roll_grid,
                 bins, self.species_counts, radial_shell=self._roll_shell)
         c = units.HARTREE2KCALMOL
-        return pe * c, f * c, w * c, deficit
+        f = f * c
+        if self.extra_force is not None:
+            f_in = self.extra_force(pos[self._inv_order_t], box, step)
+            f = f + f_in.to(f.dtype)[self._order_t]
+        return pe * c, f, w * c, deficit
 
     def _pressure(self, vel, virial, box):
         """[] scalar pressure in atm."""
@@ -808,13 +867,19 @@ class Simulation:
             s = npt.box_scale(bs.omega, dt)
             box = integrate.rescale_box(box, s)
             pos = box.origin + (pos - box.origin) * s
+        pos_old = pos
         pos = integrate.nve_drift(pos, vel, dt)
+        if self._rattle is not None:
+            pos, vel = self._rattle.project_positions(pos, pos_old, vel,
+                                                      masses, box, dt)
         pe, force, virial, deficit = self._forces(
             pos, box, (st.nbrs, st.bins) if self._mirror_tables
-            else st.bins)
+            else st.bins, st.step)
         if isinstance(self.integrator, integrate.Langevin):
             force = force + self.integrator.force(vel, masses, dt)
         vel = integrate.nve_halfkick(vel, force, masses, dt)
+        if self._rattle is not None:
+            vel = self._rattle.project_velocities(pos, vel, masses, box)
         if npt is not None:
             vel = vel * npt.vel_scale(bs.omega, dof, n, dt)
             ts, vel = npt.thermostat.half_step(ts, vel, masses, dof, dt)

@@ -35,6 +35,7 @@ from ..ops import cell_roll as crmod
 from ..ops import nbr_grad
 from ..ops import neighbors as nbops
 from ..ops.neighbors import Box
+from ..utils.profiling import phase
 from . import aev as aevmod
 from . import networks as netmod
 from . import repulsion as repmod
@@ -120,14 +121,15 @@ def _energies_from_neighbors(pot, species, diff, dist, species_j, nbr_mask,
     aev = (torch.utils.checkpoint.checkpoint(aev_fn, *args,
                                              use_reentrant=False)
            if torch.is_grad_enabled() else aev_fn(*args))
-    if species_counts is not None:
-        atomic = netmod.atomic_energies_sorted(spec.net, pot.params,
-                                               species_counts, aev)
-    else:
-        atomic = netmod.atomic_energies_masked(spec.net, pot.params,
-                                               species, aev)
-    e = netmod.ensemble_energies(atomic) + spec.shifter(species,
-                                                        dtype=aev.dtype)
+    with phase("nn_forward"):
+        if species_counts is not None:
+            atomic = netmod.atomic_energies_sorted(spec.net, pot.params,
+                                                   species_counts, aev)
+        else:
+            atomic = netmod.atomic_energies_masked(spec.net, pot.params,
+                                                   species, aev)
+        e = netmod.ensemble_energies(atomic)
+    e = e + spec.shifter(species, dtype=aev.dtype)
     if spec.repulsion is not None:
         e = e + repmod.repulsion_energies(
             spec.repulsion, species, species_j, dist, nbr_mask,
@@ -285,16 +287,17 @@ def atomic_energies_roll(pot: ANIPotential, species: torch.Tensor,
         species_counts=species_counts)
     local = species >= 0
     aev = torch.where(local[:, None], torch.cat([radial, angular], dim=1), 0.0)
-    if species_counts is not None:
-        atomic = netmod.atomic_energies_sorted(spec.net, pot.params,
-                                               species_counts, aev)
-    else:
-        # the caps say which species occur as neighbors, not as centers:
-        # every net runs
-        atomic = netmod.atomic_energies_masked(spec.net, pot.params,
-                                               species, aev)
-    e = netmod.ensemble_energies(atomic) + spec.shifter(species,
-                                                        dtype=aev.dtype)
+    with phase("nn_forward"):
+        if species_counts is not None:
+            atomic = netmod.atomic_energies_sorted(spec.net, pot.params,
+                                                   species_counts, aev)
+        else:
+            # the caps say which species occur as neighbors, not as
+            # centers: every net runs
+            atomic = netmod.atomic_energies_masked(spec.net, pot.params,
+                                                   species, aev)
+        e = netmod.ensemble_energies(atomic)
+    e = e + spec.shifter(species, dtype=aev.dtype)
     return torch.where(local, e, 0.0), deficit
 
 
@@ -360,16 +363,17 @@ def atomic_energies_asn(pot: ANIPotential, species: torch.Tensor,
     aev = torch.where(local[:, None], torch.cat([radial, angular], dim=1),
                       0.0)
     col_idx = asn_col_idx(spec, sect)
-    if species_counts is not None:
-        atomic = netmod.atomic_energies_sorted(spec.net, pot.params,
-                                               species_counts, aev,
-                                               col_idx=col_idx)
-    else:
-        atomic = netmod.atomic_energies_masked(spec.net, pot.params, species,
-                                               aev, present=present_species,
-                                               col_idx=col_idx)
-    e = netmod.ensemble_energies(atomic) + spec.shifter(species,
-                                                        dtype=aev.dtype)
+    with phase("nn_forward"):
+        if species_counts is not None:
+            atomic = netmod.atomic_energies_sorted(spec.net, pot.params,
+                                                   species_counts, aev,
+                                                   col_idx=col_idx)
+        else:
+            atomic = netmod.atomic_energies_masked(
+                spec.net, pot.params, species, aev, present=present_species,
+                col_idx=col_idx)
+        e = netmod.ensemble_energies(atomic)
+    e = e + spec.shifter(species, dtype=aev.dtype)
     if spec.repulsion is not None:
         e = e + e_rep
     return torch.where(local, e, 0.0), deficit

@@ -70,6 +70,25 @@ class Box:
         return self.origin + frac @ self.h
 
 
+def cell_inverse(h: torch.Tensor) -> torch.Tensor:
+    """inv(h) of a [3, 3] cell matrix by its adjugate (rows a, b, c: the
+    columns b x c, c x a, a x b over a . (b x c)): elementwise operations
+    only, so on the card no solver call and no read back to the host."""
+    a, b, c = h[0], h[1], h[2]
+    bc = torch.linalg.cross(b, c)
+    adj = torch.stack([bc, torch.linalg.cross(c, a),
+                       torch.linalg.cross(a, b)], dim=1)
+    return adj / torch.dot(a, bc)
+
+
+def min_image(d: torch.Tensor, h: torch.Tensor,
+              hinv: torch.Tensor) -> torch.Tensor:
+    """Minimum-image difference vectors [..., 3]: (frac - round(frac)) @ h
+    with frac = d @ hinv."""
+    frac = d @ hinv
+    return (frac - torch.round(frac)) @ h
+
+
 def wrap_positions(pos: torch.Tensor, box: Box) -> torch.Tensor:
     """Remap atoms into the primary cell (LAMMPS PBC remap at reneighbor)."""
     frac = box.to_fractional(pos)

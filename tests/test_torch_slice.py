@@ -243,19 +243,26 @@ def test_langevin_step_matches_jax_with_same_noise(system):
 
 
 def test_unported_options_raise(system):
-    """RATTLE and extra_force are not ported yet; an integrator or a
-    barostat of no ported kind is refused (every JAX ensemble is ported:
-    tests/test_torch_npt.py)."""
+    """Every option of the JAX `Simulation` is ported: RATTLE constraints
+    and extra_force are accepted (tests/test_torch_rattle.py,
+    tests/test_torch_bias.py); an integrator or a barostat of no ported
+    kind is refused (every JAX ensemble is ported: tests/test_torch_npt.py),
+    as are constraints that are no Rattle and an extra_force that cannot
+    be called."""
     with pytest.raises(TypeError):
         _port_sim(system, integrator=object())
     kw = dict(potential=system["tpot"], species=system["species"],
               masses=system["masses"], nbr=_nbr(tlat), device="cpu")
     with pytest.raises(TypeError):
         tlat.Simulation(barostat=object(), **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tlat.Simulation(constraints=object(), **kw)
-    with pytest.raises(NotImplementedError):
-        tlat.Simulation(extra_force=lambda *a: None, **kw)
+    with pytest.raises(TypeError):
+        tlat.Simulation(extra_force=object(), **kw)
+    rattle = tlat.constraints.Rattle(pairs=((0, 1),), r0=(1.0,))
+    sim = tlat.Simulation(constraints=rattle,
+                          extra_force=lambda pos, box, step: 0.0 * pos, **kw)
+    assert sim.dof == 3 * len(system["species"]) - 4
     small = dict(system, pos=water_system(1)[1], h=water_system(1)[2],
                  species=water_system(1)[0], masses=water_system(1)[4])
     # a box too small for the roll grid runs the mirror engine (it used to
