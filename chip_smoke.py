@@ -247,11 +247,27 @@ object per line; any failure raises and the script exits non-zero:
            tile written by the port's `write_lammps_data`: FIRE and 1 leg
            of 100 Langevin steps into a scratch directory; finite
            positions and velocities in the written .npz.
+  domain   domain decomposition on the in-process mesh
+           (`parallel.sim.DomainSimulation`): f64 on the reference tile x
+           4^3 (1,920 atoms, ANI-1xnr) on (1,1,1) and (2,2,2), packed and
+           "blocks", against the single-device asn engine on the card (pe
+           rtol 1e-11, F 1e-9, W 1e-8), two evaluations bit for bit, the
+           box cotangent on brick bins exactly 0; then
+           examples/early_earth/config_50k.json at full ANI-1xnr width,
+           f32, mesh (2,2,2), from `load_restart` of the JAX engine's
+           49,000-atom restart: the engine pallas_asn, two chunks from one
+           state bit for bit, 3 timed chunks of 10 steps (every gid once
+           after each, the eight asn kernels launched, counted just before
+           and after), one chunk under torch.profiler, the regrows and
+           sizing, the same system on the single-device engine (E and F
+           at the restart, ms/step, busy), and each asn kernel on shard
+           0's brick bins against its plain version; the phase's seconds.
 
 Then one line {"kernels": [...]} (the twenty package kernels, the probe
-kernels by stage and mode, the radial forward kernel's probe timing, and
-the eight asn kernels' ANI-1xnr rows, `<kernel><ani1xnr>`), nvidia-smi's
-name and power-limit line, and last {"ok": true, "device": {...}}.
+kernels by stage and mode, the radial forward kernel's probe timing, the
+eight asn kernels' ANI-1xnr rows, `<kernel><ani1xnr>`, and their rows on
+a domain's brick bins, `<kernel><domain>`), nvidia-smi's name and
+power-limit line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1336,14 +1352,15 @@ def two_term_ms(name, work, ops=ASN_OPS):
     return fp32 / PEAK_F32_INSTR * 1e3, sfu / PEAK_SFU * 1e3
 
 
-def asn_inputs(sim, pos, box, seed=0):
+def asn_inputs(sim, pos, box, seed=0, n_out=None):
     """The asn kernels' inputs as the paths hand them over, at the
     wrapped positions `pos`, after a fresh rebuild: grid inputs; inv and
     idx; the forward's residuals (slots, rank2, the rows of each packed
     call); seeded cotangents of (radial, erep, angular) and what the
     backward makes of them on the way (ga, and ga_full, the same cotangent
     in the full radial column layout; gr, the tier cotangents, gsum,
-    gt)."""
+    gt). `n_out`: AEV rows for the first n_out binned atoms only (a
+    domain's owned atoms, `domain_shard_inputs`)."""
     spec = sim.potential.spec
     grid, sections, caps = sim._roll_grid, sim._sections, spec.angular_caps
     bins, a = sim._bins(pos, box)
@@ -1353,12 +1370,12 @@ def asn_inputs(sim, pos, box, seed=0):
               spec.repulsion, sim.pair_stage)
     out, (cmp, rank2, part) = asn._forward(
         static, pos, h, bins.inv, bins.species_grid, bins.cell, bins.slot,
-        a.idx, asn._KERNELS)
+        a.idx, asn._KERNELS, n_out)
     g = torch.Generator(device=pos.device).manual_seed(seed)
     g_rad, g_rep, g_ang = (torch.randn(o.shape, generator=g, dtype=pos.dtype,
                                        device=pos.device) for o in out[:3])
-    ga = ar._to_grid_rows(bins.inv, torch.cat([g_rad, g_rep[:, None]], 1),
-                          0.0).contiguous()
+    n_all = bins.cell.shape[0]
+    ga = asn._cotangent_grid_rows(bins.inv, g_rad, g_rep, n_all)
     # the full layout: the sections' column blocks at species * 16, the
     # repulsion cotangent last
     col0, srl_full = asn._radial_layout(spec.aev, sections, False)
@@ -1368,7 +1385,7 @@ def asn_inputs(sim, pos, box, seed=0):
         ga_full[..., c0:c0 + nr] = ga[..., si * nr:(si + 1) * nr]
     ga_full[..., -1] = ga[..., -1]
     a_offs, atot = asn._a_offsets(sections, caps)
-    n = bins.cell.shape[0]
+    n = g_ang.shape[0]
     if part["tiers"] is None:
         cat = part["cats"][0]
         packed = [(cat, caps, torch.nn.functional.pad(
@@ -1384,7 +1401,7 @@ def asn_inputs(sim, pos, box, seed=0):
     gr = asn.radial_gamma(pos_g, sp_g, h, a.idx, ga, grid.ncells, spec.aev,
                           sections, spec.repulsion)
     gsum = asn._angular_gsum_grid(spec.aev, sections, caps, n, bins.inv,
-                                  g_ang, part, asn._KERNELS,
+                                  g_ang, part, asn._KERNELS, n_all,
                                   pair_stage=sim.pair_stage)
     gt, _, _ = asn.chain_sum(rank2, a.idx, cmp, gsum, gr, grid.ncells,
                              spec.aev)
@@ -1521,7 +1538,8 @@ def asn_work(k):
     of bins on the grid's faces ("keep_face"), and those within Rcr and
     within the repulsion cutoff (every species of the model has a
     repulsion charge); filled packed slots ("kept") and filled slot
-    pairs."""
+    pairs of the AEV rows ("pairs": where `k` has n_aev, of the slots of
+    atom rows below it only)."""
     sp_g, idx = k["sp_g"], k["a"].idx
     nc, cap = sp_g.shape
     kpad = idx.shape[-1]
@@ -1545,7 +1563,10 @@ def asn_work(k):
             n_rep += int((valid & (dist < rep.cutoff)).sum())
     real = (sp_g >= 0)[:, :, None]
     filled = (k["cmp"][:, :, 3] < k["spec"].aev.angular_cutoff + 1.0) & real
-    counts = [filled[:, :, off:off + a_s].sum(-1).to(torch.float64)
+    # the packed calls take the AEV rows only: a domain's owned atoms (the
+    # first n_aev rows), not its ghosts
+    rows = (k["bins"].inv < k["n_aev"])[:, :, None] if "n_aev" in k else real
+    counts = [(filled & rows)[:, :, off:off + a_s].sum(-1).to(torch.float64)
               for off, a_s in k["a_offs"].values()]
     pairs = 0.0
     for i, c in enumerate(counts):
@@ -1571,7 +1592,9 @@ def asn_bound(name, k, work, ops_table=ASN_OPS):
     """(bound_ms, bound_by) of one call of an asn kernel (of its calls of
     one step, one per tier, for the packed ones), from this run's data.
     Bytes: the real atoms' rows, each input read once and each output
-    written once (n atoms; f the float size; the tables int16): positions,
+    written once (n atoms, the packed calls' rows n_aev where a domain's
+    AEV rows are its owned atoms only; f the float size; the tables
+    int16): positions,
     species and the box; inv rows (wpad), idx and rank2 rows (kpad); rad
     and its cotangent (srl + 1); the packed slots (6 atot) and their
     cotangents (5 atot); each packed row's 5 atot fields and its columns;
@@ -1580,11 +1603,13 @@ def asn_bound(name, k, work, ops_table=ASN_OPS):
     the assigned lanes only (3 per "keep" lane: a dead lane's cotangent is
     0 and adds nothing); the wing reads its mapping as idx (kpad), the
     lesser of the two tables that encode it; the chains read 5 of the 6
-    slot planes (ux, uy, uz, d, dfc; not fc). The per-channel kernels move their fused siblings' rows less what
-    they leave out: radial_fwd_asn no slots and no rank2, compact_asn no
-    rad, radial_bwd_asn radial_gamma's rows with fcen and dh,
-    decompact_chain chain_sum's without gr. Operations: ASN_OPS on
-    `work` (`ops_table`: ASN_OPS, or another model's count)."""
+    slot planes (ux, uy, uz, d, dfc; not fc). The per-channel kernels
+    move their fused siblings' rows less what they leave out:
+    radial_fwd_asn no slots and no rank2, compact_asn no rad,
+    radial_bwd_asn radial_gamma's rows with fcen and dh, decompact_chain
+    chain_sum's without gr. Operations: ASN_OPS on `work` (`ops_table`:
+    ASN_OPS, or another model's count; the packed calls' slot pairs those
+    of the AEV rows, n_aev where it is set, as `asn_work` counts them)."""
     n, f = k["n"], k["pos_g"].element_size()
     cap = k["sp_g"].shape[1]
     wpad, kpad, atot = asn._round_lane(27 * cap), k["kpad"], k["atot"]
@@ -1601,11 +1626,11 @@ def asn_bound(name, k, work, ops_table=ASN_OPS):
         nbytes = (base_in + n * kpad * 2 + n * srl1 * f + n * 6 * atot * f
                   + n * kpad * 2)
     elif name == "packed_fwd":
-        nbytes = n * (5 * atot + ncols) * f
+        nbytes = k.get("n_aev", n) * (5 * atot + ncols) * f
     elif name == "radial_gamma":
         nbytes = base_in + n * kpad * 2 + n * srl1 * f + n * 3 * kpad * f
     elif name == "packed_bwd":
-        nbytes = n * (10 * atot + ncols) * f
+        nbytes = k.get("n_aev", n) * (10 * atot + ncols) * f
     elif name in ("chain_sum", "decompact_chain"):
         gr = work["keep"] * 3 * f if name == "chain_sum" else 0
         nbytes = (n * kpad * 4 + n * 10 * atot * f + gr + n * 3 * kpad * f
@@ -4381,6 +4406,346 @@ def phase_equilibrate_tile(device, legs=1, steps=100):
         raise AssertionError(f"equilibrate_tile: {line}")
 
 
+# ---------------------------------------------------------------------------
+# Domain decomposition (lammps_ani_torch/parallel/) on the in-process mesh
+# ---------------------------------------------------------------------------
+
+EARLY_EARTH = os.path.join(ROOT, "examples", "early_earth")
+
+
+def domain_view(dsim, bins, a):
+    """What `asn_inputs` reads of a `Simulation`, for one shard's rebuild
+    of a `DomainSimulation`."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(
+        potential=dsim.potential, _roll_grid=dsim._asn_grid.roll,
+        _sections=dsim._sections, _tiers=dsim._tiers,
+        pair_stage=dsim.pair_stage, kpad=dsim.kpad,
+        nbr=SimpleNamespace(skin=dsim.rlist - dsim.potential.spec.cutoff),
+        _bins=lambda pos, box: (bins, a))
+
+
+def domain_shard_rebuild(dsim, state, shard=0):
+    """(a fresh rebuild of `state`, one shard's extended positions)."""
+    from lammps_ani_torch.parallel import domain as pdom
+
+    payload, rb, _ = dsim._rebuild(state)
+    pos_ext = pdom.halo_positions(dsim.mesh, dsim.dspec, payload["pos"],
+                                  state.box, rb.plan)[shard].contiguous()
+    return rb, pos_ext
+
+
+def domain_shard_inputs(dsim, state, shard=0):
+    """(the asn kernels' inputs of one shard at a fresh rebuild of `state`,
+    the rebuild, that shard's extended positions): AEV rows for the owned
+    slots only (n_aev), `n` the binned atoms."""
+    rb, pos_ext = domain_shard_rebuild(dsim, state, shard)
+    k = asn_inputs(domain_view(dsim, rb.bins[shard], rb.asn[shard]), pos_ext,
+                   state.box, n_out=dsim.dspec.n_cap)
+    k["n_aev"] = k["n"]
+    k["n"] = int(rb.valid_ext[shard].sum())
+    return k, rb, pos_ext
+
+
+def brick_dh_zero(dsim, rb, pos_ext, box, shard=0, seed=5):
+    """Whether the fused op's box cotangent on one shard's brick bins is
+    exactly 0 for seeded cotangents (every wrapped window lane is an empty
+    pad bin)."""
+    spec = dsim.potential.spec
+    h = box.h.detach().clone().requires_grad_(True)
+    outs = asn.aev_asn_fused(
+        spec.aev, dsim._asn_grid.roll, rb.bins[shard], rb.asn[shard],
+        pos_ext, Box(h=h, origin=box.origin), dsim._sections,
+        spec.angular_caps, tiers=dsim._tiers, repulsion=spec.repulsion,
+        n_out=dsim.dspec.n_cap, pair_stage=dsim.pair_stage)[:3]
+    g = torch.Generator(device=pos_ext.device).manual_seed(seed)
+    loss = sum((o * torch.randn(o.shape, generator=g, dtype=o.dtype,
+                                device=o.device)).sum() for o in outs)
+    (dh,) = torch.autograd.grad(loss, h)
+    return int(torch.count_nonzero(dh)) == 0
+
+
+def domain_f64_checks(device, rep=4, skin=1.0):
+    """The reference tile x rep^3 (1,920 atoms, a 32 A cube), ANI-1xnr (one
+    model, seed 1), f64 on the card: `DomainSimulation` (pallas_asn, the
+    kernels on brick bins) on (1,1,1) and (2,2,2) with the packed stage and
+    on (2,2,2) with "blocks", each evaluated at the input state (a rebuild,
+    no step), against the single-device asn `Simulation` on the card: E/F/W
+    at pe rtol 1e-11, F 1e-9, W 1e-8; a second evaluation bit for bit; the
+    box cotangent on shard 0's bins exactly 0."""
+    from lammps_ani_torch.parallel import domain as pdom
+    from lammps_ani_torch.parallel.sim import DomainSimulation
+
+    data = water30_box(rep)
+    n = data.n_atoms
+    masses = data.masses_by_type[data.species]
+    pot = zoo.ani1xnr(num_models=1, seed=1, dtype=torch.float64,
+                      device=device)
+    box = make_box(data, torch.float64, device)
+    sim = Simulation(potential=pot, species=data.species, masses=masses,
+                     nbr=NeighborConfig(cutoff=5.1, skin=skin, k_max=128,
+                                        ghost_capacity=8192,
+                                        rebuild_every=10),
+                     dt=0.25, dtype=torch.float64, device=device,
+                     engine="pallas_asn")
+    st = sim.init_state(data.positions, box)
+    if sim.engine != "pallas_asn":
+        raise AssertionError(f"domain f64: single-device engine {sim.engine}")
+    f_ref = sim.forces_input_order(st)
+    out = {"atoms": n, "single_device_pe": float(st.pe)}
+    for mesh, stage in (((1, 1, 1), None), ((2, 2, 2), None),
+                        ((2, 2, 2), "blocks")):
+        rlist = max(5.1, pot.spec.cutoff) + skin
+        dsim = DomainSimulation(
+            pot, pdom.auto_domain_spec(n, data.box_h, mesh, rlist,
+                                       k_max=128),
+            cutoff=5.1, skin=skin, dt=0.25, dtype=torch.float64,
+            device=device, engine="pallas_asn", pair_stage=stage)
+        d0 = dsim.init_state(data.species, masses, data.positions, box)
+        if dsim.engine != "pallas_asn":
+            raise AssertionError(f"domain f64 {mesh}: engine {dsim.engine}")
+        a, b = dsim.evaluate(d0), dsim.evaluate(d0)
+        f = dsim.gather(a, "force")
+        line = {"pe_rel_err": abs(float(a.pe) - float(st.pe))
+                / abs(float(st.pe)),
+                "force_err": float(np.abs(f - f_ref).max()),
+                "virial_err": float((a.virial - st.virial).abs().max()),
+                "two_evaluations_bit_for_bit": identical(
+                    (a.force, a.pe, a.virial), (b.force, b.pe, b.virial)),
+                "sizing": dsim.sizing()}
+        rb, pos_ext = domain_shard_rebuild(dsim, d0)
+        line["dh_exactly_zero"] = brick_dh_zero(dsim, rb, pos_ext, d0.box)
+        out[f"{''.join(map(str, mesh))}_{stage or 'packed'}"] = line
+        if not (line["pe_rel_err"] <= 1e-11 and line["force_err"] <= 1e-9
+                and line["virial_err"] <= 1e-8
+                and line["two_evaluations_bit_for_bit"]
+                and line["dh_exactly_zero"]):
+            raise AssertionError(f"domain f64 {mesh} {stage}: {line}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def domain_single_device(device, pot, restart, cfg, ref, fire_steps=100,
+                         timed_chunks=3, seed=1):
+    """The same system on the single-device pallas_asn `Simulation` (the
+    config's settings, the restart's state): its E and F at the restart
+    against the sharded engine's (`ref`: pe and forces in input order; f32:
+    pe rtol 1e-5, F 5e-6 + 1e-4 max|F|); then FIRE for `fire_steps` steps
+    (the restart was made under other weights: under these it heats from
+    300 K to about 4,700 K in one chunk and rebuilds every 2.5 steps, not
+    every 10), and velocities at 300 K drawn from `seed`; from that relaxed
+    start, ms/step over 1 warm and 3 timed chunks (rebuilds counted by
+    build_inv's launches) and one chunk under torch.profiler. Returns (the
+    line, the relaxed positions and the velocities, in input order)."""
+    from lammps_ani_torch.md.minimize import minimize
+
+    with np.load(restart) as z:
+        z = {key: z[key] for key in z.files}
+    n = len(z["species"])
+    every = int(cfg["rebuild_every"])
+    nbr = NeighborConfig(cutoff=float(cfg["cutoff"]), skin=float(cfg["skin"]),
+                         k_max=128, ghost_capacity=max(4096, n // 2),
+                         use_cell_list=True, cell_capacity=32,
+                         rebuild_every=every)
+
+    def make():
+        sim = Simulation(potential=pot, species=z["species"],
+                         masses=z["mass"], nbr=nbr, dt=float(cfg["dt"]),
+                         dtype=torch.float32, device=device,
+                         engine="pallas_asn",
+                         integrator=integrate.NoseHoover(
+                             temp=float(cfg["stages"][0][0]),
+                             tdamp=float(cfg["tdamp"])))
+        if sim.engine != "pallas_asn":
+            raise AssertionError(f"domain single device: engine {sim.engine}")
+        return sim
+
+    box = Box(h=torch.tensor(z["box_h"], device=device),
+              origin=torch.tensor(z["box_origin"], device=device))
+    sim = make()
+    state = sim.init_state(z["pos"], box, vel=z["vel"])
+    f = sim.forces_input_order(state)
+    scale = float(np.abs(ref[1]).max())
+    efw = {"pe_single": float(state.pe), "pe_domain": ref[0],
+           "pe_rel_err": abs(float(state.pe) - ref[0]) / abs(ref[0]),
+           "force_err": float(np.abs(f - ref[1]).max()),
+           "force_limit": 5e-6 + 1e-4 * scale, "max_abs_force": scale}
+    if not (efw["pe_rel_err"] <= 1e-5
+            and efw["force_err"] <= efw["force_limit"]):
+        raise AssertionError(f"domain: single device against sharded: {efw}")
+    _sync(device)
+    t0 = time.perf_counter()
+    state, fire = minimize(sim, state, max_steps=fire_steps, ftol=1e-4)
+    _sync(device)
+    fire.update(seconds=time.perf_counter() - t0, fmax_at_restart=scale)
+    pos = sim.positions_input_order(state)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    vel = integrate.create_velocities(
+        gen, torch.as_tensor(z["mass"], dtype=torch.float64),
+        float(cfg["stages"][0][0]), 3 * n - 3).numpy()
+    sim = make()
+    state = sim.init_state(pos, box, vel=vel)
+    state, _ = sim.run(state, every)
+    rebuilds = asn.LAUNCHES["build_inv"]
+    state, rows, chunk_ms = _run_timed(sim, state, timed_chunks, device,
+                                       chunk=every)
+    rebuilds = asn.LAUNCHES["build_inv"] - rebuilds
+    state, prof = profile_chunk(sim, state, ASN_KERNELS, chunk=every)
+    line = {"efw_at_restart": efw, "fire": fire, "sizing": asn_sizing(sim),
+            **_md_numbers(sim, rows, chunk_ms),
+            "rebuilds_in_timed_chunks": rebuilds,
+            "profile": {key: prof[key] for key in (
+                "device_busy_ms_per_step", "device_idle_share",
+                "unprofiled_ms_per_step")}}
+    del sim, state
+    torch.cuda.empty_cache()
+    return line, pos, vel
+
+
+def phase_domain(device, timed_chunks=3, reps=10):
+    """Domain decomposition on the in-process mesh (`DomainSimulation`):
+    `domain_f64_checks`; then examples/early_earth/config_50k.json at full
+    ANI-1xnr width (one model as the config says, weights from seed 1),
+    f32, mesh (2, 2, 2), capacities from `auto_domain_spec` at rlist
+    max(cutoff, Rcr) + skin = 6.2 A, NoseHoover 300 K (tdamp 50 fs), dt 0.25
+    fs, a rebuild every 10 steps, from `load_restart` of the JAX engine's
+    restart early_earth_50k.stage0.npz (49,000 atoms): the engine must be
+    pallas_asn; E and F there against the single-device engine, which then
+    relaxes the restart with FIRE (`domain_single_device`: the restart was
+    made under other weights) and is timed from the relaxed start; the
+    sharded engine starts from the same positions and velocities: 1 warm
+    chunk; two chunks from the same state bit for bit;
+    the counts zeroed just before and read just after 3 timed chunks
+    (ms/step on the host clock, ns/day, every gid once after each chunk,
+    the eight asn kernels launched, no plain version and no roll kernel
+    run; the rebuilds, from build_inv's launches); one chunk under
+    torch.profiler (device busy, idle share); then each asn kernel on
+    shard 0's brick bins at the final state against its plain version
+    (rows `<kernel><domain>` of the kernels line) and the box cotangent
+    there exactly 0. The phase's seconds, the build excluded."""
+    from lammps_ani_torch.parallel import domain as pdom
+    from lammps_ani_torch.parallel.sim import DomainSimulation
+
+    t_phase = time.perf_counter()
+    f64 = domain_f64_checks(device)
+    with open(os.path.join(EARLY_EARTH, "config_50k.json")) as fh:
+        cfg = json.load(fh)
+    restart = os.path.join(EARLY_EARTH, cfg["restart_prefix"] + "0.npz")
+    with np.load(restart) as z:
+        box_h, n = z["box_h"], len(z["species"])
+    every = int(cfg["rebuild_every"])
+    pot = zoo.ani1xnr(num_models=int(cfg["num_models"]), seed=1,
+                      dtype=torch.float32, device=device)
+    rlist = max(float(cfg["cutoff"]), pot.spec.cutoff) + float(cfg["skin"])
+    dspec = pdom.auto_domain_spec(n, box_h, tuple(cfg["mesh_shape"]), rlist,
+                                  k_max=int(cfg["k_max"]))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dsim = DomainSimulation(
+        pot, dspec, cutoff=float(cfg["cutoff"]), skin=float(cfg["skin"]),
+        rebuild_every=every, dt=float(cfg["dt"]), dtype=torch.float32,
+        device=device, integrator=integrate.NoseHoover(
+            temp=float(cfg["stages"][0][0]), tdamp=float(cfg["tdamp"])))
+    t0 = time.perf_counter()
+    state = dsim.load_restart(restart)
+    _sync(device)
+    t_setup = time.perf_counter() - t0
+    if dsim.engine != "pallas_asn":
+        raise AssertionError(f"domain: engine {dsim.engine}")
+    sizing_init = dsim.sizing()
+    at_restart = dsim.evaluate(state)
+    ref = (float(at_restart.pe), dsim.gather(at_restart, "force"))
+    loaded = {"atoms": dsim.n_global, "step": state.step,
+              "pe": ref[0], "max_abs_force": float(np.abs(ref[1]).max())}
+    del at_restart
+    single, pos, vel = domain_single_device(device, pot, restart, cfg, ref)
+    with np.load(restart) as z:
+        state = dsim.init_state(z["species"], z["mass"], pos, state.box,
+                                vel=vel)
+    state, warm_rows = dsim.run(state, every, thermo_every=1)
+    for attempt in range(3):
+        before = dsim.regrow_events
+        a, _ = dsim.run(state, every)
+        b, _ = dsim.run(state, every)
+        if dsim.regrow_events == before:
+            break
+        state = b
+    same = identical((a.pos, a.vel, a.force, a.pe, a.virial, a.gid),
+                     (b.pos, b.vel, b.force, b.pe, b.virial, b.gid))
+    state = a
+    del b
+    _reset_all_counts()
+    rows, chunk_ms, gids_once = [], [], []
+    regrows_before = dsim.regrow_events
+    for _ in range(timed_chunks):
+        t0 = time.perf_counter()
+        state, r = dsim.run(state, every, thermo_every=1)
+        _sync(device)
+        chunk_ms.append((time.perf_counter() - t0) * 1e3 / every)
+        rows += r
+        gid = state.gid.cpu().numpy()
+        gids_once.append(bool(np.array_equal(np.sort(gid[gid >= 0]),
+                                             np.arange(n))))
+    launches = {name: asn.LAUNCHES[name] for name in ASN_KERNELS}
+    plain = dict(asn.PLAIN_CALLS)
+    roll = {k: v for k, v in ar.LAUNCHES.items() if v}
+    regrows_timed = dsim.regrow_events - regrows_before
+    _check_md("domain", warm_rows + rows, state, launches, plain)
+    state, prof = profile_chunk(dsim, state, ASN_KERNELS, chunk=every)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    k, rb, pos_ext = domain_shard_inputs(dsim, state)
+    dh_zero = brick_dh_zero(dsim, rb, pos_ext, state.box)
+    work = asn_work(k)
+    calls = asn_calls(k)
+    kern_rows, timing = [], {}
+    steps = len(rows)
+    for name in ASN_KERNELS:
+        row, timing[name] = asn_kernel_row(
+            name, k, *calls[name], work, launches[name], reps,
+            ops=ASN_OPS_1XNR, label=f"{name}<domain>")
+        timing[name]["launches_per_step"] = launches[name] / steps
+        kern_rows.append(row)
+    del k, calls
+    torch.cuda.empty_cache()
+    line = {"phase": "domain",
+            "config": "examples/early_earth/config_50k.json",
+            "restart": "examples/early_earth/early_earth_50k.stage0.npz",
+            "engine": dsim.engine, "atoms": n,
+            "mesh_shape": list(dspec.mesh_shape), "dtype": "float32",
+            "models": int(cfg["num_models"]), "rlist": dsim.rlist,
+            "dt_fs": dsim.dt, "rebuild_every": every,
+            **_md_numbers(dsim, rows, chunk_ms),
+            "rebuilds_in_timed_chunks": (launches["build_inv"]
+                                         / dspec.n_shards),
+            "loaded_restart": loaded, "start": "FIRE from the restart, "
+            "velocities at 300 K (domain_single_device)",
+            "setup_s": t_setup, "sizing_at_restart": sizing_init,
+            "sizing": dsim.sizing(), "regrow_kinds": dsim.regrow_kinds,
+            "regrows_in_timed_chunks": regrows_timed,
+            "two_chunks_bit_for_bit": same,
+            "determinism_pairs_taken": attempt + 1,
+            "gids_once_by_chunk": gids_once,
+            "profile": {key: prof[key] for key in (
+                "device_busy_ms_per_step", "device_idle_share",
+                "unprofiled_ms_per_step", "device_ms_per_step_by_group",
+                "top_kernels_ms_per_step")},
+            "launches": launches, "plain_calls": plain,
+            "launches_per_step": {k_: v / steps for k_, v in launches.items()},
+            "peak_mem_gb": peak, "single_device": single,
+            "shard0": {"atoms_binned": rb.valid_ext[0].sum().item(),
+                       "owned": rb.valid[0].sum().item(), "work": work,
+                       "dh_exactly_zero": dh_zero},
+            "kernels": timing, "f64": f64,
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    if not (same and all(gids_once) and dh_zero and not roll):
+        raise AssertionError(
+            f"domain: bit for bit {same}, gids {gids_once}, dh zero "
+            f"{dh_zero}, roll kernels {roll}")
+    return kern_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4419,6 +4784,7 @@ def main() -> int:
     phase_trace(sim, state)
     phase_fragments(device, sim_x, state_x)
     phase_equilibrate_tile(device)
+    rows += phase_domain(device)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -140,21 +140,16 @@ from ..ops import nbr_grad
 from ..ops import neighbors as nbops
 from . import integrate
 from .constraints import Rattle
+from .sizing import (ANG_CAP_MARGIN, BAROSTAT_SLACK, SEC_MARGIN, angular_caps,
+                     ceil_to, degree_measure)
 from .state import MDState
 
 INTEGRATORS = (integrate.Langevin, integrate.NoseHoover,
                integrate.NoseHooverNPT)
-# Grid slack under a barostat: the box may shrink this much before the
-# grids are re-derived.
-BAROSTAT_SLACK = 1.06
 
 # Extra roll-bin slots above the measured occupancy (+2 base): the t=0
 # occupancy sits one thermal fluctuation below the run's high-water mark.
 ROLL_CAP_MARGIN = 4
-# Multiplicative margin of the measured per-species angular degrees.
-ANG_CAP_MARGIN = 1.1
-# asn engine: margin of the measured keep-radius degrees (the sections).
-SEC_MARGIN = 1.1
 # asn engine, occupancy tiers of the pair stage: at most this many tiers,
 # none below this many atoms; row capacities of the tiers before the last
 # (a spill only cascades) and of the last (the one that must hold).
@@ -164,10 +159,6 @@ TIER_ROWS_MARGIN, TIER_ROWS_EXTRA = 1.06, 64
 LAST_TIER_ROWS_MARGIN, LAST_TIER_ROWS_EXTRA = 1.3, 4096
 
 ENGINES = ("mirror", "xla", "pallas", "pallas_full", "pallas_asn")
-
-
-def _ceil_to(x, m) -> int:
-    return int(-(-int(x) // m) * m)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -492,7 +483,7 @@ class Simulation:
         else:
             cnt = int(crmod.build_bins(probe, nbops.wrap_positions(pos, box),
                                        self.species, box).count_max)
-            cap = _ceil_to(cnt + 2 + ROLL_CAP_MARGIN, 4)
+            cap = ceil_to(cnt + 2 + ROLL_CAP_MARGIN, 4)
             self._roll_grid = crmod.RollGrid(ncells=probe.ncells, cap=cap)
         if self._roll_grid is not None and not self._asn:
             # the angular sub-list (hybrids) or the fine grid's angular
@@ -568,7 +559,7 @@ class Simulation:
         ids = clmod._flat_cell(grid, clmod._cell_coords(
             grid, box.to_fractional(pos_ext)))
         _, max_cell = clmod.build_cell_table(grid, ids, valid)
-        cap = _ceil_to(int(max_cell) * 1.15 + 2, 4)
+        cap = ceil_to(int(max_cell) * 1.15 + 2, 4)
         if cap > grid.cell_capacity:
             self._grid = dataclasses.replace(grid, cell_capacity=cap)
             return True
@@ -600,25 +591,16 @@ class Simulation:
         `auto_angular_caps`) stay the spec's: only the engine's capacities
         are measured."""
         spec = self.potential.spec
-        n_sp = spec.aev.num_species
 
         def measure():
             pos_w = nbops.wrap_positions(pos, box)
             nlist = self._build_nlist(pos_w, box)
             species_ext = nbops.extended_species(self.species, nlist.ghosts)
-            _, dist = nbops.neighbor_displacements(pos_w, box, nlist)
-            species_j = species_ext[nlist.idx]
-            mask = nlist.mask & (species_j >= 0)
-            in_ang = mask & (dist < spec.aev.angular_cutoff)
+            dist, mask, cnt, sec = degree_measure(
+                spec, pos_w, box, nlist, species_ext,
+                spec.cutoff + self.nbr.skin if self._asn else None)
             in_ang_skin = mask & (dist < spec.aev.angular_cutoff
                                   + self.nbr.ang_skin)
-            cnt = torch.stack([torch.sum(in_ang & (species_j == s), dim=1)
-                               for s in range(n_sp)], dim=1)
-            sec = None
-            if self._asn:
-                in_keep = mask & (dist < spec.cutoff + self.nbr.skin)
-                sec = [int(torch.sum(in_keep & (species_j == s), dim=1).max())
-                       for s in range(n_sp)]
             return ((cnt.max(0).values.tolist(), cnt, sec,
                      int(in_ang_skin.sum(dim=1).max())),
                     int(nlist.max_count))
@@ -630,14 +612,14 @@ class Simulation:
             # the measuring matrix truncated (k_max too small, or a clipped
             # cell table reporting k_max + 1): regrow and re-measure
             self._probe_cell_capacity(pos, box)
-            self._k_max = _ceil_to(max_deg * 1.1 + 4, 8)
+            self._k_max = ceil_to(max_deg * 1.1 + 4, 8)
             (degrees, cnt, sec_degrees, ang_deg), max_deg = measure()
         else:
             raise RuntimeError(f"degree measure kept truncating (max_count "
                                f"{max_deg} > k_max {self._k_max})")
         old_ang_cap, old_k_max = self._ang_cap, self._k_max
-        self._ang_cap = _ceil_to(ang_deg * 1.1 + 2, 4)
-        self._k_max = _ceil_to(max_deg * 1.1 + 4, 8)
+        self._ang_cap = ceil_to(ang_deg * 1.1 + 2, 4)
+        self._k_max = ceil_to(max_deg * 1.1 + 4, 8)
         if regrow or regrow_mirror:
             # a regrow runs at the chunk's input state, earlier than the
             # rebuild that overflowed: never shrink
@@ -648,12 +630,9 @@ class Simulation:
             # the same margins would re-derive what just failed: grow
             if old_ang_cap is not None:
                 self._ang_cap = max(self._ang_cap, old_ang_cap + 4)
-            self._k_max = max(self._k_max, _ceil_to(old_k_max + 8, 8))
+            self._k_max = max(self._k_max, ceil_to(old_k_max + 8, 8))
         if self._auto_angular_caps:
-            m = ANG_CAP_MARGIN
-            caps = tuple(0 if d == 0 else _ceil_to(
-                int(d * m + 2 + (4 if d * m <= 10 else 0)), 4)
-                for d in degrees)
+            caps = angular_caps(degrees, ANG_CAP_MARGIN)
             old = spec.angular_caps
             if regrow and old is not None:
                 caps = tuple(0 if c == 0 else max(c, o + 4)
@@ -997,7 +976,7 @@ class Simulation:
             # to the measured occupancy (+2, rounded to 4): every extra
             # slot adds 27 window lanes to every kernel of the step
             old = self._roll_grid.cap
-            new_cap = max(_ceil_to(overflow["roll"] + 2, 4), old + 4)
+            new_cap = max(ceil_to(overflow["roll"] + 2, 4), old + 4)
             self._roll_grid = crmod.RollGrid(ncells=self._roll_grid.ncells,
                                              cap=new_cap)
             self.regrow_kinds["roll"] += 1
@@ -1007,7 +986,7 @@ class Simulation:
             # sections that just overflowed)
             dv = overflow["sections"]
             self._sections = tuple(
-                (s, k + max(4, _ceil_to(dv[s], 4))
+                (s, k + max(4, ceil_to(dv[s], 4))
                  if s < len(dv) and dv[s] > 0 else k)
                 for s, k in self._sections)
             self.regrow_kinds["sections"] += 1
@@ -1031,7 +1010,7 @@ class Simulation:
                 # exactly the overflowing caps, by the kernels' per-species
                 # deficits: no degree re-measure
                 caps = tuple(
-                    c if (c == 0 or d <= 0) else c + max(4, _ceil_to(d, 4))
+                    c if (c == 0 or d <= 0) else c + max(4, ceil_to(d, 4))
                     for c, d in zip(caps, overflow["angular"]))
                 self.potential = self.potential.with_spec(
                     dataclasses.replace(spec, angular_caps=caps))

@@ -7,7 +7,9 @@ Port of lammps_ani_tpu/models/potential.py, three paths:
     and its mirror tables (ops/nbr_grad.py), plain PyTorch, the JAX
     package's default engine; with `cellroll` its radial channel comes
     from the roll grid instead (the `xla` and `pallas` hybrids);
-    `atomic_energies` is the same over a plain neighbor matrix;
+    `atomic_energies` is the same over a plain neighbor matrix, and
+    `atomic_energies_ext` over explicit extended arrays (a domain's
+    locals and halo ghosts, parallel/);
   * roll (`atomic_energies_roll`): both AEV channels from the roll-grid
     kernels of ops/aev_roll.py over one fine bin grid (the JAX package's
     `pallas_full` engine); no repulsion term;
@@ -102,12 +104,14 @@ class ANIPotential(nn.Module):
 
 def _energies_from_neighbors(pot, species, diff, dist, species_j, nbr_mask,
                              ghost_j, species_counts, local_mask,
-                             angular_inputs=None, radial_override=None):
+                             angular_inputs=None, radial_override=None,
+                             present_species=None):
     """(diff, dist, species_j) -> [n] per-atom energies [Hartree]. The AEV
     is recomputed in the backward (torch.utils.checkpoint, as the JAX
     package's jax.checkpoint) instead of holding its [n, k, basis]
     intermediates. `angular_inputs`: a separate angular sub-list (the
-    mirror path; `diff` may then be None)."""
+    mirror path; `diff` may then be None). `present_species`: the nets the
+    masked MLP runs (None: all)."""
     spec = pot.spec
 
     def aev_fn(d, dst, ang, rad):
@@ -126,8 +130,8 @@ def _energies_from_neighbors(pot, species, diff, dist, species_j, nbr_mask,
             atomic = netmod.atomic_energies_sorted(spec.net, pot.params,
                                                    species_counts, aev)
         else:
-            atomic = netmod.atomic_energies_masked(spec.net, pot.params,
-                                                   species, aev)
+            atomic = netmod.atomic_energies_masked(
+                spec.net, pot.params, species, aev, present=present_species)
         e = netmod.ensemble_energies(atomic)
     e = e + spec.shifter(species, dtype=aev.dtype)
     if spec.repulsion is not None:
@@ -135,6 +139,41 @@ def _energies_from_neighbors(pot, species, diff, dist, species_j, nbr_mask,
             spec.repulsion, species, species_j, dist, nbr_mask,
             ghost_center=~local_mask, ghost_j=ghost_j)
     return torch.where(local_mask, e, 0.0)
+
+
+def atomic_energies_ext(pot: ANIPotential, species: torch.Tensor,
+                        pos: torch.Tensor, pos_ext: torch.Tensor,
+                        species_ext: torch.Tensor, idx: torch.Tensor,
+                        mask: torch.Tensor,
+                        species_counts: Optional[Sequence[int]] = None,
+                        local_mask: Optional[torch.Tensor] = None,
+                        present_species: Optional[tuple] = None,
+                        mirror_ext=None) -> torch.Tensor:
+    """[n] per-atom energies [Hartree] from explicit extended arrays: `pos`
+    [n, 3] the local atoms, `pos_ext` [m, 3] the locals and their ghosts
+    (halo imports in the sharded engine, parallel/domain.py), `idx`/`mask`
+    [n, k] the neighbor matrix into the extended arrays, `species_ext` [m]
+    (-1 for empty slots). Differentiable with respect to `pos` and
+    `pos_ext`; where the ghosts' forces go is up to how the caller built
+    `pos_ext`. `mirror_ext` = (mirror, mvalid) of
+    `nbr_grad.build_mirror_ext`: the backward into `pos_ext` gathers over
+    the mirror slots instead of scattering (the same values to rounding).
+    `present_species`: the nets the masked MLP runs (None: all)."""
+    if local_mask is None:
+        local_mask = species >= 0
+    if mirror_ext is not None:
+        diff = nbr_grad.neighbor_diff_ext(pos, pos_ext, idx, mask,
+                                          mirror_ext[0], mirror_ext[1])
+    else:
+        diff = torch.where(mask[..., None], pos[:, None, :] - pos_ext[idx],
+                           1.0)
+    dist = torch.linalg.norm(torch.where(mask[..., None], diff, 1.0), dim=-1)
+    dist = torch.where(mask, dist, 1e6)
+    species_j = species_ext[idx]
+    return _energies_from_neighbors(
+        pot, species, diff, dist, species_j, mask & (species_j >= 0),
+        idx >= pos.shape[0], species_counts, local_mask,
+        present_species=present_species)
 
 
 def atomic_energies_mirror(pot: ANIPotential, species: torch.Tensor,
@@ -333,8 +372,10 @@ def atomic_energies_asn(pot: ANIPotential, species: torch.Tensor,
                         pos: torch.Tensor, box: Box, asn_state,
                         species_counts: Optional[Sequence[int]],
                         plain: bool = False,
-                        present_species: Optional[tuple] = None):
-    """([n] energies, angular deficit) via the assignment path.
+                        present_species: Optional[tuple] = None,
+                        local_mask: Optional[torch.Tensor] = None,
+                        n_out: Optional[int] = None):
+    """([n_out] energies, angular deficit) via the assignment path.
 
     `asn_state` = (grid, bins, asn, sections[, tiers[, pair_stage]]): one
     coarse roll grid (bin side >= Rcr + skin), its bins, the frozen
@@ -347,7 +388,12 @@ def atomic_energies_asn(pot: ANIPotential, species: torch.Tensor,
     species-pair blocks); the first MLP layer gathers the matching weight
     rows. With spec.repulsion, the XTB energies of the same kernel pass are
     added. `plain=True` runs the kernels' plain versions whatever the
-    device."""
+    device. Sharded use (parallel/sim.py): `pos` holds a domain's owned
+    atoms first and then its ghosts, all binned; `n_out` restricts the
+    AEV, MLP and energy rows to the first n_out (the owned atoms, whose
+    `species` [n_out] is given), and `local_mask` [n_out] (False: no
+    energy) marks the empty slots among them. The ghosts still take their
+    neighbor-role force through the gradient."""
     spec = pot.spec
     if spec.angular_caps is None:
         raise ValueError("the asn path needs composition-derived "
@@ -358,8 +404,10 @@ def atomic_energies_asn(pot: ANIPotential, species: torch.Tensor,
     radial, e_rep, angular, deficit = aev_asn.aev_asn_fused(
         spec.aev, grid, bins, asn, pos, box, sect, spec.angular_caps,
         tiers=tiers, repulsion=spec.repulsion, plain=plain,
-        pair_stage=pair_stage)
+        pair_stage=pair_stage, n_out=n_out)
     local = species >= 0
+    if local_mask is not None:
+        local = local & local_mask
     aev = torch.where(local[:, None], torch.cat([radial, angular], dim=1),
                       0.0)
     col_idx = asn_col_idx(spec, sect)

@@ -1,9 +1,9 @@
 """Neighbor displacements whose force backward gathers instead of
 scattering: the mirror tables.
 
-Port of lammps_ani_tpu/ops/nbr_grad.py:40-279 and :368-377 (the
-single-device part; the sharded engine's `build_mirror_ext`,
-`neighbor_diff_ext` are not ported). The force backward of a gathered
+Port of lammps_ani_tpu/ops/nbr_grad.py, the single-device tables and,
+for the sharded engine (parallel/), the extended-array form
+(`build_mirror_ext`, `neighbor_diff_ext`). The force backward of a gathered
 displacement `pos[i] - pos[src[i, k]]` is, under plain autograd, a
 scatter-add of [n, k, 3] cotangents. With a full neighbor list every
 directed slot (i -> owner j, image shift S) has exactly one mirror slot
@@ -254,3 +254,72 @@ def neighbor_displacements_mirror(pos, box, src, shift, mirror, mask):
     dist = torch.linalg.norm(diff, dim=-1)
     return (torch.where(mask[..., None], diff, 1.0),
             torch.where(mask, dist, 1e6))
+
+
+# ---------------------------------------------------------------------------
+# Extended-array form (the sharded engine): ghosts are halo imports
+# ---------------------------------------------------------------------------
+
+
+def build_mirror_ext(idx, mask, ext_idx, ext_mask):
+    """Mirror table of the extended-array neighbor form (parallel/).
+
+    There ghosts are halo copies of atoms of other shards, not periodic
+    images of locals, so `build_mirror`'s owner/shift symmetry does not
+    apply. The one that does: every directed slot (local i -> ext a) has
+    its transpose in a's own row over the local candidates (`ext_idx`),
+    since both take the same distance up to an exact negation. So
+
+        mirror[a, q] = i * k_max + k'  with  i = ext_idx[a, q],
+                                             idx[i, k'] = a,
+
+    and the neighbor-role force on ext row a is a gather over a's own row;
+    the ghost rows' part reaches the owners through the halo's backward.
+    The pairs (a, i) of the valid slots of `idx` are sorted once and each
+    ext slot's pair is looked up in them (a row of `idx` holds a neighbor
+    once, so a pair has one slot), not compared against whole rows.
+
+    Returns (mirror [m, k2] int64 flat into n * k_max, mvalid [m, k2],
+    ok): `ok` is False if a valid ext slot found no transposed entry (an
+    untruncated `idx` never lets that happen)."""
+    n, k_max = idx.shape
+    m, k2 = ext_idx.shape
+    dev = idx.device
+    rows = torch.arange(n, device=dev)[:, None]
+    keys, slot_of = torch.sort(torch.where(mask, idx * n + rows, -1)
+                               .reshape(-1))
+    want = (torch.arange(m, device=dev)[:, None] * n + ext_idx).reshape(-1)
+    at = torch.clamp(torch.searchsorted(keys, want), max=keys.shape[0] - 1)
+    found = (keys[at] == want).reshape(m, k2)
+    mvalid = ext_mask & found
+    mirror = torch.where(mvalid, slot_of[at].reshape(m, k2), 0)
+    return mirror, mvalid, torch.all(found | ~ext_mask)
+
+
+class _NeighborDiffExt(torch.autograd.Function):
+    """[n, k, 3] diff = pos_i - pos_ext[idx], masked slots 1.0; backward:
+    the row sum (center role) and, for `pos_ext`, the gather over each ext
+    row's mirror slots (neighbor role) instead of a scatter."""
+
+    @staticmethod
+    def forward(ctx, pos, pos_ext, idx, mask, mirror, mvalid):
+        ctx.save_for_backward(mask, mirror, mvalid)
+        diff = pos[:, None, :] - pos_ext[idx]
+        return torch.where(mask[..., None], diff, 1.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        mask, mirror, mvalid = ctx.saved_tensors
+        n, k_max, _ = g.shape
+        g = torch.where(mask[..., None], g, 0.0)
+        dpos = g.sum(dim=1)
+        mirrored = g.reshape(n * k_max, 3)[mirror] * mvalid[..., None]
+        return dpos, -mirrored.sum(dim=1), None, None, None, None
+
+
+def neighbor_diff_ext(pos, pos_ext, idx, mask, mirror, mvalid):
+    """[n, k, 3] pos_i - pos_ext[idx] (masked slots 1.0) with the mirror
+    backward of `build_mirror_ext`'s tables. The caller's construction of
+    `pos_ext` (parallel/domain.halo_positions) carries the ghost rows'
+    cotangents to their owners."""
+    return _NeighborDiffExt.apply(pos, pos_ext, idx, mask, mirror, mvalid)

@@ -18,8 +18,9 @@ and one more, `device`: the torch device to run on (default: the card;
 
 The engine is `Simulation`'s default (the mirror engine), sized as the
 JAX CLI sizes it. Langevin draws from a generator on the run's device
-seeded with `seed`. `mesh_shape` (domain decomposition) is not ported and
-raises NotImplementedError.
+seeded with `seed`. `mesh_shape` (the JAX CLI's sharded route) is not
+ported and raises NotImplementedError; `parallel.sim.DomainSimulation`
+runs the sharded engine from Python.
 """
 
 from __future__ import annotations
@@ -88,8 +89,9 @@ def build(cfg):
     """(Simulation, LammpsData, Box) of a config."""
     if cfg["mesh_shape"]:
         raise NotImplementedError(
-            "mesh_shape: domain decomposition (the sharded engine) is not "
-            "ported yet")
+            "mesh_shape: the CLI's domain decomposition route is not ported "
+            "yet; parallel.sim.DomainSimulation runs a mesh in one process "
+            "from Python")
     device = resolve_device(cfg["device"])
     dtype = torch.float64 if cfg["precision"] == "double" else torch.float32
     data = ldio.read_lammps_data(cfg["data"])
