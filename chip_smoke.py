@@ -262,6 +262,24 @@ object per line; any failure raises and the script exits non-zero:
            sizing, the same system on the single-device engine (E and F
            at the restart, ms/step, busy), and each asn kernel on shard
            0's brick bins against its plain version; the phase's seconds.
+  distributed  the process-group backend (`parallel.comm.ProcessGroupMesh`)
+           on a one-rank NCCL group made in this process (a FileStore; no
+           fallback to gloo), mesh (1,1,1): f64 on the reference tile x
+           4^3 (1,920 atoms, ANI-1xnr, pallas_asn), the group against
+           `LocalMesh`: E, F, W of one evaluation and 12 NVE steps bit for
+           bit; f32, the domain phase's early-earth system from its relaxed
+           start at full ANI-1xnr width as one shard: the group, then
+           `LocalMesh`, then the single-device engine, each 1 warm and 3
+           timed chunks of 10 steps (ms/step, ns/day, collective calls a
+           step) and one chunk under torch.profiler (device busy, idle
+           share); the group's engine pallas_asn, its two chunks bit for
+           bit against `LocalMesh`'s, every gid once, the eight asn
+           kernels launched in its timed chunks (counted just before and
+           after), no plain version; then the CLI under `torchrun
+           --standalone --nproc_per_node 1` on mesh 1 1 1 (NCCL; f64,
+           ANI-2x, 1,920 atoms, 20 NVT steps) against its in-process route
+           (`LocalMesh`): the thermo YAML, the final DCD frame and the
+           restart; the phase's seconds.
 
 Then one line {"kernels": [...]} (the twenty package kernels, the probe
 kernels by stage and mode, the radial forward kernel's probe timing, the
@@ -4623,7 +4641,9 @@ def phase_domain(device, timed_chunks=3, reps=10):
     torch.profiler (device busy, idle share); then each asn kernel on
     shard 0's brick bins at the final state against its plain version
     (rows `<kernel><domain>` of the kernels line) and the box cotangent
-    there exactly 0. The phase's seconds, the build excluded."""
+    there exactly 0. The phase's seconds, the build excluded. Returns
+    (the kernels' rows, the relaxed start: species, masses, positions,
+    velocities, box and config)."""
     from lammps_ani_torch.parallel import domain as pdom
     from lammps_ani_torch.parallel.sim import DomainSimulation
 
@@ -4661,8 +4681,11 @@ def phase_domain(device, timed_chunks=3, reps=10):
     del at_restart
     single, pos, vel = domain_single_device(device, pot, restart, cfg, ref)
     with np.load(restart) as z:
-        state = dsim.init_state(z["species"], z["mass"], pos, state.box,
-                                vel=vel)
+        start = {"species": z["species"], "mass": z["mass"], "pos": pos,
+                 "vel": vel, "box_h": z["box_h"],
+                 "box_origin": z["box_origin"], "cfg": cfg}
+    state = dsim.init_state(start["species"], start["mass"], pos, state.box,
+                            vel=vel)
     state, warm_rows = dsim.run(state, every, thermo_every=1)
     for attempt in range(3):
         before = dsim.regrow_events
@@ -4743,7 +4766,303 @@ def phase_domain(device, timed_chunks=3, reps=10):
         raise AssertionError(
             f"domain: bit for bit {same}, gids {gids_once}, dh zero "
             f"{dh_zero}, roll kernels {roll}")
-    return kern_rows
+    return kern_rows, start
+
+
+# ---------------------------------------------------------------------------
+# The process-group backend (parallel/comm.ProcessGroupMesh) on one card
+# ---------------------------------------------------------------------------
+
+
+def _nccl_group(tmp, device):
+    """A one-rank NCCL process group in this process (a FileStore under
+    `tmp`); no fallback to gloo."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, timeout=timedelta(seconds=300), device_id=device)
+
+
+def distributed_f64(device, mesh, rep=4, steps=12):
+    """The reference tile x rep^3 (1,920 atoms), ANI-1xnr (one model, seed
+    1), f64, pallas_asn on mesh (1,1,1): the process group against
+    `LocalMesh` on the card from the same state (velocities at 300 K, seed
+    1): E, F and W of one evaluation and the positions and velocities
+    after `steps` NVE steps, bit for bit."""
+    from lammps_ani_torch.parallel import domain as pdom
+    from lammps_ani_torch.parallel.sim import DomainSimulation
+
+    data = water30_box(rep)
+    masses = data.masses_by_type[data.species]
+    pot = zoo.ani1xnr(num_models=1, seed=1, dtype=torch.float64,
+                      device=device)
+    dspec = pdom.auto_domain_spec(data.n_atoms, data.box_h, (1, 1, 1),
+                                  max(5.1, pot.spec.cutoff) + 1.0, k_max=128)
+    out = {}
+    for name, m in (("process_group", mesh), ("local", None)):
+        dsim = DomainSimulation(pot, dspec, cutoff=5.1, skin=1.0,
+                                rebuild_every=10, dt=0.25,
+                                dtype=torch.float64, device=device,
+                                engine="pallas_asn", mesh=m)
+        st = dsim.init_state(data.species, masses, data.positions,
+                             make_box(data, torch.float64, device),
+                             temp=300.0, seed=1)
+        ev = dsim.evaluate(st)
+        run, _ = dsim.run(st, steps)
+        out[name] = {"engine": dsim.engine, "pe": ev.pe.cpu().numpy(),
+                     "virial": ev.virial.cpu().numpy(),
+                     "force": dsim.gather(ev, "force"),
+                     "pos": dsim.gather(run, "pos"),
+                     "vel": dsim.gather(run, "vel")}
+    pg, loc = out["process_group"], out["local"]
+    line = {"atoms": data.n_atoms, "steps": steps, "engine": pg["engine"],
+            "pe": float(pg["pe"]),
+            **{f"{k}_bit_for_bit": bool(np.array_equal(pg[k], loc[k]))
+               for k in ("pe", "force", "virial", "pos", "vel")}}
+    line["ok"] = all(line[f"{k}_bit_for_bit"] for k in (
+        "pe", "force", "virial", "pos", "vel")) and all(
+        o["engine"] == "pallas_asn" for o in out.values())
+    return line
+
+
+def _timed_md(sim, state, device, chunk, chunks, calls=None):
+    """1 warm chunk, then the counts zeroed and `chunks` timed chunks,
+    the counts read, then one chunk under torch.profiler (with the NCCL
+    kernels as a group): (state, line)."""
+    state, _ = sim.run(state, chunk)
+    _reset_all_counts()
+    if calls is not None:
+        calls.update({k: 0 for k in calls})
+    state, rows, chunk_ms = _run_timed(sim, state, chunks, device,
+                                       chunk=chunk)
+    steps = len(rows)
+    launches = {name: asn.LAUNCHES[name] for name in ASN_KERNELS}
+    line = {**_md_numbers(sim, rows, chunk_ms), "launches": launches,
+            "plain_calls": dict(asn.PLAIN_CALLS),
+            "collectives_per_step": (None if calls is None else
+                                     {k: v / steps for k, v in calls.items()})}
+    groups = profile_groups(ASN_KERNELS) + (("nccl", ("nccl", "Nccl")),)
+    state, prof = profile_chunk(sim, state, ASN_KERNELS, groups=groups,
+                                chunk=chunk)
+    line["profile"] = {k: prof[k] for k in (
+        "device_busy_ms_per_step", "device_idle_share",
+        "unprofiled_ms_per_step", "device_ms_per_step_by_group")}
+    return state, line
+
+
+def distributed_md(device, mesh, start, chunks=3):
+    """The domain phase's early-earth system (config_50k.json: ANI-1xnr at
+    full width, one model, seed 1; NoseHoover 300 K, dt 0.25 fs, a rebuild
+    every 10) from its relaxed start, f32, as one shard on mesh (1,1,1):
+    the process group, then `LocalMesh` (each: the engine pallas_asn; two
+    chunks from the same state, bit for bit across the two; `_timed_md`;
+    every gid once), then the single-device pallas_asn `Simulation`
+    (`_timed_md`)."""
+    from lammps_ani_torch.parallel import domain as pdom
+    from lammps_ani_torch.parallel.sim import DomainSimulation
+
+    cfg = start["cfg"]
+    every = int(cfg["rebuild_every"])
+    n = len(start["species"])
+    pot = zoo.ani1xnr(num_models=int(cfg["num_models"]), seed=1,
+                      dtype=torch.float32, device=device)
+    rlist = max(float(cfg["cutoff"]), pot.spec.cutoff) + float(cfg["skin"])
+    dspec = pdom.auto_domain_spec(n, start["box_h"], (1, 1, 1), rlist,
+                                  k_max=int(cfg["k_max"]))
+    box = Box(h=torch.tensor(start["box_h"], device=device),
+              origin=torch.tensor(start["box_origin"], device=device))
+
+    def nh():
+        return integrate.NoseHoover(temp=float(cfg["stages"][0][0]),
+                                    tdamp=float(cfg["tdamp"]))
+
+    out, pairs = {}, {}
+    for name, m in (("process_group", mesh), ("local", None)):
+        dsim = DomainSimulation(
+            pot, dspec, cutoff=float(cfg["cutoff"]), skin=float(cfg["skin"]),
+            rebuild_every=every, dt=float(cfg["dt"]), dtype=torch.float32,
+            device=device, integrator=nh(), mesh=m)
+        t0 = time.perf_counter()
+        state = dsim.init_state(start["species"], start["mass"],
+                                start["pos"], box, vel=start["vel"])
+        _sync(device)
+        setup_s = time.perf_counter() - t0
+        a, _ = dsim.run(state, every)
+        b, _ = dsim.run(a, every)
+        pairs[name] = [(x.pos, x.vel, x.force, x.pe, x.virial, x.gid)
+                       for x in (a, b)]
+        state, line = _timed_md(dsim, b, device, every, chunks,
+                                getattr(dsim.mesh, "calls", None))
+        gid = state.gid.cpu().numpy()
+        line.update(engine=dsim.engine, setup_s=setup_s,
+                    sizing=dsim.sizing(), regrow_kinds=dsim.regrow_kinds,
+                    gids_once=bool(np.array_equal(np.sort(gid[gid >= 0]),
+                                                  np.arange(n))))
+        out[name] = line
+        del dsim, state, a, b
+        torch.cuda.empty_cache()
+    same = all(identical(x, y) for x, y in zip(pairs["process_group"],
+                                               pairs["local"]))
+    del pairs
+    sim = Simulation(
+        potential=pot, species=start["species"], masses=start["mass"],
+        nbr=NeighborConfig(cutoff=float(cfg["cutoff"]),
+                           skin=float(cfg["skin"]), k_max=128,
+                           ghost_capacity=max(4096, n // 2),
+                           use_cell_list=True, cell_capacity=32,
+                           rebuild_every=every),
+        dt=float(cfg["dt"]), dtype=torch.float32, device=device,
+        engine="pallas_asn", integrator=nh())
+    state = sim.init_state(start["pos"], box, vel=start["vel"])
+    _, line = _timed_md(sim, state, device, every, chunks)
+    line["engine"] = sim.engine
+    out["single_device"] = line
+    del sim, state
+    torch.cuda.empty_cache()
+    return {"atoms": n, "mesh_shape": [1, 1, 1], "dtype": "float32",
+            "two_chunks_bit_for_bit_process_group_vs_local": same, **out}
+
+
+def distributed_cli(tmp, rep=4, steps=20, timeout=300):
+    """`torchrun --standalone --nproc_per_node 1 -m lammps_ani_torch.run
+    ... --mesh_shape 1 1 1` (NCCL, one shard a rank) under a time limit,
+    and the same command in this process (`LocalMesh`), on the reference
+    tile x rep^3 with velocities (1,920 atoms) written by the port's
+    writer; ANI-2x, f64, NoseHoover 300 K, dt 0.25 fs, `steps` steps, a
+    rebuild, a DCD frame and a restart every 10, thermo every 5: the thermo
+    YAML, the final frame and the restart's positions and velocities of
+    the two, and what torchrun printed."""
+    import contextlib
+    import io
+
+    from lammps_ani_torch import run as cli
+    from lammps_ani_torch.io import dump as dumpio
+    from lammps_ani_torch.io import lammps_data as ldio
+
+    data = water30_box(rep)
+    data = dataclasses.replace(data, velocities=0.002 * np.random.default_rng(
+        3).standard_normal((data.n_atoms, 3)))
+    path = os.path.join(tmp, "water.data")
+    ldio.write_lammps_data(path, data)
+
+    def argv(tag):
+        """A JSON config's path: torchrun's own parser would take a flag
+        that abbreviates one of its options (--log)."""
+        cfg = {"data": path, "model": "ani2x", "num_models": 1,
+               "precision": "double", "dt": 0.25, "steps": steps,
+               "rebuild_every": 10, "thermo_every": 5, "ensemble": "nvt",
+               "temp": 300.0, "tdamp": 50.0, "dump_format": "dcd",
+               "dump": os.path.join(tmp, f"{tag}.dcd"), "dump_every": 10,
+               "log": os.path.join(tmp, f"{tag}.yaml"),
+               "restart": os.path.join(tmp, f"{tag}.npz"),
+               "restart_every": 10, "mesh_shape": [1, 1, 1]}
+        cfg_path = os.path.join(tmp, f"{tag}.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        return [cfg_path]
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "lammps_ani_torch.run",
+         *argv("torchrun")], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=timeout)
+    torchrun_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"distributed cli: torchrun exited "
+                             f"{proc.returncode}: {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-3000:]}")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv("local"))
+    local_s = time.perf_counter() - t0
+    got = {}
+    for tag in ("torchrun", "local"):
+        with np.load(os.path.join(tmp, f"{tag}.npz")) as z:
+            got[tag] = (dumpio.read_thermo_yaml(
+                os.path.join(tmp, f"{tag}.yaml")),
+                dumpio.read_dcd(os.path.join(tmp, f"{tag}.dcd")),
+                z["pos"], z["vel"])
+    (t_rows, t_frames, t_pos, t_vel), (l_rows, l_frames, l_pos, l_vel) = (
+        got["torchrun"], got["local"])
+    thermo_err = max(float(np.max(np.abs(np.asarray(t_rows[k])
+                                         - np.asarray(l_rows[k]))
+                                  / max(np.abs(l_rows[k]).max(), 1e-300)))
+                     for k in l_rows)
+    perf = [x for x in proc.stdout.splitlines()
+            if x.startswith("# Performance:")]
+    line = {"atoms": data.n_atoms, "steps": steps,
+            "torchrun_s": torchrun_s, "local_s": local_s,
+            "thermo_rows": len(t_rows["step"]),
+            "thermo_bit_for_bit": all(np.array_equal(t_rows[k], l_rows[k])
+                                      for k in l_rows),
+            "thermo_max_rel_err": thermo_err,
+            "frames": list(t_frames.shape),
+            "final_frame_bit_for_bit": bool(
+                t_frames.shape == l_frames.shape
+                and np.array_equal(t_frames[-1], l_frames[-1])),
+            "restart_bit_for_bit": bool(np.array_equal(t_pos, l_pos)
+                                        and np.array_equal(t_vel, l_vel)),
+            "torchrun_performance": perf, "local_performance": [
+                x for x in out.getvalue().splitlines()
+                if x.startswith("# Performance:")]}
+    line["ok"] = (line["thermo_rows"] == steps // 5 and thermo_err <= 1e-12
+                  and line["final_frame_bit_for_bit"]
+                  and line["restart_bit_for_bit"] and len(perf) == 1
+                  and line["frames"][0] == steps // 10)
+    return line
+
+
+def phase_distributed(start, chunks=3):
+    """The process-group backend on one card: a one-rank NCCL group in
+    this process (`_nccl_group`; no fallback to gloo) and
+    `ProcessGroupMesh((1, 1, 1))` on it; `distributed_f64` (the group
+    against `LocalMesh`, bit for bit), `distributed_md` (the early-earth
+    system at full width as one shard: the group, `LocalMesh` and the
+    single-device engine; the group's two chunks bit for bit against
+    `LocalMesh`'s, every gid once, the eight asn kernels launched in its
+    timed chunks and no plain version), with the group destroyed after;
+    then `distributed_cli` (the CLI under torchrun against the in-process
+    route). The phase's seconds."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from lammps_ani_torch.parallel.comm import ProcessGroupMesh
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    card = torch.device("cuda", torch.cuda.current_device())
+    _nccl_group(tmp, card)
+    try:
+        mesh = ProcessGroupMesh((1, 1, 1), device=card)
+        backend = mesh.backend
+        f64 = distributed_f64(card, mesh)
+        md = distributed_md(card, mesh, start, chunks)
+    finally:
+        dist.destroy_process_group()
+    cli_line = distributed_cli(tmp)
+    pg = md["process_group"]
+    line = {"phase": "distributed", "backend": backend, "f64": f64,
+            "md": md, "cli": cli_line,
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    launched = all(v > 0 for v in pg["launches"].values())
+    if not (backend == "nccl" and f64["ok"] and cli_line["ok"]
+            and md["two_chunks_bit_for_bit_process_group_vs_local"]
+            and pg["engine"] == "pallas_asn" and pg["gids_once"]
+            and launched and not any(pg["plain_calls"].values())):
+        raise AssertionError(
+            f"distributed: backend {backend}, f64 {f64['ok']}, cli "
+            f"{cli_line['ok']}, engine {pg['engine']}, two chunks "
+            f"{md['two_chunks_bit_for_bit_process_group_vs_local']}, gids "
+            f"{pg['gids_once']}, launches {pg['launches']}, plain "
+            f"{pg['plain_calls']}")
 
 
 def main() -> int:
@@ -4784,7 +5103,9 @@ def main() -> int:
     phase_trace(sim, state)
     phase_fragments(device, sim_x, state_x)
     phase_equilibrate_tile(device)
-    rows += phase_domain(device)
+    domain_rows, start = phase_domain(device)
+    rows += domain_rows
+    phase_distributed(start)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,10 @@
 """Spatial domain decomposition over a mesh of shards.
 
 Port of lammps_ani_tpu/parallel/domain.py (LAMMPS 3-D brick decomposition
-and its staged ghost exchange), with every shard of the mesh held in one
-process (`comm.LocalMesh`): a per-shard tensor is [n_shards, ...], the
-shards in row-major mesh order, and a ppermute is `mesh.shift`.
+and its staged ghost exchange) over either mesh of `comm.py`: a per-shard
+tensor is [n_local, ...], the process's shards in row-major mesh order
+(every shard on `LocalMesh`, one a rank on `ProcessGroupMesh`), and a
+ppermute is `mesh.shift`.
 
   * The box is cut into a (px, py, pz) grid of equal fractional bricks.
     Each shard holds `n_cap` fixed atom slots; an empty slot carries

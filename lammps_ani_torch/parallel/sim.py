@@ -1,15 +1,15 @@
-"""The domain-decomposed MD driver: every shard of a (px, py, pz) mesh in
-one process, on one device.
+"""The domain-decomposed MD driver over a (px, py, pz) mesh of shards.
 
 Port of lammps_ani_tpu/parallel/sim.py. One chunk = migrate, halo plan,
 the rebuild of each shard's structure, then up to `rebuild_every`
 velocity-Verlet steps; the halo exchange runs inside every force
 evaluation, so the ghosts' forces reach their owners through autograd.
-The mesh is `comm.LocalMesh`: a ppermute is a roll of the [px, py, pz,
-...] view of a per-shard tensor, a psum a sum over the shard dimension.
-The state is global, [n_shards * n_cap, ...] per atom, the shards in the
-JAX package's flat order, so `gather`, the restarts and the tests read the
-same layout.
+The mesh (`comm.py`) is `LocalMesh`, every shard in one process on one
+device (the default), or `ProcessGroupMesh`, one shard a rank of a
+`torch.distributed` process group (`mesh=`). The state holds the
+process's shards, [n_local * n_cap, ...] per atom in flat shard order;
+`gather`, the restarts and the sizing measures see the whole system
+through the mesh's all-gather.
 
 Engines (`engine=`, the counterpart of the JAX package's LAT_ROLL_IMPL;
 None resolves as the JAX package does: `pallas_asn` in f32 on the card,
@@ -42,9 +42,10 @@ Integrators: None (NVE), `Langevin`, `NoseHoover` and `NoseHooverNPT`, in
 the JAX engine's step order, with global sums over the shards (the chains
 and the piston see the whole system). Under NoseHooverNPT the brick grids
 carry 6% slack; `run` re-derives them when the box leaves it and raises
-when a brick gets thinner than rlist. Langevin draws its noise from the
-integrator's generator over the global layout (the JAX engine folds its
-key per shard: the two streams differ).
+when a brick gets thinner than rlist. Langevin draws its noise from
+`mesh.rank_generator` of the integrator's generator: on `LocalMesh` that
+generator over every shard's slots, under the process group one stream a
+rank (the JAX engine folds its key per shard: the streams differ).
 
 Neighbor contract as the single-device engine's: a chunk stops before the
 step at which an atom has moved more than skin/2 since the rebuild, and
@@ -66,6 +67,24 @@ The JAX package's environment overrides and what takes their place:
   LAT_TIER0_MARGIN      TIER0_MARGIN.
   LAT_TIER_ROWS_MARGIN  TIER_ROWS_MARGIN.
   LAT_VERBOSE           nothing: `engine`, `sizing()` and `regrow_kinds`.
+
+Every host decision comes from a value reduced over the mesh, so every
+rank of a process group takes the same branch (one that did not would
+hang the group at its next exchange):
+
+  * the half-skin displacement that stops a chunk (`pmax`);
+  * the kinetic energy and the kinetic tensor of the thermostat, the
+    piston and the thermo row, and the mass of the density (`psum`);
+  * pe and the strain gradient of the virial: each process differentiates
+    its own shards' summed energy (only the halo's shifts carry autograd
+    across ranks; an all-reduce inside the graph would scale the gradient
+    by the rank count), then `psum`s both;
+  * the overflow codes and the force evaluation's deficits (`pmax`);
+  * the NPT brick check, on the box, which every rank updates from the
+    same reduced values to the same bits;
+  * the sizing measures at init_state and at each regrow or re-derive,
+    over the whole system: `init_state` takes the global arrays on every
+    rank, the regrows `all_gather` them.
 """
 
 from __future__ import annotations
@@ -109,8 +128,10 @@ TIER_ROWS_MARGIN = 1.5
 
 @dataclasses.dataclass(frozen=True)
 class ShardedState:
-    """Global state: per-atom tensors [n_shards * n_cap, ...], shard-major;
-    an empty slot has species -1 and gid -1."""
+    """The process's shards: per-atom tensors [n_local * n_cap, ...],
+    shard-major in flat shard order; an empty slot has species -1 and gid
+    -1. The box, the step, pe, the virial and the chains are the whole
+    system's, the same on every rank."""
 
     pos: torch.Tensor
     vel: torch.Tensor
@@ -146,11 +167,14 @@ class _Rebuild:
 
 
 class DomainSimulation:
-    """Host orchestration of the sharded engine on an in-process mesh.
+    """Host orchestration of the sharded engine.
 
     The JAX package's signature less `devices=`: `device` (the card unless
-    given), `engine` (ENGINES; None as the module docstring says) and
-    `pair_stage` (the asn engine's angular pair stage) are the port's."""
+    given), `engine` (ENGINES; None as the module docstring says),
+    `pair_stage` (the asn engine's angular pair stage) and `mesh` (None:
+    `LocalMesh(dspec.mesh_shape, device)`; else a mesh of
+    `dspec.mesh_shape` on `device`, such as a `ProcessGroupMesh`) are the
+    port's."""
 
     def __init__(self, potential: potmod.ANIPotential, dspec: DomainSpec,
                  cutoff: float | None = None, skin: float = 2.0,
@@ -159,7 +183,7 @@ class DomainSimulation:
                  use_brick_cells: bool | None = None,
                  mirror_force: bool = True, device=None,
                  engine: Optional[str] = None,
-                 pair_stage: Optional[str] = None):
+                 pair_stage: Optional[str] = None, mesh=None):
         if integrator is not None and not isinstance(integrator,
                                                      INTEGRATORS):
             raise TypeError(f"integrator {type(integrator).__name__}: "
@@ -192,13 +216,25 @@ class DomainSimulation:
         self._auto_angular_caps = (auto_angular_caps
                                    and potential.spec.angular_caps is None)
         self.dspec = dspec
-        self.mesh = LocalMesh(dspec.mesh_shape, self.device)
+        if mesh is None:
+            mesh = LocalMesh(dspec.mesh_shape, self.device)
+        elif (tuple(mesh.mesh_shape) != tuple(dspec.mesh_shape)
+              or _device_key(mesh.device) != _device_key(self.device)):
+            raise ValueError(
+                f"mesh of shape {tuple(mesh.mesh_shape)} on {mesh.device} "
+                f"for an engine of dspec.mesh_shape "
+                f"{tuple(dspec.mesh_shape)} on {self.device}")
+        self.mesh = mesh
         self.cutoff = float(cutoff if cutoff is not None
                             else potential.spec.cutoff)
         self.skin = float(skin)
         self.rebuild_every = int(rebuild_every)
         self.dt = float(dt)
         self.integrator = integrator
+        # Langevin draws from the mesh's generator of the process's shards
+        self._langevin = (dataclasses.replace(
+            integrator, generator=mesh.rank_generator(integrator.generator))
+            if isinstance(integrator, integrate.Langevin) else None)
         self.dtype = dtype
         self.n_global = None
         self.dof = None
@@ -229,8 +265,10 @@ class DomainSimulation:
                    vel: np.ndarray | None = None, temp: float | None = None,
                    seed: int = 12345) -> ShardedState:
         """Shard the system: each atom to the brick of its wrapped
-        fractional position, in input order within a shard. Velocities:
-        given, drawn at `temp` from `seed`, or zero."""
+        fractional position, in input order within a shard; the state
+        keeps the process's shards. Every rank takes the whole system's
+        arrays. Velocities: given, drawn over every atom at `temp` from
+        `seed` (the same draw on every rank), or zero."""
         species = np.asarray(species, np.int64)
         masses = np.asarray(masses, np.float64)
         n = len(species)
@@ -311,6 +349,9 @@ class DomainSimulation:
         gmass[row] = masses
         ggid = np.full(ns * cap, -1, np.int64)
         ggid[row] = np.arange(n)
+        # the process's shards
+        mine = (np.asarray(self.mesh.local_shards)[:, None] * cap
+                + np.arange(cap)).ravel()
 
         def dev(x, dt=None):
             return torch.as_tensor(x, dtype=dt or self.dtype,
@@ -323,11 +364,11 @@ class DomainSimulation:
         elif isinstance(self.integrator, integrate.NoseHoover):
             ts = self.integrator.init(self.dtype, self.device)
         state = ShardedState(
-            pos=dev(gpos), vel=dev(gvel),
-            force=torch.zeros((ns * cap, 3), dtype=self.dtype,
+            pos=dev(gpos[mine]), vel=dev(gvel[mine]),
+            force=torch.zeros((len(mine), 3), dtype=self.dtype,
                               device=self.device),
-            species=dev(gspecies, torch.int64), mass=dev(gmass),
-            gid=dev(ggid, torch.int64), box=box, step=0,
+            species=dev(gspecies[mine], torch.int64), mass=dev(gmass[mine]),
+            gid=dev(ggid[mine], torch.int64), box=box, step=0,
             pe=torch.zeros((), dtype=self.dtype, device=self.device),
             virial=torch.zeros((3, 3), dtype=self.dtype, device=self.device),
             thermostat=ts, barostat=bs)
@@ -436,7 +477,7 @@ class DomainSimulation:
         return aev_asn._round_lane(sum(k for _, k in self._sections) + 1)
 
     def _views(self, state):
-        s, cap = self.dspec.n_shards, self.dspec.n_cap
+        s, cap = self.mesh.n_local, self.dspec.n_cap
         return (state.pos.reshape(s, cap, 3), state.species.reshape(s, cap),
                 (state.species >= 0).reshape(s, cap))
 
@@ -459,11 +500,13 @@ class DomainSimulation:
             self._asn_grid, cap=ceil_to(cnt + 2 + ROLL_CAP_MARGIN, 4))
 
     def sizing(self) -> dict:
-        """What the engine derived and grew, JSON-able."""
+        """What the engine derived and grew, and the mesh it runs on (its
+        backend, the shards a process holds), JSON-able."""
         spec = self.potential.spec
         g, bg, d = self._asn_grid, self._brick_grid, self.dspec
         return {
             "engine": self.engine, "mesh_shape": list(d.mesh_shape),
+            "backend": self.mesh.backend, "n_local": self.mesh.n_local,
             "n_cap": d.n_cap, "halo_cap": list(d.halo_cap),
             "mig_cap": d.mig_cap, "k_max": d.k_max, "rlist": self.rlist,
             "angular_caps": (None if spec.angular_caps is None
@@ -485,7 +528,7 @@ class DomainSimulation:
         state's positions. Returns (payload, rebuild, overflow codes as
         device tensors)."""
         d, mesh, box = self.dspec, self.mesh, state.box
-        s, cap = d.n_shards, d.n_cap
+        s, cap = mesh.n_local, d.n_cap
         pos = nbops.wrap_positions(state.pos, box).reshape(s, cap, 3)
         valid = (state.species >= 0).reshape(s, cap)
         payload = {"pos": pos, "vel": state.vel.reshape(s, cap, 3),
@@ -543,7 +586,7 @@ class DomainSimulation:
                     pos, valid, pos_ext, v_ext, self.rlist, d.k_max)
             tables = [nbr_grad.build_mirror_ext(idx[i], mask[i], eidx[i],
                                                 emask[i])
-                      for i in range(d.n_shards)]
+                      for i in range(mesh.n_local)]
             rb.mirror = [(m, mv) for m, mv, _ in tables]
             missing = pmax(~torch.stack([t[2] for t in tables]))
             # a k_max regrow regrows the ext rows with it
@@ -556,7 +599,7 @@ class DomainSimulation:
             # the blocked angular AEV: the caps must cover each shard's
             # degrees at the rebuild
             worst = []
-            for i in range(d.n_shards):
+            for i in range(mesh.n_local):
                 dd = torch.where(mask[i][..., None],
                                  pos[i][:, None, :] - pos_ext[i][idx[i]], 1.0)
                 dist = torch.where(mask[i], torch.linalg.norm(dd, dim=-1),
@@ -568,15 +611,18 @@ class DomainSimulation:
             codes["angular"] = pmax(torch.stack(worst)) > 0
 
     def _forces(self, pos, box, rb: _Rebuild):
-        """(pe, force [S * n_cap, 3], virial, deficit) in kcal/mol units.
+        """(pe, force [n_local * n_cap, 3], virial, deficit) in kcal/mol
+        units; pe, the virial and the deficit are the whole system's.
 
-        Each shard's energy is differentiated through the halo exchange:
-        the sum of the shards' energies is the system's (each atom's
-        energy counted once, on its owner), and its gradient with respect
-        to the owned positions holds every ghost's force on its owner. The
-        virial comes from the additive strain of positions and box."""
+        The process's shards' summed energy is differentiated through the
+        halo exchange: the sum over every process is the system's (each
+        atom's energy counted once, on its owner), and the shifts'
+        backwards carry every ghost's force home, so the gradient with
+        respect to the owned positions is each atom's whole force. pe and
+        the strain gradient of the virial (positions and box strained
+        additively) are then summed over the mesh, outside autograd."""
         d = self.dspec
-        s, cap = d.n_shards, d.n_cap
+        s, cap = self.mesh.n_local, d.n_cap
         pot = self.potential
         asn = self.engine == "pallas_asn"
         with torch.enable_grad():
@@ -613,19 +659,31 @@ class DomainSimulation:
                         mirror_ext=(rb.mirror[i] if rb.mirror is not None
                                     else None))
                 energies.append(e_at.sum())
-            energy = self.mesh.psum(torch.stack(energies))
-            deps, dpos = torch.autograd.grad(energy, (eps, pos_))
+            energies = torch.stack(energies)
+            deps, dpos = torch.autograd.grad(energies.sum(), (eps, pos_))
+        energy = self.mesh.psum(energies.detach())
+        deps = self.mesh.psum(deps[None])
         c = units.HARTREE2KCALMOL
         deficit = (self.mesh.pmax(torch.stack(deficits)) if deficits
                    else torch.zeros((1,), dtype=pos.dtype,
                                     device=pos.device))
-        return (energy.detach() * c, -dpos.reshape(s * cap, 3) * c,
+        return (energy * c, -dpos.reshape(s * cap, 3) * c,
                 -0.5 * (deps + deps.T) * c, deficit)
 
-    def _pressure(self, vel, mass, valid, virial, box):
-        """[] the global pressure in atm."""
+    def _kinetic(self, vel, mass, valid):
+        """(kinetic energy, kinetic tensor [3, 3], mass) of the whole
+        system, in one reduction over the mesh."""
         m = torch.where(valid, mass, 0.0)
         kin = units.MVV2E * torch.einsum("i,ia,ib->ab", m, vel, vel)
+        local = torch.cat([integrate.kinetic_energy(vel, mass, valid)[None],
+                           torch.sum(m)[None], kin.reshape(9)])
+        tot = self.mesh.psum(local[None])
+        return tot[0], tot[2:].reshape(3, 3), tot[1]
+
+    @staticmethod
+    def _pressure(kin, virial, box):
+        """[] the pressure in atm from the whole system's kinetic tensor
+        and virial."""
         return torch.trace((kin + virial) / box.volume * units.NKTV2P) / 3.0
 
     def _chunk(self, state: ShardedState, n_take: int):
@@ -640,8 +698,7 @@ class DomainSimulation:
         if overflow:
             return None, None, 0.0, overflow, 0
 
-        d = self.dspec
-        s, cap = d.n_shards, d.n_cap
+        s, cap = self.mesh.n_local, self.dspec.n_cap
         valid = rb.valid.reshape(-1)
         vmask = valid[:, None]
         mass = payload["mass"].reshape(-1)
@@ -653,33 +710,37 @@ class DomainSimulation:
         npt = self.integrator if self._npt else None
         nh = (self.integrator if isinstance(self.integrator,
                                             integrate.NoseHoover) else None)
-        lang = (self.integrator if isinstance(self.integrator,
-                                              integrate.Langevin) else None)
+        lang = self._langevin
         dt, dof, n = self.dt, self.dof, self.n_global
         ts, bs = state.thermostat, state.barostat
         half_skin = self.skin / 2.0
 
-        def ke_of(v):
-            return integrate.kinetic_energy(v, mass, valid)
+        def kinetic(v):
+            return self._kinetic(v, mass, valid)
+
+        def displacement():
+            """The largest displacement since the rebuild, over the mesh."""
+            moved = torch.linalg.norm(
+                torch.where(vmask, pos - pos_rebuild, 0.0), dim=-1)
+            return float(self.mesh.pmax(moved.reshape(s, cap).max(1).values))
 
         rows, deficits = [], [deficit]
         disp = 0.0
         n_done = 0
         for _ in range(n_take):
-            disp = float(torch.linalg.norm(
-                torch.where(vmask, pos - pos_rebuild, 0.0), dim=-1).max())
+            disp = displacement()
             if disp > half_skin:
                 break
             if npt is not None:
-                bs = npt.piston_half(bs, self._pressure(vel, mass, valid,
-                                                        virial, box),
-                                     box.volume, ke_of(vel), n, dt, dof)
+                ke, kin, _ = kinetic(vel)
+                bs = npt.piston_half(bs, self._pressure(kin, virial, box),
+                                     box.volume, ke, n, dt, dof)
                 ts, vel = npt.thermostat.half_step(ts, vel, mass, dof, dt,
-                                                   ke2=2.0 * ke_of(vel))
+                                                   ke2=2.0 * ke)
                 vel = vel * npt.vel_scale(bs.omega, dof, n, dt)
             elif nh is not None:
                 ts, vel = nh.half_step(ts, vel, mass, dof, dt,
-                                       ke2=2.0 * ke_of(vel))
+                                       ke2=2.0 * kinetic(vel)[0])
             vel = integrate.nve_halfkick(vel, force, mass, dt)
             if npt is not None:
                 sc = npt.box_scale(bs.omega, dt)
@@ -695,22 +756,21 @@ class DomainSimulation:
             vel = integrate.nve_halfkick(vel, force, mass, dt)
             if npt is not None:
                 vel = vel * npt.vel_scale(bs.omega, dof, n, dt)
-                ts, vel = npt.thermostat.half_step(ts, vel, mass, dof, dt,
-                                                   ke2=2.0 * ke_of(vel))
-                bs = npt.piston_half(bs, self._pressure(vel, mass, valid,
-                                                        virial, box),
-                                     box.volume, ke_of(vel), n, dt, dof)
+                ts, vel = npt.thermostat.half_step(
+                    ts, vel, mass, dof, dt, ke2=2.0 * kinetic(vel)[0])
+                ke, kin, _ = kinetic(vel)
+                bs = npt.piston_half(bs, self._pressure(kin, virial, box),
+                                     box.volume, ke, n, dt, dof)
             elif nh is not None:
                 ts, vel = nh.half_step(ts, vel, mass, dof, dt,
-                                       ke2=2.0 * ke_of(vel))
+                                       ke2=2.0 * kinetic(vel)[0])
             vel = torch.where(vmask, vel, 0.0)
-            ke = ke_of(vel)
+            ke, kin, m_tot = kinetic(vel)
             vol = box.volume
             rows.append(torch.stack([
                 pe, ke, 2.0 * ke / (dof * units.BOLTZ),
-                self._pressure(vel, mass, valid, virial, box), vol,
-                torch.sum(torch.where(valid, mass, 0.0))
-                / units.AVOGADRO_VOL / vol]))
+                self._pressure(kin, virial, box), vol,
+                m_tot / units.AVOGADRO_VOL / vol]))
             n_done += 1
         if deficits:
             worst = torch.stack(deficits).max(0).values.cpu().numpy()
@@ -718,8 +778,7 @@ class DomainSimulation:
                 overflow["angular"] = True
                 overflow["deficit"] = worst
                 return None, None, disp, overflow, 0
-        disp = float(torch.linalg.norm(
-            torch.where(vmask, pos - pos_rebuild, 0.0), dim=-1).max())
+        disp = displacement()
         new_state = ShardedState(
             pos=pos, vel=vel, force=force, species=rb.species.reshape(-1),
             mass=mass, gid=payload["gid"].reshape(-1), box=box,
@@ -761,6 +820,7 @@ class DomainSimulation:
                     " in ONE step: raise skin or lower dt")
             state = new_state
             if self._npt:
+                # the box is the same bits on every rank
                 perp = domain.perp_lengths(
                     state.box.h.detach().cpu().numpy())
                 extents = perp / np.asarray(self.dspec.mesh_shape)
@@ -893,7 +953,8 @@ class DomainSimulation:
             self.potential.spec, angular_caps=caps))
 
     def _gathered(self, state):
-        """(positions, species) as device tensors in input order."""
+        """(positions, species) of the whole system as device tensors in
+        input order."""
         pos = torch.as_tensor(self.gather(state, "pos"), dtype=self.dtype,
                               device=self.device)
         species = torch.as_tensor(self.gather(state, "species"),
@@ -901,9 +962,17 @@ class DomainSimulation:
         return nbops.wrap_positions(pos, state.box), species
 
     def gather(self, state: ShardedState, field: str) -> np.ndarray:
-        """A per-atom field on the host, in input atom order."""
-        gid = state.gid.cpu().numpy()
-        arr = getattr(state, field).detach().cpu().numpy()
+        """A per-atom field of the whole system on the host, in input atom
+        order (through the mesh's all-gather: every rank calls it)."""
+        s, cap = self.mesh.n_local, self.dspec.n_cap
+
+        def whole(x):
+            x = x.detach().reshape((s, cap) + tuple(x.shape[1:]))
+            return self.mesh.all_gather(x).reshape(
+                (-1,) + tuple(x.shape[2:])).cpu().numpy()
+
+        gid = whole(state.gid)
+        arr = whole(getattr(state, field))
         ok = gid >= 0
         out = np.zeros((self.n_global,) + arr.shape[1:], arr.dtype)
         out[gid[ok]] = arr[ok]
@@ -912,7 +981,7 @@ class DomainSimulation:
     def save_restart(self, path, state: ShardedState):
         """The state in input atom order, under the JAX package's npz keys
         (its `DomainSimulation.load_restart` reads it, and this one reads
-        the JAX package's)."""
+        the JAX package's). Every rank calls it; rank 0 writes."""
         arrays = {k: self.gather(state, k)
                   for k in ("pos", "vel", "species", "mass")}
         arrays["species"] = arrays["species"].astype(np.int32)
@@ -931,10 +1000,12 @@ class DomainSimulation:
         meta = {"n_atoms": self.n_global, "dt": self.dt}
         arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
                                            np.uint8)
-        np.savez(path, **arrays)
+        if self.mesh.rank == 0:
+            np.savez(path, **arrays)
 
     def load_restart(self, path) -> ShardedState:
-        """A state from `save_restart`'s npz (or the JAX package's)."""
+        """A state from `save_restart`'s npz (or the JAX package's); every
+        rank reads the file and keeps its shards."""
         with np.load(path) as z:
             z = {k: z[k] for k in z.files}
 
@@ -955,6 +1026,15 @@ class DomainSimulation:
                                    eta_dot=dev(z["bs_eta_dot"])))
         return state.replace(step=int(z["step"]), thermostat=ts,
                              barostat=bs)
+
+
+def _device_key(device) -> tuple:
+    """(type, index) of a device, a card without an index as the current
+    one."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return ("cuda", torch.cuda.current_device())
+    return (device.type, device.index)
 
 
 def _read_overflow(codes) -> dict:

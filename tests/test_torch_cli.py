@@ -15,7 +15,8 @@ port's with `device cpu`, and under nve through
     CLI's ftol (1e-4) before its 1000 steps (250 with a rebuild every 10),
     so the exit on max |F| is taken: the same steps, with fmax and pe to
     rtol 1e-10;
-  * `mesh_shape` raises NotImplementedError naming domain decomposition.
+  * `mesh_shape` with `minimize_first` raises the JAX CLI's ValueError in
+    both CLIs (the route itself: tests/test_torch_cli_mesh.py).
 """
 
 import ast
@@ -161,6 +162,10 @@ def test_minimize_first_matches_jax(inputs, capsys):
 
 
 def test_mesh_shape_raises(inputs):
-    cfg = args(inputs, "mesh", "nve", mesh_shape=[1, 1, 1])
-    with pytest.raises(NotImplementedError, match="domain decomposition"):
+    cfg = args(inputs, "mesh", "nve", mesh_shape=[1, 1, 1],
+               minimize_first=True)
+    msg = "minimize_first is not supported with mesh_shape"
+    with pytest.raises(ValueError, match=msg):
+        jrun.main(argv(cfg))
+    with pytest.raises(ValueError, match=msg):
         trun.main(argv({**cfg, "device": "cpu"}))
