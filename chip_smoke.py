@@ -184,8 +184,9 @@ object per line; any failure raises and the script exits non-zero:
   ani1xnr_kernels  the main path's eight asn kernels against their plain
            versions at ANI-1xnr's constants (zeta 32 by the integer power,
            4 species, Rcr 5.2 beside the repulsion's 5.1, the AEV 384
-           wide), 8 models, on the combustion mixture (examples/combustion's
-           placement, copied here: 1,440 atoms at 0.25 g/cm^3) replicated
+           wide), 8 models, on the combustion mixture (the port's
+           examples/combustion `prepare_system.build`: 1,440 atoms at 0.25
+           g/cm^3) replicated
            2^3 (11,520 atoms), sized by `Simulation`, f64 and f32, within
            the asn limits, each worst error as a fraction of its limit,
            two calls of each bit for bit, the packed kernels' edge cases;
@@ -202,7 +203,8 @@ object per line; any failure raises and the script exits non-zero:
            bound (ASN_OPS_1XNR).
   cli      `lammps_ani_torch.run.main` on the card on
            examples/combustion/config.json and the 1,440-atom mixture
-           (written by the port's writer, read back by both parsers): 200
+           (the port's `prepare_system.build`, written by the port's
+           writer, read back by both parsers): 200
            steps with a DCD frame every 50 (4 frames, the last the final
            positions; the thermo YAML to step 200); 100 steps with a
            restart and 100 more from it (the final positions against the
@@ -280,6 +282,27 @@ object per line; any failure raises and the script exits non-zero:
            ANI-2x, 1,920 atoms, 20 NVT steps) against its in-process route
            (`LocalMesh`): the thermo YAML, the final DCD frame and the
            restart; the phase's seconds.
+  examples  the example workflows (lammps_ani_torch/examples), one line a
+           part with its seconds and nvidia-smi's name and power limit:
+           `run_umbrella` on the reference tile (2 windows of 24 steps, a
+           dihedral across two molecules) against a direct
+           `bias.run_windows` call bit for bit, then `analyze_umbrella`
+           over its npz; `analyze_traj` over the cli phase's DCD against
+           `analysis.fragments` on `read_dcd`'s frames; the campaign's
+           `main` under `torchrun --standalone --nproc_per_node 1` (NCCL,
+           mesh (1,1,1), `generate.build(480)`: 1,960 atoms, two stages of
+           10 steps) against `run_campaign` on `LocalMesh` (1,1,1) in this
+           process: the thermo YAML, both restarts and the final positions
+           bit for bit; then examples/early_earth/config_50k.json as
+           shipped (49,000 atoms from its data file, ANI-1xnr at full
+           width, one model, f32, mesh (2,2,2) on `LocalMesh`) with a
+           second stage of 10 steps at 500 K through `run_campaign`, its
+           counts zeroed just before and read just after (the engine
+           pallas_asn, the eight asn kernels launched, no plain version,
+           finite thermo, the invariants; ms/step by stage, regrows by
+           kind), then stage 1 again in a fresh engine from stage 0's
+           restart: its thermo rows and final positions bit for bit
+           against the continuous campaign's; the phase's seconds.
 
 Then one line {"kernels": [...]} (the twenty package kernels, the probe
 kernels by stage and mode, the radial forward kernel's probe timing, the
@@ -301,6 +324,7 @@ import numpy as np
 import torch
 
 from lammps_ani_torch import Box, NeighborConfig, Simulation
+from lammps_ani_torch.examples.combustion import prepare_system
 from lammps_ani_torch.io.lammps_data import LammpsData, replicate
 from lammps_ani_torch.md import integrate
 from lammps_ani_torch.md import simulation as simmod
@@ -3538,54 +3562,9 @@ CHUNK_CLI = 10  # the CLI's rebuild_every
 ASN_OPS_1XNR = {**ASN_OPS, "packed_fwd": {"pairs": (232, 5)},
                 "packed_bwd": {"pairs": (266, 5)}}
 
-# examples/combustion/prepare_system.py's molecules (species H 0, C 1, O
-# 3) and masses
-CH4_SPECIES = np.array([1, 0, 0, 0, 0], np.int32)
-CH4_POS = np.array([[0.000, 0.000, 0.000], [1.092, 0.000, 0.000],
-                    [-0.364, 1.017, -0.165], [-0.364, -0.366, 0.963],
-                    [-0.364, -0.651, -0.798]])
-O2_SPECIES = np.array([3, 3], np.int32)
-O2_POS = np.array([[0.0, 0.0, 0.0], [1.281, 0.0, 0.0]])
-MIX_MASSES = np.array([1.008, 12.0107, 14.0067, 15.999, 32.06, 18.998403163,
-                       35.453])
-
-
-def _random_rotation(rng):
-    q = rng.normal(size=4)
-    q /= np.linalg.norm(q)
-    w, x, y, z = q
-    return np.array([
-        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
-        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
-        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
-    ])
-
-
-def mixture(n_ch4=160, density_g_cm3=0.25, seed=7) -> LammpsData:
-    """The combustion system, as examples/combustion/prepare_system.py's
-    `build` places it: n_ch4 CH4 and 2 n_ch4 O2, one molecule per cell of
-    a jittered cubic lattice, each rotated at random, in a cube of the
-    given density (160 CH4: 1,440 atoms, 0.25 g/cm^3, a 43.98 A box)."""
-    mols = ([(CH4_SPECIES, CH4_POS)] * n_ch4
-            + [(O2_SPECIES, O2_POS)] * (2 * n_ch4))
-    mass_total = n_ch4 * (12.0107 + 4 * 1.008) + 2 * n_ch4 * 2 * 15.999
-    edge = (mass_total / 6.02214076e23 / density_g_cm3 * 1e24) ** (1.0 / 3.0)
-    rng = np.random.default_rng(seed)
-    per_axis = int(np.ceil(len(mols) ** (1.0 / 3.0)))
-    cells = [(i, j, k) for i in range(per_axis) for j in range(per_axis)
-             for k in range(per_axis)]
-    rng.shuffle(cells)
-    cell = edge / per_axis
-    species, pos = [], []
-    for (sp, mpos), (i, j, k) in zip(mols, cells):
-        center = (np.array([i, j, k]) + 0.5) * cell
-        jitter = rng.uniform(-0.18, 0.18, 3) * cell
-        pos.append(mpos @ _random_rotation(rng).T + center + jitter)
-        species.append(sp)
-    return LammpsData(species=np.concatenate(species).astype(np.int32),
-                      positions=np.concatenate(pos), masses_by_type=MIX_MASSES,
-                      box_bounds=np.array([[0.0, edge]] * 3),
-                      tilt=np.zeros(3))
+# the combustion system: examples/combustion's placement (species H 0, C 1,
+# O 3; 160 CH4: 1,440 atoms, 0.25 g/cm^3, a 43.98 A box)
+mixture = prepare_system.build
 
 
 def make_sim_1xnr(data, dtype, device, engine="pallas_asn", integrator=None,
@@ -3884,6 +3863,7 @@ def phase_cli(device, steps=200, rep=4, pos_tol=1e-3):
             or not line["minimize"]["minimize"]
             or not line["replicate"]["performance"]):
         raise AssertionError(f"cli: {bad} {line}")
+    return {"dcd": dcd, "data": path}
 
 
 # ---------------------------------------------------------------------------
@@ -5065,6 +5045,294 @@ def phase_distributed(start, chunks=3):
             f"{pg['plain_calls']}")
 
 
+# ---------------------------------------------------------------------------
+# The example workflows (lammps_ani_torch/examples)
+# ---------------------------------------------------------------------------
+
+# a dihedral across two molecules of the reference tile (H 1, O 0 | O 3, H 4)
+UMBRELLA_PHI = (1, 0, 3, 4)
+
+
+def _rows_finite(rows):
+    return all(np.isfinite(r[key]) for stage in rows for r in stage
+               for key in ("pe", "ke", "temp", "press", "etotal"))
+
+
+def examples_campaign(device, tmp, extra_stage=(500.0, 10)):
+    """examples/early_earth/config_50k.json as shipped (49,000 atoms from
+    early_earth_50k.data, ANI-1xnr at full width, one model, auto_spec,
+    k_max 112, cutoff 5.1, skin 1.0, dt 0.25 fs, its stage of 10 steps at
+    300 K) with a second stage of 10 steps at 500 K, through
+    `run_stages.run_campaign` on `LocalMesh` (2,2,2) on the card, f32, from
+    the data file as the JAX script starts, its restarts under `tmp`; the
+    counts zeroed just before and read just after. Then stage 1 again in a
+    fresh engine from stage 0's restart (`first_stage=1`): its thermo rows
+    and final positions against the continuous campaign's, bit for bit.
+    Raises where a gate fails; returns the line."""
+    from lammps_ani_torch.examples.early_earth import run_stages as rs
+
+    cfg = rs.load_config(os.path.join(EARLY_EARTH, "config_50k.json"))
+    cfg.update(data=os.path.join(EARLY_EARTH, cfg["data"]),
+               stages=cfg["stages"] + [list(extra_stage)],
+               restart_prefix=os.path.join(tmp, "early_earth_50k.stage"))
+    printed = []
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    c = rs.run_campaign(cfg, device=device, log=printed.append)
+    _sync(torch.device(device))
+    wall = time.perf_counter() - t0
+    launches = {name: asn.LAUNCHES[name] for name in ASN_KERNELS}
+    plain = dict(asn.PLAIN_CALLS)
+    roll = {k: v for k, v in ar.LAUNCHES.items() if v}
+    final_pos = c.dsim.gather(c.state, "pos")
+    engine, sizing = c.dsim.engine, c.dsim.sizing()
+    regrows = dict(c.dsim.regrow_kinds)
+    del c.dsim
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    r = rs.run_campaign(cfg, device=device, log=lambda line: None,
+                        first_stage=1)
+    _sync(torch.device(device))
+    resume_wall = time.perf_counter() - t1
+    resume_rows_same = r.rows == c.rows[1:]
+    resume_pos_same = bool(np.array_equal(
+        r.dsim.gather(r.state, "pos"), final_pos))
+    del r
+    torch.cuda.empty_cache()
+    steps = [int(st[1]) for st in cfg["stages"]]
+    line = {"part": "campaign", "config": "examples/early_earth/"
+            "config_50k.json", "data": "examples/early_earth/"
+            "early_earth_50k.data", "start": "the data file",
+            "atoms": int(len(final_pos)), "mesh_shape": cfg["mesh_shape"],
+            "dtype": "float32", "engine": engine,
+            "stages": cfg["stages"],
+            "ms_per_step_by_stage": [sec / n * 1e3 for sec, n in
+                                     zip(c.seconds, steps)],
+            "seconds_by_stage": c.seconds,
+            "ns_per_day_by_stage": [float(cfg["dt"]) * 86.4 / (sec / n * 1e3)
+                                    for sec, n in zip(c.seconds, steps)],
+            "rows": c.rows, "fragments": c.fragments,
+            "printed": printed, "regrow_kinds": regrows,
+            "launches": launches, "plain_calls": plain,
+            "launches_per_step": {k: v / sum(steps)
+                                  for k, v in launches.items()},
+            "sizing": sizing, "campaign_seconds": wall,
+            "resume": {"first_stage": 1, "seconds": resume_wall,
+                       "rows_bit_for_bit": resume_rows_same,
+                       "final_positions_bit_for_bit": resume_pos_same}}
+    ok = (engine == "pallas_asn" and _rows_finite(c.rows)
+          and all(v > 0 for v in launches.values())
+          and not any(plain.values()) and not roll
+          and resume_rows_same and resume_pos_same
+          and any(x.startswith("# invariants OK") for x in printed))
+    line["ok"] = ok
+    if not ok:
+        emit(line)
+        raise AssertionError(
+            f"examples campaign: engine {engine}, finite "
+            f"{_rows_finite(c.rows)}, launches {launches}, plain {plain}, "
+            f"roll {roll}, resume rows {resume_rows_same}, positions "
+            f"{resume_pos_same}")
+    return line
+
+
+def examples_torchrun(tmp, device, n_water=480, timeout=300):
+    """The campaign's `main` under `torchrun --standalone --nproc_per_node
+    1` on a NCCL group (mesh (1,1,1): one card allows no more) on
+    `generate.build(480)` (1,960 atoms, the JAX script's default), two
+    stages of 10 steps (300 K, 500 K), auto_spec, against `run_campaign`
+    on `LocalMesh` (1,1,1) in this process: the thermo YAML, both restarts
+    and the final positions bit for bit. The torchrun process starts
+    first, the `LocalMesh` run goes in this process meanwhile. Returns the
+    line."""
+    from lammps_ani_torch.examples.early_earth import generate
+    from lammps_ani_torch.examples.early_earth import run_stages as rs
+    from lammps_ani_torch.io import dump as dumpio
+    from lammps_ani_torch.io.lammps_data import write_lammps_data
+
+    data = generate.build(n_water)
+    path = os.path.join(tmp, "early_earth.data")
+    write_lammps_data(path, data)
+
+    def cfg_of(tag):
+        cfg = rs.load_config(None)
+        cfg.update(data=path, mesh_shape=[1, 1, 1], auto_spec=True,
+                   device=str(device),
+                   stages=[[300.0, 10], [500.0, 10]], thermo_every=1,
+                   restart_prefix=os.path.join(tmp, f"{tag}.stage"),
+                   log=os.path.join(tmp, f"{tag}.yaml"))
+        return cfg
+
+    cfg_path = os.path.join(tmp, "torchrun.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg_of("torchrun"), f)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m",
+         "lammps_ani_torch.examples.early_earth.run_stages", cfg_path],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        t1 = time.perf_counter()
+        local = rs.run_campaign(cfg_of("local"), device=device,
+                                log=lambda line: None)
+        local_s = time.perf_counter() - t1
+        out = proc.communicate(timeout=timeout)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    torchrun_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"examples torchrun: exited {proc.returncode}: "
+                             f"{out[-3000:]}")
+    yaml = {t: dumpio.read_thermo_yaml(os.path.join(tmp, f"{t}.yaml"))
+            for t in ("torchrun", "local")}
+    restarts_same = True
+    for i in range(2):
+        with np.load(os.path.join(tmp, f"torchrun.stage{i}.npz")) as a, \
+                np.load(os.path.join(tmp, f"local.stage{i}.npz")) as b:
+            restarts_same &= (set(a.files) == set(b.files) and all(
+                np.array_equal(a[k], b[k]) for k in a.files
+                if k != "__meta__"))
+    with np.load(os.path.join(tmp, "torchrun.stage1.npz")) as z:
+        pos_same = bool(np.array_equal(
+            z["pos"], local.dsim.gather(local.state, "pos")))
+    line = {"part": "torchrun", "atoms": data.n_atoms,
+            "mesh_shape": [1, 1, 1],
+            "backend": "nccl" if str(device).startswith("cuda") else "gloo",
+            "engine": local.dsim.engine, "stages": [[300.0, 10], [500.0, 10]],
+            "torchrun_s": torchrun_s, "local_s": local_s,
+            "local_ms_per_step_by_stage": [sec / 10 * 1e3
+                                           for sec in local.seconds],
+            "thermo_rows": len(yaml["torchrun"].get("step", [])),
+            "thermo_bit_for_bit": yaml["torchrun"] == yaml["local"],
+            "restarts_bit_for_bit": restarts_same,
+            "final_positions_bit_for_bit": pos_same,
+            "printed_once": out.count("# stage 0:") == 1
+            and out.count("# invariants OK") == 1,
+            "torchrun_tail": out.splitlines()[-3:]}
+    line["ok"] = (line["thermo_rows"] == 20 and line["thermo_bit_for_bit"]
+                  and restarts_same and pos_same and line["printed_once"]
+                  and local.dsim.engine == "pallas_asn")
+    if not line["ok"]:
+        emit(line)
+        raise AssertionError(f"examples torchrun: {line}")
+    return line
+
+
+def examples_umbrella(device, tmp, windows=2, steps=24, every=4):
+    """`run_umbrella` on the card on the reference tile (WATER30_POS,
+    written by the port's writer) with the dihedral UMBRELLA_PHI, `windows`
+    windows of `steps` steps, a sample every `every`: its samples against
+    a direct `bias.run_windows` call with the same arguments, bit for bit;
+    then `analyze_umbrella.pmf` over its npz."""
+    import functools
+
+    from lammps_ani_torch.examples.alanine_dipeptide_umbrella import (
+        analyze_umbrella, run_umbrella)
+    from lammps_ani_torch.io.lammps_data import (read_lammps_data,
+                                                 write_lammps_data)
+    from lammps_ani_torch.md import bias
+
+    path = os.path.join(tmp, "water30.data")
+    write_lammps_data(path, water30_box(1))
+    out = os.path.join(tmp, "umbrella_samples.npz")
+    t0 = time.perf_counter()
+    centers, samples = run_umbrella.run_umbrella(
+        path, phi=UMBRELLA_PHI, n_windows=windows, steps_per_window=steps,
+        sample_every=every, device=device, out=out)
+    _sync(torch.device(device))
+    run_s = time.perf_counter() - t0
+    data = read_lammps_data(path)
+    make = functools.partial(
+        run_umbrella.make_sim, data, zoo.ani2x(num_models=1, device=device),
+        generator=torch.Generator(device=device).manual_seed(
+            run_umbrella.SEED), device=device)
+    ref = bias.run_windows(
+        make, data.positions, Box.from_lammps(
+            *data.box_bounds.ravel(), *data.tilt, device=device),
+        centers, k=40.0, cv_factory=lambda: bias.dihedral_cv(*UMBRELLA_PHI),
+        steps_per_window=steps, sample_every=every, seed=run_umbrella.SEED,
+        periodic=2 * np.pi)
+    t1 = time.perf_counter()
+    x, pmf, f = analyze_umbrella.pmf(out)
+    wham_s = time.perf_counter() - t1
+    same = all(np.array_equal(a, b) for a, b in zip(samples, ref))
+    line = {"part": "umbrella", "atoms": data.n_atoms,
+            "phi": list(UMBRELLA_PHI), "windows": windows, "steps": steps,
+            "sample_every": every, "samples": [s.tolist() for s in samples],
+            "samples_bit_for_bit_run_windows": same, "run_s": run_s,
+            "wham_s": wham_s, "pmf_finite_bins": int(np.isfinite(pmf).sum()),
+            "free_energies": f.tolist()}
+    line["ok"] = (same and all(len(s) == steps // every
+                               and np.isfinite(s).all() for s in samples)
+                  and line["pmf_finite_bins"] > 0
+                  and bool(np.isfinite(f).all()))
+    if not line["ok"]:
+        emit(line)
+        raise AssertionError(f"examples umbrella: {line}")
+    return line
+
+
+def examples_analyze_traj(cli_files, device):
+    """`analyze_traj` over the DCD the `cli` phase wrote (4 frames of the
+    1,440-atom mixture), on the card: its rows against
+    `analysis.fragments` applied to `read_dcd`'s frames."""
+    from collections import Counter
+
+    from lammps_ani_torch.analysis.fragments import fragments
+    from lammps_ani_torch.examples.combustion import analyze_traj
+    from lammps_ani_torch.io.dump import read_dcd
+    from lammps_ani_torch.io.lammps_data import read_lammps_data
+
+    t0 = time.perf_counter()
+    rows = analyze_traj.formula_rows(cli_files["dcd"], cli_files["data"],
+                                     device=device)
+    seconds = time.perf_counter() - t0
+    data = read_lammps_data(cli_files["data"])
+    box_h = np.diag(data.box_bounds[:, 1] - data.box_bounds[:, 0])
+    ref = [(i, Counter(fragments(data.species, pos, box_h, device=device)[
+        1]).most_common(analyze_traj.TOP))
+        for i, pos in enumerate(read_dcd(cli_files["dcd"]))]
+    line = {"part": "analyze_traj", "frames": len(rows), "seconds": seconds,
+            "rows": rows, "equal_to_fragments": rows == ref}
+    line["ok"] = line["equal_to_fragments"] and len(rows) == 4
+    if not line["ok"]:
+        emit(line)
+        raise AssertionError(f"examples analyze_traj: {line}")
+    return line
+
+
+def phase_examples(device, cli_files):
+    """The example workflows on the card, one part after another: the
+    umbrella windows, analyze_traj, the torchrun campaign (its `LocalMesh`
+    twin in this process while it runs), then the 49,000-atom campaign
+    alone on the card. One line a part (its seconds and the card's name
+    and power limit) and the phase's seconds."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    parts = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        line = fn(*args)
+        line.update(seconds_part=time.perf_counter() - t0, card=card)
+        emit({"phase": "examples", **line})
+        parts[name] = line["seconds_part"]
+
+    part("umbrella", examples_umbrella, device, tmp)
+    part("analyze_traj", examples_analyze_traj, cli_files, device)
+    part("torchrun", examples_torchrun, tmp, device)
+    part("campaign", examples_campaign, device, tmp)
+    emit({"phase": "examples", "part": "summary", "seconds_by_part": parts,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5097,7 +5365,7 @@ def main() -> int:
     phase_ani1xnr_kernels(device)
     x_rows, sim_x, state_x = phase_ani1xnr_md(device)
     rows += x_rows
-    phase_cli(device)
+    cli_files = phase_cli(device)
     phase_rattle_md(device)
     phase_bias_md(device, sim, state, main_line, prof_line)
     phase_trace(sim, state)
@@ -5106,6 +5374,7 @@ def main() -> int:
     domain_rows, start = phase_domain(device)
     rows += domain_rows
     phase_distributed(start)
+    phase_examples(device, cli_files)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

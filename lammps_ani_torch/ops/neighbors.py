@@ -30,6 +30,16 @@ class Box:
     origin: torch.Tensor
 
     @staticmethod
+    def orthorhombic(lengths, origin=(0.0, 0.0, 0.0), dtype=torch.float32,
+                     device=None) -> "Box":
+        """A rectangular box of edge `lengths` at `origin`, on the card
+        unless `device` says otherwise."""
+        dev = resolve_device(device)
+        return Box(h=torch.diag(torch.as_tensor(lengths, dtype=dtype,
+                                                device=dev)),
+                   origin=torch.as_tensor(origin, dtype=dtype, device=dev))
+
+    @staticmethod
     def from_lammps(xlo, xhi, ylo, yhi, zlo, zhi, xy=0.0, xz=0.0, yz=0.0,
                     dtype=torch.float32, device=None) -> "Box":
         """The box of a LAMMPS data file's bounds and tilt factors, on the
@@ -252,3 +262,11 @@ def neighbor_displacements(pos: torch.Tensor, box: Box, nlist: NeighborList):
     dist = torch.linalg.norm(safe, dim=-1)
     dist = torch.where(nlist.mask, dist, 1e6)
     return diff, dist
+
+
+def estimate_k_max(density_per_a3: float, cutoff: float,
+                   safety: float = 1.35) -> int:
+    """Host-side capacity heuristic: the atoms within a cutoff sphere at
+    `density_per_a3`, times `safety`, rounded up to a multiple of 8."""
+    vol = 4.0 / 3.0 * np.pi * cutoff ** 3
+    return int(np.ceil(density_per_a3 * vol * safety / 8.0) * 8)

@@ -263,12 +263,16 @@ class DomainSimulation:
     def init_state(self, species: np.ndarray, masses: np.ndarray,
                    pos: np.ndarray, box: nbops.Box,
                    vel: np.ndarray | None = None, temp: float | None = None,
-                   seed: int = 12345) -> ShardedState:
+                   seed: int = 12345,
+                   slot: np.ndarray | None = None) -> ShardedState:
         """Shard the system: each atom to the brick of its wrapped
         fractional position, in input order within a shard; the state
         keeps the process's shards. Every rank takes the whole system's
         arrays. Velocities: given, drawn over every atom at `temp` from
-        `seed` (the same draw on every rank), or zero."""
+        `seed` (the same draw on every rank), or zero. `slot` (a restart's:
+        each atom's flat row, shard * n_cap + slot) lays the atoms out as
+        given instead, their positions as they are (the next rebuild
+        wraps and migrates them)."""
         species = np.asarray(species, np.int64)
         masses = np.asarray(masses, np.float64)
         n = len(species)
@@ -322,25 +326,20 @@ class DomainSimulation:
             else:
                 vel = np.zeros((n, 3))
 
-        # the shard of each atom from its fractional coordinates
-        frac = box.to_fractional(pos_t).detach().cpu().numpy().astype(
-            np.float64)
-        frac = np.clip(frac, 0.0, np.nextafter(1.0, 0.0))
-        shape = np.asarray(self.dspec.mesh_shape)
-        sc = np.minimum((frac * shape).astype(np.int64), shape - 1)
-        shard = (sc[:, 0] * shape[1] + sc[:, 1]) * shape[2] + sc[:, 2]
         ns, cap = self.dspec.n_shards, self.dspec.n_cap
-        counts = np.bincount(shard, minlength=ns)
-        if counts.max() > cap:
-            raise ValueError(f"shard occupancy {counts.max()} > n_cap {cap}")
-        order = np.argsort(shard, kind="stable")
-        start = np.concatenate([[0], np.cumsum(counts)[:-1]])
-        slot = np.empty(n, np.int64)
-        slot[order] = np.arange(n) - start[shard[order]]
-        row = shard * cap + slot
+        if slot is None:
+            row = self._rows_of(box, pos_t)
+            pos_host = pos_t.detach().cpu().numpy()
+        else:
+            row = np.asarray(slot, np.int64)
+            if (row.shape != (n,) or len(np.unique(row)) != n
+                    or row.min() < 0 or row.max() >= ns * cap):
+                raise ValueError(f"slot: expected {n} distinct rows in "
+                                 f"[0, {ns * cap})")
+            pos_host = np.asarray(pos, np.float64)
         center = (box.origin + 0.5 * box.h.sum(dim=0)).detach().cpu().numpy()
         gpos = np.tile(center.astype(np.float64), (ns * cap, 1))
-        gpos[row] = pos_t.detach().cpu().numpy()
+        gpos[row] = pos_host
         gvel = np.zeros((ns * cap, 3))
         gvel[row] = np.asarray(vel, np.float64)
         gspecies = np.full(ns * cap, -1, np.int64)
@@ -375,6 +374,25 @@ class DomainSimulation:
         if self._asn_grid is not None:
             self._probe_asn_cap(state)
         return state
+
+    def _rows_of(self, box, pos_wrapped) -> np.ndarray:
+        """[n] each atom's flat row: the shard of its fractional
+        coordinates, input order within a shard."""
+        frac = box.to_fractional(pos_wrapped).detach().cpu().numpy().astype(
+            np.float64)
+        frac = np.clip(frac, 0.0, np.nextafter(1.0, 0.0))
+        shape = np.asarray(self.dspec.mesh_shape)
+        sc = np.minimum((frac * shape).astype(np.int64), shape - 1)
+        shard = (sc[:, 0] * shape[1] + sc[:, 1]) * shape[2] + sc[:, 2]
+        ns, cap = self.dspec.n_shards, self.dspec.n_cap
+        counts = np.bincount(shard, minlength=ns)
+        if counts.max() > cap:
+            raise ValueError(f"shard occupancy {counts.max()} > n_cap {cap}")
+        order = np.argsort(shard, kind="stable")
+        start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        slot = np.empty(len(shard), np.int64)
+        slot[order] = np.arange(len(shard)) - start[shard[order]]
+        return shard * cap + slot
 
     def _setup_brick_grid(self, n, box_h):
         """(Re-)derive the xla engine's per-brick cell grid from the box as
@@ -520,6 +538,27 @@ class DomainSimulation:
             "tiers": (None if self._tiers is None
                       else [[list(c), r] for c, r in self._tiers]),
             "pair_stage": self.pair_stage}
+
+    def _restore_sizing(self, d: dict):
+        """Take the engine's part of the sizing `d` that `sizing()` gave (a
+        restart's, for the engine `init_state` chose): the bin and cell
+        caps, the sections, the tiers and the angular caps. The grids'
+        geometry stays the box's; `load_restart` sets the capacities
+        before the layout."""
+        caps = d["angular_caps"]
+        self.potential = self.potential.with_spec(dataclasses.replace(
+            self.potential.spec,
+            angular_caps=None if caps is None else tuple(caps)))
+        if self._asn_grid is not None and d["brick_bins"] is not None:
+            self._asn_grid = dataclasses.replace(self._asn_grid,
+                                                 cap=d["brick_bins"][1])
+        if self._brick_grid is not None and d["brick_cells"] is not None:
+            self._brick_grid = dataclasses.replace(
+                self._brick_grid, cell_capacity=d["brick_cells"][1])
+        self._sections = (None if d["sections"] is None
+                          else tuple(tuple(x) for x in d["sections"]))
+        self._tiers = (None if d["tiers"] is None
+                       else tuple((tuple(c), r) for c, r in d["tiers"]))
 
     # ---------------- the rebuild and the steps ----------------
 
@@ -672,12 +711,20 @@ class DomainSimulation:
 
     def _kinetic(self, vel, mass, valid):
         """(kinetic energy, kinetic tensor [3, 3], mass) of the whole
-        system, in one reduction over the mesh."""
-        m = torch.where(valid, mass, 0.0)
-        kin = units.MVV2E * torch.einsum("i,ia,ib->ab", m, vel, vel)
-        local = torch.cat([integrate.kinetic_energy(vel, mass, valid)[None],
-                           torch.sum(m)[None], kin.reshape(9)])
-        tot = self.mesh.psum(local[None])
+        system, in one reduction over the mesh of each shard's sums (one
+        shard's sums are the same bits on either backend, so a mesh of two
+        ranks gives `LocalMesh`'s bits: a sum of two is exact in either
+        order)."""
+        s = self.mesh.n_local
+        parts = []
+        for v, w, ok in zip(vel.reshape(s, -1, 3).unbind(0),
+                            mass.reshape(s, -1).unbind(0),
+                            valid.reshape(s, -1).unbind(0)):
+            m = torch.where(ok, w, 0.0)
+            kin = units.MVV2E * torch.einsum("i,ia,ib->ab", m, v, v)
+            parts.append(torch.cat([integrate.kinetic_energy(v, w, ok)[None],
+                                    torch.sum(m)[None], kin.reshape(9)]))
+        tot = self.mesh.psum(torch.stack(parts))
         return tot[0], tot[2:].reshape(3, 3), tot[1]
 
     @staticmethod
@@ -961,18 +1008,24 @@ class DomainSimulation:
                                   device=self.device)
         return nbops.wrap_positions(pos, state.box), species
 
+    def _whole(self, x: torch.Tensor) -> np.ndarray:
+        """[n_shards * n_cap, ...] on the host: a per-slot tensor of the
+        process's shards, all-gathered in flat shard order (collective)."""
+        s, cap = self.mesh.n_local, self.dspec.n_cap
+        x = x.detach().reshape((s, cap) + tuple(x.shape[1:]))
+        return self.mesh.all_gather(x).reshape(
+            (-1,) + tuple(x.shape[2:])).cpu().numpy()
+
+    def layout(self, state: ShardedState) -> np.ndarray:
+        """[n_shards * n_cap] the gid of every slot of the mesh, -1 where
+        empty (collective: every rank calls it)."""
+        return self._whole(state.gid)
+
     def gather(self, state: ShardedState, field: str) -> np.ndarray:
         """A per-atom field of the whole system on the host, in input atom
         order (through the mesh's all-gather: every rank calls it)."""
-        s, cap = self.mesh.n_local, self.dspec.n_cap
-
-        def whole(x):
-            x = x.detach().reshape((s, cap) + tuple(x.shape[1:]))
-            return self.mesh.all_gather(x).reshape(
-                (-1,) + tuple(x.shape[2:])).cpu().numpy()
-
-        gid = whole(state.gid)
-        arr = whole(getattr(state, field))
+        gid = self.layout(state)
+        arr = self._whole(getattr(state, field))
         ok = gid >= 0
         out = np.zeros((self.n_global,) + arr.shape[1:], arr.dtype)
         out[gid[ok]] = arr[ok]
@@ -981,9 +1034,17 @@ class DomainSimulation:
     def save_restart(self, path, state: ShardedState):
         """The state in input atom order, under the JAX package's npz keys
         (its `DomainSimulation.load_restart` reads it, and this one reads
-        the JAX package's). Every rank calls it; rank 0 writes."""
+        the JAX package's), and two the JAX package does not read: `slot`
+        (each atom's flat row, shard * n_cap + slot) and the engine's
+        sizing in the metadata, with which `load_restart` resumes the run
+        bit for bit. Every rank calls it; rank 0 writes."""
+        gid = self.layout(state)
+        ok = gid >= 0
+        slot = np.empty(self.n_global, np.int64)
+        slot[gid[ok]] = np.flatnonzero(ok)
         arrays = {k: self.gather(state, k)
                   for k in ("pos", "vel", "species", "mass")}
+        arrays["slot"] = slot
         arrays["species"] = arrays["species"].astype(np.int32)
         arrays.update(
             box_h=state.box.h.detach().cpu().numpy(),
@@ -997,7 +1058,8 @@ class DomainSimulation:
             arrays["bs_eta"] = state.barostat.omega_chain.eta.cpu().numpy()
             arrays["bs_eta_dot"] = (
                 state.barostat.omega_chain.eta_dot.cpu().numpy())
-        meta = {"n_atoms": self.n_global, "dt": self.dt}
+        meta = {"n_atoms": self.n_global, "dt": self.dt,
+                "sizing": self.sizing()}
         arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
                                            np.uint8)
         if self.mesh.rank == 0:
@@ -1005,16 +1067,33 @@ class DomainSimulation:
 
     def load_restart(self, path) -> ShardedState:
         """A state from `save_restart`'s npz (or the JAX package's); every
-        rank reads the file and keeps its shards."""
+        rank reads the file and keeps its shards. A file of this engine's
+        mesh shape with its `slot` and sizing gives back the layout and
+        the sizing (that of the engine `init_state` chooses), so the run
+        resumes bit for bit; otherwise the atoms are laid out from input
+        order and the sizing derived anew, as the JAX engine does."""
         with np.load(path) as z:
             z = {k: z[k] for k in z.files}
 
         def dev(x):
             return torch.as_tensor(x, dtype=self.dtype, device=self.device)
 
+        meta = json.loads(bytes(z["__meta__"]).decode()) if (
+            "__meta__" in z) else {}
+        sizing = meta.get("sizing")
+        own = ("slot" in z and sizing is not None and tuple(
+            sizing["mesh_shape"]) == tuple(self.dspec.mesh_shape))
+        if own:
+            self.dspec = dataclasses.replace(
+                self.dspec, n_cap=sizing["n_cap"],
+                halo_cap=tuple(sizing["halo_cap"]),
+                mig_cap=sizing["mig_cap"], k_max=sizing["k_max"])
         box = nbops.Box(h=dev(z["box_h"]), origin=dev(z["box_origin"]))
         state = self.init_state(z["species"], z["mass"], z["pos"], box,
-                                vel=z["vel"])
+                                vel=z["vel"],
+                                slot=z["slot"] if own else None)
+        if own and sizing["engine"] == self.engine:
+            self._restore_sizing(sizing)
         ts, bs = state.thermostat, state.barostat
         if "ts_eta" in z and ts is not None:
             ts = ThermostatState(eta=dev(z["ts_eta"]),

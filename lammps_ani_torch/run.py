@@ -38,6 +38,7 @@ refuses it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -202,16 +203,19 @@ def main(argv=None):
                   sim.device)
 
 
-def _main_sharded(cfg):
-    """The `mesh_shape` route: under torchrun one shard a rank, else every
-    shard in this process. The process group is destroyed on the way out,
-    also after an exception."""
-    if cfg["minimize_first"]:
-        raise ValueError("minimize_first is not supported with mesh_shape")
+@contextlib.contextmanager
+def torchrun_mesh(mesh_shape, device=None):
+    """(mesh, device) of the `mesh_shape` route. Under torchrun (RANK,
+    WORLD_SIZE and LOCAL_RANK set): a `ProcessGroupMesh` of one shard a
+    rank on a process group made here (NCCL on the card `cuda:LOCAL_RANK`,
+    gloo on the CPU) and that device; the group is destroyed on the way
+    out, also after an exception. Otherwise (None, `device` as given):
+    the caller runs every shard in this process on `LocalMesh`."""
     if not all(k in os.environ for k in ("RANK", "WORLD_SIZE",
                                          "LOCAL_RANK")):
-        return _run_sharded(cfg, None)
-    device = resolve_device(cfg["device"])
+        yield None, device
+        return
+    device = resolve_device(device)
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
         torch.cuda.set_device(device)
@@ -220,10 +224,19 @@ def _main_sharded(cfg):
         timeout=timedelta(seconds=PG_TIMEOUT_S),
         device_id=device if device.type == "cuda" else None)
     try:
-        mesh = ProcessGroupMesh(cfg["mesh_shape"], device=device)
-        return _run_sharded({**cfg, "device": str(device)}, mesh)
+        yield ProcessGroupMesh(mesh_shape, device=device), device
     finally:
         dist.destroy_process_group()
+
+
+def _main_sharded(cfg):
+    """The `mesh_shape` route: under torchrun one shard a rank, else every
+    shard in this process."""
+    if cfg["minimize_first"]:
+        raise ValueError("minimize_first is not supported with mesh_shape")
+    with torchrun_mesh(cfg["mesh_shape"], cfg["device"]) as (mesh, device):
+        return _run_sharded(cfg if mesh is None
+                            else {**cfg, "device": str(device)}, mesh)
 
 
 def _run_sharded(cfg, mesh):

@@ -6,13 +6,10 @@ sampled through 13 harmonic windows) and on periodic windows: bin centers,
 PMF (its NaN bins in the same places) and free energies to 1e-10.
 `bond_pairs`, `fragments` and `formula_time_series` exactly equal to the
 JAX functions' on WATER30 (with and without the box, and with a molecule
-across a face) and on the 1,440-atom combustion mixture built by
-examples/combustion/prepare_system.py (and two jittered frames of it),
+across a face) and on the 1,440-atom combustion mixture built by the
+port's examples/combustion `prepare_system` (and two jittered frames of it),
 on the CPU path of the port's device code.
 """
-
-import pathlib
-import sys
 
 import numpy as np
 import pytest
@@ -22,10 +19,9 @@ from lammps_ani_tpu.analysis import fragments as jfrag
 from lammps_ani_tpu.analysis import wham as jwham
 from lammps_ani_torch.analysis import fragments as tfrag
 from lammps_ani_torch.analysis import wham as twham
+from lammps_ani_torch.examples.combustion import prepare_system
 
 from . import fixtures
-
-ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -73,10 +69,7 @@ def test_wham_matches_jax(periodic):
 
 
 def mixture():
-    sys.path.insert(0, str(ROOT / "examples" / "combustion"))
-    import prepare_system as ps
-
-    d = ps.build(n_ch4=160, seed=7)
+    d = prepare_system.build(n_ch4=160, seed=7)
     return d.species, d.positions, d.box_h
 
 

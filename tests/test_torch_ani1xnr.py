@@ -15,8 +15,8 @@ networks.py, potential.py) against the JAX package, f64.
     versions of the main path's eight kernels at ANI-1xnr's constants: the
     integer power, 10 species-pair blocks, Rcr 5.2 beside the repulsion's
     5.1) against the JAX package's mirror engine, on WATER30 x 3^3 (810
-    atoms) and on a CH4 + 2 O2 mixture (examples/combustion's
-    `prepare_system.build(40)`: 360 atoms at 0.25 g/cm^3), one model, dt
+    atoms) and on a CH4 + 2 O2 mixture (examples/combustion's placement,
+    the port's `prepare_system.build(40)`: 360 atoms at 0.25 g/cm^3), one model, dt
     0.2 fs, a rebuild every 2 steps, explicit velocities, 2 steps: forces
     within 1e-12 of the largest, the virial within 5.8e-11 of its largest
     entry, pe rtol 1e-11, positions 1e-10 A, the chain rtol 1e-10.
@@ -34,7 +34,6 @@ networks.py, potential.py) against the JAX package, f64.
 """
 
 import dataclasses
-import importlib.util
 from pathlib import Path
 
 import jax
@@ -49,6 +48,7 @@ from lammps_ani_tpu.md import integrate as jint
 from lammps_ani_tpu.models import networks as jnet
 from lammps_ani_tpu.models import potential as jpotmod
 from lammps_ani_tpu.models import zoo as jzoo
+from lammps_ani_torch.examples.combustion import prepare_system
 from lammps_ani_torch.md import integrate as tint
 from lammps_ani_torch.models import networks as tnet
 from lammps_ani_torch.models import potential as tpotmod
@@ -83,13 +83,9 @@ def pots(num_models):
 
 
 def mixture(n_ch4=40):
-    """examples/combustion's CH4 + 2 O2 placement (species H 0, C 1, O 3)."""
-    path = (Path(__file__).parents[1] / "examples" / "combustion"
-            / "prepare_system.py")
-    spec = importlib.util.spec_from_file_location("prepare_system", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.build(n_ch4)
+    """examples/combustion's CH4 + 2 O2 placement (species H 0, C 1, O 3),
+    as the port's `prepare_system.build` makes it."""
+    return prepare_system.build(n_ch4)
 
 
 def test_spec_matches_jax():

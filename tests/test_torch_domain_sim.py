@@ -385,7 +385,8 @@ def test_brick_extent_error():
 
 def test_gather_and_restart_round_trip(tmp_path):
     """`gather` gives input order; a save/load round trip resumes bit for
-    bit (the layout is rebuilt from input order, as the JAX engine's)."""
+    bit, and equals the run it continues (the file's `slot` gives back the
+    layout, its metadata the sizing)."""
     nh = integrate.NoseHoover(temp=300.0, tdamp=50.0)
     dsim, dst = domain("xla", (2, 2, 1), integrator=nh)
     data = water(2)
@@ -400,14 +401,16 @@ def test_gather_and_restart_round_trip(tmp_path):
     with np.load(path) as z:
         assert set(z.files) == {"pos", "vel", "species", "mass", "box_h",
                                 "box_origin", "step", "ts_eta",
-                                "ts_eta_dot", "__meta__"}
+                                "ts_eta_dot", "slot", "__meta__"}
+    cont, _ = dsim.run(dst, 2)
     dsim2, _ = domain("xla", (2, 2, 1), integrator=nh)
     dst2 = dsim2.load_restart(path)
     assert dst2.step == 2
     a, _ = dsim.run(dsim.load_restart(path), 2)
     b, _ = dsim2.run(dst2, 2)
-    assert np.array_equal(dsim.gather(a, "pos"), dsim2.gather(b, "pos"))
-    assert np.array_equal(dsim.gather(a, "vel"), dsim2.gather(b, "vel"))
+    for st in (a, cont):
+        assert np.array_equal(dsim.gather(st, "pos"), dsim2.gather(b, "pos"))
+        assert np.array_equal(dsim.gather(st, "vel"), dsim2.gather(b, "vel"))
 
 
 def test_loads_the_early_earth_restart():
