@@ -40,6 +40,19 @@ timed name also gets a digest of its first call's outputs (sha256 of their
 bytes), so two checkouts whose kernels give the same bits show the same
 digest.
 
+A probe name, `probe_compact:<mode>` (a mode of the checkout's
+probes.micro_gather: affine, gather1, gather3, decompact, onehot) or
+`probe_radial_variant:<stage>` (a stage of probes.micro_kernel_variants),
+needs no water box: the compact mode is timed at each of micro_gather's
+CASES (one key per case, `probe_compact:<mode>[n_tiles, cap, W, K]`),
+the variant stage at micro_kernel_variants.MAIN, on the inputs those
+modules make from seed 0, through the checkout's own wrapper (three
+rounds of 20 calls, a digest of the first call's output). Any probe
+name also gets the SASS counts of every kernel of csrc/probes.cu, keyed
+`probe:<kernel>[<template argument>]`, by opcode (the same kinds, and
+the shared loads and stores, cp.async copies, fused multiply-adds and
+the float compares FSET, FSETP and FSEL).
+
 The README's port section shows how to run it on the card against the
 parent commit.
 """
@@ -53,7 +66,10 @@ import sys
 import torch
 
 KINDS = ("LDL", "STL", "LDG", "STG", "MUFU", "SHFL", "BRA")
+PROBE_KINDS = KINDS + ("LDS", "STS", "LDGSTS", "FFMA", "FSET", "FSETP",
+                       "FSEL")
 BLOCK = ("block_fwd", "block_fwd_tri", "block_bwd", "block_bwd_tri")
+PROBES = ("probe_compact", "probe_radial_variant")
 
 
 def sass_counts(names):
@@ -88,6 +104,70 @@ def sass_counts(names):
                     if f" {kind}" in line or f"{kind}." in line:
                         out[cur][kind] += 1
     return out
+
+
+def probe_sass_counts():
+    """{"probe:<kernel>[<template argument>]": {"n": SASS lines, kind:
+    count}} of every kernel of the freshly built probes library, by the
+    opcode of each instruction (its predicate and modifiers dropped)."""
+    import re
+
+    from lammps_ani_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build._target("probes.cu"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(probe_\w+?_kernel)(?:ILi(\d+)E)?",
+                          line.split("Function :")[1])
+            cur = (f"probe:{m[1]}" + (f"[{m[2]}]" if m[2] else "")
+                   if m else None)
+            if cur:
+                out[cur] = dict.fromkeys(("n",) + PROBE_KINDS, 0)
+        elif cur and "/*" in line and ";" in line:
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if not words:
+                continue
+            out[cur]["n"] += 1
+            op = words[0].split(".")[0]
+            if op in out[cur]:
+                out[cur][op] += 1
+    return out
+
+
+def probe_calls(names):
+    """{key: (timed call, launch counts)} of the probe names: a compact
+    mode once per micro_gather case, a variant stage at
+    micro_kernel_variants.MAIN, through the checkout's wrappers on the
+    inputs its modules make from seed 0."""
+    from lammps_ani_torch.probes import micro_gather as pmg
+    from lammps_ani_torch.probes import micro_kernel_variants as pmv
+
+    calls = {}
+    modes = [n.split(":")[1] for n in names
+             if n.startswith("probe_compact:")]
+    if modes:
+        for case in pmg.CASES:
+            inp = pmg.make_inputs(*case, seed=0, device="cuda")
+            for mode in modes:
+                x, idx = pmg._operands(mode, inp)
+                calls[f"probe_compact:{mode}{list(case)}"] = (
+                    lambda mode=mode, x=x, idx=idx, k=inp["k"]:
+                    pmg.compact(mode, x, idx, k), pmg.LAUNCHES, mode)
+    stages = [n.split(":")[1] for n in names
+              if n.startswith("probe_radial_variant:")]
+    if stages:
+        args = pmv.make_inputs(**pmv.MAIN, seed=0, device="cuda")
+        for st in stages:
+            calls[f"probe_radial_variant:{st}"] = (
+                lambda st=st: pmv.radial_variant(st, *args), pmv.LAUNCHES,
+                st)
+    return calls
 
 
 def digest(out) -> str:
@@ -141,7 +221,9 @@ def main(argv):
 
     tag, names = argv[1], argv[2:]
     c._build.build_all()
-    data = c.water_box(15)
+    probes = [name for name in names if name.split(":")[0] in PROBES]
+    names = [name for name in names if name not in probes]
+    data = c.water_box(15) if names else None
     calls, counts = {}, {}
     if any(name not in c.KERNELS + BLOCK for name in names):
         sim = c.make_sim(data, torch.float32, "cuda")
@@ -171,10 +253,19 @@ def main(argv):
         launches[name] = counts[name][name]
     ms = {name: [c.time_ms(calls[name][0], reps=20, warm=2) for _ in range(3)]
           for name in timed}
+    sass = sass_counts(names) if names else {}
+    for key, (call, count, label) in probe_calls(probes).items():
+        c._reset_all_counts()
+        digests[key] = digest(call())
+        launches[key] = count[label]
+        ms[key] = [c.time_ms(call, reps=20, warm=2) for _ in range(3)]
+        torch.cuda.synchronize()
+    if probes:
+        sass.update(probe_sass_counts())
     print(json.dumps({"tree": tag, "card": c.nvidia_smi_line(),
-                      "atoms": data.n_atoms, "ms": ms,
+                      "atoms": data.n_atoms if data else None, "ms": ms,
                       "launches_per_call": launches, "digest": digests,
-                      "sass": sass_counts(names)}), flush=True)
+                      "sass": sass}), flush=True)
     return 0
 
 

@@ -155,8 +155,13 @@ object per line; any failure raises and the script exits non-zero:
            launch counts zeroed just before and read just after; then each
            probe kernel's stage or mode (csrc/probes.cu) against its plain
            version (f32 sums within 5e-6 + 1e-5 of the entry with the same
-           NaN and inf entries; the gathers equal), its ms, plain ms,
-           library ms and bound, and the radial forward kernel on the
+           NaN and inf entries, each column's err / limit; the gathers
+           equal), two calls of each bit for bit, each compact mode also
+           into an output filled with NaN (every entry written), its ms,
+           plain ms, library ms and bound (a variant's as the kernel fuses
+           its sums, beside the count without the fusing; beside the
+           gathers' the 32-byte sector floor, beside ONEHOT's the one-hot
+           strategy's floor), and the radial forward kernel on the
            probe's grid (the JAX probes' production-kernel timings; also
            into a NaN-filled output, with its two-term bound and layout
            floor).
@@ -316,6 +321,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -690,19 +696,23 @@ def phase_build():
             regs[fn] = line.split(":", 1)[1].strip()
     names = {}
     for fn, used in regs.items():
+        probe = re.search(r"(probe_\w+?)_kernel(?:ILi(\d+)E)?", fn)
+        if probe:
+            # probes.cu: probe_radial_variant_stage<n>, probe_compact_mode<n>
+            # (the decompaction), probe_compact_gather_mode<n>,
+            # probe_compact_affine_any, probe_compact_onehot_any
+            kname, arg = probe[1], probe[2]
+            suf = (("stage" if "variant" in kname else "mode") + arg
+                   if arg else "any")
+            names[f"{kname}_{suf}"] = used
+            continue
         for kname in (*KERNELS, *PASS_FORMS, "dh_reduce",
                       *(f"asn_{k}" for k in ASN_KERNELS + CHANNEL_KERNELS
-                        + BLOCK_KERNELS),
-                      "probe_radial_variant", "probe_compact_onehot"):
+                        + BLOCK_KERNELS)):
             if f"{kname}_kernel" in fn:
                 suf = ("f64" if f"{kname}_kernelId" in fn else
-                       "f32" if f"{kname}_kernelIf" in fn else
-                       f"stage{fn.split(kname + '_kernelILi')[1][0]}"
-                       if f"{kname}_kernelILi" in fn else "any")
+                       "f32" if f"{kname}_kernelIf" in fn else "any")
                 names[f"{kname}_{suf}"] = used
-            elif "probe_compact_kernelILi" in fn:
-                mode = fn.split("probe_compact_kernelILi")[1][0]
-                names[f"probe_compact_mode{mode}"] = used
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": names})
 
@@ -3237,6 +3247,15 @@ def probe_compare(got, ref, exact=False):
     return out, ok
 
 
+def column_err_over_limit(got, ref):
+    """Per output column, the largest |got - ref| / (5e-6 + 1e-5 |ref|)
+    over the entries finite in both (probe_compare's limit)."""
+    fin = torch.isfinite(ref) & torch.isfinite(got)
+    ratio = ((got - ref).abs() / (5e-6 + 1e-5 * ref.abs()))
+    ratio = torch.where(fin, ratio, torch.zeros_like(ratio))
+    return [float(v) for v in ratio.reshape(-1, ref.shape[-1]).amax(0)]
+
+
 def phase_probes(device, reps=10):
     """The probes' own entry points on the card (the counterparts of
     examples/benchmark/micro_kernel_variants.py, micro_gather.py and
@@ -3275,42 +3294,67 @@ def phase_probes(device, reps=10):
     line["variants_pairs_within_cutoff"] = n_in
     for st in pmv.STAGES:
         got = pmv.radial_variant(st, *args)
+        again = pmv.radial_variant(st, *args)
         ref = pmv.radial_variant_plain(st, *args)
         _sync(device)
         cols = pmv.WRITTEN[st]
         err, ok = probe_compare(got[..., :cols], ref[..., :cols])
         if not (ok and bool(torch.equal(got[..., cols:], ref[..., cols:]))):
             raise AssertionError(f"probes: variant {st}: {err}")
-        del got, ref
+        if not same_bits((got,), (again,)):
+            raise AssertionError(f"probes: variant {st}: two calls differ")
+        col_ratio = column_err_over_limit(got[..., :cols], ref[..., :cols])
+        del got, again, ref
         plain_ms = time_ms(
             lambda: pmv.radial_variant_plain(st, *args), reps=1)
         t_b = pmv.variant_bytes(st, nc, cap, w) / PEAK_BYTES * 1e3
-        ops = pmv.variant_ops(st, nc, cap, w, n_in)
-        t_o = max(ops["fp32"] / PEAK_F32_INSTR, ops["sfu"] / PEAK_SFU) * 1e3
-        b_ms, b_by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-        checks[st] = {**err, "plain_ms": plain_ms, "bound_ms": b_ms,
-                      "fp32_ms": ops["fp32"] / PEAK_F32_INSTR * 1e3,
-                      "sfu_ms": ops["sfu"] / PEAK_SFU * 1e3}
+        b_ms, b_by = t_b, "bytes"
+        bounds = {}
+        for fused in (True, False):
+            ops = pmv.variant_ops(st, nc, cap, w, n_in, fused=fused)
+            t_o = max(ops["fp32"] / PEAK_F32_INSTR,
+                      ops["sfu"] / PEAK_SFU) * 1e3
+            bounds[fused] = ((t_b, "bytes") if t_b >= t_o
+                             else (t_o, "operations"))
+            if fused:
+                b_ms, b_by = bounds[fused]
+                fp32_ms = ops["fp32"] / PEAK_F32_INSTR * 1e3
+                sfu_ms = ops["sfu"] / PEAK_SFU * 1e3
+        checks[st] = {**err, "two_calls_equal": True,
+                      "column_err_over_limit": col_ratio,
+                      "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_ms_unfused": bounds[False][0],
+                      "fp32_ms": fp32_ms, "sfu_ms": sfu_ms}
         rows.append({
             "name": f"probe_radial_variant<{st}>", "route": "cuda",
             "source": PROBE_SOURCE, "replaces": pmv.REPLACES[st].split()[0],
             "launches": launches_v[st], "max_abs_err": err["max_abs_err"],
             "err_over_limit": err["err_over_limit"],
             "ms": variants[st]["ms"], "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_unfused": bounds[False][0], "library_ms": None})
     del args
     torch.cuda.empty_cache()
     for case, timed in zip(pmg.CASES, gathers):
         inp = pmg.make_inputs(*case, seed=0, device=device)
+        sector_ms = pmg.compact_sector_bytes(inp) / PEAK_BYTES * 1e3
         for mode in pmg.MODES:
             x, idx = pmg._operands(mode, inp)
             got = pmg.compact(mode, x, idx, inp["k"])
+            again = pmg.compact(mode, x, idx, inp["k"])
+            # every entry written: the kernel into an output of NaN
+            filled = pmg._compact_into(torch.full_like(got, float("nan")),
+                                       mode, x, idx, inp["k"])
             ref = pmg.compact_plain(mode, x, idx, inp["k"])
             _sync(device)
             err, ok = probe_compare(got, ref, exact=True)
             if not ok:
                 raise AssertionError(f"probes: compact {mode} {case}: {err}")
-            del got, ref
+            if not same_bits((got, got), (again, filled)):
+                raise AssertionError(f"probes: compact {mode} {case}: two "
+                                     f"calls or the NaN-filled output "
+                                     f"differ")
+            del got, again, filled, ref
             plain_ms = time_ms(
                 lambda: pmg.compact_plain(mode, x, idx, inp["k"]), reps=1)
             lib = pmg.library_call(mode, inp)
@@ -3318,7 +3362,15 @@ def phase_probes(device, reps=10):
                       else None)
             nbytes = pmg.compact_bytes(mode, inp)
             b_ms = nbytes / PEAK_BYTES * 1e3
-            checks[f"{mode}{list(case)}"] = {**err, "bytes": nbytes}
+            floors = {}
+            if mode in ("gather1", "gather3", "onehot"):
+                floors["sector_floor_ms"] = sector_ms
+            if mode == "onehot":
+                floors["strategy_floor_ms"] = (
+                    2 * pmg.onehot_steps(inp) / PEAK_F32_INSTR * 1e3)
+            checks[f"{mode}{list(case)}"] = {
+                **err, "bytes": nbytes, "two_calls_equal": True,
+                "nan_filled_equal": True, **floors}
             rows.append({
                 "name": f"probe_compact<{mode}>{list(case)}",
                 "route": "cuda", "source": PROBE_SOURCE,
@@ -3326,7 +3378,7 @@ def phase_probes(device, reps=10):
                 "launches": launches_g[mode],
                 "max_abs_err": err["max_abs_err"], "ms": timed[mode],
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
-                "library_ms": lib_ms})
+                **floors, "library_ms": lib_ms})
         del inp
         torch.cuda.empty_cache()
     # rows 22-23: the radial forward kernel on the probe grid (shell 1),

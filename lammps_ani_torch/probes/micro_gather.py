@@ -6,7 +6,9 @@ Counterpart of examples/benchmark/micro_gather.py on the card, at its two
 cases. `compact` launches csrc/probes.cu's `probe_compact<Mode>`, one mode
 per Pallas body of the JAX probe; `compact_plain` is the plain PyTorch
 version; `library_call` is the one PyTorch call that computes the same
-function (timed as a yardstick, used nowhere else).
+function (timed as a yardstick, used nowhere else). `compact_bytes` is
+the byte bound; `compact_sector_bytes` the gathers' floor at the card's
+32-byte sector grain and `onehot_steps` the one-hot strategy's work.
 
     python -m lammps_ani_torch.probes.micro_gather
 """
@@ -70,6 +72,18 @@ def compact(mode, x, idx, k):
         return compact_plain(mode, x, idx, k)
     nc, cap = x.shape[:2]
     w = idx.shape[2] if mode == "decompact" else x.shape[2]
+    width = w if mode in ("affine", "decompact") else k
+    return _compact_into(x.new_empty((nc, cap, width)), mode, x, idx, k)
+
+
+def _compact_into(out, mode, x, idx, k):
+    """Launches the mode's kernel into `out` [nc, cap, W or K], every entry
+    of which it writes, and returns `out`. Raises a ValueError, before any
+    launch, on what the kernel does not take: the ONEHOT kernel compares
+    lanes as floats, exact below 2^24 lanes; the 16-byte loads need x and
+    idx 16-byte aligned."""
+    nc, cap = x.shape[:2]
+    w = idx.shape[2] if mode == "decompact" else x.shape[2]
     ok = (x.dtype == torch.float32 and idx.dtype == torch.int32
           and 0 < k <= 128
           and (x.shape == (nc, cap, k) and idx.shape == (nc, cap, w)
@@ -78,8 +92,17 @@ def compact(mode, x, idx, k):
     if not ok:
         raise ValueError(f"compact({mode}): x {tuple(x.shape)} {x.dtype}, "
                          f"idx {tuple(idx.shape)} {idx.dtype}, K {k}")
+    if mode == "onehot" and w >= 1 << 24:
+        raise ValueError(f"compact(onehot): W {w} lanes; the kernel takes "
+                         f"fewer than 2^24")
+    if x.data_ptr() % 16 or idx.data_ptr() % 16:
+        raise ValueError(f"compact({mode}): x and idx must start on a "
+                         f"16-byte boundary")
     width = w if mode in ("affine", "decompact") else k
-    out = x.new_empty((nc, cap, width))
+    if (out.shape != (nc, cap, width) or out.dtype != torch.float32
+            or out.device != x.device):
+        raise ValueError(f"compact({mode}): out {tuple(out.shape)} "
+                         f"{out.dtype} {out.device}")
     launch("probe_compact", [nc, cap, w, k, MODES.index(mode)], x, idx, out)
     LAUNCHES[mode] += 1
     return out
@@ -157,6 +180,34 @@ def _distinct(sel, n_values, below) -> int:
                        device=rows.device)
     seen.scatter_(1, rows, True)
     return int(seen[:, :below].sum())
+
+
+def compact_sector_bytes(inp) -> int:
+    """Bytes a gather of the first K index lanes (gather1, gather3, onehot)
+    moves at the card's 32-byte sector grain: every distinct sector of x
+    that a row's in-range indices touch (x's rows laid end to end from a
+    sector boundary, so a row of W = 540 lanes starts mid-sector every
+    other row), counted once per row, plus the K index lanes read and the
+    K outputs written. Out-of-range indices read nothing."""
+    x, k = inp["x"], inp["k"]
+    w = x.shape[2]
+    sel = inp["idx"][..., :k].reshape(-1, k).long()
+    rows = torch.arange(sel.shape[0], device=sel.device)[:, None]
+    inside = (sel >= 0) & (sel < w)
+    sector = torch.where(inside, torch.div(rows * w + sel, 8,
+                                           rounding_mode="floor"), -1)
+    srt = sector.sort(dim=1).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    sectors = int((first & (srt >= 0)).sum())
+    return 32 * sectors + 2 * 4 * sel.numel()
+
+
+def onehot_steps(inp) -> int:
+    """Compare-and-fma steps of the one-hot strategy: every one of the K
+    outputs of every row weighs every one of the row's W lanes, R K W."""
+    nc, cap, w = inp["x"].shape
+    return nc * cap * inp["k"] * w
 
 
 def run(n_tiles, cap, w, k, reps=20, seed=0, device="cuda") -> dict:

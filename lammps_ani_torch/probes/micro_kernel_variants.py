@@ -78,6 +78,10 @@ def radial_variant(stage, px, py, pz, cx, cy, cz, cs):
         shapes = [tuple(t.shape) for t in args]
         raise ValueError(f"radial_variant: inputs do not fit [nc, cap] x "
                          f"[nc, W] f32 / int32: {shapes}")
+    if cap > 1024:
+        raise ValueError(f"radial_variant: cap {cap} centers a row; the "
+                         f"kernel's block of one thread a center takes at "
+                         f"most 1024")
     out = px.new_zeros((nc, cap, NCOL[stage]))
     launch("probe_radial_variant",
            [nc, cap, w, NCOL[stage], STAGES.index(stage)], *args, out)
@@ -132,25 +136,30 @@ def radial_variant_plain(stage, px, py, pz, cx, cy, cz, cs, row_chunk=256):
     return out
 
 
-def variant_ops(stage, nc, cap, w, n_in=0) -> dict:
+def variant_ops(stage, nc, cap, w, n_in=0, fused=True) -> dict:
     """Instructions of one call, a lower bound, split by the unit that
-    runs them. "fp32": adds, multiplies, float compares, min and max
-    (probes.cu rounds each alone, no fused multiply-add); per pair the
-    distance 9 (3 subtractions, 3 products, 2 sums, the clamp), then
-    geom_only 1 sum; the other stages the cutoff test 1, x 2, t 4, b 1,
-    and geom_fc_exp 2, recurrence16 15 x 2 + 16 sums, full32 and
-    full32_accum 15 x 2 + 32 x 2 masked sums, full32_premask 2 mask
-    products, bk 1, 15 x 2 and 32 sums. The cutoff's cosine and its 3
-    arithmetic instructions run only for the `n_in` pairs within 5.1 A
-    (a branch); cosf without fast math is a polynomial on the fp32 unit,
-    counted here as one instruction. "sfu": the sqrt (geom_only) and the
-    two expf of the other stages, each at least one special-function
-    instruction per pair. The species compares run on the integer unit
-    and are not counted."""
-    per = {"geom_only": 10, "geom_fc_exp": 17 + 2,
-           "recurrence16": 17 + 30 + 16, "full32": 17 + 30 + 64,
+    runs them. "fp32": adds, multiplies, fused multiply-adds (one each),
+    float compares, min and max; per pair the distance 9 (3 subtractions,
+    3 products, 2 sums, the clamp: probes.cu rounds them as the plain
+    version does), then geom_only 1 sum; the other stages the cutoff test
+    1, x 2, t 4, b 1, and geom_fc_exp the sum of t b, recurrence16 15 x 2
+    + 16 sums, full32 and full32_accum 15 x 2 + 32 masked sums,
+    full32_premask 2 mask products, bk 1, 15 x 2 and 32 sums. With
+    `fused` (the kernel's form) a masked sum is one fma(t, m, acc) and
+    geom_fc_exp's term one fma(t, b, acc); without it each is a product
+    and a sum: geom_fc_exp 19, full32 and full32_accum 111 instead of 18
+    and 79. The cutoff's cosine
+    and its 3 arithmetic instructions run only for the `n_in` pairs
+    within 5.1 A (a branch); cosf without fast math is a polynomial on the
+    fp32 unit, counted here as one instruction. "sfu": the sqrt
+    (geom_only) and the two expf of the other stages, each at least one
+    special-function instruction per pair. The species compares run on
+    the integer unit and are not counted."""
+    term = 1 if fused else 2  # a masked or weighted sum
+    per = {"geom_only": 10, "geom_fc_exp": 17 + term,
+           "recurrence16": 17 + 30 + 16, "full32": 17 + 30 + 32 * term,
            "full32_premask": 17 + 2 + 1 + 30 + 32,
-           "full32_accum": 17 + 30 + 64}[stage]
+           "full32_accum": 17 + 30 + 32 * term}[stage]
     pairs = nc * cap * w
     if stage == "geom_only":
         return {"fp32": per * pairs, "sfu": pairs}

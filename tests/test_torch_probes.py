@@ -135,7 +135,11 @@ def test_variant_counts_match_their_sizes():
     assert tmv.variant_bytes("full32", 2, 3, 5) == 4 * (18 + 40 + 192)
     assert tmv.variant_ops("geom_only", 2, 3, 5) == {"fp32": 10 * 30,
                                                       "sfu": 30}
+    # the kernel's form: a masked sum is one fma(t, m, acc)
     assert tmv.variant_ops("full32", 2, 3, 5, n_in=7) == {
+        "fp32": 79 * 30 + 4 * 7, "sfu": 3 * 30}
+    # the count before the kernel fused them: a product and a sum each
+    assert tmv.variant_ops("full32", 2, 3, 5, n_in=7, fused=False) == {
         "fp32": 111 * 30 + 4 * 7, "sfu": 3 * 30}
     # the pairs that evaluate the cosine, against a numpy count
     args = tmv.make_inputs(4, 3, 50, seed=2, hi=10.0)
