@@ -117,6 +117,18 @@ The JAX package's environment overrides and what takes their place here
                         the card holds at every size the engines run.
   LAT_VERBOSE           nothing: `sim.engine`, `sim.sizing()` and
                         `regrow_kinds` say what ran and what grew.
+
+Spans (utils/profiling.py; off unless a recording or a torch.profiler
+runs): `chunk` around each pass of `run`'s loop (noted `discarded` with
+what overflowed where a regrow re-runs it), holding `rebuild` (the wrap,
+the bins and assignment, the overflow reads), per step `step` (its
+`skin_check`, `integrate` before and after the forces, `forces`) and
+`thermo`, the closing `skin_check`, `deficit_check` and `regrow`. Every
+operation of the loop that makes the host wait goes through
+`profiling.sync` (`to_host` for the read backs) under its site:
+skin_check, roll_count, overflow, overflow_sections, deficits,
+chunk_disp, thermo_readback, box_check here; bins (ops/cell_roll.py),
+mlp_columns and self_energies (models/networks.py) below.
 """
 
 from __future__ import annotations
@@ -138,6 +150,7 @@ from ..ops import cell_list as clmod
 from ..ops import cell_roll as crmod
 from ..ops import nbr_grad
 from ..ops import neighbors as nbops
+from ..utils.profiling import note, phase, to_host
 from . import integrate
 from .constraints import Rattle
 from .sizing import (ANG_CAP_MARGIN, BAROSTAT_SLACK, SEC_MARGIN, angular_caps,
@@ -779,8 +792,9 @@ class Simulation:
         _, dist = nbops.neighbor_displacements(pos, box, nlist)
         species_j = species_ext[nlist.idx]
         mask = nlist.mask & (species_j >= 0)
-        return bool(aevmod.angular_cap_deficit(
-            spec.aev, dist, species_j, mask, spec.angular_caps) > 0)
+        return bool(to_host(aevmod.angular_cap_deficit(
+            spec.aev, dist, species_j, mask, spec.angular_caps) > 0,
+            "overflow"))
 
     # ---------- per step ----------
 
@@ -833,45 +847,48 @@ class Simulation:
         nvt = (self.integrator if isinstance(self.integrator,
                                              integrate.NoseHoover) else None)
         n = self.n_atoms
-        if npt is not None:
-            ke = integrate.kinetic_energy(vel, masses)
-            bs = npt.piston_half(bs, self._pressure(vel, st.virial, box),
-                                 box.volume, ke, n, dt, dof)
-            ts, vel = npt.thermostat.half_step(ts, vel, masses, dof, dt)
-            vel = vel * npt.vel_scale(bs.omega, dof, n, dt)
-        elif nvt is not None:
-            ts, vel = nvt.half_step(ts, vel, masses, dof, dt)
-        vel = integrate.nve_halfkick(vel, st.force, masses, dt)
-        if npt is not None:
-            s = npt.box_scale(bs.omega, dt)
-            box = integrate.rescale_box(box, s)
-            pos = box.origin + (pos - box.origin) * s
-        pos_old = pos
-        pos = integrate.nve_drift(pos, vel, dt)
-        if self._rattle is not None:
-            pos, vel = self._rattle.project_positions(pos, pos_old, vel,
-                                                      masses, box, dt)
-        pe, force, virial, deficit = self._forces(
-            pos, box, (st.nbrs, st.bins) if self._mirror_tables
-            else st.bins, st.step)
-        if isinstance(self.integrator, integrate.Langevin):
-            force = force + self.integrator.force(vel, masses, dt)
-        vel = integrate.nve_halfkick(vel, force, masses, dt)
-        if self._rattle is not None:
-            vel = self._rattle.project_velocities(pos, vel, masses, box)
-        if npt is not None:
-            vel = vel * npt.vel_scale(bs.omega, dof, n, dt)
-            ts, vel = npt.thermostat.half_step(ts, vel, masses, dof, dt)
-            ke = integrate.kinetic_energy(vel, masses)
-            bs = npt.piston_half(bs, self._pressure(vel, virial, box),
-                                 box.volume, ke, n, dt, dof)
-        elif nvt is not None:
-            ts, vel = nvt.half_step(ts, vel, masses, dof, dt)
-        if self.barostat is not None:
-            s = self.barostat.scale_factor(self._pressure(vel, virial, box),
-                                           dt)
-            box = integrate.rescale_box(box, s)
-            pos = box.origin + (pos - box.origin) * s
+        with phase("integrate"):
+            if npt is not None:
+                ke = integrate.kinetic_energy(vel, masses)
+                bs = npt.piston_half(bs, self._pressure(vel, st.virial, box),
+                                     box.volume, ke, n, dt, dof)
+                ts, vel = npt.thermostat.half_step(ts, vel, masses, dof, dt)
+                vel = vel * npt.vel_scale(bs.omega, dof, n, dt)
+            elif nvt is not None:
+                ts, vel = nvt.half_step(ts, vel, masses, dof, dt)
+            vel = integrate.nve_halfkick(vel, st.force, masses, dt)
+            if npt is not None:
+                s = npt.box_scale(bs.omega, dt)
+                box = integrate.rescale_box(box, s)
+                pos = box.origin + (pos - box.origin) * s
+            pos_old = pos
+            pos = integrate.nve_drift(pos, vel, dt)
+            if self._rattle is not None:
+                pos, vel = self._rattle.project_positions(pos, pos_old, vel,
+                                                          masses, box, dt)
+        with phase("forces"):
+            pe, force, virial, deficit = self._forces(
+                pos, box, (st.nbrs, st.bins) if self._mirror_tables
+                else st.bins, st.step)
+        with phase("integrate"):
+            if isinstance(self.integrator, integrate.Langevin):
+                force = force + self.integrator.force(vel, masses, dt)
+            vel = integrate.nve_halfkick(vel, force, masses, dt)
+            if self._rattle is not None:
+                vel = self._rattle.project_velocities(pos, vel, masses, box)
+            if npt is not None:
+                vel = vel * npt.vel_scale(bs.omega, dof, n, dt)
+                ts, vel = npt.thermostat.half_step(ts, vel, masses, dof, dt)
+                ke = integrate.kinetic_energy(vel, masses)
+                bs = npt.piston_half(bs, self._pressure(vel, virial, box),
+                                     box.volume, ke, n, dt, dof)
+            elif nvt is not None:
+                ts, vel = nvt.half_step(ts, vel, masses, dof, dt)
+            if self.barostat is not None:
+                s = self.barostat.scale_factor(
+                    self._pressure(vel, virial, box), dt)
+                box = integrate.rescale_box(box, s)
+                pos = box.origin + (pos - box.origin) * s
         return st.replace(pos=pos, vel=vel, force=force, pe=pe,
                           virial=virial, box=box, step=st.step + 1,
                           thermostat=ts, barostat=bs), deficit
@@ -901,29 +918,33 @@ class Simulation:
         neighbors over the cap) and "tier_rows" (rows the last tier could
         not hold); empty when nothing did."""
         box = state.box
-        pos_w = nbops.wrap_positions(state.pos, box)
-        bins = self._bins(pos_w, box)
-        rbins, rasn = bins if self._asn else (bins, None)
-        overflow = {}
-        if rbins is not None:
-            roll_count = int(rbins.count_max)
-            if roll_count > self._roll_grid.cap:
-                overflow["roll"] = roll_count
-        if rasn is not None and float(rasn.ovf) > 0:
-            overflow["sections"] = rasn.ovf_sec.cpu().numpy()
-        nlist = nbrs = None
-        if self._mirror_tables:
-            nlist = self._build_nlist(pos_w, box)
-            nbrs = self._mirror(nlist, pos_w, box)
-            if int(nlist.ghosts.count) > nlist.ghosts.src.shape[0]:
-                overflow["ghost"] = True
-            if int(nlist.max_count) > nlist.idx.shape[1]:
-                overflow["k_max"] = True
-            if not bool(nbrs.ok):
-                overflow["mirror"] = True
-            # the mirror engine's caps are checked at the rebuild
-            if self._angular_overflow(pos_w, box, nlist):
-                overflow["angular"] = True
+        with phase("rebuild"):
+            pos_w = nbops.wrap_positions(state.pos, box)
+            bins = self._bins(pos_w, box)
+            rbins, rasn = bins if self._asn else (bins, None)
+            overflow = {}
+            if rbins is not None:
+                roll_count = int(to_host(rbins.count_max, "roll_count"))
+                if roll_count > self._roll_grid.cap:
+                    overflow["roll"] = roll_count
+            if rasn is not None and float(to_host(rasn.ovf, "overflow")) > 0:
+                overflow["sections"] = to_host(rasn.ovf_sec,
+                                               "overflow_sections").numpy()
+            nlist = nbrs = None
+            if self._mirror_tables:
+                nlist = self._build_nlist(pos_w, box)
+                nbrs = self._mirror(nlist, pos_w, box)
+                if int(to_host(nlist.ghosts.count, "overflow")) > \
+                        nlist.ghosts.src.shape[0]:
+                    overflow["ghost"] = True
+                if int(to_host(nlist.max_count, "overflow")) > \
+                        nlist.idx.shape[1]:
+                    overflow["k_max"] = True
+                if not bool(to_host(nbrs.ok, "overflow")):
+                    overflow["mirror"] = True
+                # the mirror engine's caps are checked at the rebuild
+                if self._angular_overflow(pos_w, box, nlist):
+                    overflow["angular"] = True
         st = state.replace(pos=pos_w, bins=bins, pos_at_rebuild=pos_w,
                            nlist=nlist, nbrs=nbrs)
         if overflow:
@@ -934,16 +955,22 @@ class Simulation:
         n_done = 0
         disp = 0.0
         for _ in range(n_take):
-            disp = float(torch.linalg.norm(st.pos - pos_w, dim=-1).max())
-            if disp > half_skin:
-                break
-            st, deficit = self._step(st)
+            with phase("step"):
+                with phase("skin_check"):
+                    disp = float(to_host(torch.linalg.norm(
+                        st.pos - pos_w, dim=-1).max(), "skin_check"))
+                if disp > half_skin:
+                    break
+                st, deficit = self._step(st)
             deficits.append(deficit)
-            rows.append(self._thermo(st))
+            with phase("thermo"):
+                rows.append(self._thermo(st))
             n_done += 1
         if deficits:
             # the worst deficit over the chunk's steps, per entry
-            worst = torch.stack(deficits).max(0).values.cpu().numpy()
+            with phase("deficit_check"):
+                worst = to_host(torch.stack(deficits).max(0).values,
+                                "deficits").numpy()
             n_sp = self.potential.spec.aev.num_species
             if self._full:
                 if worst > 0:
@@ -953,8 +980,11 @@ class Simulation:
                     overflow["angular"] = worst[:n_sp]
                 if len(worst) > n_sp and worst[n_sp] > 0:
                     overflow["tier_rows"] = int(worst[n_sp])
-        disp = float(torch.linalg.norm(st.pos - pos_w, dim=-1).max())
-        thermo = torch.stack(rows) if rows else None
+        with phase("skin_check"):
+            disp = float(to_host(torch.linalg.norm(
+                st.pos - pos_w, dim=-1).max(), "chunk_disp"))
+        with phase("thermo"):
+            thermo = torch.stack(rows) if rows else None
         if self._asn:
             st = st.replace(bins=None)
         return st, thermo, disp, overflow, n_done
@@ -1050,46 +1080,50 @@ class Simulation:
         done = 0
         recap_attempts = 0
         while done < n_steps:
-            if self._barostat_active() and not self._grids_valid(
-                    state.box.h.detach().cpu().numpy()):
-                # the box left the grids' slack: re-derive them
-                self._rederive_grids(state)
-                self.regrow_events += 1
-            take = min(chunk, n_steps - done)
-            new_state, thermo, disp, overflow, n_done = self._chunk(state,
-                                                                    take)
-            if overflow:
-                # grow exactly what overflowed; re-run the chunk from its
-                # (untouched) input state
-                recap_attempts += 1
-                self.regrow_events += 1
-                if recap_attempts > 8:
+            with phase("chunk"):
+                if self._barostat_active() and not self._grids_valid(
+                        to_host(state.box.h, "box_check").numpy()):
+                    # the box left the grids' slack: re-derive them
+                    self._rederive_grids(state)
+                    self.regrow_events += 1
+                take = min(chunk, n_steps - done)
+                new_state, thermo, disp, overflow, n_done = self._chunk(
+                    state, take)
+                if overflow:
+                    # grow exactly what overflowed; re-run the chunk from its
+                    # (untouched) input state
+                    recap_attempts += 1
+                    self.regrow_events += 1
+                    if recap_attempts > 8:
+                        raise RuntimeError(
+                            "capacities keep overflowing after 8 regrows: "
+                            f"{overflow}")
+                    note(discarded=sorted(overflow))
+                    with phase("regrow"):
+                        self._regrow(state, overflow)
+                    continue
+                # the limit is on consecutive regrows without progress
+                recap_attempts = 0
+                if n_done == 0:
                     raise RuntimeError(
-                        "capacities keep overflowing after 8 regrows: "
-                        f"{overflow}")
-                self._regrow(state, overflow)
-                continue
-            # the limit is on consecutive regrows without progress
-            recap_attempts = 0
-            if n_done == 0:
-                raise RuntimeError(
-                    f"atoms moved {disp:.3f} A > skin/2 "
-                    f"({self.nbr.skin / 2:.2f}) in ONE step: raise skin or "
-                    "lower dt")
-            state = new_state
-            if thermo_every:
-                th = thermo.detach().cpu().numpy()
-                for k in range(n_done):
-                    step = done + k + 1
-                    if step % thermo_every == 0 or step == n_steps:
-                        row = {f: float(th[k, i])
-                               for i, f in enumerate(self._THERMO_KEYS)}
-                        row["step"] = step
-                        row["etotal"] = row["pe"] + row["ke"]
-                        rows.append(row)
-                        if thermo_callback:
-                            thermo_callback(row)
-            done += n_done
+                        f"atoms moved {disp:.3f} A > skin/2 "
+                        f"({self.nbr.skin / 2:.2f}) in ONE step: raise skin "
+                        "or lower dt")
+                state = new_state
+                if thermo_every:
+                    with phase("thermo"):
+                        th = to_host(thermo, "thermo_readback").numpy()
+                    for k in range(n_done):
+                        step = done + k + 1
+                        if step % thermo_every == 0 or step == n_steps:
+                            row = {f: float(th[k, i])
+                                   for i, f in enumerate(self._THERMO_KEYS)}
+                            row["step"] = step
+                            row["etotal"] = row["pe"] + row["ke"]
+                            rows.append(row)
+                            if thermo_callback:
+                                thermo_callback(row)
+                done += n_done
         return state, rows
 
     def positions_input_order(self, state: MDState) -> np.ndarray:

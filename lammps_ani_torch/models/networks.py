@@ -14,6 +14,8 @@ from typing import Sequence
 
 import torch
 
+from ..utils.profiling import sync
+
 # Published ANI-2x per-element hidden-layer widths (torchani architecture).
 ANI2X_HIDDEN = (
     (256, 192, 160),  # H
@@ -90,7 +92,9 @@ def _mlp_stack(layers, x: torch.Tensor, celu_alpha: float,
     for li, layer in enumerate(layers):
         w = layer["w"]
         if li == 0 and col_idx is not None:
-            w = w[:, torch.as_tensor(col_idx, device=w.device), :]
+            with sync("mlp_columns"):
+                cols = torch.as_tensor(col_idx, device=w.device)
+            w = w[:, cols, :]
         h = torch.baddbmm(layer["b"][:, None, :], h, w)
         if li < len(layers) - 1:
             h = _CELU.apply(h, celu_alpha)
@@ -152,8 +156,9 @@ class EnergyShifter:
     def __call__(self, species: torch.Tensor,
                  dtype=torch.float32) -> torch.Tensor:
         """[n] per-atom shift; 0 for padding (species -1)."""
-        sae = torch.as_tensor(self.self_energies, dtype=dtype,
-                              device=species.device)
+        with sync("self_energies"):
+            sae = torch.as_tensor(self.self_energies, dtype=dtype,
+                                  device=species.device)
         safe = torch.clamp(species, 0, len(self.self_energies) - 1).long()
         return torch.where(species >= 0, sae[safe], 0.0)
 

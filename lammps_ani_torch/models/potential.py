@@ -352,7 +352,8 @@ def _strained(pos, box, energy_fn):
         e, aux = energy_fn(pos_ + pos_ @ eps,
                            Box(h=h + h @ eps, origin=box.origin))
         energy = e.sum()
-        deps, dpos = torch.autograd.grad(energy, (eps, pos_))
+        with phase("grad"):
+            deps, dpos = torch.autograd.grad(energy, (eps, pos_))
     return energy.detach(), deps, dpos, aux
 
 

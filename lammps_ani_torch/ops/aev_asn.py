@@ -96,6 +96,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import phase
 from . import aev_roll
 
 _LANE = 128
@@ -1928,15 +1929,17 @@ def _backward(static, pos, h, inv_bins, csp_grid, cell, slot, idx, inv, cmp,
 
 class _AsnFused(torch.autograd.Function):
     """The fused forward and its explicit backward (the kernels on the
-    card, their plain versions on the CPU). The stage-2 slots, `rank2` and
-    the rows of the packed calls ride from the forward to the backward."""
+    card, their plain versions on the CPU), the spans `aev_forward` and
+    `aev_backward`. The stage-2 slots, `rank2` and the rows of the packed
+    calls ride from the forward to the backward."""
 
     @staticmethod
     def forward(ctx, pos, h, inv_bins, csp_grid, cell, slot, idx, inv,
                 static, n_out):
-        out, (cmp, rank2, part) = _forward(static, pos, h, inv_bins,
-                                           csp_grid, cell, slot, idx,
-                                           _KERNELS, n_out)
+        with phase("aev_forward"):
+            out, (cmp, rank2, part) = _forward(static, pos, h, inv_bins,
+                                               csp_grid, cell, slot, idx,
+                                               _KERNELS, n_out)
         ctx.static = static
         ctx.save_for_backward(pos, h, inv_bins, csp_grid, cell, slot, idx,
                               inv)
@@ -1947,9 +1950,11 @@ class _AsnFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_rad, g_rep, g_ang, _):
-        dpos, dh = _backward(ctx.static, *ctx.saved_tensors, *ctx.residuals,
-                             g_rad.contiguous(), g_rep.contiguous(),
-                             g_ang.contiguous(), _KERNELS)
+        with phase("aev_backward"):
+            dpos, dh = _backward(ctx.static, *ctx.saved_tensors,
+                                 *ctx.residuals, g_rad.contiguous(),
+                                 g_rep.contiguous(), g_ang.contiguous(),
+                                 _KERNELS)
         return (dpos, dh) + (None,) * 8
 
 

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from ..utils.profiling import sync
+
 _OFFSETS = [(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
             for k in (-1, 0, 1)]
 
@@ -70,7 +72,8 @@ def build_bins(grid: RollGrid, pos: torch.Tensor, species: torch.Tensor,
     dev = pos.device
     frac = box.to_fractional(pos)
     frac = frac - torch.floor(frac)
-    nc = torch.as_tensor(grid.ncells, dtype=torch.int64, device=dev)
+    with sync("bins"):
+        nc = torch.as_tensor(grid.ncells, dtype=torch.int64, device=dev)
     cc = torch.minimum((frac * nc.to(frac.dtype)).to(torch.int64), nc - 1)
     cell = (cc[:, 0] * grid.ncells[1] + cc[:, 1]) * grid.ncells[2] + cc[:, 2]
     order = torch.argsort(cell, stable=True)
@@ -79,13 +82,15 @@ def build_bins(grid: RollGrid, pos: torch.Tensor, species: torch.Tensor,
     rank_sorted = torch.arange(n, device=dev) - first
     slot = torch.empty_like(rank_sorted)
     slot[order] = rank_sorted
-    ok = slot < grid.cap
+    with sync("bins"):
+        # the rows that fit their bin, by one count read back
+        fit = torch.nonzero(slot < grid.cap).squeeze(1)
     species_grid = torch.full((grid.total, grid.cap), -1, dtype=torch.int32,
                               device=dev)
-    species_grid[cell[ok], slot[ok]] = species[ok].to(torch.int32)
+    species_grid[cell[fit], slot[fit]] = species[fit].to(torch.int32)
     inv = torch.full((grid.total * grid.cap,), n, dtype=torch.int64,
                      device=dev)
-    inv[cell[ok] * grid.cap + slot[ok]] = torch.arange(n, device=dev)[ok]
+    inv[cell[fit] * grid.cap + slot[fit]] = fit
     return RollBins(cell=cell, slot=torch.clamp(slot, max=grid.cap - 1),
                     species_grid=species_grid, mask_grid=species_grid >= 0,
                     count_max=rank_sorted.max() + 1,
